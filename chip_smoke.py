@@ -8,20 +8,29 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 0. device — the card's name and power limit; TF32 off; the CUDA kernels
    built from ``src/repro_torch/kernels/csrc`` (first use, timed);
 1. kernels — each hand-written kernel (countsketch, panel_score,
-   panel_update) against its plain PyTorch version on the card at the main
-   path's shapes, plus a ragged panel, an empty admission, an exhausted
-   budget, tied scores and bf16 inputs; CUDA-event times of the kernel, the
-   plain version and one library call, beside the card's bound;
+   panel_update, twoside_sketch) against its plain PyTorch version on the
+   card at the main path's shapes (kernel 1 also at the selection sketches
+   of (e) and (g), on A and on the strided view Aᵀ), plus a ragged panel,
+   an empty admission, an exhausted budget, tied scores, bf16 inputs,
+   kernel 4's example and ragged shapes and a second launch compared
+   bitwise; CUDA-event times of the kernel, the plain version and one
+   library call, beside the card's bound;
 2. paths — streaming CUR at m = 32768, n = 65536 (fp32 on the card), panel
    L = 256, c = r = 128, Table-2 sketch sizes: (a) fixed, countsketch;
    (b) adaptive, countsketch, admission-only, chunk route; (c) adaptive,
    gaussian, admission-only (Route B: kernel 3 every panel); (d) adaptive,
    gaussian, eviction plus adaptive rows (per-panel body: kernel 2 every
-   panel). Launch counts are reset just before and read just after each run;
-3. route parity — the first 8 panels of (b), (c), (d) with the kernels and
-   with ``force_plain()``: indices equal, C bitwise, M within tolerance;
-4. profile — ``torch.profiler`` over 8 panels of (b), (c), (d): device time
-   by kernel and the device's idle share.
+   panel). Then one-shot and batched CUR: (e) ``fast_cur`` on the same
+   matrix, c = r = 128, approx-leverage selection, countsketch core
+   (kernel 1); (f) ``batched_fast_cur`` on 32 power-law 4096 × 4096
+   matrices, c = r = 64, s_c = s_r = 960, uniform selection (kernel 4);
+   (g) the same with approx-leverage selection. Launch counts are reset
+   just before and read just after each run;
+3. route parity — the first 8 panels of (b), (c), (d), and the first 4
+   items of (f), with the kernels and with ``force_plain()``: indices
+   equal, C (and R) bitwise, M (and U) within tolerance;
+4. profile — ``torch.profiler`` over 8 panels of (b), (c), (d) and over
+   run (f): device time by kernel and the device's idle share.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -40,6 +49,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 M_ROWS, N_COLS, PANEL, C_BUDGET, R_BUDGET = 32768, 65536, 256, 128, 128
+# batched CUR: a stack of B power-law matrices, c = r = 64, and the Table-2
+# sketch size for c = 64 (ε = 0.05, ρ = 2): s_c = s_r = 960
+BATCH, B_ROWS, B_COLS, B_BUDGET, B_SKETCH = 32, 4096, 4096, 64, 960
 SEED = 0
 # fp32 sums over up to m = 32768 terms, in the kernel's fixed order against
 # cuBLAS's / index_add_'s order: relative to the largest entry of the output
@@ -55,6 +67,8 @@ KERNEL_INFO = {
                         replaces="src/repro/kernels/panel_score.py:67"),
     "panel_update": dict(source="src/repro_torch/kernels/csrc/panel_update.cu",
                          replaces="src/repro/kernels/panel_update.py:143"),
+    "twoside_sketch": dict(source="src/repro_torch/kernels/csrc/twoside_sketch.cu",
+                           replaces="src/repro/kernels/twoside_sketch.py:46"),
 }
 
 
@@ -149,8 +163,10 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     acc = torch.zeros((s, L), device=dev)
     lib_ms = timed(torch, lambda: acc.index_add_(0, h.long(), signed[next(it) % n_rot]))
     t_ms = timed(torch, lambda: ops.countsketch_apply(hw, sgw, sca.T, s, transpose_out=True))
+    sel = countsketch_selection(torch, ops, dev, g)
     b, by = bound_ms(4 * (m * L + 2 * m + s * L), m * L, peaks)
-    out["countsketch"] = dict(max_abs_err=max(e_abs, e2[0]), max_rel_err=max(e_rel, e2[1]),
+    out["countsketch"] = dict(max_abs_err=max(e_abs, e2[0], *(e[0] for e in sel.values())),
+                              max_rel_err=max(e_rel, e2[1], *(e[1] for e in sel.values())),
                               ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
     emit("kernel/countsketch", shape=[s, m, L], rel_err=e_rel, rel_err_apply_t=e2[1],
          rel_err_bf16=e3[1], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
@@ -253,7 +269,95 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
          library="torch.matmul(S_C, A_L), fp32 highest", bound_ms=b, bound_by=by)
     del A_buf, panels, signed
     torch.cuda.empty_cache()
+    out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
     return out
+
+
+def countsketch_selection(torch, ops, dev, g) -> dict:
+    """Kernel 1 at the approx-leverage selection sketches of (e) and (g):
+    ``S·A`` and ``S·Aᵀ`` (``select_rows`` hands the kernel the strided view
+    ``Aᵀ`` and a row-major output) for a 32768 × 65536 matrix at s = 512, and
+    for one 4096 × 4096 item of a stack at s = 256 (s = max(4k, k + 8) for
+    k = c = 128 and 64), each against the plain version."""
+    errs, ms = {}, {}
+
+    def case(name, a, s):
+        h = torch.randint(0, s, (a.shape[0],), generator=g, device=dev, dtype=torch.int32)
+        sg = (torch.randint(0, 2, (a.shape[0],), generator=g, device=dev) * 2 - 1).float()
+        order = ops.bucket_order(h, s)
+        got = ops.countsketch_apply(h, sg, a, s, order=order)
+        with ops.force_plain():
+            want = ops.countsketch_apply(h, sg, a, s)
+        errs[name] = err(got, want)
+        check(errs[name][1] <= TOL, f"countsketch {name}: rel err {errs[name][1]} > {TOL}")
+        ms[name] = timed(torch, lambda: ops.countsketch_apply(h, sg, a, s, order=order),
+                         iters=3, warmup=1)
+        del got, want
+        torch.cuda.empty_cache()
+
+    A = torch.randn((M_ROWS, N_COLS), generator=g, device=dev)
+    case("e_columns_A", A, 4 * C_BUDGET)
+    case("e_rows_At_view", A.T, 4 * R_BUDGET)
+    del A
+    stack = torch.randn((2, B_ROWS, B_COLS), generator=g, device=dev)
+    case("g_columns_item", stack[1], 4 * B_BUDGET)
+    case("g_rows_item_t_view", stack[1].T, 4 * B_BUDGET)
+    del stack
+    torch.cuda.empty_cache()
+    emit("kernel/countsketch_selection", rel_err={k: v[1] for k, v in errs.items()},
+         abs_err={k: v[0] for k, v in errs.items()}, ms=ms,
+         shapes={"e": [4 * C_BUDGET, M_ROWS, N_COLS], "g": [4 * B_BUDGET, B_ROWS, B_COLS]})
+    return errs
+
+
+def kernel_twoside(torch, ops, peaks, dev, g) -> dict:
+    """Kernel 4 at run (f)'s shape (B = 32, 960×4096·4096×4096·4096×960),
+    the example's (B = 32, 96×256·256×192·192×96), a ragged 2-D shape, bf16
+    inputs, and a second launch of the first case compared bitwise."""
+    def inputs(B, s_c, m, n, s_r, dtype=torch.float32):
+        sc = torch.randn((s_c, m), generator=g, device=dev) / math.sqrt(s_c)
+        a = torch.randn((B, m, n), generator=g, device=dev) if B else \
+            torch.randn((m, n), generator=g, device=dev)
+        sr = torch.randn((s_r, n), generator=g, device=dev) / math.sqrt(s_r)
+        return sc.to(dtype), a.to(dtype), sr.to(dtype).T  # S_R^T as a transposed view
+
+    def case(args):
+        got = ops.twoside_sketch(*args)
+        with ops.force_plain():
+            want = ops.twoside_sketch(*args)
+        return got, err(got, want)
+
+    full = (BATCH, B_SKETCH, B_ROWS, B_COLS, B_SKETCH)
+    errs = {}
+    args = inputs(*full)
+    first, errs["full"] = case(args)
+    second = ops.twoside_sketch(*args)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(first, second))
+    check(bitwise, "twoside_sketch: two launches differ")
+    del first, second
+    _, errs["example"] = case(inputs(BATCH, 96, 256, 192, 96))
+    _, errs["ragged"] = case(inputs(0, 72, 300, 200, 48))
+    _, errs["bf16"] = case(inputs(*full, torch.bfloat16))
+    for name, (_, rel) in errs.items():
+        check(rel <= TOL, f"twoside_sketch {name}: rel err {rel} > {TOL}")
+    sc, a, srt = args
+    k_ms = timed(torch, lambda: ops.twoside_sketch(sc, a, srt))
+    with ops.force_plain():
+        p_ms = timed(torch, lambda: ops.twoside_sketch(sc, a, srt))
+    lib_ms = timed(torch, lambda: torch.matmul(torch.matmul(sc, a), srt))
+    B, s_c, m, n, s_r = full
+    flops = 2 * B * s_c * m * n + 2 * B * s_c * n * s_r
+    b, by = bound_ms(4 * (B * m * n + s_c * m + n * s_r + B * s_c * s_r), flops, peaks)
+    emit("kernel/twoside_sketch", shape=list(full), rel_err={k: v[1] for k, v in errs.items()},
+         bitwise_relaunch=bitwise, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+         library="torch.matmul(torch.matmul(S_C, A), S_R^T) batched, fp32 highest",
+         bound_ms=b, bound_by=by, tflops=flops / k_ms / 1e9)
+    del args, sc, a, srt
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=max(e[0] for e in errs.values()),
+                max_rel_err=max(e[1] for e in errs.values()),
+                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
 
 
 def check_indices(torch, idx, hi: int, name: str) -> int:
@@ -342,6 +446,113 @@ def phase_paths(torch, A, dev) -> tuple:
     return totals, runs
 
 
+def item_errors(A_b, res_b) -> tuple:
+    """``(cur_relative_error, cur_error_ratio)`` of one item; the ratio is
+    against ``exact_cur`` on the same indices."""
+    from repro_torch.cur import cur_error_ratio, cur_relative_error
+
+    return float(cur_relative_error(A_b, res_b)), float(cur_error_ratio(A_b, res_b))
+
+
+def run_oneshot(torch, A, dev) -> dict:
+    """(e): one-shot ``fast_cur`` on the streaming runs' matrix."""
+    from repro_torch.cur import cur_sketch_sizes, fast_cur
+    from repro_torch.kernels import ops
+
+    m, n = A.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = fast_cur(g, A, C_BUDGET, R_BUDGET, policy="approx_leverage", sketch="countsketch")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # selection sketches A and A^T (2), core sketches C, R^T, A, (S_C A)^T (4)
+    check(launches["countsketch"] >= 6, f"e: countsketch launched {launches['countsketch']}")
+    check(bool(torch.isfinite(res.U).all()), "e: non-finite core")
+    check_indices(torch, res.col_idx, n, "e col_idx")
+    check_indices(torch, res.row_idx, m, "e row_idx")
+    rel_err, ratio = item_errors(A, res)
+    check(math.isfinite(rel_err) and math.isfinite(ratio), "e: non-finite error")
+    emit("path/e_oneshot_fast_cur", m=m, n=n, c=C_BUDGET, r=R_BUDGET, policy="approx_leverage",
+         sketch="countsketch", **cur_sketch_sizes(C_BUDGET, R_BUDGET), wall_s=wall,
+         launches=launches,
+         cur_relative_error=rel_err, cur_error_ratio=ratio, peak_mem_gib=peak,
+         a_gib=A.numel() * 4 / 2**30,
+         select_rows_input="A.T as a strided view read by kernel 1 (no copy of A)")
+    del res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_batched(torch, Ab, dev, name: str, selection: str) -> tuple:
+    """(f)/(g): ``batched_fast_cur`` on the stack ``Ab``; per-item errors."""
+    from repro_torch.cur import CURResult, batched_fast_cur
+    from repro_torch.kernels import ops
+
+    B, m, n = Ab.shape
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 30)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = batched_fast_cur(g, Ab, B_BUDGET, B_BUDGET, selection=selection)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(launches["twoside_sketch"] >= 1, f"{name}: twoside_sketch never launched")
+    check(bool(torch.isfinite(res.U).all()), f"{name}: non-finite cores")
+    rel, ratio = [], []
+    for b in range(B):
+        check_indices(torch, res.col_idx[b], n, f"{name}[{b}] col_idx")
+        check_indices(torch, res.row_idx[b], m, f"{name}[{b}] row_idx")
+        item = CURResult(C=res.C[b], U=res.U[b], R=res.R[b], col_idx=res.col_idx[b],
+                         row_idx=res.row_idx[b])
+        e = item_errors(Ab[b], item)
+        check(math.isfinite(e[0]) and math.isfinite(e[1]), f"{name}[{b}]: non-finite error")
+        rel.append(e[0])
+        ratio.append(e[1])
+    q = lambda xs: dict(p50=sorted(xs)[len(xs) // 2], max=max(xs))  # noqa: E731
+    emit(f"path/{name}", B=B, m=m, n=n, c=B_BUDGET, r=B_BUDGET, s_c=B_SKETCH, s_r=B_SKETCH,
+         selection=selection, wall_s=wall, launches=launches, cur_relative_error=q(rel),
+         cur_error_ratio=q(ratio), peak_mem_gib=peak)
+    return launches, res
+
+
+def phase_batched_parity(torch, Ab, res, dev) -> None:
+    """First 4 items of (f) with kernel 4 and under ``force_plain()``, on
+    the same sketches and indices."""
+    from repro_torch.cur import batched_fast_cur, draw_shared_sketches
+    from repro_torch.kernels import ops
+
+    B, m, n = 4, Ab.shape[1], Ab.shape[2]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 31)
+    sk = draw_shared_sketches(g, m, n, B_SKETCH, B_SKETCH)
+    kw = dict(sketches=sk, col_idx=res.col_idx[:B], row_idx=res.row_idx[:B])
+    kern = batched_fast_cur(None, Ab[:B], B_BUDGET, B_BUDGET, **kw)
+    M_k = ops.twoside_sketch(sk[0].mat, Ab[:B], sk[1].mat.T)
+    with ops.force_plain():
+        plain = batched_fast_cur(None, Ab[:B], B_BUDGET, B_BUDGET, **kw)
+        M_p = ops.twoside_sketch(sk[0].mat, Ab[:B], sk[1].mat.T)
+    torch.cuda.synchronize()
+    for field in ("col_idx", "row_idx", "C", "R"):
+        check(bool(torch.equal(getattr(kern, field), getattr(plain, field))),
+              f"batched parity: {field} differs")
+    m_rel = err(M_k, M_p)[1]
+    check(m_rel <= TOL, f"batched parity: M rel err {m_rel} > {TOL}")
+    u_rel = float(torch.linalg.norm(kern.U - plain.U) / torch.linalg.norm(plain.U))
+    check(u_rel <= 1e-3, f"batched parity: U rel err {u_rel} > 1e-3")
+    emit("parity/f_batched_uniform", items=B, indices_equal=True, C_R_bitwise=True,
+         M_rel_err=m_rel, U_rel_err=u_rel, M_bitwise=bool(torch.equal(M_k, M_p)))
+
+
 def phase_route_parity(torch, A, runs) -> None:
     """First 8 panels of (b), (c), (d): kernels vs ``force_plain()``."""
     from repro_torch.kernels import ops
@@ -371,35 +582,55 @@ def phase_route_parity(torch, A, runs) -> None:
 def phase_profile(torch, A, runs) -> None:
     """``torch.profiler`` over panels 2–9 of (b), (c) and (d): device time by
     kernel, the device's busy share of the wall time, launches per panel."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.stream.engine import stream_panels
 
     for name in ("b_adaptive_countsketch_chunk", "c_adaptive_gaussian_route_b",
                  "d_adaptive_gaussian_evict_rows"):
         state = stream_panels(runs[name](), A, PANEL, stop=2 * PANEL)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            stream_panels(state, A, PANEL, stop=10 * PANEL)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        events = prof.key_averages()
-        # device-side entries only (kernels, copies): the host ops that launch
-        # them report the same time again, and the engine's record_function
-        # span shows on the device timeline as an annotation covering them
-        dev_us = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count) for e in events
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and not e.key.startswith("stream/")]
-        dev_us = [x for x in dev_us if x[1] > 0]
-        busy_ms = sum(x[1] for x in dev_us) / 1e3
-        top = sorted(dev_us, key=lambda x: -x[1])[:10]
+        # the engine's record_function span shows on the device timeline as
+        # an annotation covering the kernels: device_profile leaves it out
+        wall_ms, busy_ms, n_ops, top = device_profile(
+            torch, lambda: stream_panels(state, A, PANEL, stop=10 * PANEL))
         emit(f"profile/{name}", panels=8, wall_ms=wall_ms, device_busy_ms=busy_ms,
              device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None,
-             device_ops_per_panel=sum(x[2] for x in dev_us) / 8,
-             top_device_ms=[[k[:60], us / 1e3, n] for k, us, n in top])
+             device_ops_per_panel=n_ops / 8, top_device_ms=top)
         del state
         torch.cuda.empty_cache()
+
+
+def device_profile(torch, fn) -> tuple:
+    """``(wall ms, device busy ms, device ops, top 10 [name, ms, count])`` of
+    one synchronised call of ``fn`` under ``torch.profiler``: device-side
+    entries only (the host ops that launch them report the same time again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_us = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+              for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("stream/")]
+    dev_us = [x for x in dev_us if x[1] > 0]
+    top = sorted(dev_us, key=lambda x: -x[1])[:10]
+    return (wall_ms, sum(x[1] for x in dev_us) / 1e3, sum(x[2] for x in dev_us),
+            [[k[:60], us / 1e3, n] for k, us, n in top])
+
+
+def phase_profile_batched(torch, Ab, dev) -> None:
+    """``torch.profiler`` over one run of (f): where its time goes."""
+    from repro_torch.cur import batched_fast_cur
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 30)
+    wall_ms, busy_ms, n_ops, top = device_profile(
+        torch, lambda: batched_fast_cur(g, Ab, B_BUDGET, B_BUDGET))
+    emit("profile/f_batched_uniform", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None,
+         device_ops=n_ops, top_device_ms=top)
 
 
 def main() -> int:
@@ -412,7 +643,7 @@ def main() -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.data.synthetic import drifting_spectrum_matrix
+    from repro_torch.data.synthetic import drifting_spectrum_matrix, powerlaw_matrix
     from repro_torch.kernels import build, ops
 
     dev = torch.device("cuda")
@@ -439,6 +670,24 @@ def main() -> int:
     totals, runs = phase_paths(torch, A, dev)
     phase_route_parity(torch, A, runs)
     phase_profile(torch, A, runs)
+    runs_launches = [run_oneshot(torch, A, dev)]
+    del A, runs
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    Ab = torch.stack([powerlaw_matrix(SEED + 100 + b, B_ROWS, B_COLS, device=dev)
+                      for b in range(BATCH)])
+    torch.cuda.synchronize()
+    emit("data", generator="powerlaw_matrix", shape=[BATCH, B_ROWS, B_COLS], dtype="float32",
+         gib=Ab.numel() * 4 / 2**30, seconds=time.perf_counter() - t0)
+    launches_f, res_f = run_batched(torch, Ab, dev, "f_batched_uniform", "uniform")
+    launches_g, _ = run_batched(torch, Ab, dev, "g_batched_approx_leverage", "approx_leverage")
+    runs_launches += [launches_f, launches_g]
+    phase_batched_parity(torch, Ab, res_f, dev)
+    phase_profile_batched(torch, Ab, dev)
+    for launches in runs_launches:
+        for k, v in launches.items():
+            totals[k] += v
 
     rows = []
     for name, info in KERNEL_INFO.items():

@@ -27,29 +27,33 @@ def _solve_least_squares(B: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
     an absolute one, so the solve is finite even for an all-zero ``B``, and
     ``B @ X`` is the exact projection of ``Y`` onto the span of ``B``'s
     nonzero prefix columns (see the reference's docstring for the contract).
+
+    Leading batch dimensions are solved item by item, as the reference's
+    ``vmap`` does: each item's floor comes from its own diagonal.
     """
     dt = _work_dtype(B)
     Q, Rf = torch.linalg.qr(B.to(dt))
     finfo = torch.finfo(dt)
-    d = torch.diagonal(Rf)
-    rel = finfo.eps * torch.max(torch.abs(d)) * Rf.shape[0]
+    d = torch.diagonal(Rf, dim1=-2, dim2=-1)
+    rel = finfo.eps * torch.amax(torch.abs(d), dim=-1, keepdim=True) * Rf.shape[-2]
     floor = torch.clamp(rel, min=finfo.tiny ** 0.5)
     safe = torch.where(d < 0, -1.0, 1.0).to(dt) * torch.maximum(torch.abs(d), floor)
     Rf = Rf.clone()
-    Rf.diagonal().copy_(safe)
-    return torch.linalg.solve_triangular(Rf, Q.T @ Y.to(dt), upper=True)
+    torch.diagonal(Rf, dim1=-2, dim2=-1).copy_(safe)
+    return torch.linalg.solve_triangular(Rf, Q.mT @ Y.to(dt), upper=True)
 
 
 def exact_gmr(A: torch.Tensor, C: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     """``X* = C† A R†`` — the exact GMR solution (Eqn. 1.1)."""
     left = _solve_least_squares(C, A)  # C† A
-    return _solve_least_squares(R.T, left.T).T  # (C† A) R†
+    return _solve_least_squares(R.mT, left.mT).mT  # (C† A) R†
 
 
 def fast_gmr_core(ScC: torch.Tensor, ScASr: torch.Tensor, RSr: torch.Tensor) -> torch.Tensor:
-    """``X̃ = (S_C C)† (S_C A S_Rᵀ) (R S_Rᵀ)†`` from the three sketched pieces."""
+    """``X̃ = (S_C C)† (S_C A S_Rᵀ) (R S_Rᵀ)†`` from the three sketched pieces
+    (leading batch dimensions allowed)."""
     left = _solve_least_squares(ScC, ScASr)
-    return _solve_least_squares(RSr.T, left.T).T
+    return _solve_least_squares(RSr.mT, left.mT).mT
 
 
 _RESIDUAL_BLOCK = 4096  # columns per block of residual_norm
@@ -57,13 +61,14 @@ _RESIDUAL_BLOCK = 4096  # columns per block of residual_norm
 
 def residual_norm(A, C, X, R) -> torch.Tensor:
     """``‖A − C X R‖_F`` in fp32 or better, a column block at a time so a
-    large ``A`` never needs a second full-size temporary."""
+    large ``A`` never needs a second full-size temporary. Over a batch the
+    norm is taken over every item together (the reference's ``norm``)."""
     dt = _work_dtype(A)
     CX = C.to(dt) @ X.to(dt)
     total = torch.zeros((), dtype=dt, device=A.device)
-    for j in range(0, A.shape[1], _RESIDUAL_BLOCK):
+    for j in range(0, A.shape[-1], _RESIDUAL_BLOCK):
         blk = slice(j, j + _RESIDUAL_BLOCK)
-        diff = A[:, blk].to(dt) - CX @ R[:, blk].to(dt)
+        diff = A[..., blk].to(dt) - CX @ R[..., blk].to(dt)
         total = total + torch.sum(diff * diff)
     return torch.sqrt(total)
 

@@ -1,5 +1,6 @@
 """CUR decomposition of the port (counterpart of ``repro.cur``)."""
 
+from .selection import SELECTION_POLICIES, Selection, select_columns, select_rows
 from .cur import (
     CURResult,
     cur_error_ratio,
@@ -7,20 +8,26 @@ from .cur import (
     cur_relative_error,
     cur_sketch_sizes,
     exact_cur,
+    fast_cur,
 )
-from .selection import select_columns, select_rows
 from .streaming import streaming_cur_finalize, streaming_cur_init, streaming_cur_update
+from .batched import batched_fast_cur, draw_shared_sketches
 
 __all__ = [
+    "SELECTION_POLICIES",
+    "Selection",
+    "select_columns",
+    "select_rows",
     "CURResult",
     "cur_error_ratio",
     "cur_reconstruct",
     "cur_relative_error",
     "cur_sketch_sizes",
     "exact_cur",
-    "select_columns",
-    "select_rows",
+    "fast_cur",
     "streaming_cur_finalize",
     "streaming_cur_init",
     "streaming_cur_update",
+    "batched_fast_cur",
+    "draw_shared_sketches",
 ]

@@ -8,8 +8,9 @@ from .ops import (
     panel_score,
     panel_update,
     reset_launches,
+    twoside_sketch,
 )
-from .ref import countsketch_ref, panel_score_ref, panel_update_ref
+from .ref import countsketch_ref, panel_score_ref, panel_update_ref, twoside_sketch_ref
 
 __all__ = [
     "LAUNCHES",
@@ -19,7 +20,9 @@ __all__ = [
     "panel_score",
     "panel_update",
     "reset_launches",
+    "twoside_sketch",
     "countsketch_ref",
     "panel_score_ref",
     "panel_update_ref",
+    "twoside_sketch_ref",
 ]

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("countsketch", "panel_score", "panel_update")
+SOURCES = ("countsketch", "panel_score", "panel_update", "twoside_sketch")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,6 +37,9 @@ SIGNATURES = {
     "panel_update": ("panel_update_launch",
                      [_I, _P, _L, _P, _L, _P, _L, _L, _P, _L, _I, _P, _L, _I, _P, _L,
                       _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "twoside_sketch": ("twoside_sketch_launch",
+                       [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _P, _P,
+                        _I, _I, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

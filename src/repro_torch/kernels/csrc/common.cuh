@@ -35,12 +35,16 @@ constexpr int GEMM_THREADS = 256;
 // the current one is multiplied. Tile loads walk whichever dimension of an
 // operand is contiguous; the +4 padding keeps those shared-memory stores
 // free of bank conflicts and the float4 reads aligned.
+//
+// gemm_tile is the body of one block (output tile (blockIdx.y, blockIdx.x),
+// reduction range [kb, ke) into the slab `o`); gemm_kernel and
+// batched_gemm_kernel differ only in what blockIdx.z selects.
 template <typename TA, typename TB>
-__global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_kernel(
+__device__ __forceinline__ void gemm_tile(
     const TA* __restrict__ A, long long a_rs, long long a_cs,
     const TB* __restrict__ B, long long b_rs, long long b_cs,
-    float* out, long long o_rs, long long o_cs, long long o_zs,
-    int Mdim, int Ndim, int K, int kchunk, int accumulate) {
+    float* o, long long o_rs, long long o_cs,
+    int Mdim, int Ndim, int kb, int ke, int accumulate) {
   __shared__ __align__(16) float As[BK][BM + 4];
   __shared__ __align__(16) float Bs[BK][BN + 4];
   const int tid = threadIdx.x;
@@ -48,8 +52,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_kernel(
   const int ty = tid / 16;
   const int i0 = blockIdx.y * BM;
   const int j0 = blockIdx.x * BN;
-  const int kb = blockIdx.z * kchunk;
-  const int ke = min(K, kb + kchunk);
   const bool a_kfast = (a_cs == 1);
   const bool b_jfast = (b_cs == 1);
 
@@ -111,7 +113,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_kernel(
     __syncthreads();
   }
 
-  float* o = out + (long long)blockIdx.z * o_zs;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int gi = i0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
@@ -124,6 +125,31 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_kernel(
       o[idx] = accumulate ? o[idx] + acc[i][j] : acc[i][j];
     }
   }
+}
+
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_kernel(
+    const TA* __restrict__ A, long long a_rs, long long a_cs,
+    const TB* __restrict__ B, long long b_rs, long long b_cs,
+    float* out, long long o_rs, long long o_cs, long long o_zs,
+    int Mdim, int Ndim, int K, int kchunk, int accumulate) {
+  const int kb = blockIdx.z * kchunk;
+  gemm_tile<TA, TB>(A, a_rs, a_cs, B, b_rs, b_cs, out + (long long)blockIdx.z * o_zs,
+                    o_rs, o_cs, Mdim, Ndim, kb, min(K, kb + kchunk), accumulate);
+}
+
+// The same product over a batch, one item per blockIdx.z, whole reduction
+// in each block: out_z = A_z * B_z with X_z = X + z * x_bs (a batch stride
+// of 0 shares an operand across the batch).
+template <typename TA, typename TB>
+__global__ void __launch_bounds__(GEMM_THREADS, 2) batched_gemm_kernel(
+    const TA* __restrict__ A, long long a_rs, long long a_cs, long long a_bs,
+    const TB* __restrict__ B, long long b_rs, long long b_cs, long long b_bs,
+    float* out, long long o_rs, long long o_cs, long long o_bs,
+    int Mdim, int Ndim, int K) {
+  const long long z = blockIdx.z;
+  gemm_tile<TA, TB>(A + z * a_bs, a_rs, a_cs, B + z * b_bs, b_rs, b_cs, out + z * o_bs,
+                    o_rs, o_cs, Mdim, Ndim, 0, K, 0);
 }
 
 // Sum over the block in a fixed tree order (blockDim.x a power of two).

@@ -25,8 +25,9 @@ from . import ref
 from .countsketch import bucket_order, countsketch_kernel
 from .panel_score import panel_score_kernel
 from .panel_update import panel_update_kernel
+from .twoside_sketch import twoside_sketch_kernel
 
-LAUNCHES = {"countsketch": 0, "panel_score": 0, "panel_update": 0}
+LAUNCHES = {"countsketch": 0, "panel_score": 0, "panel_update": 0, "twoside_sketch": 0}
 
 # Test hook: take the kernel route on the CPU (plain versions run there).
 _FORCE_KERNEL_ROUTE = False
@@ -196,6 +197,33 @@ def panel_update(sc, a_l, srt, q, C, M, *, min_gain, run_mean, true_cols, n_fill
     return C, M, sc_a, resid2, energy, slots
 
 
+def twoside_sketch(sc, a, srt):
+    """``M = sc·a·srt`` in fp32: (s_c, m)·(m, n)·(n, s_r) → (s_c, s_r), or
+    for a batch ``a`` (B, m, n) → (B, s_c, s_r) with ``sc``/``srt`` shared.
+
+    The three operands share float32 or bfloat16 and may have any strides
+    (``srt`` is usually the transposed view ``S_R.mat.T``).
+    """
+    _check(a.dim() in (2, 3), f"a must be (m, n) or (B, m, n), got {tuple(a.shape)}")
+    _check(sc.dim() == 2 and srt.dim() == 2 and sc.shape[1] == a.shape[-2]
+           and srt.shape[0] == a.shape[-1],
+           f"shape mismatch: sc {tuple(sc.shape)}, a {tuple(a.shape)}, srt {tuple(srt.shape)}")
+    if not _on_card(sc, a, srt):
+        return ref.twoside_sketch_ref(sc, a, srt)
+    _check(sc.dtype in _DTYPES and a.dtype == sc.dtype and srt.dtype == sc.dtype,
+           "sc/a/srt must share float32 or bfloat16")
+    a3 = a if a.dim() == 3 else a.unsqueeze(0)
+    B, m, n = a3.shape
+    _check(B <= 65535, f"batch must be at most 65535, got {B}")
+    out = torch.empty((B, sc.shape[0], srt.shape[1]), dtype=torch.float32, device=a.device)
+    if out.numel() and m and n:
+        twoside_sketch_kernel(sc, a3, srt, out)
+        LAUNCHES["twoside_sketch"] += 1
+    else:
+        out.zero_()
+    return out if a.dim() == 3 else out[0]
+
+
 __all__ = [
     "LAUNCHES",
     "reset_launches",
@@ -205,4 +233,5 @@ __all__ = [
     "countsketch_apply",
     "panel_score",
     "panel_update",
+    "twoside_sketch",
 ]

@@ -19,6 +19,11 @@ def top_k_desc(x: torch.Tensor, k: int) -> tuple:
     return vals[:k], idx[:k]
 
 
+def twoside_sketch_ref(sc: torch.Tensor, a: torch.Tensor, srt: torch.Tensor) -> torch.Tensor:
+    """``M = (S_C·A)·S_Rᵀ`` in fp32; ``a`` is (m, n) or a batch (B, m, n)."""
+    return (sc.float() @ a.float()) @ srt.float()
+
+
 def countsketch_ref(hashes: torch.Tensor, signs: torch.Tensor, a: torch.Tensor, s: int) -> torch.Tensor:
     """Signed segment sum ``out[h[i]] += sign[i]·a[i]`` in fp32, rows in order."""
     signed = a.float() * signs.float()[:, None]

@@ -61,7 +61,8 @@ def test_cuda_kernels_match_plain(cuda, dtype):
         want_ps = ops.panel_score(sc, a_l, q)
         want_pu = ops.panel_update(sc, a_l, srt, q, C.clone(), M.clone(), **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"countsketch": 2, "panel_score": 1, "panel_update": 1}
+    assert ops.LAUNCHES == {"countsketch": 2, "panel_score": 1, "panel_update": 1,
+                            "twoside_sketch": 0}
     _close(got_cs, want_cs)
     _close(got_ct, want_cs.T)
     for g, w in zip(got_ps, want_ps):
@@ -69,6 +70,49 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     for g, w in zip(got_pu[1:5], want_pu[1:5]):
         _close(g, w)
     assert torch.equal(got_pu[0], want_pu[0]) and torch.equal(got_pu[5], want_pu[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 72, 300, 200, 48), (3, 96, 256, 192, 96),
+                                   (2, 130, 129, 257, 131)])
+def test_cuda_twoside_sketch_matches_plain(cuda, shape, dtype):
+    """Kernel 4 against its plain version (ragged edges, a batch, a
+    transposed S_R view) and two launches bitwise equal."""
+    B, s_c, m, n, s_r = shape
+    rng = np.random.default_rng(sum(shape))
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(cuda, dtype)  # noqa: E731
+    sc, a, sr = f(s_c, m), f(B, m, n), f(s_r, n)
+    ops.reset_launches()
+    got = ops.twoside_sketch(sc, a, sr.T)
+    again = ops.twoside_sketch(sc, a, sr.T)
+    one = ops.twoside_sketch(sc, a[0], sr.T)
+    with ops.force_plain():
+        want = ops.twoside_sketch(sc, a, sr.T)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["twoside_sketch"] == 3
+    assert got.shape == (B, s_c, s_r) and got.dtype == torch.float32
+    _close(got, want, 1e-5)
+    assert torch.equal(got, again) and torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", ["transposed", "stack_item_transposed"])
+def test_cuda_countsketch_reads_transposed_views(cuda, view, dtype):
+    """Kernel 1 on ``Aᵀ`` with a row-major (s, n) output, as ``select_rows``
+    calls it: the transpose of a matrix, and of one item of a stack (an
+    offset view), against the plain version."""
+    rng = np.random.default_rng(11)
+    base = torch.from_numpy(rng.standard_normal((3, 257, 300)).astype(np.float32)).to(cuda, dtype)
+    a = base[0].T if view == "transposed" else base[1].T  # (300, 257), column-major
+    h = torch.from_numpy(rng.integers(0, 40, 300).astype(np.int32)).to(cuda)
+    sg = torch.from_numpy(rng.choice([-1.0, 1.0], 300).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    got = ops.countsketch_apply(h, sg, a, 40, order=ops.bucket_order(h, 40))
+    with ops.force_plain():
+        want = ops.countsketch_apply(h, sg, a, 40)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["countsketch"] == 1 and got.shape == (40, 257)
+    _close(got, want)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -81,6 +125,8 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.panel_update(sc, a_l, srt[:10], q, C, M, **kw)
     with pytest.raises(ValueError):
         ops.panel_score(sc, a_l.cpu(), q)
+    with pytest.raises(ValueError):
+        ops.twoside_sketch(sc, a_l, srt.double())
 
 
 @pytest.mark.parametrize("sketch,kw", [("countsketch", {}), ("gaussian", {}),

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import kernels as jk  # noqa: E402
@@ -85,6 +86,40 @@ def test_countsketch_kernel_order_is_the_plain_order():
     assert torch.equal(h[perm.long()], torch.sort(h).values)
     At = A.T.contiguous()
     assert torch.equal(ops.countsketch_apply(h, sg, At.T, s, transpose_out=True), plain.T)
+
+
+# ---------------------------------------------------------------------------
+# kernel 4: twoside_sketch
+# ---------------------------------------------------------------------------
+
+# the reference's TWOSIDE_SHAPES (tests/test_kernels.py) as (B, s_c, m, n, s_r),
+# plus one batch, which the reference vmaps over its kernel
+TWOSIDE_SHAPES = [(1, 64, 300, 200, 64), (1, 128, 512, 512, 96), (1, 32, 130, 260, 48),
+                  (1, 256, 1024, 384, 128), (1, 128, 256, 256, 128), (3, 48, 130, 70, 40)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", TWOSIDE_SHAPES)
+def test_twoside_sketch_plain_matches_pallas(shape, dtype):
+    """Tolerance, of the largest entry: 1e-5 in fp32; 2.5e-2 for bf16 inputs
+    against the Pallas kernel, which rounds ``S_C·A`` to bf16 before the
+    second product (the reference's own kernel-vs-oracle tolerance), and
+    1e-5 against the reference's oracle, which keeps it in fp32 as the port
+    does."""
+    B, s_c, m, n, s_r = shape
+    rng = np.random.default_rng(sum(shape))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    sc, srt = (jnp.asarray(rng.standard_normal(sh).astype(np.float32)).astype(jdt)
+               for sh in ((s_c, m), (n, s_r)))
+    a = jnp.asarray(rng.standard_normal((B, m, n)).astype(np.float32)).astype(jdt)
+    port = [_t(np.asarray(x.astype(jnp.float32))).to(getattr(torch, dtype)) for x in (sc, a, srt)]
+    got = ops.twoside_sketch(port[0], port[1] if B > 1 else port[1][0], port[2])
+    assert got.dtype == torch.float32 and got.shape == ((B,) if B > 1 else ()) + (s_c, s_r)
+    want = jax.vmap(lambda x: jk.twoside_sketch(sc, x, srt, interpret=True))(a)
+    oracle = jk.twoside_sketch_ref(sc, a, srt)
+    got = got.reshape(B, s_c, s_r)
+    _close(got, want, 1e-5 if dtype == "float32" else 2.5e-2)
+    _close(got, oracle, 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +290,9 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     ops.reset_launches()
     ops.countsketch_apply(torch.zeros(5, dtype=torch.int32), torch.ones(5), torch.ones(5, 3), 4)
     ops.panel_score(torch.ones(4, 5), torch.ones(5, 3), torch.zeros(4, 2))
-    assert ops.LAUNCHES == {"countsketch": 0, "panel_score": 0, "panel_update": 0}
+    ops.twoside_sketch(torch.ones(4, 5), torch.ones(2, 5, 3), torch.ones(3, 6))
+    assert ops.LAUNCHES == {"countsketch": 0, "panel_score": 0, "panel_update": 0,
+                            "twoside_sketch": 0}
     assert not ops.kernel_route_enabled(torch.ones(1))
 
 

@@ -11,10 +11,15 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    panel_update, twoside_sketch) against its plain PyTorch version on the
    card at the main path's shapes (kernel 1 also at the selection sketches
    of (e) and (g), on A and on the strided view Aᵀ), plus a ragged panel,
-   an empty admission, an exhausted budget, tied scores, bf16 inputs,
-   kernel 4's example and ragged shapes and a second launch compared
-   bitwise; CUDA-event times of the kernel, the plain version and one
-   library call, beside the card's bound;
+   an empty admission, an exhausted budget, tied scores, bf16 inputs, the
+   fp32-sketch/bf16-panel pair of a bf16 Gaussian stream (kernel 3 also
+   with bf16 C and M, after that pair, fp32 or bf16 sketch and panel),
+   kernel 4's example and ragged shapes, and second
+   launches of kernels 2-4 compared bitwise; CUDA-event times of the
+   kernel, the plain version and one library call, beside the card's bound;
+   the stream-K grids of kernels 2 and 3 against the resident slots, and
+   every kernel's registers and spills from ``ptxas`` (kernels 2 and 3 must
+   not spill);
 2. paths — streaming CUR at m = 32768, n = 65536 (fp32 on the card), panel
    L = 256, c = r = 128, Table-2 sketch sizes: (a) fixed, countsketch;
    (b) adaptive, countsketch, admission-only, chunk route; (c) adaptive,
@@ -40,6 +45,7 @@ no result and exits 1.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import subprocess
@@ -163,7 +169,12 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     acc = torch.zeros((s, L), device=dev)
     lib_ms = timed(torch, lambda: acc.index_add_(0, h.long(), signed[next(it) % n_rot]))
     t_ms = timed(torch, lambda: ops.countsketch_apply(hw, sgw, sca.T, s, transpose_out=True))
-    sel = countsketch_selection(torch, ops, dev, g)
+    # the M fold's shape: (S_R window · sc_aᵀ)ᵀ, L rows into s buckets, (s, s) out
+    signed_t = sca.T * sgw[:, None]
+    acc_t = torch.zeros((s, s), device=dev)
+    t_lib_ms = timed(torch, lambda: acc_t.index_add_(0, hw.long(), signed_t))
+    t_bound = bound_ms(4 * (L * s + 2 * L + s * s), L * s, peaks)
+    sel = countsketch_selection(torch, ops, dev, g, peaks)
     b, by = bound_ms(4 * (m * L + 2 * m + s * L), m * L, peaks)
     out["countsketch"] = dict(max_abs_err=max(e_abs, e2[0], *(e[0] for e in sel.values())),
                               max_rel_err=max(e_rel, e2[1], *(e[1] for e in sel.values())),
@@ -171,13 +182,15 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     emit("kernel/countsketch", shape=[s, m, L], rel_err=e_rel, rel_err_apply_t=e2[1],
          rel_err_bf16=e3[1], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
          library="index_add_ of pre-signed rows", bound_ms=b, bound_by=by,
-         apply_t_ms=t_ms, apply_t_shape=[s, L, s])
+         apply_t_ms=t_ms, apply_t_shape=[s, L, s], apply_t_library_ms=t_lib_ms,
+         apply_t_bound_ms=t_bound[0], apply_t_bound_by=t_bound[1])
 
     # --- kernel 2: panel_score ---
-    def score_case(a_l, qq, dtype=torch.float32):
-        got = ops.panel_score(sc.to(dtype), a_l.to(dtype), qq)
+    def score_case(a_l, qq, dtype=torch.float32, sc_dtype=None):
+        sc_ = sc.to(sc_dtype or dtype)
+        got = ops.panel_score(sc_, a_l.to(dtype), qq)
         with ops.force_plain():
-            want = ops.panel_score(sc.to(dtype), a_l.to(dtype), qq)
+            want = ops.panel_score(sc_, a_l.to(dtype), qq)
         errs = [err(x, y) for x, y in zip(got, want)]
         return max(e[0] for e in errs), max(e[1] for e in errs), got
 
@@ -193,7 +206,16 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     _, _, (_, r2e, ene) = score_case(panels[2], torch.zeros_like(q))
     check(bool(torch.equal(r2e, ene)), "panel_score: empty basis must give resid2 == energy")
     ps_err["bf16"] = score_case(panels[0], q, torch.bfloat16)[:2]
-    check(ps_err["bf16"][1] <= TOL, f"panel_score bf16: rel err {ps_err['bf16'][1]} > {TOL}")
+    # a bf16 Gaussian stream: the sketch is drawn in fp32, the panel is bf16
+    ps_err["mixed"] = score_case(panels[0], q, torch.bfloat16, torch.float32)[:2]
+    for name in ("bf16", "mixed"):
+        check(ps_err[name][1] <= TOL, f"panel_score {name}: rel err {ps_err[name][1]} > {TOL}")
+    first = ops.panel_score(sc, panels[0], q)
+    second = ops.panel_score(sc, panels[0], q)
+    mixed = (sc, panels[0].to(torch.bfloat16), q)
+    bitwise = all(torch.equal(x, y) for x, y in zip(first, second)) and all(
+        torch.equal(x, y) for x, y in zip(ops.panel_score(*mixed), ops.panel_score(*mixed)))
+    check(bitwise, "panel_score: two launches differ")
     k_ms = timed(torch, lambda: ops.panel_score(sc, panels[next(it) % n_rot], q))
     with ops.force_plain():
         p_ms = timed(torch, lambda: ops.panel_score(sc, panels[next(it) % n_rot], q))
@@ -204,8 +226,9 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
                               max_rel_err=max(e[1] for e in ps_err.values()),
                               ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
     emit("kernel/panel_score", shape=[s, m, L, c], rel_err={k: v[1] for k, v in ps_err.items()},
-         ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, library="torch.matmul(S_C, A_L), fp32 highest",
-         bound_ms=b, bound_by=by)
+         bitwise_relaunch=bitwise, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+         library="torch.matmul(S_C, A_L), fp32 highest", bound_ms=b, bound_by=by,
+         tflops=flops / k_ms / 1e9, library_tflops=2 * s * m * L / lib_ms / 1e9)
 
     # --- kernel 3: panel_update ---
     C0 = torch.randn((m, c), generator=g, device=dev) * (torch.arange(c, device=dev) < c // 2)
@@ -213,16 +236,20 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     base = dict(min_gain=0.5, run_mean=0.0, true_cols=float(L), n_filled=c // 2,
                 free=c - c // 2, panel_cap=16)
 
-    def update_case(a_l, qq, kw, dtype=torch.float32, sc_=sc, srt_=srt, C_=C0, M_=M0):
-        got = ops.panel_update(sc_.to(dtype), a_l.to(dtype), srt_.to(dtype), qq, C_.clone(),
-                               M_.clone(), **kw)
+    def update_case(a_l, qq, kw, dtype=torch.float32, sc_=sc, srt_=srt, C_=C0, M_=M0,
+                    sc_dtype=None, acc_dtype=torch.float32):
+        args = (sc_.to(sc_dtype or dtype), a_l.to(dtype), srt_.to(sc_dtype or dtype), qq)
+        got = ops.panel_update(*args, C_.to(acc_dtype, copy=True), M_.to(acc_dtype, copy=True),
+                               **kw)
         with ops.force_plain():
-            want = ops.panel_update(sc_.to(dtype), a_l.to(dtype), srt_.to(dtype), qq,
-                                    C_.clone(), M_.clone(), **kw)
+            want = ops.panel_update(*args, C_.to(acc_dtype, copy=True),
+                                    M_.to(acc_dtype, copy=True), **kw)
         check(bool(torch.equal(got[5], want[5])), f"panel_update: slots differ {kw}")
         check(bool(torch.equal(got[0], want[0])), "panel_update: C differs")
-        errs = [err(x, y) for x, y in zip(got[1:5], want[1:5])]
-        return max(e[0] for e in errs), max(e[1] for e in errs), got
+        # a bf16 M is held to the fp32 outputs' tolerance only through them
+        errs = [err(x, y) for x, y in zip(got[1 if acc_dtype == torch.float32 else 2:5],
+                                          want[1 if acc_dtype == torch.float32 else 2:5])]
+        return max(e[0] for e in errs), max(e[1] for e in errs), got, want
 
     pu_err, admitted = {}, {}
     for name, a_l, kw, srt_ in (
@@ -231,7 +258,7 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
         ("empty_admission", panels[2], dict(base, min_gain=1e9), srt),
         ("budget_exhausted", panels[3], dict(base, n_filled=c, free=0), srt),
     ):
-        e_abs, e_rel, got = update_case(a_l, q, kw, srt_=srt_)
+        e_abs, e_rel, got, _ = update_case(a_l, q, kw, srt_=srt_)
         check(e_rel <= TOL, f"panel_update {name}: rel err {e_rel} > {TOL}")
         pu_err[name] = (e_abs, e_rel)
         admitted[name] = int((got[5] < c).sum())
@@ -242,8 +269,8 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     ai = torch.randint(-1, 2, (m, L), generator=g, device=dev).float()
     ai *= torch.rand((m, L), generator=g, device=dev) < 0.01
     ai[:, [7, 70, 170]] = 4 * ai[:, [3]]  # 16x the energy of a typical column
-    e_abs, e_rel, got = update_case(ai, torch.zeros_like(q), dict(base, min_gain=1.0, free=2),
-                                    sc_=sci, srt_=torch.zeros_like(srt))
+    e_abs, e_rel, got, _ = update_case(ai, torch.zeros_like(q), dict(base, min_gain=1.0, free=2),
+                                       sc_=sci, srt_=torch.zeros_like(srt))
     r2 = got[3]
     check(bool(r2[7] == r2[70]) and bool(r2[70] == r2[170]) and bool(r2[7] == r2.max()),
           "tie case: duplicated columns must tie at the top")
@@ -251,7 +278,34 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
           and got[5][170].item() == c, "ties must go to the lower index")
     pu_err["ties"] = (e_abs, e_rel)
     pu_err["bf16"] = update_case(panels[0], q, base, torch.bfloat16)[:2]
-    check(pu_err["bf16"][1] <= TOL, f"panel_update bf16: rel err {pu_err['bf16'][1]} > {TOL}")
+    # a bf16 Gaussian stream: fp32 sketch and srt, bf16 panel, C and M in
+    # fp32 or, as adaptive_cur_init(dtype=bf16) holds them, in bf16
+    pu_err["mixed"] = update_case(panels[0], q, base, torch.bfloat16, sc_dtype=torch.float32)[:2]
+    # bf16 C and M: with the mixed pair, as adaptive_cur_init(dtype=bf16)
+    # holds them for a bf16 stream; with an fp32 sketch and panel (an fp32
+    # stream with bf16 state); with a bf16 sketch and panel. A bf16 M is
+    # within one bf16 rounding step (2^-7) of its largest entry, since the
+    # two fp32 folds may round to bf16 the other way.
+    m_bf16 = (0.0, 0.0)
+    for name, dtype, sc_dtype in (("mixed_bf16_acc", torch.bfloat16, torch.float32),
+                                  ("fp32_bf16_acc", torch.float32, torch.float32),
+                                  ("bf16_bf16_acc", torch.bfloat16, torch.bfloat16)):
+        *e_acc, got, want = update_case(panels[0], q, base, dtype, sc_dtype=sc_dtype,
+                                        acc_dtype=torch.bfloat16)
+        pu_err[name] = tuple(e_acc)
+        m_bf16 = max(m_bf16, err(got[1], want[1]), key=lambda e: e[1])
+    for name in ("bf16", "mixed", "mixed_bf16_acc", "fp32_bf16_acc", "bf16_bf16_acc"):
+        check(pu_err[name][1] <= TOL, f"panel_update {name}: rel err {pu_err[name][1]} > {TOL}")
+    check(m_bf16[1] <= 2.0 ** -7, f"panel_update bf16 M: rel err {m_bf16[1]} > 2^-7")
+    bf = torch.bfloat16
+    bitwise = True
+    for a_l, C_, M_ in ((panels[0], C0, M0), (panels[0].to(bf), C0.to(bf), M0.to(bf)),
+                        (panels[0], C0.to(bf), M0.to(bf))):
+        relaunch = [ops.panel_update(sc, a_l, srt, q, C_.clone(), M_.clone(), **base)
+                    for _ in range(2)]
+        bitwise = bitwise and all(torch.equal(x, y) for x, y in zip(*relaunch))
+    check(bitwise, "panel_update: two launches differ")
+    del relaunch
     Ct, Mt = C0.clone(), M0.clone()
     k_ms = timed(torch, lambda: ops.panel_update(sc, panels[next(it) % n_rot], srt, q, Ct, Mt, **base))
     with ops.force_plain():
@@ -265,21 +319,66 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
                                max_rel_err=max(e[1] for e in pu_err.values()),
                                ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
     emit("kernel/panel_update", shape=[s, m, L, c, s], rel_err={k: v[1] for k, v in pu_err.items()},
-         admitted=admitted, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-         library="torch.matmul(S_C, A_L), fp32 highest", bound_ms=b, bound_by=by)
+         rel_err_bf16_M=m_bf16[1], bitwise_relaunch=bitwise, admitted=admitted, ms=k_ms,
+         plain_ms=p_ms, library_ms=lib_ms, library="torch.matmul(S_C, A_L), fp32 highest",
+         bound_ms=b, bound_by=by, tflops=flops / k_ms / 1e9)
+    launch_plan(torch, ops, dev, s, m, L)
     del A_buf, panels, signed
     torch.cuda.empty_cache()
     out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
     return out
 
 
-def countsketch_selection(torch, ops, dev, g) -> dict:
+def launch_plan(torch, ops, dev, s: int, m: int, L: int) -> None:
+    """The stream-K grids of kernels 2 and 3 at the path's shape against the
+    card's resident slots (occupancy of the built kernels); the sketch
+    product's grid must be a whole number of full waves."""
+    # the module, not the function the package exports under its name
+    ps = importlib.import_module("repro_torch.kernels.panel_score")
+    n_sm = ps.sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    out = {}
+    for name, lib, args, rows, cols, k, bn in (
+            ("panel_score product", "panel_score", (0, 0), s, L, m, ps.PANEL_BN),
+            ("panel_update product", "panel_update", (0, 0, 0, 0, 1), s, L, m, ps.PANEL_BN),
+            ("panel_update fold", "panel_update", (1, 0, 0, 0, 1), s, s, L, ps.FOLD_BN)):
+        bps = ps.blocks_per_sm(lib, *args)
+        plan = ps.split_plan(rows, cols, k, n_sm, bps, bn=bn)
+        slots = n_sm * bps
+        out[name] = dict(blocks=plan.nblocks, resident_slots=slots, waves=plan.nblocks / slots,
+                         blocks_per_sm=bps, tiles=plan.tiles, k_slabs_per_tile=plan.slabs,
+                         k_slabs_per_block=plan.units / plan.nblocks)
+        if "product" in name:
+            check(plan.nblocks % slots == 0, f"{name}: {plan.nblocks} blocks on {slots} slots")
+    emit("kernel/launch_plan", sms=n_sm, plans=out)
+
+
+def ptxas_usage(build) -> dict:
+    """Registers and spill bytes of each kernel, from ``nvcc -Xptxas -v``."""
+    usage, fn = {}, None
+    for lib, log in build.build_log.items():
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                mangled = line.split("'")[1]
+                fn = f"{lib}:{mangled.replace('13__nv_bfloat16', 'bf16')}"
+                usage[fn] = {}
+            elif fn and "spill stores" in line:
+                nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+                usage[fn].update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+            elif fn and "Used" in line and "registers" in line:
+                words = line.replace(",", " ").split()
+                usage[fn]["registers"] = int(words[words.index("registers") - 1])
+    return usage
+
+
+def countsketch_selection(torch, ops, dev, g, peaks) -> dict:
     """Kernel 1 at the approx-leverage selection sketches of (e) and (g):
     ``S·A`` and ``S·Aᵀ`` (``select_rows`` hands the kernel the strided view
     ``Aᵀ`` and a row-major output) for a 32768 × 65536 matrix at s = 512, and
     for one 4096 × 4096 item of a stack at s = 256 (s = max(4k, k + 8) for
-    k = c = 128 and 64), each against the plain version."""
-    errs, ms = {}, {}
+    k = c = 128 and 64), each against the plain version, beside its bound and
+    one sparse product (``torch.sparse.mm`` of the sketch as a COO matrix with
+    the same operand, view included)."""
+    errs, ms, lib_ms, bounds = {}, {}, {}, {}
 
     def case(name, a, s):
         h = torch.randint(0, s, (a.shape[0],), generator=g, device=dev, dtype=torch.int32)
@@ -292,7 +391,16 @@ def countsketch_selection(torch, ops, dev, g) -> dict:
         check(errs[name][1] <= TOL, f"countsketch {name}: rel err {errs[name][1]} > {TOL}")
         ms[name] = timed(torch, lambda: ops.countsketch_apply(h, sg, a, s, order=order),
                          iters=3, warmup=1)
-        del got, want
+        rows, cols = a.shape
+        bounds[name] = bound_ms(4 * (a.numel() + s * cols) + 8 * rows, a.numel(), peaks)
+        S = torch.sparse_coo_tensor(torch.stack([h.long(), torch.arange(rows, device=dev)]), sg,
+                                    (s, rows)).coalesce()
+        try:  # a yardstick only: the port never calls it
+            lib_ms[name] = timed(torch, lambda: torch.sparse.mm(S, a), iters=3, warmup=1)
+        except RuntimeError as e:  # an unsupported layout or out of memory
+            lib_ms[name] = None
+            emit("kernel/countsketch_selection_library", case=name, error=str(e)[:200])
+        del got, want, S
         torch.cuda.empty_cache()
 
     A = torch.randn((M_ROWS, N_COLS), generator=g, device=dev)
@@ -305,7 +413,9 @@ def countsketch_selection(torch, ops, dev, g) -> dict:
     del stack
     torch.cuda.empty_cache()
     emit("kernel/countsketch_selection", rel_err={k: v[1] for k, v in errs.items()},
-         abs_err={k: v[0] for k, v in errs.items()}, ms=ms,
+         abs_err={k: v[0] for k, v in errs.items()}, ms=ms, library_ms=lib_ms,
+         library="torch.sparse.mm(S as COO, A or the view A^T)",
+         bound_ms={k: v[0] for k, v in bounds.items()}, bound_by={k: v[1] for k, v in bounds.items()},
          shapes={"e": [4 * C_BUDGET, M_ROWS, N_COLS], "g": [4 * B_BUDGET, B_ROWS, B_COLS]})
     return errs
 
@@ -654,11 +764,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
-    ptxas = [ln.strip() for log in build.build_log.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    usage = ptxas_usage(build)
     emit("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build.build_seconds,
-         peaks={"fp32_flops": peaks[0], "hbm_bytes_per_s": peaks[1]}, ptxas=ptxas[:24])
+         peaks={"fp32_flops": peaks[0], "hbm_bytes_per_s": peaks[1]})
+    # kernels 2 and 3 (the stream-K product, the score stage, the fold's
+    # reduction) must not spill
+    new = {k: v for k, v in usage.items() if k.startswith(("panel_score:", "panel_update:"))}
+    emit("ptxas", kernels=new, others={k: v for k, v in usage.items() if k not in new})
+    check(any(k.startswith("panel_score:") for k in new)
+          and any(k.startswith("panel_update:") for k in new), "no ptxas usage of kernels 2, 3")
+    spills = [k for k, v in new.items() if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
+    check(not spills, f"kernels that spill: {spills}")
 
     kernels = phase_kernels(torch, ops, peaks, dev)
 

@@ -46,6 +46,13 @@ SKETCH_KINDS = ("gaussian", "srht", "countsketch", "osnap", "uniform", "leverage
                 "osnap+gaussian")
 
 
+def _scaled(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a ``dtype`` array scaled by ``1/√k``: the reference scales
+    by a numpy float64 scalar, which jnp treats as a strong type, so a dtype
+    narrower than float32 comes out float32."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _window(length: int, offset: int, size: int) -> None:
     if offset < 0 or size < 0 or offset + size > length:
         raise ValueError(f"window [{offset}, {offset + size}) outside source dim {length}")
@@ -60,7 +67,7 @@ class GaussianSketch:
     @staticmethod
     def draw(gen: torch.Generator, s: int, m: int, dtype=torch.float32) -> "GaussianSketch":
         mat = torch.randn((s, m), generator=gen, device=gen.device, dtype=dtype)
-        return GaussianSketch(mat * (1.0 / math.sqrt(s)))
+        return GaussianSketch(mat.to(_scaled(dtype)) * (1.0 / math.sqrt(s)))
 
     @property
     def s(self) -> int:
@@ -136,7 +143,8 @@ class SRHTSketch:
         x = A * self.signs[:m].reshape((m,) + (1,) * (A.dim() - 1))
         if self.m_pad > m:
             x = torch.cat([x, x.new_zeros((self.m_pad - m, *A.shape[1:]))], dim=0)
-        x = fwht(x) * (1.0 / math.sqrt(self.s))
+        x = fwht(x)
+        x = x.to(_scaled(x.dtype)) * (1.0 / math.sqrt(self.s))
         return x[self.row_idx.long()]
 
     def apply_t(self, A: torch.Tensor) -> torch.Tensor:
@@ -183,16 +191,19 @@ class CountSketch:
     def _rows(self, rows: int) -> "CountSketch":
         return self if rows == self.m else self.cols(0, rows)
 
-    def apply(self, A: torch.Tensor) -> torch.Tensor:
-        sk = self._rows(A.shape[0])
+    def _signed_sum(self, A: torch.Tensor, rows: int, **kw) -> torch.Tensor:
+        """Kernel 1 (fp32 sums of ±1-signed rows; the signs are exact in
+        fp32), returned in the dtype the reference's segment sum gives."""
+        sk = self._rows(rows)
         order = sk.order() if A.is_cuda else None
-        return ops.countsketch_apply(sk.hashes, sk.signs, A, self.s, order=order)
+        out = ops.countsketch_apply(sk.hashes, sk.signs.float(), A, self.s, order=order, **kw)
+        return out.to(torch.promote_types(self.signs.dtype, A.dtype))
+
+    def apply(self, A: torch.Tensor) -> torch.Tensor:
+        return self._signed_sum(A, A.shape[0])
 
     def apply_t(self, A: torch.Tensor) -> torch.Tensor:
-        sk = self._rows(A.shape[-1])
-        order = sk.order() if A.is_cuda else None
-        return ops.countsketch_apply(sk.hashes, sk.signs, A.T, self.s, order=order,
-                                     transpose_out=True)
+        return self._signed_sum(A.T, A.shape[-1], transpose_out=True)
 
     def materialize(self) -> torch.Tensor:
         S = self.signs.new_zeros((self.s, self.m))
@@ -234,7 +245,8 @@ class OSNAPSketch:
         dev = gen.device
         hashes = torch.randint(0, s, (p, m), generator=gen, device=dev, dtype=torch.int32)
         signs = torch.randint(0, 2, (p, m), generator=gen, device=dev).to(dtype) * 2 - 1
-        return OSNAPSketch(hashes=hashes, signs=signs * (1.0 / math.sqrt(p)), s=s, p=p)
+        return OSNAPSketch(hashes=hashes, signs=signs.to(_scaled(dtype)) * (1.0 / math.sqrt(p)),
+                           s=s, p=p)
 
     @property
     def m(self) -> int:
@@ -302,8 +314,9 @@ class RowSampling:
     def draw(gen: torch.Generator, s: int, m: int, probs=None, dtype=torch.float32) -> "RowSampling":
         if probs is None:
             probs = torch.full((m,), 1.0 / m, dtype=dtype, device=gen.device)
-        else:
-            probs = probs.to(dtype) / torch.sum(probs)
+        else:  # jnp promotes with the sum's dtype (a 0-d array is not weakly typed)
+            dt = torch.promote_types(dtype, probs.dtype)
+            probs = probs.to(dtype).to(dt) / torch.sum(probs).to(dt)
         # jax.random.choice(replace=True, p=probs): the same distribution, not the same bits
         idx = torch.multinomial(probs.float(), s, replacement=True, generator=gen)
         scale = 1.0 / torch.sqrt(s * probs[idx])

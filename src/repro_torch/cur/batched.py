@@ -42,7 +42,6 @@ def draw_shared_sketches(gen: torch.Generator, m: int, n: int, s_c: int, s_r: in
     reference's draw comes out (its ``1/√s`` scale promotes it), so a bf16
     stack is sketched in float32 there and here.
     """
-    dtype = torch.promote_types(dtype, torch.float32)
     return GaussianSketch.draw(gen, s_c, m, dtype), GaussianSketch.draw(gen, s_r, n, dtype)
 
 

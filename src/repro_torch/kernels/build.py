@@ -28,23 +28,31 @@ FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C signature of each library's launch function (all return cudaGetLastError()).
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C signatures of each library's functions, named <library>_<function> (all
+# return a cudaError_t).
 SIGNATURES = {
-    "countsketch": ("countsketch_launch", [_I, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I, _I, _P]),
-    "panel_score": ("panel_score_launch",
-                    [_I, _P, _L, _P, _L, _P, _L, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P]),
-    "panel_update": ("panel_update_launch",
-                     [_I, _P, _L, _P, _L, _P, _L, _L, _P, _L, _I, _P, _L, _I, _P, _L,
-                      _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    "twoside_sketch": ("twoside_sketch_launch",
-                       [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L, _P, _P,
-                        _I, _I, _I, _I, _I, _P]),
+    "countsketch": {"countsketch_launch": [_I, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I, _I, _P]},
+    "panel_score": {
+        "panel_score_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P,
+                               _I, _I, _I, _P],
+        "panel_score_blocks_per_sm": [_I, _I, _P],
+        "panel_score_geometry": [_P],
+    },
+    "panel_update": {
+        "panel_update_launch": [_I, _I, _I, _I, _P, _L, _P, _L, _P, _L, _P, _L, _I, _P, _L,
+                                _I, _P, _L, _P, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _P],
+        "panel_update_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
+        "panel_update_geometry": [_P],
+    },
+    "twoside_sketch": {"twoside_sketch_launch": [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L,
+                                                 _P, _P, _I, _I, _I, _I, _I, _P]},
 }
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_log: dict = {}  # name -> compiler output of the last build (ptxas usage)
+build_log: dict = {}  # name -> compiler output of the library's build (ptxas usage)
 build_seconds: float = 0.0
 
 
@@ -92,20 +100,27 @@ def build_all() -> dict:
             if proc.returncode != 0:
                 failed.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{out}")
             else:
+                (out_dir / f"lib{name}.log").write_text(out)
                 os.replace(tmp, lib)
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
         for name in SOURCES:
+            log = out_dir / f"lib{name}.log"
+            if name not in build_log and log.exists():  # built by an earlier process
+                build_log[name] = log.read_text()
             lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _libs[name] = fn
+            fns = {}
+            for fn_name, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[fn_name] = fn
+            _libs[name] = fns
         build_seconds = time.perf_counter() - t0
         return _libs
 
 
-def launcher(name: str):
-    """The ctypes launch function of kernel ``name``, building on first use."""
-    return build_all()[name]
+def launcher(name: str, fn: str = "launch"):
+    """The ctypes function ``<name>_<fn>`` of kernel ``name`` (its launch
+    function by default), building on first use."""
+    return build_all()[name][f"{name}_{fn}"]

@@ -37,8 +37,9 @@ constexpr int GEMM_THREADS = 256;
 // free of bank conflicts and the float4 reads aligned.
 //
 // gemm_tile is the body of one block (output tile (blockIdx.y, blockIdx.x),
-// reduction range [kb, ke) into the slab `o`); gemm_kernel and
-// batched_gemm_kernel differ only in what blockIdx.z selects.
+// reduction range [kb, ke) into the slab `o`); batched_gemm_kernel selects
+// the batch item with blockIdx.z. Kernel 4 (twoside_sketch.cu) runs on it;
+// kernels 2 and 3 run on sgemm_sm90.cuh.
 template <typename TA, typename TB>
 __device__ __forceinline__ void gemm_tile(
     const TA* __restrict__ A, long long a_rs, long long a_cs,
@@ -127,18 +128,7 @@ __device__ __forceinline__ void gemm_tile(
   }
 }
 
-template <typename TA, typename TB>
-__global__ void __launch_bounds__(GEMM_THREADS, 2) gemm_kernel(
-    const TA* __restrict__ A, long long a_rs, long long a_cs,
-    const TB* __restrict__ B, long long b_rs, long long b_cs,
-    float* out, long long o_rs, long long o_cs, long long o_zs,
-    int Mdim, int Ndim, int K, int kchunk, int accumulate) {
-  const int kb = blockIdx.z * kchunk;
-  gemm_tile<TA, TB>(A, a_rs, a_cs, B, b_rs, b_cs, out + (long long)blockIdx.z * o_zs,
-                    o_rs, o_cs, Mdim, Ndim, kb, min(K, kb + kchunk), accumulate);
-}
-
-// The same product over a batch, one item per blockIdx.z, whole reduction
+// The tiled product over a batch, one item per blockIdx.z, whole reduction
 // in each block: out_z = A_z * B_z with X_z = X + z * x_bs (a batch stride
 // of 0 shares an operand across the batch).
 template <typename TA, typename TB>
@@ -150,71 +140,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 2) batched_gemm_kernel(
   const long long z = blockIdx.z;
   gemm_tile<TA, TB>(A + z * a_bs, a_rs, a_cs, B + z * b_bs, b_rs, b_cs, out + z * o_bs,
                     o_rs, o_cs, Mdim, Ndim, 0, K, 0);
-}
-
-// Sum over the block in a fixed tree order (blockDim.x a power of two).
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  __syncthreads();
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  return red[0];
-}
-
-constexpr int SCORE_THREADS = 256;
-
-// Second stage of the panel sketch, one block per panel column j:
-//   y = sum_z partial_z[:, j]            (splits summed in order 0, 1, ...)
-//   sc_a[:, j] = y, energy_j = |y|^2, resid2_j = max(energy_j - |Q^T y|^2, 0)
-// partial_z holds column j contiguously at partial + z * zs + j * s_c.
-__global__ void __launch_bounds__(SCORE_THREADS) score_kernel(
-    const float* __restrict__ partial, int nsplit, long long zs,
-    const float* __restrict__ q, long long ldq, int c,
-    float* __restrict__ sc_a, long long ld_sca,
-    float* __restrict__ resid2, float* __restrict__ energy, int s_c) {
-  extern __shared__ float sh[];
-  float* y = sh;           // s_c
-  float* red = sh + s_c;   // SCORE_THREADS
-  const int j = blockIdx.x;
-  float e_part = 0.f;
-  for (int i = threadIdx.x; i < s_c; i += blockDim.x) {
-    float v = partial[(long long)j * s_c + i];
-    for (int z = 1; z < nsplit; ++z) v += partial[z * zs + (long long)j * s_c + i];
-    y[i] = v;
-    sc_a[(long long)i * ld_sca + j] = v;
-    e_part = fmaf(v, v, e_part);
-  }
-  const float en = block_sum(e_part, red);  // also publishes y
-  float p_part = 0.f;
-  for (int k = threadIdx.x; k < c; k += blockDim.x) {
-    float t = 0.f;
-    for (int i = 0; i < s_c; ++i) t = fmaf(q[(long long)i * ldq + k], y[i], t);
-    p_part = fmaf(t, t, p_part);
-  }
-  const float proj = block_sum(p_part, red);
-  if (threadIdx.x == 0) {
-    energy[j] = en;
-    resid2[j] = fmaxf(en - proj, 0.f);
-  }
-}
-
-// sc_a, resid2 and energy of one panel: the split-K sketch product into
-// `partial` (nsplit slabs of s_c x L, column-major), then the score stage.
-template <typename T>
-void launch_panel_score(const T* sc, long long lds, const T* a, long long lda,
-                        const float* q, long long ldq, int c, float* partial,
-                        int nsplit, int kchunk, float* sc_a, float* resid2,
-                        float* energy, int s_c, int m, int L, cudaStream_t st) {
-  const long long zs = (long long)s_c * L;
-  dim3 grid((L + BN - 1) / BN, (s_c + BM - 1) / BM, nsplit);
-  gemm_kernel<T, T><<<grid, GEMM_THREADS, 0, st>>>(
-      sc, lds, 1, a, lda, 1, partial, 1, s_c, zs, s_c, L, m, kchunk, 0);
-  const size_t smem = (size_t)(s_c + SCORE_THREADS) * sizeof(float);
-  score_kernel<<<L, SCORE_THREADS, smem, st>>>(
-      partial, nsplit, zs, q, ldq, c, sc_a, L, resid2, energy, s_c);
 }
 
 }  // namespace rt

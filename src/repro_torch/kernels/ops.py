@@ -34,8 +34,11 @@ _FORCE_KERNEL_ROUTE = False
 _PLAIN = False
 
 _DTYPES = (torch.float32, torch.bfloat16)
-# shared memory of the score stage: (s_c + 256) floats within the default 48 KB
-_MAX_SC = 48 * 1024 // 4 - 256
+_F32, _BF16 = torch.float32, torch.bfloat16
+# (sketch, panel) pairs that kernels 2 and 3 take: one dtype, or an fp32
+# sketch with a bf16 panel (a bf16 Gaussian stream: the reference draws its
+# sketch in fp32). Kernel 3 takes C and M in either dtype with any pair.
+_PAIRS = ((_F32, _F32), (_BF16, _BF16), (_F32, _BF16))
 _MAX_L = 1024
 
 
@@ -124,10 +127,14 @@ def panel_score(sc, a_l, q):
     """``(sc_a, resid2, energy)`` of one panel, fp32: ``sc_a = S_C·A_L`` (s_c, L),
     ``energy_j = ‖sc_a[:, j]‖²``, ``resid2_j = max(energy_j − ‖qᵀ sc_a[:, j]‖², 0)``.
 
-    ``sc`` (s_c, m) and ``a_l`` (m, L) share a dtype (float32 or bfloat16)
-    and need contiguous rows (row strides are free, so a panel window of a
-    wider matrix needs no copy); ``q`` is float32 (s_c, c).
+    ``sc`` (s_c, m) and ``a_l`` (m, L) are float32 and float32, bfloat16 and
+    bfloat16, or a float32 sketch with a bfloat16 panel, with contiguous rows
+    (row strides are free, so a panel window of a wider matrix needs no
+    copy); ``q`` is float32 (s_c, c).
     """
+    _check((sc.dtype, a_l.dtype) in _PAIRS,
+           f"sc/a_l must be float32/float32, bfloat16/bfloat16 or float32/bfloat16, "
+           f"got {sc.dtype}/{a_l.dtype}")
     if not _on_card(sc, a_l, q):
         return ref.panel_score_ref(sc, a_l, q)
     s_c, m = sc.shape
@@ -136,9 +143,8 @@ def panel_score(sc, a_l, q):
     _row_major("q", q)
     _check(a_l.shape[0] == m and q.shape[0] == s_c,
            f"shape mismatch: sc {tuple(sc.shape)}, a_l {tuple(a_l.shape)}, q {tuple(q.shape)}")
-    _check(sc.dtype in _DTYPES and a_l.dtype == sc.dtype, "sc/a_l must share float32 or bfloat16")
     _check(q.dtype == torch.float32, "q must be float32")
-    _check(0 < s_c <= _MAX_SC, f"s_c must be in [1, {_MAX_SC}], got {s_c}")
+    _check(s_c > 0 and m > 0, f"empty sketch product: s_c = {s_c}, m = {m}")
     L = a_l.shape[1]
     dev = sc.device
     sc_a = torch.empty((s_c, L), dtype=torch.float32, device=dev)
@@ -152,19 +158,32 @@ def panel_score(sc, a_l, q):
 
 
 def _scalars(vals, dtype, device):
-    return torch.stack([torch.as_tensor(v, dtype=dtype, device=device).reshape(()) for v in vals])
+    """The values (numbers or 0-dim tensors) as one tensor on ``device``,
+    filled there: no copy from pageable host memory, which would wait for
+    the stream."""
+    return torch.stack([v.to(dtype=dtype, device=device).reshape(()) if torch.is_tensor(v)
+                        else torch.full((), v, dtype=dtype, device=device) for v in vals])
 
 
 def panel_update(sc, a_l, srt, q, C, M, *, min_gain, run_mean, true_cols, n_filled,
                  free, panel_cap: int):
     """Admission-only panel update; ``C`` and ``M`` are updated in place.
 
-    Shapes: ``sc (s_c, m)``, ``a_l (m, L)``, ``srt (L, s_r)`` (any strides,
-    e.g. a transposed window of ``S_R``), ``q (s_c, c)``, ``C (m, c_total)``,
-    ``M (s_c, s_r)``. The scalars may be numbers or 0-dim tensors.
+    Shapes: ``sc (s_c, m)``, ``a_l (m, L)``, ``srt (L, s_r)`` (row-major or
+    a transposed window of ``S_R``, strides (1, n)), ``q (s_c, c)``,
+    ``C (m, c_total)``, ``M (s_c, s_r)``. Dtypes: the sketch ``sc`` (and
+    ``srt``, which shares it) with the panel float32/float32,
+    bfloat16/bfloat16 or float32/bfloat16; ``C`` and ``M`` share float32 or
+    bfloat16 with any of these; ``q`` is float32. The scalars may be
+    numbers or 0-dim tensors.
     Returns ``(C, M, sc_a, resid2, energy, slots)`` with ``slots[j]`` the C
     slot column ``j`` went to, or the ``c_total`` sentinel.
     """
+    _check((sc.dtype, a_l.dtype) in _PAIRS and srt.dtype == sc.dtype and C.dtype in _DTYPES
+           and M.dtype == C.dtype,
+           f"sketch/panel must be float32/float32, bfloat16/bfloat16 or float32/bfloat16 "
+           f"with srt as the sketch, and C and M one of float32 or bfloat16, got sc "
+           f"{sc.dtype}, a_l {a_l.dtype}, srt {srt.dtype}, C {C.dtype}, M {M.dtype}")
     kw = dict(min_gain=min_gain, run_mean=run_mean, true_cols=true_cols,
               n_filled=n_filled, free=free, panel_cap=panel_cap)
     if not _on_card(sc, a_l, srt, q, C, M):
@@ -178,11 +197,10 @@ def panel_update(sc, a_l, srt, q, C, M, *, min_gain, run_mean, true_cols, n_fill
            and M.shape == (s_c, srt.shape[1]),
            f"shape mismatch: sc {tuple(sc.shape)}, a_l {tuple(a_l.shape)}, "
            f"srt {tuple(srt.shape)}, q {tuple(q.shape)}, C {tuple(C.shape)}, M {tuple(M.shape)}")
-    _check(sc.dtype in _DTYPES and a_l.dtype == sc.dtype and srt.dtype == sc.dtype,
-           "sc/a_l/srt must share float32 or bfloat16")
-    _check(q.dtype == torch.float32 and C.dtype == torch.float32 and M.dtype == torch.float32,
-           "q, C and M must be float32")
-    _check(0 < s_c <= _MAX_SC, f"s_c must be in [1, {_MAX_SC}], got {s_c}")
+    _check(srt.stride(0) == 1 or srt.stride(1) == 1,
+           f"srt needs a unit stride, got strides {srt.stride()}")
+    _check(q.dtype == torch.float32, "q must be float32")
+    _check(s_c > 0 and m > 0, f"empty sketch product: s_c = {s_c}, m = {m}")
     _check(0 < L <= _MAX_L, f"panel width must be in [1, {_MAX_L}], got {L}")
     dev = sc.device
     scal_f = _scalars((min_gain, run_mean, true_cols), torch.float32, dev)

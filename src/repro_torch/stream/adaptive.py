@@ -340,7 +340,8 @@ def _supports_fused(ctx: AdaptiveCURCtx) -> bool:
 def _panel_kernel(ctx: AdaptiveCURCtx, C, M, A_L, off):
     """Route-B hook: kernel 3 does the sketch, scores, admission, ``C``
     writes and ``M`` fold of the panel; the whitening and the slot-table
-    bookkeeping stay here. ``None`` when the config is outside its contract."""
+    bookkeeping stay here. ``None`` when the config is outside its contract;
+    dtypes the kernel does not take raise in :func:`ops.panel_update`."""
     if not _kernel_ok(ctx):
         return None
     L = A_L.shape[1]

@@ -11,6 +11,8 @@ Tolerances follow the reference's kernel tests: 1e-5 of the largest entry in
 fp32, 3e-2 for bf16 inputs; ``slots`` must be equal exactly.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -21,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import kernels as jk  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.countsketch import bucket_order  # noqa: E402
+from repro_torch.kernels.panel_score import BK, BM, FOLD_BN, PANEL_BN, split_plan  # noqa: E402
 
 
 def _close(got, want, scale_tol, name=""):
@@ -279,6 +282,126 @@ def test_pairwise_rank_equals_stable_top_k(seed):
     want = ref.admission_slots(_t(resid2), _t(energy), c_total=12, **kw).numpy()
     got = _emulate_admit_kernel(resid2, energy, c_total=12, **kw)
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the stream-K launch plan of kernels 2 and 3 (csrc/sgemm_sm90.cuh)
+# ---------------------------------------------------------------------------
+
+
+# (rows, cols, k, SMs, blocks per SM, tile width): the path's sketch product
+# at 1 and 2 blocks per SM, a ragged m, a 200-column panel, and the M fold
+PLAN_CASES = [(1920, 256, 32768, 132, 1, PANEL_BN), (1920, 256, 32768, 132, 2, PANEL_BN),
+              (1920, 256, 32771, 132, 1, PANEL_BN), (1920, 200, 32768, 132, 1, PANEL_BN),
+              (1920, 200, 32768, 132, 2, PANEL_BN), (1920, 1920, 256, 132, 1, FOLD_BN)]
+
+
+def _pieces(plan, t):
+    """``[(block, first slab, end slab)]`` of tile ``t``, in summation order."""
+    lo, hi = t * plan.slabs, (t + 1) * plan.slabs
+    return [(b, max(plan.begin(b), lo) - lo, min(plan.begin(b + 1), hi) - lo)
+            for b in plan.tile_blocks(t)]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_split_plan_whole_waves_whole_slabs_cover_m(case):
+    """One block per resident slot, each a run of whole k-slabs no more than
+    one slab longer than any other; each tile's pieces cover its k-slabs
+    once, in order, which cover m exactly; partial slots never collide."""
+    rows, cols, k, n_sm, bps, bn = case
+    plan = split_plan(rows, cols, k, n_sm, bps, bn=bn)
+    assert plan.nblocks == n_sm * bps  # a whole wave
+    assert plan.tiles == -(-rows // BM) * -(-cols // bn) and plan.units == plan.tiles * plan.slabs
+    assert (plan.slabs - 1) * BK < k <= plan.slabs * BK  # the slabs cover m, no more
+    sizes = [plan.begin(b + 1) - plan.begin(b) for b in range(plan.nblocks)]
+    assert plan.begin(0) == 0 and plan.begin(plan.nblocks) == plan.units
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    slots = set()
+    for t in range(plan.tiles):
+        pieces = _pieces(plan, t)
+        assert pieces[0][1] == 0 and pieces[-1][2] == plan.slabs
+        assert all(p[2] == q[1] for p, q in zip(pieces, pieces[1:]))  # contiguous, ascending k
+        assert all(s1 > s0 for _, s0, s1 in pieces)
+        for b, _, _ in pieces:
+            assert plan.begin(b) < (t + 1) * plan.slabs and plan.begin(b + 1) > t * plan.slabs
+            slots.add(b + t)
+    assert len(slots) == sum(len(plan.tile_blocks(t)) for t in range(plan.tiles))
+    assert max(slots) < plan.partial_slots
+
+
+def test_split_plan_small_products_use_fewer_blocks():
+    plan = split_plan(20, 3, 17, 132, 1)  # one tile of two slabs
+    assert (plan.tiles, plan.slabs, plan.nblocks) == (1, 2, 2)
+    with pytest.raises(ValueError):
+        split_plan(20, 3, 0, 132, 1)
+
+
+def _emulate_split_k(a, b, plan, bn):
+    """The kernel's summation order: each block's piece of a tile summed over
+    its k-range, the pieces then added in block order into a zero."""
+    rows, k = a.shape
+    out = torch.zeros((rows, b.shape[1]), dtype=torch.float32)
+    for t in range(plan.tiles):
+        r0, c0 = (t // plan.ntn) * BM, (t % plan.ntn) * bn
+        acc = torch.zeros_like(out[r0:r0 + BM, c0:c0 + bn])
+        for _, s0, s1 in _pieces(plan, t):
+            ks = slice(s0 * BK, min(s1 * BK, k))
+            acc = acc + a[r0:r0 + BM, ks].float() @ b[ks, c0:c0 + bn].float()
+        out[r0:r0 + BM, c0:c0 + bn] = acc
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_k_order_emulation_matches_plain(dtype):
+    """Kernels 2 and 3 sum each entry's k-range in pieces, added in block
+    order: on a few SMs the pieces cross tile boundaries, and the result
+    equals the plain product within 1e-5 of its largest entry (the same fp32
+    terms in another order), for the sketch product and the M fold."""
+    rng = np.random.default_rng(21)
+    dt = getattr(torch, dtype)
+    sc = torch.from_numpy(rng.standard_normal((300, 1000)).astype(np.float32))
+    a_l = torch.from_numpy(rng.standard_normal((1000, 200)).astype(np.float32)).to(dt)
+    q = torch.from_numpy(_basis(rng, 300, 16, 8))
+    for n_sm in (1, 5, 7):
+        plan = split_plan(300, 200, 1000, n_sm, 1)
+        assert plan.nblocks == n_sm and plan.tiles == 3
+        sc_a = _emulate_split_k(sc, a_l, plan, PANEL_BN)
+        want = ops.panel_score(sc, a_l, q)[0]
+        _close(sc_a, want, 1e-5, f"sketch product, {n_sm} SMs")
+        srt = torch.from_numpy(rng.standard_normal((200, 150)).astype(np.float32))
+        fold = split_plan(300, 150, 200, n_sm, 1, bn=FOLD_BN)
+        _close(_emulate_split_k(sc_a, srt, fold, FOLD_BN), sc_a @ srt, 1e-5, f"fold, {n_sm} SMs")
+
+
+def test_wrappers_take_the_kernel_dtypes_and_refuse_the_rest():
+    """The (sketch, panel[, C and M]) dtypes kernels 2 and 3 take run on the
+    CPU through the plain versions; the others raise, on the CPU as on the
+    card."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(22)
+    s_c, m, L, c, s_r = 24, 64, 12, 4, 20
+    base = {k: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)) for k, sh in
+            (("sc", (s_c, m)), ("a", (m, L)), ("srt", (L, s_r)), ("C", (m, c)), ("M", (s_c, s_r)))}
+    q = torch.zeros(s_c, c)
+    kw = dict(min_gain=0.5, run_mean=0.0, true_cols=float(L), n_filled=0, free=c, panel_cap=2)
+    for dsc, da in ((f32, f32), (bf16, bf16), (f32, bf16)):
+        out = ops.panel_score(base["sc"].to(dsc), base["a"].to(da), q)
+        assert all(t.dtype == f32 for t in out)
+    for dsc, da in ((bf16, f32), (torch.float64, torch.float64), (f32, torch.float16)):
+        with pytest.raises(ValueError):
+            ops.panel_score(base["sc"].to(dsc), base["a"].to(da), q)
+    for (dsc, da), dcm in itertools.product(((f32, f32), (bf16, bf16), (f32, bf16)), (f32, bf16)):
+        C, M = base["C"].to(dcm), base["M"].to(dcm)
+        out = ops.panel_update(base["sc"].to(dsc), base["a"].to(da), base["srt"].to(dsc), q,
+                               C, M, **kw)
+        assert out[0] is C and out[1] is M and C.dtype == M.dtype == dcm
+    f64 = torch.float64
+    for dsc, da, dcm, dsrt, dm in ((bf16, f32, f32, bf16, f32), (f32, bf16, f32, bf16, f32),
+                                   (f32, bf16, bf16, f32, f32), (f32, f32, f64, f32, f64),
+                                   (f64, f64, f32, f64, f32)):
+        with pytest.raises(ValueError):
+            ops.panel_update(base["sc"].to(dsc), base["a"].to(da), base["srt"].to(dsrt), q,
+                             base["C"].to(dcm), base["M"].to(dm), **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -205,6 +205,35 @@ def test_port_draws_of_new_families():
         draw_sketch(g, "leverage", 4, m)
 
 
+ALL_KINDS = ["gaussian", "srht", "countsketch", "osnap", "uniform", "leverage", "osnap+gaussian"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ALL_KINDS)
+def test_draw_sketch_dtypes_match_reference(kind, dtype):
+    """``materialize``, ``apply`` and ``apply_t`` of a ``draw_sketch(dtype=…)``
+    come out in the reference's dtype, for operands in float32 and in
+    bfloat16: Gaussian, SRHT, OSNAP and their composition promote a narrower
+    dtype to float32 (the reference's ``1/√k`` scale is a numpy float64
+    scalar); CountSketch and uniform sampling keep it; leverage sampling
+    promotes with the dtype of its (float32) probabilities."""
+    s, m, n = 8, 32, 5
+    probs = np.linspace(1.0, 2.0, m).astype(np.float32) if kind == "leverage" else None
+    Sj = jdraw(jax.random.key(16), kind, s, m, dtype=getattr(jnp, dtype),
+               probs=None if probs is None else jnp.asarray(probs))
+    St = draw_sketch(torch.Generator().manual_seed(16), kind, s, m, dtype=getattr(torch, dtype),
+                     probs=None if probs is None else torch.from_numpy(probs))
+    A = np.ones((m, n), np.float32)
+    for a_dtype in ("float32", "bfloat16"):
+        # jit: the reference's eager fwht compiles op by op
+        want = jax.jit(lambda S, a: (S.materialize(), S.apply(a), S.apply_t(a.T)))(
+            Sj, jnp.asarray(A).astype(getattr(jnp, a_dtype)))
+        At = torch.from_numpy(A).to(getattr(torch, a_dtype))
+        got = (St.materialize(), St.apply(At), St.apply_t(At.T))
+        assert [str(g.dtype).removeprefix("torch.") for g in got] == \
+            [str(w.dtype) for w in want], (kind, dtype, a_dtype)
+
+
 def test_convert_keeps_dtypes_and_batched_index_sets():
     mat = jdraw(jax.random.key(14), "gaussian", 8, 20).mat.astype(jnp.bfloat16)
     St = to_port("gaussian", JGaussian(mat))

@@ -180,6 +180,66 @@ def test_adaptive_spiked_columns_config_matches_reference_output():
     _check_against_reference(jst, jres, pst, adaptive_cur_finalize(pst), u_tol=None)
 
 
+def _bf16_state_kernel_route(monkeypatch, A):
+    """Stream ``A`` through an admission-only Gaussian adaptive CUR whose
+    state (C, M, ``ScC``) is bf16, down the forced kernel route on both
+    sides: the reference's ``panel_update`` in interpret mode against the
+    port's plain versions, on sketches drawn by the reference. Every panel
+    of the port must go through ``ops.panel_update``. Index sets and C
+    (copies of A's entries) must be equal; M within 4e-3 relative, one bf16
+    rounding step (bf16 accumulators round each panel's fp32 fold, whose
+    sums, taken in another order, may round the other way), and U within
+    1e-3 (a solve on those factors)."""
+    m, n = A.shape
+    row_idx = np.random.default_rng(8).choice(m, 12, replace=False)
+    kw = dict(sketch="gaussian", s_c=64, s_r=64, panel_cap=2)
+    jst = j_init(jax.random.key(6), m, n, 8, jnp.asarray(row_idx), panel=40,
+                 dtype=jnp.bfloat16, **kw)
+    # a bf16 draw comes out float32: the reference's 1/√s scale promotes
+    assert jst.ctx.S_C.mat.dtype == jnp.float32 and jst.M.dtype == jnp.bfloat16
+    sketches = (_to_port("gaussian", jst.ctx.S_C), _to_port("gaussian", jst.ctx.S_R.cols(0, n)))
+    calls = []
+    kernel_3 = tops.panel_update
+    monkeypatch.setattr(tops, "panel_update", lambda *a, **k: calls.append(a) or kernel_3(*a, **k))
+    jops._FORCE_KERNEL_ROUTE = True
+    tops._FORCE_KERNEL_ROUTE = True
+    try:
+        jst = j_stream(jst, jnp.asarray(A), 40)
+        pst = adaptive_cur_init(None, m, n, 8, convert.indices(row_idx, "cpu"), panel=40,
+                                sketches=sketches, device="cpu", dtype=torch.bfloat16, **kw)
+        pst = stream_panels(pst, convert.to_tensor(A, "cpu"), 40)
+    finally:
+        jops._FORCE_KERNEL_ROUTE = False
+        tops._FORCE_KERNEL_ROUTE = False
+    assert len(calls) == -(-n // 40)
+    jres, pres = j_fin(jst), adaptive_cur_finalize(pst)
+    assert pst.C.dtype == pst.M.dtype == torch.bfloat16
+    assert np.array_equal(np.asarray(jst.ctx.col_idx), pst.ctx.col_idx.numpy()), \
+        _margin_report(jst.ctx, pst.ctx, "col_idx")
+    assert int((pst.ctx.col_idx >= 0).sum()) > 0
+    np.testing.assert_array_equal(pres.C.float().numpy(), np.asarray(jres.C.astype(jnp.float32)))
+    assert _rel(pst.M.float(), jst.M.astype(jnp.float32)) < 4e-3
+    assert _rel(pres.U.float(), jres.U.astype(jnp.float32)) < 1e-3
+    return calls
+
+
+def test_adaptive_bf16_gaussian_kernel_route_matches_reference(monkeypatch):
+    """A bf16 stream: each panel update takes a float32 sketch with a bf16
+    panel and bf16 C and M (see :func:`_bf16_state_kernel_route`)."""
+    calls = _bf16_state_kernel_route(monkeypatch, _data("spiked", 303).astype(jnp.bfloat16))
+    assert {(a[0].dtype, a[1].dtype, a[4].dtype) for a in calls} == \
+        {(torch.float32, torch.bfloat16, torch.bfloat16)}
+
+
+def test_adaptive_fp32_stream_bf16_state_kernel_route_matches_reference(monkeypatch):
+    """An fp32 stream with bf16 state: each panel update takes a float32
+    sketch and panel with bf16 C and M, which kernel 3 takes too (see
+    :func:`_bf16_state_kernel_route`)."""
+    calls = _bf16_state_kernel_route(monkeypatch, _data("spiked", 303))
+    assert {(a[0].dtype, a[1].dtype, a[4].dtype) for a in calls} == \
+        {(torch.float32, torch.float32, torch.bfloat16)}
+
+
 @pytest.mark.parametrize("kind,n,panel", [("countsketch", 240, 40), ("osnap", 250, 64),
                                            ("gaussian", 250, 64)])  # 250 = 3·64 + 58
 def test_fixed_streaming_cur_matches_reference(kind, n, panel):

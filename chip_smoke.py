@@ -9,17 +9,19 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    built from ``src/repro_torch/kernels/csrc`` (first use, timed);
 1. kernels — each hand-written kernel (countsketch, panel_score,
    panel_update, twoside_sketch) against its plain PyTorch version on the
-   card at the main path's shapes (kernel 1 also at the selection sketches
-   of (e) and (g), on A and on the strided view Aᵀ), plus a ragged panel,
+   card at the main path's shapes (kernel 1 also at the per-panel M fold,
+   which must equal ``M.add_(apply_t(...))`` bit for bit in fp32 and bf16,
+   at the selection sketches of (e) and (g), on A and on the strided view
+   Aᵀ, whose view kernel must give a contiguous copy's bits, and at (e)'s
+   core fold by both of its mappings), plus a ragged panel,
    an empty admission, an exhausted budget, tied scores, bf16 inputs, the
    fp32-sketch/bf16-panel pair of a bf16 Gaussian stream (kernel 3 also
    with bf16 C and M, after that pair, fp32 or bf16 sketch and panel),
    kernel 4's example and ragged shapes, and second
    launches of kernels 2-4 compared bitwise; CUDA-event times of the
    kernel, the plain version and one library call, beside the card's bound;
-   the stream-K grids of kernels 2 and 3 against the resident slots, and
-   every kernel's registers and spills from ``ptxas`` (kernels 2 and 3 must
-   not spill);
+   the launch plans of kernels 2-4 against the resident slots, and every
+   kernel's registers and spills from ``ptxas`` (no kernel may spill);
 2. paths — streaming CUR at m = 32768, n = 65536 (fp32 on the card), panel
    L = 256, c = r = 128, Table-2 sketch sizes: (a) fixed, countsketch;
    (b) adaptive, countsketch, admission-only, chunk route; (c) adaptive,
@@ -34,8 +36,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 3. route parity — the first 8 panels of (b), (c), (d), and the first 4
    items of (f), with the kernels and with ``force_plain()``: indices
    equal, C (and R) bitwise, M (and U) within tolerance;
-4. profile — ``torch.profiler`` over 8 panels of (b), (c), (d) and over
-   run (f): device time by kernel and the device's idle share.
+4. profile — ``torch.profiler`` over the whole of (a) (no sort, bincount
+   or scan launched per panel), over 8 panels of (b), (c), (d) and over run
+   (f): device time by kernel and the device's idle share.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -121,6 +124,22 @@ def timed(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(torch, fn, iters: int = 20) -> tuple:
+    """``(device busy ms, device ops)`` per call of ``fn`` under
+    ``torch.profiler``, after two warm-up calls: the kernel time without the
+    host's launch overhead, which bounds a CUDA-event time of short calls."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    _, busy, n_ops, _ = device_profile(torch, run)
+    return busy / iters, n_ops / iters
+
+
 def bound_ms(nbytes: float, flops: float, peaks) -> tuple:
     t_ops = flops / peaks[0] * 1e3
     t_bytes = nbytes / peaks[1] * 1e3
@@ -162,28 +181,39 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     e3 = err(ops.countsketch_apply(h, sg, bf, s, order=order), ops.ref.countsketch_ref(h, sg, bf, s))
     check(e3[1] <= TOL, f"countsketch bf16: rel err {e3[1]} > {TOL}")
     it = iter(range(10**9))
-    k_ms = timed(torch, lambda: ops.countsketch_apply(h, sg, panels[next(it) % n_rot], s, order=order))
-    with ops.force_plain():
-        p_ms = timed(torch, lambda: ops.countsketch_apply(h, sg, panels[next(it) % n_rot], s))
+    # calls this short are bound by the host's launch rate under CUDA events,
+    # so the kernels line gives kernel 1's device time per call (profiler)
+    kern = lambda: ops.countsketch_apply(h, sg, panels[next(it) % n_rot], s, order=order)  # noqa: E731
+    plain = lambda: ops.countsketch_apply(h, sg, panels[next(it) % n_rot], s)  # noqa: E731
     signed = [p * sg[:, None] for p in panels]
     acc = torch.zeros((s, L), device=dev)
-    lib_ms = timed(torch, lambda: acc.index_add_(0, h.long(), signed[next(it) % n_rot]))
+    lib = lambda: acc.index_add_(0, h.long(), signed[next(it) % n_rot])  # noqa: E731
+    k_ev, k_ms = timed(torch, kern), device_ms(torch, kern)[0]
+    with ops.force_plain():
+        p_ev, p_ms = timed(torch, plain), device_ms(torch, plain)[0]
+    lib_ev, lib_ms = timed(torch, lib), device_ms(torch, lib)[0]
     t_ms = timed(torch, lambda: ops.countsketch_apply(hw, sgw, sca.T, s, transpose_out=True))
     # the M fold's shape: (S_R window · sc_aᵀ)ᵀ, L rows into s buckets, (s, s) out
     signed_t = sca.T * sgw[:, None]
     acc_t = torch.zeros((s, s), device=dev)
-    t_lib_ms = timed(torch, lambda: acc_t.index_add_(0, hw.long(), signed_t))
+    t_lib = lambda: acc_t.index_add_(0, hw.long(), signed_t)  # noqa: E731
+    t_lib_ms, t_lib_dev_ms = timed(torch, t_lib), device_ms(torch, t_lib)[0]
     t_bound = bound_ms(4 * (L * s + 2 * L + s * s), L * s, peaks)
+    fold = countsketch_fold_case(torch, ops, dev, g, sca, peaks)
     sel = countsketch_selection(torch, ops, dev, g, peaks)
     b, by = bound_ms(4 * (m * L + 2 * m + s * L), m * L, peaks)
-    out["countsketch"] = dict(max_abs_err=max(e_abs, e2[0], *(e[0] for e in sel.values())),
-                              max_rel_err=max(e_rel, e2[1], *(e[1] for e in sel.values())),
+    errs = [(e_abs, e_rel), e2, fold["err"], *sel.values()]
+    out["countsketch"] = dict(max_abs_err=max(e[0] for e in errs),
+                              max_rel_err=max(e[1] for e in errs),
                               ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
     emit("kernel/countsketch", shape=[s, m, L], rel_err=e_rel, rel_err_apply_t=e2[1],
          rel_err_bf16=e3[1], ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
-         library="index_add_ of pre-signed rows", bound_ms=b, bound_by=by,
+         timing="device ms per call (torch.profiler)", events_ms=k_ev, plain_events_ms=p_ev,
+         library_events_ms=lib_ev, library="index_add_ of pre-signed rows", bound_ms=b, bound_by=by,
          apply_t_ms=t_ms, apply_t_shape=[s, L, s], apply_t_library_ms=t_lib_ms,
-         apply_t_bound_ms=t_bound[0], apply_t_bound_by=t_bound[1])
+         apply_t_library_device_ms=t_lib_dev_ms,
+         apply_t_bound_ms=t_bound[0], apply_t_bound_by=t_bound[1],
+         **{k: v for k, v in fold.items() if k != "err"})
 
     # --- kernel 2: panel_score ---
     def score_case(a_l, qq, dtype=torch.float32, sc_dtype=None):
@@ -349,6 +379,17 @@ def launch_plan(torch, ops, dev, s: int, m: int, L: int) -> None:
                          k_slabs_per_block=plan.units / plan.nblocks)
         if "product" in name:
             check(plan.nblocks % slots == 0, f"{name}: {plan.nblocks} blocks on {slots} slots")
+    # kernel 4 at (f)'s shape: whole tiles for every full wave, the rest split
+    tw = importlib.import_module("repro_torch.kernels.twoside_sketch")
+    bps = [ps.blocks_per_sm("twoside_sketch", stage, 0) for stage in (0, 1)]
+    plans = tw.twoside_plans(BATCH, B_SKETCH, B_ROWS, B_COLS, B_SKETCH, n_sm, bps)
+    for name, plan, bp in zip(("twoside_sketch S_C A_b", "twoside_sketch T_b S_R^T"), plans, bps):
+        slots = n_sm * bp
+        out[name] = dict(blocks=plan.nblocks, resident_slots=slots, blocks_per_sm=bp,
+                         tiles=plan.tiles, whole_tiles=plan.whole,
+                         whole_waves=plan.whole / slots, split_tiles=plan.tiles - plan.whole,
+                         k_slabs_per_tile=plan.slabs, partial_slots=plan.partial_slots)
+        check(plan.nblocks == slots, f"{name}: {plan.nblocks} blocks on {slots} slots")
     emit("kernel/launch_plan", sms=n_sm, plans=out)
 
 
@@ -370,6 +411,65 @@ def ptxas_usage(build) -> dict:
     return usage
 
 
+def countsketch_fold_case(torch, ops, dev, g, sca, peaks) -> dict:
+    """Kernel 1's per-panel M fold at the path's shape: ``sca`` (s × L) into
+    M (s × s) through window 100 of an S_R over n = 65536 columns whose
+    256-wide windows were indexed once (as the engine does per stream). The
+    fold equals ``M.add_(apply_t(sca).to(M.dtype))`` through the gather
+    kernel bit for bit, for fp32 and bf16 M, and the plain fold within TOL
+    (2^-7 of M's largest entry for bf16, one rounding step). Times: the
+    fold with the window's precomputed order; the PR 13 path, ``apply_t``
+    with its per-window sort and then the add; and the one-off indexing."""
+    from repro_torch.core.sketching import CountSketch
+
+    s, L = sca.shape
+    CountSketch.draw(g, s, 4 * L).index_windows(L)  # the sort's first launches load its code
+    S_R = CountSketch.draw(g, s, N_COLS)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0.record()
+    S_R.index_windows(L)
+    t1.record()
+    torch.cuda.synchronize()
+    index_ms = t0.elapsed_time(t1)
+    W = S_R.cols(100 * L, L)
+    check(bool(W._order), "fold: the indexed window carries no order")
+    h, sg, order = W.hashes, W.signs, W.order()
+    bitwise, errs = {}, []
+    for dt in (torch.float32, torch.bfloat16):
+        M0 = torch.randn((s, s), generator=g, device=dev).to(dt)
+        got = ops.countsketch_fold(h, sg, sca, M0.clone(), order=order)
+        want = M0.clone().add_(ops.countsketch_apply(h, sg, sca.T, s, order=order,
+                                                     transpose_out=True).to(dt))
+        with ops.force_plain():
+            plain = ops.countsketch_fold(h, sg, sca, M0.clone())
+        name = str(dt).split(".")[-1]
+        bitwise[name] = bool(torch.equal(got, want))
+        check(bitwise[name], f"countsketch fold: {name} M differs from M.add_(apply_t(...))")
+        e = err(got, plain)
+        check(e[1] <= (TOL if dt == torch.float32 else 2.0 ** -7),
+              f"countsketch fold {name}: rel err {e[1]} against the plain fold")
+        if dt == torch.float32:
+            errs.append(e)
+    Mt = torch.zeros((s, s), device=dev)
+    new_fold = lambda: ops.countsketch_fold(h, sg, sca, Mt, order=order)  # noqa: E731
+    old_fold = lambda: Mt.add_(ops.countsketch_apply(h, sg, sca.T, s,  # noqa: E731
+                                                     transpose_out=True))
+    ms, old_ms = timed(torch, new_fold), timed(torch, old_fold)
+    dev_ms, dev_ops = device_ms(torch, new_fold)
+    old_dev_ms, old_dev_ops = device_ms(torch, old_fold)
+    touched = int((torch.bincount(h.long(), minlength=s) > 0).sum())
+    # sca read; the touched columns of M read and written; the window's order,
+    # hashes and signs read
+    b = bound_ms(4 * (s * L + 2 * s * touched + 3 * L + s + 1), s * L, peaks)
+    return dict(err=errs[0], fold_ms=ms, fold_device_ms=dev_ms, fold_device_ops=dev_ops,
+                fold_bitwise_vs_add_apply_t=bitwise, fold_old_apply_t_sort_add_ms=old_ms,
+                fold_old_device_ms=old_dev_ms, fold_old_device_ops=old_dev_ops,
+                fold_bound_ms=b[0], fold_bound_by=b[1], fold_touched_buckets=touched,
+                index_windows_ms=index_ms)
+
+
 def countsketch_selection(torch, ops, dev, g, peaks) -> dict:
     """Kernel 1 at the approx-leverage selection sketches of (e) and (g):
     ``S·A`` and ``S·Aᵀ`` (``select_rows`` hands the kernel the strided view
@@ -378,18 +478,22 @@ def countsketch_selection(torch, ops, dev, g, peaks) -> dict:
     k = c = 128 and 64), each against the plain version, beside its bound and
     one sparse product (``torch.sparse.mm`` of the sketch as a COO matrix with
     the same operand, view included)."""
-    errs, ms, lib_ms, bounds = {}, {}, {}, {}
+    errs, ms, lib_ms, bounds, bits = {}, {}, {}, {}, {}
 
     def case(name, a, s):
         h = torch.randint(0, s, (a.shape[0],), generator=g, device=dev, dtype=torch.int32)
         sg = (torch.randint(0, 2, (a.shape[0],), generator=g, device=dev) * 2 - 1).float()
-        order = ops.bucket_order(h, s)
-        got = ops.countsketch_apply(h, sg, a, s, order=order)
+        kw = dict(order=ops.bucket_order(h, s), chunks=ops.window_orders(h, s, ops.VIEW_CHUNK))
+        got = ops.countsketch_apply(h, sg, a, s, **kw)
         with ops.force_plain():
             want = ops.countsketch_apply(h, sg, a, s)
         errs[name] = err(got, want)
         check(errs[name][1] <= TOL, f"countsketch {name}: rel err {errs[name][1]} > {TOL}")
-        ms[name] = timed(torch, lambda: ops.countsketch_apply(h, sg, a, s, order=order),
+        if ops.reads_columns(a) and a.numel() <= 2**24:  # the view kernel: a copy's bits
+            bits[name] = bool(torch.equal(got, ops.countsketch_apply(h, sg, a.contiguous(), s,
+                                                                     **kw)))
+            check(bits[name], f"countsketch {name}: the view differs from a contiguous copy")
+        ms[name] = timed(torch, lambda: ops.countsketch_apply(h, sg, a, s, **kw),
                          iters=3, warmup=1)
         rows, cols = a.shape
         bounds[name] = bound_ms(4 * (a.numel() + s * cols) + 8 * rows, a.numel(), peaks)
@@ -412,12 +516,59 @@ def countsketch_selection(torch, ops, dev, g, peaks) -> dict:
     case("g_rows_item_t_view", stack[1].T, 4 * B_BUDGET)
     del stack
     torch.cuda.empty_cache()
+    check(bits.get("g_rows_item_t_view") is True, "countsketch: (g)'s view took no view kernel")
     emit("kernel/countsketch_selection", rel_err={k: v[1] for k, v in errs.items()},
          abs_err={k: v[0] for k, v in errs.items()}, ms=ms, library_ms=lib_ms,
          library="torch.sparse.mm(S as COO, A or the view A^T)",
          bound_ms={k: v[0] for k, v in bounds.items()}, bound_by={k: v[1] for k, v in bounds.items()},
+         view_bitwise_vs_contiguous_copy=bits,
          shapes={"e": [4 * C_BUDGET, M_ROWS, N_COLS], "g": [4 * B_BUDGET, B_ROWS, B_COLS]})
+    errs["transposed_views"] = countsketch_transposed_views(torch, ops, dev, g, peaks)
     return errs
+
+
+def countsketch_transposed_views(torch, ops, dev, g, peaks) -> tuple:
+    """Kernel 1 on the transposed view of an (s × n) = 1920 × 65536 product
+    into the (s, s) transpose: (e)'s core fold ``S_R.apply_t(S_C·A)``; and
+    on the view of (a)'s and (e)'s 128 × 65536 R into (128, s): the
+    finalize's ``S_R.apply_t(R)``. Each by both mappings (the gather kernel,
+    the view kernel; the same bits), beside the plain version and
+    ``index_add_``; the wrapper takes the view kernel for the first only."""
+    cs = importlib.import_module("repro_torch.kernels.countsketch")
+    s, errs, out = 1920, [], {}
+    h = torch.randint(0, s, (N_COLS,), generator=g, device=dev, dtype=torch.int32)
+    sg = (torch.randint(0, 2, (N_COLS,), generator=g, device=dev) * 2 - 1).float()
+    order, chunks = ops.bucket_order(h, s), ops.window_orders(h, s, ops.VIEW_CHUNK)
+    for name, rows in (("e_core_fold", s), ("finalize_R", R_BUDGET)):
+        X = torch.randn((rows, N_COLS), generator=g, device=dev)
+        gather, view = (torch.empty((rows, s), device=dev) for _ in range(2))
+        fns = {"gather": lambda: cs.countsketch_kernel(*order, sg, X.T, gather,
+                                                       out_strides=(1, s), s=s),
+               "view": lambda: cs.countsketch_view_kernel(*chunks, h, sg, X.T, view,
+                                                          out_strides=(1, s), s=s)}
+        for fn in fns.values():
+            fn()
+        with ops.force_plain():
+            want = ops.countsketch_apply(h, sg, X.T, s, transpose_out=True)
+        e = err(view, want)
+        check(e[1] <= TOL, f"countsketch {name}: rel err {e[1]} > {TOL}")
+        errs.append(e)
+        check(bool(torch.equal(gather, view)), f"countsketch {name}: the mappings differ")
+        signed = X.T * sg[:, None]
+        acc = torch.zeros((s, rows), device=dev)
+        out[name] = dict(
+            **{f"ms_{k}": timed(torch, fn, iters=5, warmup=1) for k, fn in fns.items()},
+            library_ms=timed(torch, lambda: acc.index_add_(0, h.long(), signed), iters=5,
+                             warmup=1),
+            wrapper_takes_view=ops.reads_columns(X.T, transpose_out=True), rel_err=e[1],
+            bound_ms=bound_ms(4 * (X.numel() + s * rows + 2 * N_COLS), X.numel(), peaks)[0])
+        del X, signed, acc, gather, view, want
+        torch.cuda.empty_cache()
+    emit("kernel/countsketch_transposed_views", shapes={"e_core_fold": [s, N_COLS, s],
+                                                        "finalize_R": [R_BUDGET, N_COLS, s]},
+         library="index_add_ of pre-signed rows", bound_by="bytes", bitwise_gather_view=True,
+         **out)
+    return max(errs, key=lambda e: e[1])
 
 
 def kernel_twoside(torch, ops, peaks, dev, g) -> dict:
@@ -690,10 +841,27 @@ def phase_route_parity(torch, A, runs) -> None:
 
 
 def phase_profile(torch, A, runs) -> None:
-    """``torch.profiler`` over panels 2–9 of (b), (c) and (d): device time by
-    kernel, the device's busy share of the wall time, launches per panel."""
+    """``torch.profiler`` over a whole run of (a) and over panels 2–9 of (b),
+    (c) and (d): device time by kernel, the device's busy share of the wall
+    time, launches per panel. In (a) the sorts, bincounts and scans are
+    counted: the M fold walks orders built once per stream, so there is no
+    such launch per panel."""
     from repro_torch.stream.engine import stream_panels
 
+    num_panels = N_COLS // PANEL
+    state = runs["a_fixed_countsketch"]()
+    torch.cuda.synchronize()
+    wall_ms, busy_ms, n_ops, top, names = device_profile(
+        torch, lambda: stream_panels(state, A, PANEL), names=True)
+    order_ops = {k: sum(n for key, n in names.items() if k in key.lower())
+                 for k in ("sort", "bincount", "scan", "searchsorted")}
+    emit("profile/a_fixed_countsketch", panels=num_panels, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None,
+         device_ops_per_panel=n_ops / num_panels, order_launches=order_ops, top_device_ms=top)
+    check(all(n < num_panels for n in order_ops.values()),
+          f"(a) launches an order per panel: {order_ops}")
+    del state
+    torch.cuda.empty_cache()
     for name in ("b_adaptive_countsketch_chunk", "c_adaptive_gaussian_route_b",
                  "d_adaptive_gaussian_evict_rows"):
         state = stream_panels(runs[name](), A, PANEL, stop=2 * PANEL)
@@ -709,10 +877,11 @@ def phase_profile(torch, A, runs) -> None:
         torch.cuda.empty_cache()
 
 
-def device_profile(torch, fn) -> tuple:
+def device_profile(torch, fn, names: bool = False) -> tuple:
     """``(wall ms, device busy ms, device ops, top 10 [name, ms, count])`` of
     one synchronised call of ``fn`` under ``torch.profiler``: device-side
-    entries only (the host ops that launch them report the same time again)."""
+    entries only (the host ops that launch them report the same time again);
+    with ``names``, also every device entry's launch count by name."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -726,8 +895,9 @@ def device_profile(torch, fn) -> tuple:
               and not e.key.startswith("stream/")]
     dev_us = [x for x in dev_us if x[1] > 0]
     top = sorted(dev_us, key=lambda x: -x[1])[:10]
-    return (wall_ms, sum(x[1] for x in dev_us) / 1e3, sum(x[2] for x in dev_us),
-            [[k[:60], us / 1e3, n] for k, us, n in top])
+    out = (wall_ms, sum(x[1] for x in dev_us) / 1e3, sum(x[2] for x in dev_us),
+           [[k[:60], us / 1e3, n] for k, us, n in top])
+    return out + ({k: n for k, _, n in dev_us},) if names else out
 
 
 def phase_profile_batched(torch, Ab, dev) -> None:
@@ -768,13 +938,11 @@ def main() -> int:
     emit("device", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build.build_seconds,
          peaks={"fp32_flops": peaks[0], "hbm_bytes_per_s": peaks[1]})
-    # kernels 2 and 3 (the stream-K product, the score stage, the fold's
-    # reduction) must not spill
-    new = {k: v for k, v in usage.items() if k.startswith(("panel_score:", "panel_update:"))}
-    emit("ptxas", kernels=new, others={k: v for k, v in usage.items() if k not in new})
-    check(any(k.startswith("panel_score:") for k in new)
-          and any(k.startswith("panel_update:") for k in new), "no ptxas usage of kernels 2, 3")
-    spills = [k for k, v in new.items() if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
+    # no kernel may spill (kernels 2-4 share the stream-K mainloop)
+    emit("ptxas", kernels=usage)
+    check(all(any(k.startswith(f"{lib}:") for k in usage) for lib in build.SOURCES),
+          "no ptxas usage for some library")
+    spills = [k for k, v in usage.items() if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
     check(not spills, f"kernels that spill: {spills}")
 
     kernels = phase_kernels(torch, ops, peaks, dev)

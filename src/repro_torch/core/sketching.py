@@ -38,6 +38,8 @@ __all__ = [
     "RowSampling",
     "ComposedSketch",
     "draw_sketch",
+    "fold_apply_t",
+    "index_windows",
     "fwht",
     "SKETCH_KINDS",
 ]
@@ -163,14 +165,18 @@ class SRHTSketch:
 class CountSketch:
     """One ±1 entry per column at a uniform position (Clarkson & Woodruff 2013).
 
-    The bucket order the kernel walks (rows grouped by bucket, ascending) is
-    built once per sketch object at first use and kept with it.
+    The bucket orders the kernels walk (rows grouped by bucket, ascending)
+    are built once per sketch object at first use and kept with it. After
+    :meth:`index_windows` (``L``), a window ``cols(w·L, L)`` takes its slice
+    of the orders of every ``L``-wide window instead of sorting its own: the
+    streaming engine indexes ``S_R`` by its panel width once per stream.
     """
 
     hashes: torch.Tensor  # (m,) int32 in [0, s)
     signs: torch.Tensor  # (m,) float32, ±1 (0 in padded columns)
     s: int
     _order: list = dataclasses.field(default_factory=list, repr=False, compare=False)
+    _windows: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @staticmethod
     def draw(gen: torch.Generator, s: int, m: int, dtype=torch.float32) -> "CountSketch":
@@ -184,19 +190,40 @@ class CountSketch:
         return self.hashes.shape[0]
 
     def order(self) -> tuple:
+        """:func:`~repro_torch.kernels.ops.bucket_order` of the whole sketch."""
         if not self._order:
             self._order.append(ops.bucket_order(self.hashes, self.s))
         return self._order[0]
 
+    def index_windows(self, L: int) -> "CountSketch":
+        """Build, once, the bucket orders of every ``L``-wide window (one
+        sort; :func:`~repro_torch.kernels.ops.window_orders`)."""
+        if L not in self._windows:
+            self._windows[L] = ops.window_orders(self.hashes, self.s, L)
+        return self
+
+    def chunk_orders(self) -> tuple:
+        """The orders of the view kernel's ``VIEW_CHUNK``-row chunks."""
+        if self.m <= ops.VIEW_CHUNK:
+            perm, start = self.order()
+            return perm, start[None]
+        return self.index_windows(ops.VIEW_CHUNK)._windows[ops.VIEW_CHUNK]
+
     def _rows(self, rows: int) -> "CountSketch":
         return self if rows == self.m else self.cols(0, rows)
 
-    def _signed_sum(self, A: torch.Tensor, rows: int, **kw) -> torch.Tensor:
+    def _signed_sum(self, A: torch.Tensor, rows: int, transpose_out: bool = False) -> torch.Tensor:
         """Kernel 1 (fp32 sums of ±1-signed rows; the signs are exact in
         fp32), returned in the dtype the reference's segment sum gives."""
         sk = self._rows(rows)
-        order = sk.order() if A.is_cuda else None
-        out = ops.countsketch_apply(sk.hashes, sk.signs.float(), A, self.s, order=order, **kw)
+        kw = {}
+        if A.is_cuda:
+            if ops.reads_columns(A, transpose_out):
+                kw["chunks"] = sk.chunk_orders()
+            else:
+                kw["order"] = sk.order()
+        out = ops.countsketch_apply(sk.hashes, sk.signs.float(), A, self.s,
+                                    transpose_out=transpose_out, **kw)
         return out.to(torch.promote_types(self.signs.dtype, A.dtype))
 
     def apply(self, A: torch.Tensor) -> torch.Tensor:
@@ -205,6 +232,14 @@ class CountSketch:
     def apply_t(self, A: torch.Tensor) -> torch.Tensor:
         return self._signed_sum(A.T, A.shape[-1], transpose_out=True)
 
+    def fold_t(self, X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+        """``M.add_(self.apply_t(X).to(M.dtype))``, bit for bit, without the
+        dense intermediate: kernel 1 folds each bucket's sum into ``M``."""
+        sk = self._rows(X.shape[-1])
+        return ops.countsketch_fold(sk.hashes, sk.signs.float(), X, M,
+                                    order=sk.order() if X.is_cuda else None,
+                                    fold_dtype=torch.promote_types(self.signs.dtype, X.dtype))
+
     def materialize(self) -> torch.Tensor:
         S = self.signs.new_zeros((self.s, self.m))
         S[self.hashes.long(), torch.arange(self.m, device=S.device)] = self.signs
@@ -212,11 +247,15 @@ class CountSketch:
 
     def cols(self, offset: int, size: int) -> "CountSketch":
         _window(self.m, offset, size)
-        return CountSketch(
+        win = CountSketch(
             hashes=self.hashes[offset : offset + size],
             signs=self.signs[offset : offset + size],
             s=self.s,
         )
+        if size in self._windows and offset % size == 0:
+            perm, start = self._windows[size]
+            win._order.append((perm[offset : offset + size], start[offset // size]))
+        return win
 
     def pad_cols(self, total: int) -> "CountSketch":
         if total <= self.m:
@@ -281,14 +320,23 @@ class OSNAPSketch:
             S.index_put_((self.hashes[i].long(), cols), self.signs[i], accumulate=True)
         return S
 
+    def index_windows(self, L: int) -> "OSNAPSketch":
+        """:meth:`CountSketch.index_windows` of every part."""
+        for part in self.parts():
+            part.index_windows(L)
+        return self
+
     def cols(self, offset: int, size: int) -> "OSNAPSketch":
         _window(self.m, offset, size)
-        return OSNAPSketch(
+        win = OSNAPSketch(
             hashes=self.hashes[:, offset : offset + size],
             signs=self.signs[:, offset : offset + size],
             s=self.s,
             p=self.p,
         )
+        if self._parts:  # the parts' windows, with their orders where indexed
+            win._parts.extend(part.cols(offset, size) for part in self._parts)
+        return win
 
     def pad_cols(self, total: int) -> "OSNAPSketch":
         if total <= self.m:
@@ -384,6 +432,24 @@ class ComposedSketch:
 
     def pad_cols(self, total: int) -> "ComposedSketch":
         return ComposedSketch(inner=self.inner.pad_cols(total), outer=self.outer)
+
+
+def index_windows(S, L: int) -> None:
+    """Build, once, the bucket orders of every ``L``-wide window of a
+    CountSketch or OSNAP ``S`` (the families whose kernel walks them), so
+    that ``S.cols(w·L, L)`` sorts nothing; other families have none."""
+    if isinstance(S, (CountSketch, OSNAPSketch)):
+        S.index_windows(L)
+
+
+def fold_apply_t(S, X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """``M.add_(S.apply_t(X).to(M.dtype))``: the streaming engine's per-panel
+    fold of ``X = S_C·A_L`` into ``M`` through the ``S_R`` window ``S``. A
+    CountSketch folds straight into ``M`` (:meth:`CountSketch.fold_t`), with
+    the same bits."""
+    if isinstance(S, CountSketch):
+        return S.fold_t(X, M)
+    return M.add_(S.apply_t(X).to(M.dtype))
 
 
 def draw_sketch(gen: torch.Generator, kind: str, s: int, m: int, *, probs=None, p: int = 2,

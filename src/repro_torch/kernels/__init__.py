@@ -3,6 +3,7 @@
 from .ops import (
     LAUNCHES,
     countsketch_apply,
+    countsketch_fold,
     force_plain,
     kernel_route_enabled,
     panel_score,
@@ -15,6 +16,7 @@ from .ref import countsketch_ref, panel_score_ref, panel_update_ref, twoside_ske
 __all__ = [
     "LAUNCHES",
     "countsketch_apply",
+    "countsketch_fold",
     "force_plain",
     "kernel_route_enabled",
     "panel_score",

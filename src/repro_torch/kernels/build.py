@@ -32,7 +32,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of each library's functions, named <library>_<function> (all
 # return a cudaError_t).
 SIGNATURES = {
-    "countsketch": {"countsketch_launch": [_I, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I, _I, _P]},
+    "countsketch": {
+        "countsketch_launch": [_I, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I, _I, _P],
+        "countsketch_fold_launch": [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _L, _I, _I, _P],
+        "countsketch_view_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _P, _L, _L, _I, _I, _P],
+    },
     "panel_score": {
         "panel_score_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P,
                                _I, _I, _I, _P],
@@ -46,8 +50,12 @@ SIGNATURES = {
         "panel_update_blocks_per_sm": [_I, _I, _I, _I, _I, _P],
         "panel_update_geometry": [_P],
     },
-    "twoside_sketch": {"twoside_sketch_launch": [_I, _P, _L, _L, _P, _L, _L, _L, _P, _L, _L,
-                                                 _P, _P, _I, _I, _I, _I, _I, _P]},
+    "twoside_sketch": {
+        "twoside_sketch_launch": [_I, _P, _L, _P, _L, _L, _P, _L, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _L, _I, _L, _P],
+        "twoside_sketch_blocks_per_sm": [_I, _I, _P],
+        "twoside_sketch_geometry": [_P],
+    },
 }
 
 _lock = threading.Lock()

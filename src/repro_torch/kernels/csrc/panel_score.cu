@@ -57,7 +57,7 @@ extern "C" int panel_score_blocks_per_sm(int sc_dtype, int a_dtype, int* out) {
   return (int)cudaGetLastError();
 }
 
-// BM, BK, PANEL_BN and FOLD_BN (see tile_geometry in panel_stages.cuh).
+// BM, BK, PANEL_BN and FOLD_BN (see tile_geometry in sgemm_sm90.cuh).
 extern "C" int panel_score_geometry(int* out) {
   rt::sm90::tile_geometry(out);
   return 0;

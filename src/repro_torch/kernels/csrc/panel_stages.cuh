@@ -20,20 +20,9 @@
 namespace rt {
 namespace sm90 {
 
-constexpr int PANEL_BN = 256;  // product tile width: a 256-column panel is one tile wide
+// PANEL_BN, the product's tile width: a 256-column panel is one tile wide
 constexpr int JT = 8;          // panel columns a score block takes (divides PANEL_BN)
 constexpr int QCHUNK = 128;    // basis columns per pass (32 threads x 4)
-constexpr int FOLD_BN = 128;   // kernel 3's M-fold tile width
-
-// The tile geometry that sizes the host's buffers: kernels/panel_score.py
-// keeps a copy for its launch plan and checks it against this one before
-// the first launch.
-inline void tile_geometry(int* out) {
-  out[0] = BM;
-  out[1] = BK;
-  out[2] = PANEL_BN;
-  out[3] = FOLD_BN;
-}
 
 // Floats of scratch the score stage needs: the row tiles' shares of Q^T sc_a
 // ([row tile][c][L]) and of the energies ([row tile][L]).

@@ -1,14 +1,16 @@
 // fp32 product on the CUDA cores of a Hopper card (sm_90a), split over the
-// reduction so that the grid is one whole wave; shared by kernels 2 and 3.
+// reduction so that the grid is one whole wave; shared by kernels 2, 3 and 4.
 //
-//   out[i, j] = (accumulate ? out[i, j] : 0) + sum_k A[i, k] B[k, j]
+//   out_z[i, j] = (accumulate ? out_z[i, j] : 0) + sum_k A_z[i, k] B_z[k, j]
 //
-// A is k-contiguous (row stride lda). B is n-contiguous (element (k, j) at
-// k * ldb + j) or, with BT, k-contiguous (element (k, j) at j * ldb + k), the
-// layout of a transposed window of a row-major sketch. A and B are float or
-// bfloat16 each; bfloat16 travels as bfloat16 from device memory and is
-// widened to fp32 on chip. Every product and sum is an fp32 FMA on the CUDA
-// cores: no tensor cores, so fp32 inputs are never rounded.
+// for each item z of a batch (X_z = X + z * x_bs; a batch stride of 0 shares
+// an operand across the batch). A is k-contiguous (row stride lda). B is
+// n-contiguous (element (k, j) at k * ldb + j) or, with BT, k-contiguous
+// (element (k, j) at j * ldb + k), the layout of a transposed window of a
+// row-major sketch. A and B are float or bfloat16 each; bfloat16 travels as
+// bfloat16 from device memory and is widened to fp32 on chip. Every product
+// and sum is an fp32 FMA on the CUDA cores: no tensor cores, so fp32 inputs
+// are never rounded.
 //
 // Mainloop. A block of 256 threads computes a BM x BN tile (BN = 256 or 128);
 // thread (ty, tx) of a 16 x 16 grid owns an 8 x BN/16 micro-tile: rows
@@ -27,17 +29,22 @@
 // element by element. Each accumulator sums its terms in ascending k, one
 // FMA each.
 //
-// Launch plan (stream-K). The output tiles x k-slabs form `units` units of
-// work, ordered tile by tile. Block b of the `nblocks` (= the card's resident
-// slots, one whole wave) takes units [b U / P, (b + 1) U / P): a run of
-// whole k-slabs that may cross tile boundaries. Each piece of a tile that a
-// block computes lands in its own slot of `partial` (slot b + t for tile t),
-// and the pieces of a tile are summed in block order, that is in ascending
-// k, by the caller's epilogue (splitk_reduce_kernel, or the score stage of
-// kernel 2). A block that holds a whole tile may store it directly
-// (`direct`). The plan depends only on the shapes and nblocks, so two
-// launches sum every entry in the same order: no atomics, the same bits.
-// SplitPlan mirrors split_plan in ../panel_score.py.
+// Launch plan. The output tiles of every item, ordered item by item and tile
+// by tile, are taken in two parts by `nblocks` blocks (the card's resident
+// slots: one wave at a time). The first `whole` tiles (a whole number of
+// waves; 0 unless the caller asks for them) go one per block per wave, tile
+// t to block t % nblocks, each stored straight to `out`; only the BATCHED
+// instances, kernel 4's, take a batch and whole tiles. The other tiles x
+// their k-slabs form `units` units of work, split stream-K: block b takes
+// units [b U / P, (b + 1) U / P), a run of whole k-slabs that may cross tile
+// boundaries. Each piece of a split tile that a block computes lands in its
+// own slot of `partial` (slot b + t for split tile t), and the pieces of a
+// tile are summed in block order, that is in ascending k, by the caller's
+// epilogue (splitk_reduce_kernel, or the score stage of kernel 2). A block
+// that holds a split tile whole may store it directly (`direct`). The plan
+// depends only on the shapes and nblocks, so two launches sum every entry in
+// the same order: no atomics, the same bits. SplitPlan mirrors split_plan in
+// ../panel_score.py.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -55,6 +62,18 @@ constexpr int BM = 128;
 constexpr int BK = 16;
 constexpr int STAGES = 4;
 constexpr int TM = 8;
+constexpr int PANEL_BN = 256;  // the sketch products' tile width (kernels 2, 4)
+constexpr int FOLD_BN = 128;   // kernel 3's M-fold tile width
+
+// The tile geometry that sizes the host's buffers: kernels/panel_score.py
+// keeps a copy for its launch plans and checks it against each library's
+// before the first launch.
+inline void tile_geometry(int* out) {
+  out[0] = BM;
+  out[1] = BK;
+  out[2] = PANEL_BN;
+  out[3] = FOLD_BN;
+}
 
 // Four consecutive floats from shared memory.
 __device__ __forceinline__ void ld4(const float* p, float* v) {
@@ -76,9 +95,12 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* o, float v, int accumul
 }
 
 struct SplitPlan {
-  int ntn;          // column tiles
-  long long slabs;  // BK-deep k-slabs per tile
-  long long units;  // tiles * slabs
+  int ntn;               // column tiles of an item
+  long long tiles_item;  // tiles of an item
+  long long slabs;       // BK-deep k-slabs per tile
+  long long whole;       // tiles [0, whole): one per block per wave, stored directly
+  long long split;       // the other tiles, split stream-K
+  long long units;       // split * slabs
   int nblocks;
   __host__ __device__ long long begin(long long b) const { return b * units / nblocks; }
   // the block whose range holds unit u
@@ -87,13 +109,36 @@ struct SplitPlan {
   }
 };
 
-inline SplitPlan make_plan(int Mdim, int Ndim, int K, int bn, int nblocks) {
+inline SplitPlan make_plan(int Mdim, int Ndim, int K, int bn, int nblocks, int batch = 1,
+                           long long whole = 0) {
   SplitPlan p;
   p.ntn = (Ndim + bn - 1) / bn;
+  p.tiles_item = (long long)((Mdim + BM - 1) / BM) * p.ntn;
   p.slabs = (K + BK - 1) / BK;
-  p.units = (long long)((Mdim + BM - 1) / BM) * p.ntn * p.slabs;
+  p.whole = whole;
+  p.split = batch * p.tiles_item - whole;
+  p.units = p.split * p.slabs;
   p.nblocks = nblocks;
   return p;
+}
+
+// Element strides between the items of A, B and out (0: shared by all).
+struct Batch {
+  long long a = 0, b = 0, o = 0;
+};
+
+// Item, first row and first column of tile t; without BATCHED the plan has
+// one item and no whole tiles, and tile t is split tile t.
+template <bool BATCHED>
+__device__ __forceinline__ void tile_at(const SplitPlan& p, long long t, int bn, long long& z,
+                                        int& i0, int& j0) {
+  z = 0;
+  if constexpr (BATCHED) {
+    z = t / p.tiles_item;
+    t -= z * p.tiles_item;
+  }
+  i0 = (int)(t / p.ntn) * BM;
+  j0 = (int)(t % p.ntn) * bn;
 }
 
 // 16-byte copies need 16-byte aligned rows
@@ -338,42 +383,66 @@ __device__ __forceinline__ void mainloop(float (&acc)[TM][Cfg::TN], unsigned cha
   cp_async_wait<0>();  // only empty groups are left
 }
 
-// One block of the stream-K product (see the top of this file). With
-// `direct`, a tile the block holds whole goes straight to `out` (through
-// store_out); every other piece goes to its partial slot.
-template <typename TA, typename TB, int BN, bool BT, typename TO, bool VEC>
+// acc into out[i0 : i0 + BM, j0 : j0 + BN] (through store_out), masked at the
+// ragged edges.
+template <int TN, typename TO>
+__device__ __forceinline__ void store_tile(const float (&acc)[TM][TN], TO* out, long long ldo,
+                                           int Mdim, int Ndim, int i0, int j0, int accumulate) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gi = i0 + tile_row(ty, i);
+    if (gi >= Mdim) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gj = j0 + tile_col(tx, j);
+      if (gj < Ndim) store_out(out + (long long)gi * ldo + gj, acc[i][j], accumulate);
+    }
+  }
+}
+
+// One block of the product (see the top of this file): its whole tiles, then
+// its run of the split tiles' units. With `direct`, a split tile the block
+// holds whole goes straight to `out`; every other piece goes to its partial
+// slot. BATCHED instances take a batch and whole tiles; the others (kernels
+// 2 and 3) one item, all split, without the index arithmetic.
+template <typename TA, typename TB, int BN, bool BT, typename TO, bool VEC, bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
     splitk_gemm_kernel(const TA* __restrict__ A, long long lda, const TB* __restrict__ B,
                        long long ldb, int Mdim, int Ndim, int K, SplitPlan plan,
                        float* __restrict__ partial, TO* out, long long ldo, int accumulate,
-                       int direct) {
+                       int direct, Batch bs) {
   using Cfg = Tile<TB, BN, BT>;
   constexpr int TN = Cfg::TN;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
+  long long z;
+  int i0, j0;
+  if constexpr (BATCHED) {
+    for (long long t = blockIdx.x; t < plan.whole; t += plan.nblocks) {
+      tile_at<true>(plan, t, BN, z, i0, j0);
+      float acc[TM][TN];
+      mainloop<Cfg, VEC>(acc, smem, A + z * bs.a, lda, B + z * bs.b, ldb, Mdim, Ndim, K, i0, j0,
+                         0, (int)plan.slabs);
+      store_tile<TN>(acc, out + z * bs.o, ldo, Mdim, Ndim, i0, j0, accumulate);
+      __syncthreads();  // every thread is done with the ring before it refills
+    }
+  }
   long long u = plan.begin(blockIdx.x);
   const long long u1 = plan.begin(blockIdx.x + 1);
   while (u < u1) {
-    const long long t = u / plan.slabs;
+    const long long t = u / plan.slabs;  // split tile t, tile whole + t of the plan
     const long long tile_end = (t + 1) * plan.slabs;
     const long long ue = u1 < tile_end ? u1 : tile_end;
-    const int i0 = (int)(t / plan.ntn) * BM;
-    const int j0 = (int)(t % plan.ntn) * BN;
+    tile_at<BATCHED>(plan, BATCHED ? plan.whole + t : t, BN, z, i0, j0);
     const int s0 = (int)(u - t * plan.slabs);
     float acc[TM][TN];
-    mainloop<Cfg, VEC>(acc, smem, A, lda, B, ldb, Mdim, Ndim, K, i0, j0, s0 * BK, (int)(ue - u));
+    mainloop<Cfg, VEC>(acc, smem, A + z * bs.a, lda, B + z * bs.b, ldb, Mdim, Ndim, K, i0, j0,
+                       s0 * BK, (int)(ue - u));
     if (direct && s0 == 0 && ue == tile_end) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int gi = i0 + tile_row(ty, i);
-        if (gi >= Mdim) continue;
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          const int gj = j0 + tile_col(tx, j);
-          if (gj < Ndim) store_out(out + (long long)gi * ldo + gj, acc[i][j], accumulate);
-        }
-      }
+      store_tile<TN>(acc, out + z * bs.o, ldo, Mdim, Ndim, i0, j0, accumulate);
     } else {
       float* p = partial + (blockIdx.x + t) * (long long)(BM * BN);
 #pragma unroll
@@ -390,14 +459,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Sum of the partial pieces of output entry (i, j), in block order.
+// Sum of the partial pieces of entry (i, j) of split tile t (tile-relative
+// coordinates), in block order.
 template <int BN>
 __device__ __forceinline__ float gather_pieces(const float* __restrict__ partial,
                                                const SplitPlan& plan, int i, int j,
                                                long long t) {
   const int blo = plan.block_of(t * plan.slabs);
   const int bhi = plan.block_of((t + 1) * plan.slabs - 1);
-  const float* p = partial + (long long)(i % BM) * BN + j % BN;
+  const float* p = partial + (long long)i * BN + j;
   float v = 0.f;
   for (int b = blo; b <= bhi; ++b) v += p[(b + t) * (long long)(BM * BN)];
   return v;
@@ -405,25 +475,40 @@ __device__ __forceinline__ float gather_pieces(const float* __restrict__ partial
 
 // Epilogue of splitk_gemm_kernel: each output entry of a split tile is the
 // sum of its pieces in block order, stored through store_out. Tiles that one
-// block held whole were stored by it when `direct` is set.
-template <int BN, typename TO>
+// block held whole were stored by it when `direct` is set. One thread per
+// entry of the output (one item), or with BATCHED per entry of a split tile.
+template <int BN, typename TO, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
     splitk_reduce_kernel(const float* __restrict__ partial, SplitPlan plan, int Mdim, int Ndim,
-                         TO* out, long long ldo, int accumulate, int direct) {
+                         TO* out, long long ldo, long long o_bs, int accumulate, int direct) {
   const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (e >= (long long)Mdim * Ndim) return;
-  const int i = (int)(e / Ndim), j = (int)(e % Ndim);
-  const long long t = (long long)(i / BM) * plan.ntn + j / BN;
+  long long t, z = 0;
+  int gi, gj;
+  if constexpr (BATCHED) {
+    t = e / (BM * BN);
+    if (t >= plan.split) return;
+    int i0, j0;
+    tile_at<true>(plan, plan.whole + t, BN, z, i0, j0);
+    gi = i0 + (int)(e % (BM * BN)) / BN;
+    gj = j0 + (int)(e % BN);
+    if (gi >= Mdim || gj >= Ndim) return;
+  } else {
+    if (e >= (long long)Mdim * Ndim) return;
+    gi = (int)(e / Ndim);
+    gj = (int)(e % Ndim);
+    t = (long long)(gi / BM) * plan.ntn + gj / BN;
+  }
   if (direct && plan.block_of(t * plan.slabs) == plan.block_of((t + 1) * plan.slabs - 1)) return;
-  store_out(out + (long long)i * ldo + j, gather_pieces<BN>(partial, plan, i, j, t), accumulate);
+  store_out(out + z * o_bs + (long long)gi * ldo + gj,
+            gather_pieces<BN>(partial, plan, gi % BM, gj % BN, t), accumulate);
 }
 
 // Resident blocks per SM of splitk_gemm_kernel<...> at its shared memory
 // (the aligned instance; the other has the same shared memory and, past
 // 128 registers, the same single block).
-template <typename TA, typename TB, int BN, bool BT, typename TO>
+template <typename TA, typename TB, int BN, bool BT, typename TO, bool BATCHED = false>
 int blocks_per_sm() {
-  auto kern = splitk_gemm_kernel<TA, TB, BN, BT, TO, true>;
+  auto kern = splitk_gemm_kernel<TA, TB, BN, BT, TO, true, BATCHED>;
   const int smem = (int)Tile<TB, BN, BT>::SMEM;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int n = 0;
@@ -431,33 +516,37 @@ int blocks_per_sm() {
   return n;
 }
 
-// Launch the stream-K product: the 16-byte instance when both operands
-// are 16-byte aligned, the element-by-element one otherwise.
-template <typename TA, typename TB, int BN, bool BT, typename TO>
+// Launch the product: the 16-byte instance when both operands (and their
+// batch strides) are 16-byte aligned, the element-by-element one otherwise.
+template <typename TA, typename TB, int BN, bool BT, typename TO, bool BATCHED = false>
 void launch_splitk(const TA* A, long long lda, const TB* B, long long ldb, int Mdim, int Ndim,
                    int K, const SplitPlan& plan, float* partial, TO* out, long long ldo,
-                   int accumulate, int direct, cudaStream_t st) {
+                   int accumulate, int direct, cudaStream_t st, const Batch& bs = Batch{}) {
   const int smem = (int)Tile<TB, BN, BT>::SMEM;
-  auto kern = aligned16(A, lda) && aligned16(B, ldb)
-                  ? splitk_gemm_kernel<TA, TB, BN, BT, TO, true>
-                  : splitk_gemm_kernel<TA, TB, BN, BT, TO, false>;
+  const bool vec = aligned16(A, lda) && aligned16(B, ldb) && aligned16(A, bs.a) &&
+                   aligned16(B, bs.b);
+  auto kern = vec ? splitk_gemm_kernel<TA, TB, BN, BT, TO, true, BATCHED>
+                  : splitk_gemm_kernel<TA, TB, BN, BT, TO, false, BATCHED>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   kern<<<plan.nblocks, THREADS, smem, st>>>(A, lda, B, ldb, Mdim, Ndim, K, plan, partial, out, ldo,
-                                             accumulate, direct);
+                                             accumulate, direct, bs);
 }
 
-// out (+)= A B through the stream-K plan of `nblocks` blocks, then the
-// reduction of the split tiles (which `partial` holds meanwhile).
-template <typename TA, typename TB, int BN, bool BT, typename TO>
+// out (+)= A B through the plan of `nblocks` blocks, then the reduction of
+// the split tiles (which `partial` holds meanwhile); BATCHED: over `batch`
+// items, the first `whole` tiles taken whole.
+template <typename TA, typename TB, int BN, bool BT, typename TO, bool BATCHED = false>
 void splitk_gemm(const TA* A, long long lda, const TB* B, long long ldb, int Mdim, int Ndim,
                  int K, int nblocks, float* partial, TO* out, long long ldo, int accumulate,
-                 cudaStream_t st) {
-  const SplitPlan plan = make_plan(Mdim, Ndim, K, BN, nblocks);
-  launch_splitk<TA, TB, BN, BT, TO>(A, lda, B, ldb, Mdim, Ndim, K, plan, partial, out, ldo,
-                                    accumulate, 1, st);
-  const unsigned grid = (unsigned)(((long long)Mdim * Ndim + THREADS - 1) / THREADS);
-  splitk_reduce_kernel<BN, TO><<<grid, THREADS, 0, st>>>(partial, plan, Mdim, Ndim, out, ldo,
-                                                         accumulate, 1);
+                 cudaStream_t st, int batch = 1, long long whole = 0, const Batch& bs = Batch{}) {
+  const SplitPlan plan = make_plan(Mdim, Ndim, K, BN, nblocks, batch, whole);
+  launch_splitk<TA, TB, BN, BT, TO, BATCHED>(A, lda, B, ldb, Mdim, Ndim, K, plan, partial, out,
+                                             ldo, accumulate, 1, st, bs);
+  if (plan.split == 0) return;
+  const long long entries = BATCHED ? plan.split * BM * BN : (long long)Mdim * Ndim;
+  const unsigned grid = (unsigned)((entries + THREADS - 1) / THREADS);
+  splitk_reduce_kernel<BN, TO, BATCHED><<<grid, THREADS, 0, st>>>(partial, plan, Mdim, Ndim, out,
+                                                                  ldo, bs.o, accumulate, 1);
 }
 
 }  // namespace sm90

@@ -22,7 +22,8 @@ import contextlib
 import torch
 
 from . import ref
-from .countsketch import bucket_order, countsketch_kernel
+from .countsketch import (VIEW_CHUNK, bucket_order, countsketch_fold_kernel, countsketch_kernel,
+                          countsketch_view_kernel, window_orders)
 from .panel_score import panel_score_kernel
 from .panel_update import panel_update_kernel
 from .twoside_sketch import twoside_sketch_kernel
@@ -88,28 +89,59 @@ def _row_major(name: str, t: torch.Tensor) -> None:
            f"strides {t.stride()}")
 
 
-def countsketch_apply(hashes, signs, a, s: int, *, order=None, transpose_out: bool = False):
+# fewest columns of a column-major operand for which a transposed output
+# (apply_t) goes to the view kernel: 32 bands of 32 columns. Below it the
+# view kernel has too few blocks, while the gather kernel's warps, which
+# span buckets, read along one column.
+_VIEW_T_MIN_COLS = 1024
+
+
+def reads_columns(a: torch.Tensor, transpose_out: bool = False) -> bool:
+    """Does :func:`countsketch_apply` give ``a`` to the view kernel? Yes for a
+    column-major ``a`` (a transposed view such as ``Aᵀ``) with a row-major
+    output, or with the transposed output when ``a`` has at least
+    ``_VIEW_T_MIN_COLS`` columns; every other layout goes to the gather
+    kernel."""
+    return (a.dim() == 2 and a.stride(0) == 1 and a.stride(1) != 1 and min(a.shape) > 1
+            and (not transpose_out or a.shape[1] >= _VIEW_T_MIN_COLS))
+
+
+def _sketch_args(hashes, signs, rows: int) -> None:
+    _check(hashes.shape == (rows,) and signs.shape == (rows,),
+           f"hashes/signs must be ({rows},), got {tuple(hashes.shape)}/{tuple(signs.shape)}")
+
+
+def _sketch_on_card(hashes, signs) -> None:
+    _check(hashes.dtype == torch.int32 and signs.dtype == torch.float32,
+           "hashes must be int32 and signs float32")
+    _check(hashes.is_contiguous() and signs.is_contiguous(), "hashes/signs must be contiguous")
+
+
+def countsketch_apply(hashes, signs, a, s: int, *, order=None, chunks=None,
+                      transpose_out: bool = False):
     """``S·a`` for a CountSketch ``(hashes, signs)`` with ``s`` buckets, fp32.
 
-    ``a`` is (m, n) with any strides (a transposed view needs no copy);
-    ``order`` is the precomputed :func:`bucket_order` of ``hashes``. With
-    ``transpose_out`` the result is returned as the contiguous (n, s)
-    transpose ``(S·a)ᵀ`` (what ``apply_t`` wants).
+    ``a`` is (m, n) with any strides (a transposed view needs no copy). A
+    column-major ``a`` (:func:`reads_columns`) goes to the view kernel, which
+    walks ``chunks``, the ``window_orders(hashes, s, VIEW_CHUNK)``; any other
+    to the gather kernel, which walks ``order``, the :func:`bucket_order` of
+    ``hashes``. Either is built here when not given. With ``transpose_out``
+    the result is returned as the contiguous (n, s) transpose ``(S·a)ᵀ``
+    (what ``apply_t`` wants).
     """
     _check(a.dim() == 2, f"a must be 2-D, got {tuple(a.shape)}")
     m, n = a.shape
-    _check(hashes.shape == (m,) and signs.shape == (m,),
-           f"hashes/signs must be ({m},), got {tuple(hashes.shape)}/{tuple(signs.shape)}")
+    _sketch_args(hashes, signs, m)
     if not _on_card(hashes, signs, a):
         out = ref.countsketch_ref(hashes, signs, a, s)
         return out.T.contiguous() if transpose_out else out
     _check(a.dtype in _DTYPES, f"a must be float32 or bfloat16, got {a.dtype}")
-    _check(hashes.dtype == torch.int32 and signs.dtype == torch.float32,
-           "hashes must be int32 and signs float32")
-    _check(hashes.is_contiguous() and signs.is_contiguous(), "hashes/signs must be contiguous")
-    # grid rows of 8 outputs along the slower output dimension (at most 65535)
-    _check((n if transpose_out else s) <= 8 * 65535, f"too many outputs: s={s}, n={n}")
-    perm, start = order if order is not None else bucket_order(hashes, s)
+    _sketch_on_card(hashes, signs)
+    view = reads_columns(a, transpose_out)
+    # grid rows of 8 outputs along the slower output dimension, or view
+    # bands of 32 columns (at most 65535 either way)
+    _check((n if transpose_out else s) <= 8 * 65535 and (n <= 32 * 65535 or not view),
+           f"too many outputs: s={s}, n={n}")
     if transpose_out:
         out = torch.empty((n, s), dtype=torch.float32, device=a.device)
         strides = (1, s)
@@ -118,9 +150,43 @@ def countsketch_apply(hashes, signs, a, s: int, *, order=None, transpose_out: bo
         strides = (n, 1)
     if m == 0 or n == 0 or s == 0:
         return out.zero_()
-    countsketch_kernel(perm, start, signs, a, out, out_strides=strides, s=s)
+    if view:
+        perm, start = chunks if chunks is not None else window_orders(hashes, s, VIEW_CHUNK)
+        countsketch_view_kernel(perm, start, hashes, signs, a, out, out_strides=strides, s=s)
+    else:
+        perm, start = order if order is not None else bucket_order(hashes, s)
+        countsketch_kernel(perm, start, signs, a, out, out_strides=strides, s=s)
     LAUNCHES["countsketch"] += 1
     return out
+
+
+def countsketch_fold(hashes, signs, x, M, *, order=None, fold_dtype=torch.float32):
+    """``M += (x·Sᵀ).to(fold_dtype).to(M.dtype)`` in place for a CountSketch
+    ``S`` = ``(hashes, signs)`` with ``s = M.shape[1]`` buckets: the
+    streaming engine's per-panel fold of ``x = S_C·A_L`` (rows, m) into
+    ``M`` (rows, s). Rounds exactly as that expression does: the fp32 bucket
+    sum, then ``fold_dtype`` (float32 or bfloat16), then the add in ``M``'s
+    dtype. ``order`` is the :func:`bucket_order` of ``hashes`` (built when
+    not given); on the card ``M`` must have contiguous rows, and buckets
+    without rows leave ``M`` as it is. Returns ``M``.
+    """
+    _check(x.dim() == 2 and M.dim() == 2 and x.shape[0] == M.shape[0],
+           f"x (rows, m) and M (rows, s) must share rows, got {tuple(x.shape)}, {tuple(M.shape)}")
+    _sketch_args(hashes, signs, x.shape[1])
+    _check(fold_dtype in _DTYPES, f"fold_dtype must be float32 or bfloat16, got {fold_dtype}")
+    s = M.shape[1]
+    if not _on_card(hashes, signs, x, M):
+        return M.add_(ref.countsketch_ref(hashes, signs, x.T, s).T.to(fold_dtype).to(M.dtype))
+    _check(x.dtype in _DTYPES and M.dtype in _DTYPES,
+           f"x and M must be float32 or bfloat16, got {x.dtype}, {M.dtype}")
+    _sketch_on_card(hashes, signs)
+    _row_major("M", M)
+    _check(x.shape[0] <= 8 * 65535, f"too many rows: {x.shape[0]}")
+    if M.numel() and x.shape[1]:
+        perm, start = order if order is not None else bucket_order(hashes, s)
+        countsketch_fold_kernel(perm, start, signs, x, M, round_bf16=fold_dtype == _BF16)
+        LAUNCHES["countsketch"] += 1
+    return M
 
 
 def panel_score(sc, a_l, q):
@@ -219,8 +285,9 @@ def twoside_sketch(sc, a, srt):
     """``M = sc·a·srt`` in fp32: (s_c, m)·(m, n)·(n, s_r) → (s_c, s_r), or
     for a batch ``a`` (B, m, n) → (B, s_c, s_r) with ``sc``/``srt`` shared.
 
-    The three operands share float32 or bfloat16 and may have any strides
-    (``srt`` is usually the transposed view ``S_R.mat.T``).
+    The three operands share float32 or bfloat16. On the card ``sc`` and
+    each item of ``a`` have contiguous rows and ``srt`` a unit stride
+    (usually the transposed view ``S_R.mat.T``); other layouts raise.
     """
     _check(a.dim() in (2, 3), f"a must be (m, n) or (B, m, n), got {tuple(a.shape)}")
     _check(sc.dim() == 2 and srt.dim() == 2 and sc.shape[1] == a.shape[-2]
@@ -232,7 +299,9 @@ def twoside_sketch(sc, a, srt):
            "sc/a/srt must share float32 or bfloat16")
     a3 = a if a.dim() == 3 else a.unsqueeze(0)
     B, m, n = a3.shape
-    _check(B <= 65535, f"batch must be at most 65535, got {B}")
+    _check(sc.stride(1) == 1 and a3.stride(2) == 1 and 1 in srt.stride(),
+           f"sc and a need contiguous rows, srt a unit stride: strides {sc.stride()}, "
+           f"{a3.stride()}, {srt.stride()}")
     out = torch.empty((B, sc.shape[0], srt.shape[1]), dtype=torch.float32, device=a.device)
     if out.numel() and m and n:
         twoside_sketch_kernel(sc, a3, srt, out)
@@ -248,7 +317,10 @@ __all__ = [
     "force_plain",
     "kernel_route_enabled",
     "bucket_order",
+    "window_orders",
+    "reads_columns",
     "countsketch_apply",
+    "countsketch_fold",
     "panel_score",
     "panel_update",
     "twoside_sketch",

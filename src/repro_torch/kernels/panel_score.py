@@ -28,17 +28,21 @@ PANEL_BN, FOLD_BN = 256, 128
 
 
 class SplitPlan(NamedTuple):
-    """Stream-K plan of a tiled product ``(rows × k)·(k × cols)``: the tiles
-    × k-slabs are ``units``, ordered tile by tile; block ``b`` of ``nblocks``
-    takes units ``[b·units // nblocks, (b+1)·units // nblocks)``, and the
-    pieces of tile ``t`` are summed in block order from partial slots
-    ``b + t``."""
+    """Launch plan of a tiled product ``(rows × k)·(k × cols)``, per item of
+    a batch. The tiles of every item, ordered item by item and tile by tile,
+    are ``tiles``; the first ``whole`` go one per block per wave (tile ``t``
+    to block ``t % nblocks``), and the split tiles after them × their
+    k-slabs are ``units``, taken stream-K: block ``b`` of ``nblocks`` takes
+    units ``[b·units // nblocks, (b+1)·units // nblocks)``, and the pieces
+    of split tile ``t`` (counted from ``whole``) are summed in block order
+    from partial slots ``b + t``."""
 
     tiles: int
-    ntn: int  # column tiles
+    ntn: int  # column tiles of an item
     slabs: int  # k-slabs per tile
     units: int
     nblocks: int
+    whole: int = 0
 
     def begin(self, b: int) -> int:
         return b * self.units // self.nblocks
@@ -48,28 +52,35 @@ class SplitPlan(NamedTuple):
         return ((u + 1) * self.nblocks - 1) // self.units
 
     def tile_blocks(self, t: int) -> range:
-        """The blocks holding pieces of tile ``t``, in summation order."""
+        """The blocks holding pieces of split tile ``t``, in summation order."""
         return range(self.block_of(t * self.slabs), self.block_of((t + 1) * self.slabs - 1) + 1)
 
     @property
     def partial_slots(self) -> int:
-        return self.nblocks + self.tiles - 1
+        split = self.tiles - self.whole
+        return self.nblocks + split - 1 if split else 0
 
 
 def split_plan(rows: int, cols: int, k: int, n_sm: int, blocks_per_sm: int, *,
-               bn: int = PANEL_BN) -> SplitPlan:
-    """The launch plan of the product ``(rows × k)·(k × cols)`` on a card with
-    ``n_sm`` SMs that keeps ``blocks_per_sm`` of the product's blocks
-    resident: one block per resident slot (one whole wave) unless there are
-    fewer k-slabs than slots, each block a run of whole k-slabs. A pure
-    function of the shapes and the card, so the summation order is fixed."""
-    if min(rows, cols, k, n_sm, blocks_per_sm) < 1:
-        raise ValueError(f"empty product or card: {rows}, {cols}, {k}, {n_sm}, {blocks_per_sm}")
+               bn: int = PANEL_BN, batch: int = 1, whole_waves: bool = False) -> SplitPlan:
+    """The launch plan of the product ``(rows × k)·(k × cols)`` over
+    ``batch`` items on a card with ``n_sm`` SMs that keeps ``blocks_per_sm``
+    of the product's blocks resident: one block per resident slot (one
+    whole wave at a time) unless there are fewer k-slabs to split than
+    slots, each block a run of whole k-slabs. With ``whole_waves`` every
+    full wave of tiles goes whole and only the last, partial wave is split.
+    A pure function of the shapes and the card, so the summation order is
+    fixed."""
+    if min(rows, cols, k, n_sm, blocks_per_sm, batch) < 1:
+        raise ValueError(f"empty product or card: {rows}, {cols}, {k}, {n_sm}, {blocks_per_sm}, "
+                         f"{batch}")
+    slots = n_sm * blocks_per_sm
     ntn = math.ceil(cols / bn)
-    tiles = math.ceil(rows / BM) * ntn
+    tiles = batch * math.ceil(rows / BM) * ntn
     slabs = math.ceil(k / BK)
-    units = tiles * slabs
-    return SplitPlan(tiles, ntn, slabs, units, min(n_sm * blocks_per_sm, units))
+    whole = tiles // slots * slots if whole_waves else 0
+    units = (tiles - whole) * slabs
+    return SplitPlan(tiles, ntn, slabs, units, slots if whole else min(slots, units), whole)
 
 
 @functools.lru_cache(maxsize=None)

@@ -5,7 +5,8 @@ Counterpart of ``repro/stream/engine.py``. ``A`` arrives as L-column panels
 
 * ``C`` (m × c)  — the column factor, through the application's ``update_c``;
 * ``R`` (r × n)  — the row factor, block by block at the panel's offset;
-* ``M`` (s_c × s_r) — ``M += (S_C A_L) · S_R[:, cols]ᵀ`` via ``cols()``.
+* ``M`` (s_c × s_r) — ``M += (S_C A_L) · S_R[:, cols]ᵀ`` via ``cols()``
+  (:func:`~repro_torch.core.sketching.fold_apply_t`).
 
 Applications plug in a :class:`PanelOps`. The accumulators are updated in
 place (the reference donates their buffers to the same end), so a caller
@@ -33,6 +34,8 @@ from typing import Any, Callable, Optional
 
 import torch
 from torch.profiler import record_function
+
+from ..core.sketching import fold_apply_t, index_windows
 
 __all__ = [
     "PanelOps",
@@ -160,8 +163,7 @@ def panel_update(state: PanelState, A_L: torch.Tensor) -> PanelState:
             ctx, sc_a, scores = ops.sketch_panel(state.ctx, A_L, off)
         else:
             ctx, sc_a, scores = state.ctx, S_C.apply(A_L), None
-        M = state.M
-        M.add_(S_R.cols(off, L).apply_t(sc_a).to(M.dtype))
+        M = fold_apply_t(S_R.cols(off, L), sc_a, state.M)
         if scores is None:
             ctx, C = ops.update_c(ctx, state.C, A_L, sc_a, off)
         else:
@@ -206,7 +208,7 @@ def _fused_scan(state: PanelState, block, bcol0: int, window, num_panels: int,
     for t in range(num_panels):
         off = start + t * panel
         sc_a = sca[:, t * panel : (t + 1) * panel]
-        M.add_(S_R.cols(off, panel).apply_t(sc_a).to(M.dtype))
+        fold_apply_t(S_R.cols(off, panel), sc_a, M)
         if ops.fused_step is not None:
             ctx, C, _ = ops.fused_step(ctx, C, block, bcol0 + t * panel, sc_a, off)
     state.C, state.R, state.M, state.ctx = C, R, M, ctx
@@ -236,6 +238,8 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
         return state
     width = stop - start
     num_panels = padded_n(width, panel) // panel
+    # the bucket orders of S_R's panel windows, built once per stream
+    index_windows(state.ops.core_sketches(state.ctx)[1], panel)
     label = f"stream/{state.ops.name}/{'scan' if route == 'chunk' else 'per-panel'}"
     if route == "chunk" and _fused_route_ok(state):
         with record_function(label):

@@ -8,7 +8,8 @@ it runs on a machine that has only PyTorch:
 
 Tolerance: 1e-5 of the largest entry — both sides read the same (rounded)
 inputs and sum in fp32, in different orders; ``slots`` and ``C`` must be
-equal exactly.
+equal exactly, and kernel 1's view and fold kernels must give the bits of
+its gather kernel (the same sums in the same order).
 """
 
 import numpy as np
@@ -117,6 +118,36 @@ def test_cuda_twoside_sketch_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("srt_layout", ["view", "rows"])
+def test_cuda_twoside_sketch_whole_waves_and_split_tail(cuda, dtype, srt_layout):
+    """Kernel 4 over a batch whose tile count is not a multiple of the
+    resident slots (both products take whole waves, then split the rest
+    stream-K), with S_R^T a transposed view or row-major: the plain version
+    within 1e-5 of the largest entry, and a second launch bitwise."""
+    from repro_torch.kernels.panel_score import blocks_per_sm, sm_count
+    from repro_torch.kernels.twoside_sketch import twoside_plans
+
+    B, s_c, m, n, s_r = 20, 256, 520, 1024, 1000
+    rng = np.random.default_rng(17)
+    f = lambda *sh: torch.from_numpy(rng.standard_normal(sh).astype(np.float32)).to(cuda, dtype)  # noqa: E731
+    sc, a = f(s_c, m), f(B, m, n)
+    srt = f(s_r, n).T if srt_layout == "view" else f(n, s_r)
+    code = int(dtype == BF16)
+    bps = [blocks_per_sm("twoside_sketch", stage, code) for stage in (0, 1)]
+    plans = twoside_plans(B, s_c, m, n, s_r, sm_count(torch.cuda.current_device()), bps)
+    assert all(0 < p.whole < p.tiles and p.whole % p.nblocks == 0 for p in plans)
+    ops.reset_launches()
+    got = ops.twoside_sketch(sc, a, srt)
+    again = ops.twoside_sketch(sc, a, srt)
+    with ops.force_plain():
+        want = ops.twoside_sketch(sc, a, srt)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["twoside_sketch"] == 2
+    _close(got, want, 1e-5)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("view", ["transposed", "stack_item_transposed"])
 def test_cuda_countsketch_reads_transposed_views(cuda, view, dtype):
     """Kernel 1 on ``Aᵀ`` with a row-major (s, n) output, as ``select_rows``
@@ -128,12 +159,87 @@ def test_cuda_countsketch_reads_transposed_views(cuda, view, dtype):
     h = torch.from_numpy(rng.integers(0, 40, 300).astype(np.int32)).to(cuda)
     sg = torch.from_numpy(rng.choice([-1.0, 1.0], 300).astype(np.float32)).to(cuda)
     ops.reset_launches()
-    got = ops.countsketch_apply(h, sg, a, 40, order=ops.bucket_order(h, 40))
+    got = ops.countsketch_apply(h, sg, a, 40, chunks=ops.window_orders(h, 40, 256))
     with ops.force_plain():
         want = ops.countsketch_apply(h, sg, a, 40)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["countsketch"] == 1 and got.shape == (40, 257)
     _close(got, want)
+    # the view kernel gives the bits of the gather kernel on a contiguous copy
+    assert ops.reads_columns(a) and not ops.reads_columns(a.contiguous())
+    assert torch.equal(got, ops.countsketch_apply(h, sg, a.contiguous(), 40))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,aligned", [((1000, 70, 1100), True), ((300, 33, 40), False),
+                                           ((2000, 600, 512), True), ((600, 1100, 700), True)],
+                         ids=["groups-ragged", "unaligned", "one-group", "wide"])
+def test_cuda_countsketch_view_chunks_groups_bits(cuda, shape, aligned, dtype):
+    """The view kernel over several chunks (the last ragged), several bucket
+    groups (s > 512) and column bands, on a 16-byte aligned view and on one
+    that is not: the bits of the gather kernel on a contiguous copy, and the
+    plain version within 1e-5 of the largest entry; with the transposed
+    output as well (the view kernel from 1024 columns on)."""
+    m, n, s = shape
+    rng = np.random.default_rng(m + n)
+    base = torch.from_numpy(rng.standard_normal((n, m + 8)).astype(np.float32)).to(cuda, dtype)
+    a = base[:, : m] if aligned else base[:, 1 : m + 1]  # rows of base: columns of the view
+    a = a.T
+    h = torch.from_numpy(rng.integers(0, s, m).astype(np.int32)).to(cuda)
+    sg = torch.from_numpy((rng.choice([-1.0, 1.0], m) / np.sqrt(2)).astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    got = ops.countsketch_apply(h, sg, a, s)
+    copy = ops.countsketch_apply(h, sg, a.contiguous(), s)
+    with ops.force_plain():
+        want = ops.countsketch_apply(h, sg, a, s)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["countsketch"] == 2 and ops.reads_columns(a)
+    assert torch.equal(got, copy)
+    _close(got, want)
+    got_t = ops.countsketch_apply(h, sg, a, s, transpose_out=True)
+    assert ops.reads_columns(a, transpose_out=True) == (n >= 1024)
+    assert torch.equal(got_t, ops.countsketch_apply(h, sg, a.contiguous(), s, transpose_out=True))
+    assert torch.equal(got_t, got.T)
+
+
+@pytest.mark.parametrize("x_dtype,m_dtype,fold_dtype", [(F32, F32, F32), (F32, BF16, F32),
+                                                        (BF16, F32, BF16), (BF16, BF16, BF16)],
+                         ids=["fp32", "fp32-bf16-M", "bf16-fold-fp32-M", "bf16"])
+@pytest.mark.parametrize("window", ["indexed", "own-order"])
+def test_cuda_countsketch_fold_equals_add_of_apply_t(cuda, x_dtype, m_dtype, fold_dtype, window):
+    """The fold into M equals ``M.add_(apply_t(x).to(fold dtype).to(M's
+    dtype))`` through the gather kernel bit for bit, with a window's slice
+    of the stream's window orders or with its own order; buckets the window
+    leaves empty keep M's bits; the plain fold within 1e-5 of M's largest
+    entry (one bf16 rounding step, 2^-7, for a bf16 M)."""
+    from repro_torch.core.sketching import CountSketch
+
+    rng = np.random.default_rng(4)
+    n, s, L, rows = 640, 300, 64, 90
+    S = CountSketch(hashes=torch.from_numpy(rng.integers(0, s, n).astype(np.int32)).to(cuda),
+                    signs=torch.from_numpy(rng.choice([-1.0, 1.0], n).astype(np.float32)).to(cuda),
+                    s=s)
+    if window == "indexed":
+        S.index_windows(L)
+    x = torch.from_numpy(rng.standard_normal((rows, 3 * L)).astype(np.float32)).to(cuda, x_dtype)
+    x = x[:, L : 2 * L]  # a window of a wider chunk sketch, as Route A hands it over
+    M0 = torch.from_numpy(rng.standard_normal((rows, s)).astype(np.float32)).to(cuda, m_dtype)
+    W = S.cols(2 * L, L)
+    assert bool(W._order) == (window == "indexed")
+    order = W.order()
+    ops.reset_launches()
+    got = ops.countsketch_fold(W.hashes, W.signs, x, M0.clone(), order=order,
+                               fold_dtype=fold_dtype)
+    want = M0.clone().add_(ops.countsketch_apply(W.hashes, W.signs, x.T, s, order=order,
+                                                 transpose_out=True).to(fold_dtype).to(m_dtype))
+    with ops.force_plain():
+        plain = ops.countsketch_fold(W.hashes, W.signs, x, M0.clone(), fold_dtype=fold_dtype)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["countsketch"] == 2
+    assert torch.equal(got, want)
+    empty = torch.bincount(W.hashes.long(), minlength=s) == 0
+    assert bool(empty.any()) and torch.equal(got[:, empty], M0[:, empty])
+    _close(got, plain, 1e-5 if m_dtype == F32 else 2.0 ** -7)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -156,6 +262,13 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         ops.panel_update(sc, a_l.to(BF16), srt.to(BF16), q, C, M, **kw)
     with pytest.raises(ValueError):  # srt without a unit stride
         ops.panel_update(sc, a_l, srt.repeat(1, 2)[:, ::2], q, C, M, **kw)
+    with pytest.raises(ValueError):  # kernel 4 reads S_C and A along their rows
+        ops.twoside_sketch(sc.T.contiguous().T, a_l, srt)
+    with pytest.raises(ValueError):
+        ops.twoside_sketch(sc, a_l.T.contiguous().T, srt)
+    with pytest.raises(ValueError):  # the fold needs M's rows contiguous
+        ops.countsketch_fold(torch.zeros(L := a_l.shape[1], dtype=torch.int32, device=cuda),
+                             torch.ones(L, device=cuda), sc[:, :L], M.T.contiguous().T)
 
 
 @pytest.mark.parametrize("sketch,kw,a_dtype", [

@@ -91,6 +91,34 @@ def test_countsketch_kernel_order_is_the_plain_order():
     assert torch.equal(ops.countsketch_apply(h, sg, At.T, s, transpose_out=True), plain.T)
 
 
+@pytest.mark.parametrize("m,s,L", [(1000, 37, 64), (1000, 37, 1000), (256, 1920, 256),
+                                   (65, 9, 16)])  # 1000 = 15·64 + 40, 65 = 4·16 + 1
+def test_window_orders_are_each_windows_bucket_order(m, s, L):
+    """One sort gives every ``L``-wide window's :func:`bucket_order` (the
+    last window ragged where ``L`` does not divide ``m``): the streamed M
+    fold's windows and the view kernel's chunks."""
+    h = _t(np.random.default_rng(m + s + L).integers(0, s, m).astype(np.int32))
+    perm, start = ops.window_orders(h, s, L)
+    assert perm.dtype == start.dtype == torch.int32 and start.shape == (-(-m // L), s + 1)
+    for w in range(start.shape[0]):
+        rows = h[w * L : (w + 1) * L]
+        want_perm, want_start = bucket_order(rows, s)
+        assert torch.equal(perm[w * L : w * L + rows.shape[0]], want_perm)
+        assert torch.equal(start[w], want_start)
+
+
+def test_view_kernel_takes_column_major_operands():
+    """The wrappers' routing between kernel 1's gather and view kernels: a
+    column-major operand (a transposed view) goes to the view kernel, with a
+    transposed output only from 1024 columns on."""
+    X = torch.zeros(1100, 300)
+    assert ops.reads_columns(X.T) and not ops.reads_columns(X)
+    assert ops.reads_columns(X.T, transpose_out=True)
+    assert not ops.reads_columns(X[:1000].T, transpose_out=True)
+    assert ops.reads_columns(X[:1000].T)
+    assert not ops.reads_columns(X[:1].T) and not ops.reads_columns(X[:, :1])
+
+
 # ---------------------------------------------------------------------------
 # kernel 4: twoside_sketch
 # ---------------------------------------------------------------------------
@@ -336,6 +364,54 @@ def test_split_plan_small_products_use_fewer_blocks():
         split_plan(20, 3, 0, 132, 1)
 
 
+# (batch, s_c, m, n, s_r, SMs, blocks per SM): (f)'s shape on 132 SMs at one
+# and two blocks per SM, the example's, a batch of one, ragged edges, and a
+# tile count that is a whole number of waves
+BATCH_CASES = [(32, 960, 4096, 4096, 960, 132, 1), (32, 960, 4096, 4096, 960, 132, 2),
+               (32, 96, 256, 192, 96, 132, 1), (1, 960, 4096, 4096, 960, 132, 1),
+               (5, 130, 129, 700, 131, 7, 1), (6, 256, 64, 512, 256, 4, 1)]
+
+
+@pytest.mark.parametrize("case", BATCH_CASES)
+def test_split_plan_batch_whole_waves_then_a_split_tail(case):
+    """Kernel 4's plans: the batch's tiles, every full wave of resident
+    slots taken whole (tile t by block t mod P), only the last partial wave
+    split stream-K over all P blocks; every (tile, k-slab) unit is covered
+    exactly once, the split tiles' pieces in ascending k; partial slots hold
+    the split tiles only; and the plan is a pure function of its arguments."""
+    from repro_torch.kernels.twoside_sketch import twoside_plans
+
+    B, s_c, m, n, s_r, n_sm, bps = case
+    slots = n_sm * bps
+    plans = twoside_plans(B, s_c, m, n, s_r, n_sm, (bps, bps))
+    assert plans == twoside_plans(B, s_c, m, n, s_r, n_sm, (bps, bps))
+    for plan, (cols, k) in zip(plans, ((n, m), (s_r, n))):
+        per_item = -(-s_c // BM) * -(-cols // PANEL_BN)
+        assert plan.tiles == B * per_item and plan.slabs == -(-k // BK)
+        assert plan.whole == plan.tiles // slots * slots
+        split = plan.tiles - plan.whole
+        assert split < slots and plan.units == split * plan.slabs
+        assert plan.nblocks == (slots if plan.whole else min(slots, plan.units))
+        covered = {}  # unit -> block
+        for t in range(plan.whole):
+            for sl in range(plan.slabs):
+                covered[(t, sl)] = t % plan.nblocks
+        for b in range(plan.nblocks):
+            for u in range(plan.begin(b), plan.begin(b + 1)):
+                key = (plan.whole + u // plan.slabs, u % plan.slabs)
+                assert key not in covered
+                covered[key] = b
+        assert len(covered) == plan.tiles * plan.slabs
+        for t in range(split):
+            pieces = _pieces(plan, t)
+            assert pieces[0][1] == 0 and pieces[-1][2] == plan.slabs
+            assert all(p[2] == q[1] for p, q in zip(pieces, pieces[1:]))
+            assert max(b + t for b, _, _ in pieces) < plan.partial_slots
+        assert plan.partial_slots == (plan.nblocks + split - 1 if split else 0)
+    if (B, s_c, m, n, s_r, bps) == (32, 960, 4096, 4096, 960, 1):  # (f) on one H100
+        assert [(p.whole, p.tiles - p.whole) for p in plans] == [(4092, 4), (924, 100)]
+
+
 def _emulate_split_k(a, b, plan, bn):
     """The kernel's summation order: each block's piece of a tile summed over
     its k-range, the pieces then added in block order into a zero."""
@@ -349,6 +425,51 @@ def _emulate_split_k(a, b, plan, bn):
             acc = acc + a[r0:r0 + BM, ks].float() @ b[ks, c0:c0 + bn].float()
         out[r0:r0 + BM, c0:c0 + bn] = acc
     return out
+
+
+def _emulate_batched_plan(a, b, plan, bn):
+    """Kernel 4's summation order for ``a_z·b_z`` over a batch (``a`` (B,
+    rows, k) or shared (rows, k), ``b`` likewise): whole tiles summed over
+    all of k by one block, the split tiles' pieces added in block order into
+    a zero."""
+    B = plan.tiles // (-(-a.shape[-2] // BM) * plan.ntn)
+    a3 = a.expand(B, *a.shape[-2:]) if a.dim() == 2 else a
+    b3 = b.expand(B, *b.shape[-2:]) if b.dim() == 2 else b
+    rows, k = a3.shape[1:]
+    out = torch.zeros((B, rows, b3.shape[2]), dtype=torch.float32)
+    per_item = plan.tiles // B
+    for t in range(plan.tiles):
+        z, r = divmod(t, per_item)
+        r0, c0 = (r // plan.ntn) * BM, (r % plan.ntn) * bn
+        if t < plan.whole:
+            ranges = [(0, plan.slabs)]
+        else:
+            ranges = [(s0, s1) for _, s0, s1 in _pieces(plan, t - plan.whole)]
+        acc = torch.zeros_like(out[z, r0:r0 + BM, c0:c0 + bn])
+        for s0, s1 in ranges:
+            ks = slice(s0 * BK, min(s1 * BK, k))
+            acc = acc + a3[z, r0:r0 + BM, ks].float() @ b3[z, ks, c0:c0 + bn].float()
+        out[z, r0:r0 + BM, c0:c0 + bn] = acc
+    return out
+
+
+def test_batched_plan_emulation_matches_plain():
+    """Kernel 4's two products in the plans' order on a few SMs (whole
+    waves, then a split tail whose pieces cross tile and item boundaries)
+    equal the plain ``(S_C·A_b)·S_Rᵀ`` within 1e-5 of its largest entry."""
+    from repro_torch.kernels.twoside_sketch import twoside_plans
+
+    rng = np.random.default_rng(23)
+    B, s_c, m, n, s_r = 5, 130, 200, 520, 140
+    sc = torch.from_numpy(rng.standard_normal((s_c, m)).astype(np.float32))
+    a = torch.from_numpy(rng.standard_normal((B, m, n)).astype(np.float32))
+    srt = torch.from_numpy(rng.standard_normal((n, s_r)).astype(np.float32))
+    for n_sm in (4, 7):
+        p1, p2 = twoside_plans(B, s_c, m, n, s_r, n_sm, (1, 1))
+        assert 0 < p1.whole < p1.tiles and 0 < p2.whole < p2.tiles
+        t = _emulate_batched_plan(sc, a, p1, PANEL_BN)
+        got = _emulate_batched_plan(t, srt, p2, PANEL_BN)
+        _close(got, ops.twoside_sketch(sc, a, srt), 1e-5, f"{n_sm} SMs")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -79,6 +79,51 @@ def test_countsketch_chunk_and_panel_apply_are_bitwise_equal():
     assert torch.equal(whole, parts)
 
 
+def test_indexed_windows_carry_their_bucket_order():
+    """After ``index_windows(L)`` a window on the L grid carries its slice of
+    the stream's orders, equal to its own ``bucket_order``, the last (ragged
+    only past the padding) included; a window off the grid, or of another
+    width, sorts its own. OSNAP indexes and hands over its parts' orders."""
+    from repro_torch.kernels.ops import bucket_order
+
+    St = to_port("countsketch", jdraw(jax.random.key(7), "countsketch", 30, 200)).pad_cols(240)
+    assert St.index_windows(40) is St
+    for off, size, indexed in [(0, 40, True), (80, 40, True), (200, 40, True), (20, 40, False),
+                               (40, 20, False)]:
+        W = St.cols(off, size)
+        assert bool(W._order) == indexed, (off, size)
+        perm, start = W.order()
+        want = bucket_order(St.hashes[off : off + size], St.s)
+        assert torch.equal(perm, want[0]) and torch.equal(start, want[1])
+    So = to_port("osnap", jdraw(jax.random.key(8), "osnap", 30, 240)).index_windows(40)
+    for part, whole in zip(So.cols(120, 40).parts(), So.parts()):
+        assert part._order and torch.equal(part.hashes, whole.hashes[120:160])
+        assert torch.equal(part.order()[1], bucket_order(whole.hashes[120:160], 30)[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_fold_apply_t_equals_add_of_apply_t(kind, dtype):
+    """The engine's M fold gives the bits of ``M.add_(S_R.cols(off,
+    L).apply_t(sc_a).to(M.dtype))``, for fp32 and bf16 M (and a bf16 sc_a,
+    whose apply_t rounds to bf16 before the add), with the window's
+    indexed order or its own."""
+    from repro_torch.core.sketching import fold_apply_t, index_windows
+
+    rng = np.random.default_rng(9)
+    dt = getattr(torch, dtype)
+    S = to_port(kind, jdraw(jax.random.key(3), kind, 48, 160))
+    index_windows(S, 40)
+    for off in (40, 120):
+        for x_dt in (torch.float32, dt):
+            W = S.cols(off, 40)
+            X = torch.from_numpy(rng.standard_normal((30, 40)).astype(np.float32)).to(x_dt)
+            M0 = torch.from_numpy(rng.standard_normal((30, 48)).astype(np.float32)).to(dt)
+            want = M0.clone().add_(W.apply_t(X).to(dt))
+            got = fold_apply_t(W, X, M0.clone())
+            assert got.dtype == dt and torch.equal(got, want), (off, x_dt)
+
+
 def _gmr_operands(rng, zero=False):
     B = rng.standard_normal((60, 8)).astype(np.float32)
     Y = rng.standard_normal((60, 30)).astype(np.float32)

@@ -264,6 +264,38 @@ def test_fixed_streaming_cur_matches_reference(kind, n, panel):
     assert abs(got - float(j_rel_err(jnp.asarray(A), jres))) < 1e-4
 
 
+@pytest.mark.parametrize("kind", ["countsketch", "osnap"])
+def test_fixed_streaming_resumed_off_the_panel_grid_matches_reference(kind):
+    """A stream the engine takes in two calls of different panel widths:
+    the first call's windows take their slices of S_R's indexed window
+    orders, the second call's windows (off its 40-wide grid) sort their
+    own. Indices equal, C and R bitwise and M within 1e-5 of the
+    reference's single run; and C, R equal to the port's own run in one
+    width (M folds its panels in other groups there: within 1e-6)."""
+    m, n = 200, 230
+    rng = np.random.default_rng(n)
+    A = (rng.standard_normal((m, 12)) @ rng.standard_normal((12, n))
+         + 0.3 * rng.standard_normal((m, n))).astype(np.float32)
+    ci = rng.choice(n, 10, replace=False)
+    ri = rng.choice(m, 10, replace=False)
+    jst = j_fixed_init(jax.random.key(4), m, n, jnp.asarray(ci), jnp.asarray(ri), sketch=kind,
+                       s_c=80, s_r=80, panel=10)
+    sketches = (_to_port(kind, jst.ctx.S_C), _to_port(kind, jst.ctx.S_R.cols(0, n)))
+    jst = j_stream(jst, jnp.asarray(A), 10)
+    jres = j_fixed_fin(jst)
+    At = torch.from_numpy(A)
+    pst = streaming_cur_init(None, m, n, ci, ri, panel=10, sketches=sketches, device="cpu")
+    pst = stream_panels(pst, At, 10, stop=30, route="per-panel")
+    assert 10 in pst.ctx.S_R.parts()[0]._windows if kind == "osnap" else 10 in pst.ctx.S_R._windows
+    pst = stream_panels(pst, At, 40, route="per-panel")  # offsets 30, 70, ...: off the grid
+    assert pst.offset == n
+    _check_against_reference(jst, jres, pst, streaming_cur_finalize(pst))
+    one = streaming_cur_init(None, m, n, ci, ri, panel=10, sketches=sketches, device="cpu")
+    one = stream_panels(one, At, 10, route="per-panel")
+    assert torch.equal(pst.C, one.C) and torch.equal(pst.R, one.R)
+    assert _rel(pst.M, one.M) < 1e-6
+
+
 def test_port_generators_and_draws_run_end_to_end():
     """The port's own generators and sketch draws (no reference arrays):
     adaptive CUR on a drifting spectrum finishes finite with distinct,

@@ -33,12 +33,29 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    matrices, c = r = 64, s_c = s_r = 960, uniform selection (kernel 4);
    (g) the same with approx-leverage selection. Launch counts are reset
    just before and read just after each run;
-3. route parity — the first 8 panels of (b), (c), (d), and the first 4
-   items of (f), with the kernels and with ``force_plain()``: indices
-   equal, C (and R) bitwise, M (and U) within tolerance;
-4. profile — ``torch.profiler`` over the whole of (a) (no sort, bincount
-   or scan launched per panel), over 8 panels of (b), (c), (d) and over run
-   (f): device time by kernel and the device's idle share.
+   Then the paper's two other applications at full width: (h) Algorithm 3,
+   ``fast_sp_svd`` on the same matrix at ``sp_svd_sizes(k=64, eps=0.5)``
+   (c = r = 384, c0 = r0 = 1292, s_c = s_r = 544, OSNAP p = 2, panel 512:
+   kernel 1 eight times per panel), beside ``practical_sp_svd`` (Algorithm
+   4) at c = r = 384, and ``svd_error_ratio`` at k = 10 of both on one
+   4096 × 4096 item of (f)'s stack; on an RBF kernel over 32768 seeded
+   points in 64 dimensions (16 clusters, 4 GiB), c = 128, s = 1280, panel
+   256: (i) fixed streaming SPSD, CountSketch pair (Route A: kernel 1's
+   chunk sketch and fold); (j) adaptive SPSD, Gaussian pair, admission
+   only (Route B: kernel 3 every panel, M of 1280 × 1280); (k) batch
+   Algorithm 2 (``faster_spsd``) beside Nyström, ``fast_spsd_wang`` and
+   the optimal core. Launch counts are reset just before and read just
+   after each run; the kernels' new launch shapes ((h)'s Ψ part and Ω
+   window, kernel 3 at s = 1280) are held against their plain versions;
+3. route parity — the first 8 panels of (b), (c), (d), (h), (i), (j), and
+   the first 4 items of (f), with the kernels and with ``force_plain()``:
+   indices equal, C (and R) bitwise, M (and U) within tolerance; (i)'s
+   chunk and per-panel routes; (i)'s stream against batch ``faster_spsd``
+   on the same columns and leverage sampling pair (X within 1e-4);
+4. profile — ``torch.profiler`` over the whole of (a) and (h) (no sort,
+   bincount or scan launched per panel), over 8 panels of (b), (c), (d),
+   (j), over (i) and over run (f) and one ``faster_spsd``: device time by
+   kernel and the device's idle share.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -61,6 +78,15 @@ M_ROWS, N_COLS, PANEL, C_BUDGET, R_BUDGET = 32768, 65536, 256, 128, 128
 # batched CUR: a stack of B power-law matrices, c = r = 64, and the Table-2
 # sketch size for c = 64 (ε = 0.05, ρ = 2): s_c = s_r = 960
 BATCH, B_ROWS, B_COLS, B_BUDGET, B_SKETCH = 32, 4096, 4096, 64, 960
+# (h): Algorithm 3 at sp_svd_sizes(k=64, eps=0.5), in the reference's 512-wide
+# panels; svd_error_ratio at rank k = 10 on one item of the stack, at
+# sp_svd_sizes(10, 0.5) (Practical SP-SVD at the same c = r)
+SVD_K, SVD_EPS, SVD_PANEL, SVD_RATIO_K = 64, 0.5, 512, 10
+# (i)-(k): an RBF kernel over n points in d dimensions, 16 Gaussian clusters;
+# c columns and the reference's default s = 10c (the paper's §6.2 point)
+SPSD_N, SPSD_D, SPSD_CLUSTERS, SPSD_C = 32768, 64, 16, 128
+SPSD_S = 10 * SPSD_C
+SPSD_MIN_GAIN = 0.01  # (j)'s admission threshold, in mean column energies
 SEED = 0
 # fp32 sums over up to m = 32768 terms, in the kernel's fixed order against
 # cuBLAS's / index_add_'s order: relative to the largest entry of the output
@@ -355,8 +381,98 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     launch_plan(torch, ops, dev, s, m, L)
     del A_buf, panels, signed
     torch.cuda.empty_cache()
+    out["panel_update"]["max_abs_err"] = max(out["panel_update"]["max_abs_err"],
+                                             panel_update_spsd(torch, ops, dev, g, peaks)[0])
+    out["countsketch"]["max_abs_err"] = max(out["countsketch"]["max_abs_err"],
+                                            countsketch_sp_svd(torch, ops, dev, g, peaks)[0])
     out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
     return out
+
+
+def countsketch_sp_svd(torch, ops, dev, g, peaks) -> tuple:
+    """Kernel 1 at (h)'s per-panel shapes, one OSNAP part each: Ψ's (1292
+    buckets) on a 32768 × 512 panel window of a wider A (the gather kernel),
+    and the Ω window's (1292 buckets over the panel's 512 columns) on the
+    panel's transpose into the (32768, 1292) transpose (the view kernel, on
+    chunk orders sliced from a parent indexed once), each against the plain
+    version, in device time beside ``index_add_`` and the bound. Returns the
+    largest (abs, rel) error."""
+    from repro_torch.core.sketching import CountSketch, index_windows
+
+    m, L, s = M_ROWS, SVD_PANEL, 1292
+    A_wide = torch.randn((m, 4 * L), generator=g, device=dev)
+    A_L = A_wide[:, L : 2 * L]
+    psi = CountSketch.draw(g, s, m)
+    omega = CountSketch.draw(g, s, 4 * L)
+    index_windows(omega, L, chunks=True)
+    W = omega.cols(L, L)
+    check(ops.VIEW_CHUNK in W._windows and ops.reads_columns(A_L.T, transpose_out=True),
+          "countsketch: (h)'s Omega window does not take the view kernel on its chunk orders")
+    out, errs = {}, []
+    for name, fn, h, sg, x in (("psi_part", lambda: psi.apply(A_L), psi.hashes, psi.signs, A_L),
+                               ("omega_window_part_view", lambda: W.apply_t(A_L), W.hashes,
+                                W.signs, A_L.T)):
+        got = fn()
+        with ops.force_plain():
+            want = fn()
+        e = err(got, want)
+        check(e[1] <= TOL, f"countsketch {name}: rel err {e[1]} > {TOL}")
+        errs.append(e)
+        k_ms = device_ms(torch, fn)[0]
+        with ops.force_plain():
+            p_ms = device_ms(torch, fn)[0]
+        signed = x * sg[:, None]
+        acc = torch.zeros((s, x.shape[1]), device=dev)
+        lib_ms = device_ms(torch, lambda: acc.index_add_(0, h.long(), signed))[0]
+        b = bound_ms(4 * (x.numel() + s * x.shape[1] + 2 * x.shape[0]), x.numel(), peaks)
+        out[name] = dict(shape=[s, x.shape[0], x.shape[1]], rel_err=e[1], ms=k_ms, plain_ms=p_ms,
+                         library_ms=lib_ms, bound_ms=b[0], bound_by=b[1])
+        del got, want, signed, acc
+    emit("kernel/countsketch_sp_svd", timing="device ms per call (torch.profiler)",
+         library="index_add_ of pre-signed rows", **out)
+    del A_wide
+    torch.cuda.empty_cache()
+    return max(errs, key=lambda e: e[1])
+
+
+def panel_update_spsd(torch, ops, dev, g, peaks) -> tuple:
+    """Kernel 3 at (j)'s shape: S_1 (1280 × 32768), a 256-column panel of the
+    kernel stream, the S_2 window as a transposed view, C (32768 × 128) and
+    M (1280 × 1280), against the plain version (slots and C equal, the rest
+    within TOL), timed beside the plain version and ``torch.matmul(S_1,
+    K_L)``. Returns the largest (abs, rel) error."""
+    s, m, L, c = SPSD_S, SPSD_N, PANEL, SPSD_C
+    sc = torch.randn((s, m), generator=g, device=dev) / math.sqrt(s)
+    srt = (torch.randn((s, 4 * L), generator=g, device=dev) / math.sqrt(s))[:, L : 2 * L].T
+    a_l = torch.randn((m, 4 * L), generator=g, device=dev)[:, 2 * L : 3 * L]
+    Q, _ = torch.linalg.qr(torch.randn((s, c), generator=g, device=dev))
+    q = (Q * (torch.arange(c, device=dev) < c // 2)).contiguous()
+    C0 = torch.randn((m, c), generator=g, device=dev) * (torch.arange(c, device=dev) < c // 2)
+    M0 = torch.randn((s, s), generator=g, device=dev)
+    kw = dict(min_gain=0.5, run_mean=0.0, true_cols=float(L), n_filled=c // 2, free=c - c // 2,
+              panel_cap=c // 8)
+    got = ops.panel_update(sc, a_l, srt, q, C0.clone(), M0.clone(), **kw)
+    with ops.force_plain():
+        want = ops.panel_update(sc, a_l, srt, q, C0.clone(), M0.clone(), **kw)
+    check(bool(torch.equal(got[5], want[5])) and bool(torch.equal(got[0], want[0])),
+          "panel_update at (j)'s shape: slots or C differ")
+    e = max((err(x, y) for x, y in zip(got[1:5], want[1:5])), key=lambda e: e[1])
+    check(e[1] <= TOL, f"panel_update at (j)'s shape: rel err {e[1]} > {TOL}")
+    Ct, Mt = C0.clone(), M0.clone()
+    k_ms = timed(torch, lambda: ops.panel_update(sc, a_l, srt, q, Ct, Mt, **kw))
+    with ops.force_plain():
+        p_ms = timed(torch, lambda: ops.panel_update(sc, a_l, srt, q, Ct, Mt, **kw))
+    lib_ms = timed(torch, lambda: torch.matmul(sc, a_l))
+    admitted = int((got[5] < c).sum())
+    flops = 2 * s * m * L + 2 * c * s * L + 2 * s * L * s
+    b = bound_ms(4 * (s * m + m * L + L * s + s * c + 2 * s * s + admitted * m + s * L + 3 * L),
+                 flops, peaks)
+    emit("kernel/panel_update_spsd", shape=[s, m, L, c, s], rel_err=e[1], admitted=admitted,
+         ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, library="torch.matmul(S_1, K_L), fp32 highest",
+         bound_ms=b[0], bound_by=b[1], tflops=flops / k_ms / 1e9)
+    del sc, srt, a_l, C0, M0, got, want, Ct, Mt
+    torch.cuda.empty_cache()
+    return e
 
 
 def launch_plan(torch, ops, dev, s: int, m: int, L: int) -> None:
@@ -913,6 +1029,316 @@ def phase_profile_batched(torch, Ab, dev) -> None:
          device_ops=n_ops, top_device_ms=top)
 
 
+def gen(torch, dev, seed: int):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return g
+
+
+def orth_err(torch, U) -> float:
+    """``‖UᵀU − I‖₂`` in fp64."""
+    G = U.double().T @ U.double()
+    return float(torch.linalg.matrix_norm(G - torch.eye(G.shape[0], dtype=G.dtype,
+                                                        device=G.device), ord=2))
+
+
+def order_launches(names: dict) -> dict:
+    """Device launches of the order-building ops (sorts, bincounts, scans,
+    searchsorted), by kind, from a profile's launch counts by name."""
+    return {k: sum(n for key, n in names.items() if k in key.lower())
+            for k in ("sort", "bincount", "scan", "searchsorted")}
+
+
+def run_sp_svd(torch, A, dev) -> dict:
+    """(h): Algorithm 3 over the streaming runs' matrix, beside Algorithm 4;
+    errors in column blocks, orthonormality, kernels vs ``force_plain()`` on
+    the first 8 panels, and a profile of the whole stream."""
+    from repro_torch.core.gmr import residual_norm
+    from repro_torch.core.svd import practical_sp_svd, sp_svd_finalize, sp_svd_init, sp_svd_sizes
+    from repro_torch.kernels import ops
+    from repro_torch.stream.engine import stream_panels
+
+    m, n = A.shape
+    sizes = sp_svd_sizes(SVD_K, SVD_EPS)
+    num_panels = n // SVD_PANEL
+    init = lambda: sp_svd_init(gen(torch, dev, SEED + 40), m, n, sizes=sizes,  # noqa: E731
+                               panel=SVD_PANEL, device=dev)
+    state = init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state = stream_panels(state, A, SVD_PANEL)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter() - t0
+    U, S, V = sp_svd_finalize(state)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # Ψ, S_C and the Ω window on the panel, the S_R window fold: 2 parts each
+    check(launches["countsketch"] >= 6 * num_panels,
+          f"h: countsketch launched {launches['countsketch']}, want >= {6 * num_panels}")
+    check(all(bool(torch.isfinite(t).all()) for t in (state.C, state.R, state.M, U, S, V)),
+          "h: non-finite factors")
+    a_norm = torch.linalg.norm(A)
+    rel = float(residual_norm(A, U, torch.diag(S), V.T) / a_norm)
+    orth = (orth_err(torch, U), orth_err(torch, V))
+    check(max(orth) < 1e-3, f"h: U, V not orthonormal: {orth}")
+    check(math.isfinite(rel) and rel < 1.0, f"h: relative error {rel}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Up, Sp, Vp = practical_sp_svd(gen(torch, dev, SEED + 41), A, c=sizes["c"], r=sizes["r"])
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    rel_p = float(residual_norm(A, Up, torch.diag(Sp), Vp.T) / a_norm)
+    orth_p = (orth_err(torch, Up), orth_err(torch, Vp))
+    check(math.isfinite(rel_p) and max(orth_p) < 1e-3, f"h: practical SP-SVD {rel_p}, {orth_p}")
+    emit("path/h_fast_sp_svd", m=m, n=n, panel=SVD_PANEL, panels=num_panels, osnap_p=2,
+         **sizes, stream_s=t_stream, wall_s=t_total, ms_per_panel=1e3 * t_stream / num_panels,
+         launches=launches, relative_error=rel, orthonormality_U_V=orth, sigma_1=float(S[0]),
+         practical_sp_svd=dict(c=sizes["c"], r=sizes["r"], sketch="gaussian", wall_s=wall_p,
+                               relative_error=rel_p, orthonormality_U_V=orth_p),
+         error="||A - U diag(S) V^T||_F / ||A||_F in 4096-column blocks", peak_mem_gib=peak)
+    del U, S, V, Up, Sp, Vp, state
+    torch.cuda.empty_cache()
+
+    stop = 8 * SVD_PANEL
+    kern = stream_panels(init(), A, SVD_PANEL, stop=stop)
+    with ops.force_plain():
+        plain = stream_panels(init(), A, SVD_PANEL, stop=stop)
+    torch.cuda.synchronize()
+    errs = {k: err(getattr(kern, k), getattr(plain, k))[1] for k in ("C", "R", "M")}
+    check(all(e <= TOL for e in errs.values()), f"parity h: {errs} > {TOL}")
+    emit("parity/h_fast_sp_svd", panels=8, rel_err=errs)
+    del kern, plain
+
+    state = init()
+    torch.cuda.synchronize()
+    wall_ms, busy_ms, n_ops, top, names = device_profile(
+        torch, lambda: stream_panels(state, A, SVD_PANEL), names=True)
+    orders = order_launches(names)
+    emit("profile/h_fast_sp_svd", panels=num_panels, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None,
+         device_ops_per_panel=n_ops / num_panels, device_ms_per_panel=busy_ms / num_panels,
+         order_launches=orders, top_device_ms=top)
+    check(all(k < num_panels for k in orders.values()),
+          f"(h) launches an order per panel: {orders}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_sp_svd_item(torch, A_b, dev) -> dict:
+    """(h), second part: ``svd_error_ratio`` at rank 10 of Algorithm 3 (at
+    ``sp_svd_sizes(10, 0.5)``) and of Algorithm 4 (same c = r) on one
+    4096 × 4096 power-law item, where the exact SVD is affordable."""
+    from repro_torch.core.svd import fast_sp_svd, practical_sp_svd, sp_svd_sizes, svd_error_ratio
+    from repro_torch.kernels import ops
+
+    sizes = sp_svd_sizes(SVD_RATIO_K, SVD_EPS)
+    ops.reset_launches()
+    fast = fast_sp_svd(gen(torch, dev, SEED + 42), A_b, sizes=sizes, panel=SVD_PANEL)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    prac = practical_sp_svd(gen(torch, dev, SEED + 43), A_b, c=sizes["c"], r=sizes["r"])
+    ratios = [float(svd_error_ratio(A_b, *out, SVD_RATIO_K)) for out in (fast, prac)]
+    check(all(math.isfinite(r) for r in ratios), f"h item: non-finite error ratios {ratios}")
+    emit("path/h_svd_error_ratio_item", shape=list(A_b.shape), k=SVD_RATIO_K, **sizes,
+         launches=launches, fast_sp_svd=ratios[0], practical_sp_svd=ratios[1],
+         metric="||A - U S V^T||_F / ||A - A_k||_F - 1")
+    return launches
+
+
+def spsd_points(torch, dev):
+    """32768 points in 64 dimensions around 16 seeded Gaussian centres (3× the
+    spread between centres as within), and σ = 1 / (median squared distance
+    of 4096 seeded pairs)."""
+    g = gen(torch, dev, SEED + 50)
+    centers = 3.0 * torch.randn((SPSD_CLUSTERS, SPSD_D), generator=g, device=dev)
+    assign = torch.randint(0, SPSD_CLUSTERS, (SPSD_N,), generator=g, device=dev)
+    X = centers[assign] + torch.randn((SPSD_N, SPSD_D), generator=g, device=dev)
+    i, j = (torch.randint(0, SPSD_N, (4096,), generator=g, device=dev) for _ in range(2))
+    sigma = 1.0 / float(torch.median(((X[i] - X[j]) ** 2).sum(1)))
+    return X, sigma
+
+
+def spsd_checks(torch, name: str, K, res) -> dict:
+    """Finite factors, a PSD X (smallest eigenvalue above −1e-5 of the
+    largest) and the §6.2 error, for one SPSD result."""
+    from repro_torch.spsd import spsd_error_ratio
+
+    check(bool(torch.isfinite(res.C).all()) and bool(torch.isfinite(res.X).all()),
+          f"{name}: non-finite factors")
+    ev = torch.linalg.eigvalsh(0.5 * (res.X + res.X.T).double())
+    lo, hi = float(ev.min()), float(ev.max())
+    e = float(spsd_error_ratio(K, res))
+    check(math.isfinite(e), f"{name}: non-finite error")
+    return dict(spsd_error_ratio=e, x_eig_min=lo, x_eig_max=hi, psd=lo >= -1e-5 * max(hi, 0.0))
+
+
+def run_spsd(torch, dev) -> list:
+    """(i)-(k) on one RBF kernel, with (i)'s and (j)'s parity and profiles
+    and (i)'s stream against batch Algorithm 2."""
+    from repro_torch.kernels import ops
+    from repro_torch.spsd import (adaptive_spsd_finalize, adaptive_spsd_init, fast_spsd_wang,
+                                  faster_spsd, leverage_sampling_sketches, matrix_oracle, nystrom,
+                                  optimal_core, rbf_kernel_oracle, streaming_spsd_finalize,
+                                  streaming_spsd_init)
+    from repro_torch.stream.engine import stream_panels
+
+    n, c, s = SPSD_N, SPSD_C, SPSD_S
+    num_panels = n // PANEL
+    t0 = time.perf_counter()
+    X, sigma = spsd_points(torch, dev)
+    K = rbf_kernel_oracle(X, sigma)(None, None)
+    torch.cuda.synchronize()
+    emit("data", generator="rbf_kernel_oracle over clustered points", shape=[n, n], d=SPSD_D,
+         clusters=SPSD_CLUSTERS, sigma=sigma, dtype="float32", gib=K.numel() * 4 / 2**30,
+         seconds=time.perf_counter() - t0)
+    ci = torch.randperm(n, generator=gen(torch, dev, SEED + 51), device=dev)[:c]
+    runs = {
+        "i_streaming_spsd": (lambda: streaming_spsd_init(gen(torch, dev, SEED + 52), n, ci, s=s,
+                                                         panel=PANEL, device=dev),
+                             streaming_spsd_finalize, ("countsketch", num_panels)),
+        # an RBF kernel's columns share most of their energy, so residuals
+        # are small against the mean column energy: the default min_gain = 2
+        # admits nothing here and 0.5 stops at the first panel's 16 columns
+        "j_adaptive_spsd_route_b": (lambda: adaptive_spsd_init(
+            gen(torch, dev, SEED + 53), n, c, s=s, sketch="gaussian", min_gain=SPSD_MIN_GAIN,
+            panel=PANEL, device=dev), adaptive_spsd_finalize, ("panel_update", num_panels)),
+    }
+    all_launches, results = [], {}
+    for name, (make, fin, (kname, count)) in runs.items():
+        state = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state = stream_panels(state, K, PANEL)
+        torch.cuda.synchronize()
+        t_stream = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        res = fin(state)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        all_launches.append(launches)
+        want = f"{count}" if name.startswith("j_") else f">= {count}"
+        check(launches[kname] == count if name.startswith("j_") else launches[kname] >= count,
+              f"{name}: {kname} launched {launches[kname]}, want {want}")
+        check(state.R.shape == (0, n) and bool(torch.isfinite(state.M).all()),
+              f"{name}: R placeholder or M")
+        q = spsd_checks(torch, name, K, res)
+        check(q["psd"], f"{name}: X not PSD ({q['x_eig_min']} against {q['x_eig_max']})")
+        n_cols = check_indices(torch, res.col_idx, n, f"{name} col_idx")
+        emit(f"path/{name}", n=n, panel=PANEL, panels=num_panels, c=c, s=s,
+             sketch="countsketch" if name.startswith("i_") else "gaussian",
+             min_gain=None if name.startswith("i_") else SPSD_MIN_GAIN,
+             stream_s=t_stream, wall_s=t_total, ms_per_panel=1e3 * t_stream / num_panels,
+             launches=launches, cols_filled=n_cols, M_shape=list(state.M.shape), **q,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        results[name] = res
+        del state
+        torch.cuda.empty_cache()
+
+    # (i): the chunk route against the per-panel route, whole stream
+    make = runs["i_streaming_spsd"][0]
+    chunk, per_panel = stream_panels(make(), K, PANEL), stream_panels(make(), K, PANEL,
+                                                                      route="per-panel")
+    torch.cuda.synchronize()
+    check(bool(torch.equal(chunk.C, per_panel.C)), "parity i: C differs between routes")
+    m_rel = err(chunk.M, per_panel.M)[1]
+    check(m_rel <= TOL, f"parity i: M rel err {m_rel} > {TOL} between routes")
+    emit("parity/i_streaming_spsd_routes", panels=num_panels, C_bitwise=True, M_rel_err=m_rel,
+         M_bitwise=bool(torch.equal(chunk.M, per_panel.M)))
+    del chunk, per_panel
+    # (i), (j): kernels against force_plain() on the first 8 panels
+    for name, (make, _, _) in runs.items():
+        kern = stream_panels(make(), K, PANEL, stop=8 * PANEL)
+        with ops.force_plain():
+            plain = stream_panels(make(), K, PANEL, stop=8 * PANEL)
+        torch.cuda.synchronize()
+        idx = getattr(kern.ctx, "col_idx")
+        check(bool(torch.equal(idx, plain.ctx.col_idx)), f"parity {name}: col_idx differs")
+        check(bool(torch.equal(kern.C, plain.C)), f"parity {name}: C differs")
+        m_rel = err(kern.M, plain.M)[1]
+        check(m_rel <= TOL, f"parity {name}: M rel err {m_rel} > {TOL}")
+        emit(f"parity/{name}", panels=8, cols_filled=int((idx >= 0).sum()), C_bitwise=True,
+             indices_equal=True, M_rel_err=m_rel)
+        del kern, plain
+    torch.cuda.empty_cache()
+
+    # profiles: the whole of (i); panels 2-9 of (j)
+    state = runs["i_streaming_spsd"][0]()
+    torch.cuda.synchronize()
+    wall_ms, busy_ms, n_ops, top, names = device_profile(
+        torch, lambda: stream_panels(state, K, PANEL), names=True)
+    emit("profile/i_streaming_spsd", panels=num_panels, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None,
+         device_ops_per_panel=n_ops / num_panels, order_launches=order_launches(names),
+         top_device_ms=top)
+    state = stream_panels(runs["j_adaptive_spsd_route_b"][0](), K, PANEL, stop=2 * PANEL)
+    torch.cuda.synchronize()
+    wall_ms, busy_ms, n_ops, top = device_profile(
+        torch, lambda: stream_panels(state, K, PANEL, stop=10 * PANEL))
+    emit("profile/j_adaptive_spsd_route_b", panels=8, wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None,
+         device_ops_per_panel=n_ops / 8, top_device_ms=top)
+    del state
+    torch.cuda.empty_cache()
+
+    # (k): batch Algorithm 2 through the oracle, beside the baselines
+    oracle = rbf_kernel_oracle(X, sigma)
+    batch = {}
+    for name, fn in (("faster_spsd", lambda g: faster_spsd(g, oracle, n, c, s)),
+                     ("nystrom", lambda g: nystrom(g, oracle, n, c)),
+                     ("fast_spsd_wang", lambda g: fast_spsd_wang(g, oracle, n, c, s)),
+                     ("optimal_core", lambda g: optimal_core(g, oracle, n, c))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = fn(gen(torch, dev, SEED + 60))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)  # the oracle-bound paths sample rows: no kernel
+        all_launches.append(launches)
+        q = spsd_checks(torch, f"k {name}", K, res)
+        check(q["psd"] or name == "nystrom",
+              f"k {name}: X not PSD ({q['x_eig_min']} against {q['x_eig_max']})")
+        check_indices(torch, res.col_idx, n, f"k {name} col_idx")
+        batch[name] = dict(wall_s=wall, launches=launches, entries_observed=res.entries_observed,
+                           **q, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del res
+        torch.cuda.empty_cache()
+    check(batch["faster_spsd"]["entries_observed"] == n * c + s * s,
+          "k: faster_spsd must observe n*c + s^2 entries")
+    emit("path/k_batch_spsd", n=n, c=c, s=s, oracle="rbf_kernel_oracle", **batch)
+    g = gen(torch, dev, SEED + 61)
+    wall_ms, busy_ms, n_ops, top = device_profile(torch, lambda: faster_spsd(g, oracle, n, c, s))
+    emit("profile/k_faster_spsd", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_idle_share=(1 - busy_ms / wall_ms) if wall_ms > 0 else None, device_ops=n_ops,
+         top_device_ms=top)
+
+    # streaming <-> batch: (i)'s columns and one leverage sampling pair, the
+    # reference's contract (entries read from the same K)
+    pair = leverage_sampling_sketches(gen(torch, dev, SEED + 62), K[:, ci.long()], s)
+    res_b = faster_spsd(None, matrix_oracle(K), n, c, s, col_idx=ci, sketches=pair)
+    st = streaming_spsd_init(None, n, ci, sketches=pair, panel=PANEL, device=dev)
+    res_s = streaming_spsd_finalize(stream_panels(st, K, PANEL))
+    torch.cuda.synchronize()
+    check(bool(torch.equal(res_s.C, res_b.C)), "parity i/k: C differs")
+    x_err = err(res_s.X, res_b.X)
+    check(x_err[1] <= 1e-4, f"parity i/k: streamed X off batch X by {x_err[1]} of its largest")
+    emit("parity/i_stream_vs_k_batch", c=c, s=s, sketches="leverage sampling pair",
+         X_max_abs_err=x_err[0], X_rel_err=x_err[1],
+         spsd_error_ratio=[spsd_checks(torch, "i/k", K, r)["spsd_error_ratio"]
+                           for r in (res_s, res_b)])
+    del K, X, res_b, res_s, st, results
+    torch.cuda.empty_cache()
+    return all_launches
+
+
 def main() -> int:
     import torch
 
@@ -955,7 +1381,7 @@ def main() -> int:
     totals, runs = phase_paths(torch, A, dev)
     phase_route_parity(torch, A, runs)
     phase_profile(torch, A, runs)
-    runs_launches = [run_oneshot(torch, A, dev)]
+    runs_launches = [run_oneshot(torch, A, dev), run_sp_svd(torch, A, dev)]
     del A, runs
     torch.cuda.empty_cache()
 
@@ -970,6 +1396,10 @@ def main() -> int:
     runs_launches += [launches_f, launches_g]
     phase_batched_parity(torch, Ab, res_f, dev)
     phase_profile_batched(torch, Ab, dev)
+    runs_launches.append(run_sp_svd_item(torch, Ab[0], dev))
+    del Ab, res_f
+    torch.cuda.empty_cache()
+    runs_launches += run_spsd(torch, dev)
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

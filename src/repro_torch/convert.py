@@ -9,6 +9,8 @@ bfloat16, which torch cannot wrap) arrives as a torch bfloat16 tensor.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -22,7 +24,8 @@ from .core.sketching import (
 )
 from .device import DeviceLike, resolve_device
 
-__all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays"]
+__all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays", "sketch_pair",
+           "spsvd_sketches"]
 
 # family name of a reference sketch class -> (kind, fields to carry)
 _FIELDS = {
@@ -92,3 +95,20 @@ def sketch_from_arrays(kind: str, arrays: dict, device: DeviceLike = None):
     if kind == "countsketch":
         return CountSketch(hashes=hashes, signs=signs, s=s)
     return OSNAPSketch(hashes=hashes, signs=signs, s=s, p=hashes.shape[0])
+
+
+def sketch_pair(pair, device: DeviceLike = None) -> tuple:
+    """The port's copy of a tuple of reference sketches, e.g. the RowSampling
+    pair of the reference's ``leverage_sampling_sketches``."""
+    return tuple(sketch_from_arrays(*sketch_arrays(S), device=device) for S in pair)
+
+
+def spsvd_sketches(sk, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.core.svd.SPSVDSketches` from a
+    reference SP-SVD state's ``ctx`` (its Ω and S_R already padded to whole
+    panels; the port's ``pad_cols`` leaves them as they are)."""
+    from .core.svd import SPSVDSketches
+
+    return SPSVDSketches(**{f.name: sketch_from_arrays(*sketch_arrays(getattr(sk, f.name)),
+                                                       device=device)
+                            for f in dataclasses.fields(SPSVDSketches)})

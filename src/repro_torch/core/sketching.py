@@ -170,6 +170,8 @@ class CountSketch:
     :meth:`index_windows` (``L``), a window ``cols(w·L, L)`` takes its slice
     of the orders of every ``L``-wide window instead of sorting its own: the
     streaming engine indexes ``S_R`` by its panel width once per stream.
+    After ``index_windows(VIEW_CHUNK)`` a wider window on that chunk grid
+    likewise takes its slice of the view kernel's chunk orders.
     """
 
     hashes: torch.Tensor  # (m,) int32 in [0, s)
@@ -255,6 +257,12 @@ class CountSketch:
         if size in self._windows and offset % size == 0:
             perm, start = self._windows[size]
             win._order.append((perm[offset : offset + size], start[offset // size]))
+        V = ops.VIEW_CHUNK
+        if (size > V and V in self._windows and offset % V == 0
+                and (size % V == 0 or offset + size == self.m)):
+            perm, start = self._windows[V]
+            chunks = slice(offset // V, -(-(offset + size) // V))
+            win._windows[V] = (perm[offset : offset + size], start[chunks])
         return win
 
     def pad_cols(self, total: int) -> "CountSketch":
@@ -434,12 +442,16 @@ class ComposedSketch:
         return ComposedSketch(inner=self.inner.pad_cols(total), outer=self.outer)
 
 
-def index_windows(S, L: int) -> None:
+def index_windows(S, L: int, *, chunks: bool = False) -> None:
     """Build, once, the bucket orders of every ``L``-wide window of a
     CountSketch or OSNAP ``S`` (the families whose kernel walks them), so
-    that ``S.cols(w·L, L)`` sorts nothing; other families have none."""
+    that ``S.cols(w·L, L)`` sorts nothing; other families have none. With
+    ``chunks``, also the view kernel's ``VIEW_CHUNK``-row chunk orders, for
+    windows applied to a column-major operand (``apply_t`` of a panel)."""
     if isinstance(S, (CountSketch, OSNAPSketch)):
         S.index_windows(L)
+        if chunks:
+            S.index_windows(ops.VIEW_CHUNK)
 
 
 def fold_apply_t(S, X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,236 @@
+"""Single-pass SVD (paper §5; counterpart of ``repro/core/svd.py``).
+
+* **Algorithm 3 (Fast SP-SVD)** — :func:`sp_svd_init` /
+  :func:`sp_svd_update` / :func:`sp_svd_finalize` over L-column panels,
+  and the one-shot :func:`fast_sp_svd`, on the panel engine
+  (:mod:`repro_torch.stream.engine`, ``SP_SVD_OPS``);
+* **Algorithm 4 (Practical SP-SVD, Tropp et al. 2017)** — the baseline,
+  :func:`practical_sp_svd`.
+
+Per panel ``A_L`` at column offset ``off``: ``C += (A_L·Ω[:, cols]ᵀ)·G_Cᵀ``,
+``R[:, cols] = G_R·(Ψ·A_L)`` and ``M += (S_C·A_L)·S_R[:, cols]ᵀ``, with Ψ, Ω,
+S_C and S_R OSNAP sketches and G_C, G_R Gaussian. On CUDA tensors every
+OSNAP apply is kernel 1, two launches per apply (one per part): Ψ and S_C
+on the panel, the Ω window on the panel's transpose (the view kernel), the
+S_R window in the M fold. The engine indexes the Ω and S_R windows once
+per stream, so no panel sorts. Finalize takes QR bases of C and Rᵀ, the
+sketched core solve and a small SVD.
+
+Randomness: the inits draw from a ``torch.Generator``, or take pre-drawn
+:class:`SPSVDSketches` (parity tests hand the reference's across through
+:func:`repro_torch.convert.spsvd_sketches`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..stream.engine import PanelOps, PanelState, padded_n, panel_update, stream_panels, truncated_R
+from .gmr import _solve_least_squares, fast_gmr_core
+from .sketching import GaussianSketch, OSNAPSketch, draw_sketch
+
+__all__ = [
+    "SPSVDSketches",
+    "SPSVDState",
+    "SP_SVD_OPS",
+    "sp_svd_sizes",
+    "spsvd_engine_init",
+    "spsvd_engine_finalize",
+    "sp_svd_init",
+    "sp_svd_update",
+    "sp_svd_finalize",
+    "fast_sp_svd",
+    "practical_sp_svd",
+    "svd_error_ratio",
+]
+
+
+def sp_svd_sizes(k: int, eps: float, gamma: float = 0.25) -> dict:
+    """Algorithm 3 step 2 sketch sizes (constants per §6.3's recipe)."""
+    ke = k / eps
+    c = r = int(math.ceil(3 * ke))
+    c0 = r0 = int(math.ceil(3 * ke ** (1.0 + gamma)))
+    s = int(math.ceil(3 * k / eps**1.5))
+    return dict(c=c, r=r, c0=c0, r0=r0, s_c=s, s_r=s)
+
+
+@dataclasses.dataclass(frozen=True)
+class SPSVDSketches:
+    """The six sketching operators of Algorithm 3 step 3."""
+
+    psi: OSNAPSketch  # (r0, m)
+    g_r: GaussianSketch  # (r, r0)
+    omega: OSNAPSketch  # (c0, n_pad)
+    g_c: GaussianSketch  # (c, c0)
+    s_c: OSNAPSketch  # (s_c, m)
+    s_r: OSNAPSketch  # (s_r, n_pad)
+
+
+def _svd_core_sketches(sk: SPSVDSketches):
+    return sk.s_c, sk.s_r
+
+
+def _svd_update_c(sk: SPSVDSketches, C, A_L, sc_a, off):
+    # C += A_L·Ω̃[cols] with Ω̃[cols] = Ω[:, cols]ᵀ·G_Cᵀ (never materialised)
+    a_omega = sk.omega.cols(off, A_L.shape[1]).apply_t(A_L)  # (m, c0)
+    return sk, C.add_(sk.g_c.apply_t(a_omega).to(C.dtype))
+
+
+def _svd_r_block(sk: SPSVDSketches, A_L, off):
+    return sk.g_r.apply(sk.psi.apply(A_L))  # R[:, cols] = G_R·(Ψ·A_L)
+
+
+def _svd_window_sketches(sk: SPSVDSketches):
+    return (sk.omega,)
+
+
+SP_SVD_OPS = PanelOps(
+    name="sp_svd",
+    core_sketches=_svd_core_sketches,
+    update_c=_svd_update_c,
+    r_block=_svd_r_block,
+    window_sketches=_svd_window_sketches,
+)
+
+SPSVDState = PanelState
+
+
+def spsvd_engine_init(gen: Optional[torch.Generator], m: int, n: int, *, sizes: dict,
+                      dtype=torch.float32, osnap_p: int = 2, panel: Optional[int] = None,
+                      sketches: Optional[SPSVDSketches] = None,
+                      device: DeviceLike = None) -> SPSVDState:
+    """Algorithm 3 state with explicit ``sizes``: the six sketches (drawn
+    from ``gen`` on ``device`` in the reference's order ψ, G_R, Ω, G_C, S_C,
+    S_R, or ``sketches``) and zero accumulators. ``panel`` pads Ω, S_R and
+    ``R`` to whole panels, so a ragged last panel is zero-padded exactly.
+    ``device=None`` means CUDA (raises without it)."""
+    dev = resolve_device(device)
+    c, r, c0, r0, s_c, s_r = (sizes[x] for x in ("c", "r", "c0", "r0", "s_c", "s_r"))
+    n_pad = padded_n(n, panel) if panel else n
+    if sketches is None:
+        if gen is None:
+            raise ValueError("pass a generator or pre-drawn `sketches`")
+        sketches = SPSVDSketches(
+            psi=OSNAPSketch.draw(gen, r0, m, p=osnap_p, dtype=dtype),
+            g_r=GaussianSketch.draw(gen, r, r0, dtype=dtype),
+            omega=OSNAPSketch.draw(gen, c0, n, p=osnap_p, dtype=dtype),
+            g_c=GaussianSketch.draw(gen, c, c0, dtype=dtype),
+            s_c=OSNAPSketch.draw(gen, s_c, m, p=osnap_p, dtype=dtype),
+            s_r=OSNAPSketch.draw(gen, s_r, n, p=osnap_p, dtype=dtype),
+        )
+    sk = dataclasses.replace(sketches, omega=sketches.omega.pad_cols(n_pad),
+                             s_r=sketches.s_r.pad_cols(n_pad))
+    return SPSVDState(
+        C=torch.zeros((m, c), dtype=dtype, device=dev),
+        R=torch.zeros((r, n_pad), dtype=dtype, device=dev),
+        M=torch.zeros((s_c, s_r), dtype=dtype, device=dev),
+        offset=0,
+        ctx=sk,
+        ops=SP_SVD_OPS,
+        n=n,
+    )
+
+
+def sp_svd_init(gen: Optional[torch.Generator], m: int, n: int, *, k: Optional[int] = None,
+                eps: float = 0.5, sizes: Optional[dict] = None, dtype=torch.float32,
+                osnap_p: int = 2, panel: Optional[int] = None,
+                sketches: Optional[SPSVDSketches] = None,
+                device: DeviceLike = None) -> SPSVDState:
+    """:func:`spsvd_engine_init` with the paper's k/eps sizing
+    (:func:`sp_svd_sizes`) when explicit ``sizes`` are not given."""
+    if sizes is None:
+        if k is None:
+            raise ValueError("pass either `k` (+eps) or explicit `sizes`")
+        sizes = sp_svd_sizes(k, eps)
+    return spsvd_engine_init(gen, m, n, sizes=sizes, dtype=dtype, osnap_p=osnap_p, panel=panel,
+                             sketches=sketches, device=device)
+
+
+def sp_svd_update(state: SPSVDState, A_L: torch.Tensor) -> SPSVDState:
+    """Consume one L-column panel (Algorithm 3 steps 6–8)."""
+    return panel_update(state, A_L)
+
+
+def spsvd_engine_finalize(state: SPSVDState, k: Optional[int] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Algorithm 3 steps 10–13: QR bases, the sketched core solve, a small
+    SVD. Returns ``(U, Σ, V)`` with ``A ≈ U diag(Σ) Vᵀ``, of rank c/r, or
+    ``k`` when given. U and V are unique only up to the signs of their
+    columns; ``U diag(Σ) Vᵀ`` is unique."""
+    sk = state.ctx
+    R = truncated_R(state)
+    dt = torch.promote_types(state.C.dtype, torch.float32)
+    U_C, _ = torch.linalg.qr(state.C.to(dt))  # (m, c)
+    V_R, _ = torch.linalg.qr(R.T.to(dt))  # (n, r)
+    ScU = sk.s_c.apply(U_C.to(state.C.dtype)).to(dt)  # (s_c, c)
+    SrV = sk.s_r.apply(V_R.to(state.C.dtype)).to(dt)  # (s_r, r)
+    N = fast_gmr_core(ScU, state.M.to(dt), SrV.T)  # (S_C U_C)† M (V_Rᵀ S_Rᵀ)†
+    U_N, S, V_Nt = torch.linalg.svd(N, full_matrices=False)
+    U = U_C @ U_N
+    V = V_R @ V_Nt.T
+    if k is not None:
+        U, S, V = U[:, :k], S[:k], V[:, :k]
+    return U, S, V
+
+
+def sp_svd_finalize(state: SPSVDState, k: Optional[int] = None):
+    """The classic Algorithm-3 name of :func:`spsvd_engine_finalize`."""
+    return spsvd_engine_finalize(state, k=k)
+
+
+def fast_sp_svd(gen: Optional[torch.Generator], A: torch.Tensor, *, k: Optional[int] = None,
+                eps: float = 0.5, sizes: Optional[dict] = None, panel: int = 512,
+                fixed_rank: Optional[int] = None, route: str = "chunk",
+                sketches: Optional[SPSVDSketches] = None):
+    """One-shot Algorithm 3: stream ``A`` through the engine in ``panel``-wide
+    panels on ``A``'s device (``route`` as in
+    :func:`~repro_torch.stream.engine.stream_panels`; ``SP_SVD_OPS`` has no
+    chunk hooks, so both routes run the per-panel body)."""
+    m, n = A.shape
+    state = sp_svd_init(gen, m, n, k=k, eps=eps, sizes=sizes, dtype=A.dtype, panel=panel,
+                        sketches=sketches, device=A.device)
+    state = stream_panels(state, A, panel, route=route)
+    return sp_svd_finalize(state, k=fixed_rank)
+
+
+def practical_sp_svd(gen: Optional[torch.Generator], A: torch.Tensor, *, c: int, r: int,
+                     sketch: str = "gaussian", fixed_rank: Optional[int] = None,
+                     sketches=None):
+    """Algorithm 4 (Tropp et al. 2017), the baseline: ``C = A Ω̃``,
+    ``R = Ψ̃ A``, ``N = (Ψ̃ U_C)† (R V_R)`` — single pass, but the core is
+    not a GMR solution (§5.3). ``sketches=(Ψ̃, Ω̃ᵀ)`` (r × m, c × n) injects
+    pre-drawn operators; otherwise both are drawn from ``gen``."""
+    m, n = A.shape
+    if sketches is None:
+        psi = draw_sketch(gen, sketch, r, m, dtype=A.dtype)
+        omega = draw_sketch(gen, sketch, c, n, dtype=A.dtype)
+    else:
+        psi, omega = sketches
+    C = omega.apply_t(A)  # A Ω̃ (m, c)
+    R = psi.apply(A)  # Ψ̃ A (r, n)
+    dt = torch.promote_types(A.dtype, torch.float32)
+    U_C, _ = torch.linalg.qr(C.to(dt))
+    V_R, _ = torch.linalg.qr(R.T.to(dt))
+    PsiU = psi.apply(U_C.to(A.dtype)).to(dt)  # (r, c)
+    N = _solve_least_squares(PsiU, R.to(dt) @ V_R)  # (c, r)
+    U_N, S, V_Nt = torch.linalg.svd(N, full_matrices=False)
+    U = U_C @ U_N
+    V = V_R @ V_Nt.T
+    if fixed_rank is not None:
+        U, S, V = U[:, :fixed_rank], S[:fixed_rank], V[:, :fixed_rank]
+    return U, S, V
+
+
+def svd_error_ratio(A: torch.Tensor, U, S, V, k: int) -> torch.Tensor:
+    """§6.3 metric: ``‖A − UΣVᵀ‖_F / ‖A − A_k‖_F − 1`` (can be negative)."""
+    dt = torch.promote_types(A.dtype, torch.float32)
+    approx = (U * S[None, :]) @ V.T
+    num = torch.linalg.norm(A.to(dt) - approx.to(dt))
+    sv = torch.linalg.svdvals(A.to(dt))
+    den = torch.sqrt(torch.sum(sv[k:] ** 2))
+    return num / torch.clamp(den, min=torch.finfo(dt).tiny) - 1.0

@@ -1,4 +1,4 @@
-"""CUR decomposition of the port (counterpart of ``repro.cur``)."""
+"""CUR decomposition of the port, symmetric CUR included (counterpart of ``repro.cur``)."""
 
 from .selection import SELECTION_POLICIES, Selection, select_columns, select_rows
 from .cur import (
@@ -12,6 +12,7 @@ from .cur import (
 )
 from .streaming import streaming_cur_finalize, streaming_cur_init, streaming_cur_update
 from .batched import batched_fast_cur, draw_shared_sketches
+from .symmetric_cur import spsd_to_cur, symmetric_cur
 
 __all__ = [
     "SELECTION_POLICIES",
@@ -30,4 +31,6 @@ __all__ = [
     "streaming_cur_update",
     "batched_fast_cur",
     "draw_shared_sketches",
+    "symmetric_cur",
+    "spsd_to_cur",
 ]

@@ -6,6 +6,7 @@ from .synthetic import (
     lowrank_plus_noise,
     powerlaw_matrix,
     spiked_decay_matrix,
+    sparse_matrix,
     spiked_rows_matrix,
 )
 
@@ -15,5 +16,6 @@ __all__ = [
     "lowrank_plus_noise",
     "powerlaw_matrix",
     "spiked_decay_matrix",
+    "sparse_matrix",
     "spiked_rows_matrix",
 ]

@@ -18,6 +18,7 @@ from ..device import DeviceLike, generator, resolve_device
 
 __all__ = [
     "powerlaw_matrix",
+    "sparse_matrix",
     "lowrank_plus_noise",
     "spiked_decay_matrix",
     "late_spike_matrix",
@@ -48,6 +49,16 @@ def powerlaw_matrix(seed: int, m: int, n: int, decay: float = 1.0, dtype=torch.f
     """Dense matrix with σ_i ∝ i^-decay."""
     g, dev = _gen(seed, device)
     return _powerlaw(g, dev, m, n, decay, dtype)
+
+
+def sparse_matrix(seed: int, m: int, n: int, density: float = 0.002, dtype=torch.float32,
+                  device: DeviceLike = None):
+    """Sparse-profile matrix (the rcv1/news20 substitution of the SP-SVD
+    benchmark): a Bernoulli(``density``) mask times standard normals."""
+    g, dev = _gen(seed, device)
+    mask = torch.rand((m, n), generator=g, device=dev) < density
+    vals = torch.randn((m, n), generator=g, device=dev, dtype=dtype)
+    return vals.masked_fill_(~mask, 0.0)
 
 
 def lowrank_plus_noise(seed: int, m: int, n: int, rank: int = 10, snr: float = 10.0,

@@ -38,7 +38,6 @@ import torch
 
 from ..core.gmr import fast_gmr_core
 from ..core.sketching import GaussianSketch, draw_sketch
-from ..cur.cur import CURResult, cur_sketch_sizes
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from ..kernels.ref import top_k_desc
@@ -413,6 +412,9 @@ def adaptive_cur_init(
     ``telemetry=True`` raises ``NotImplementedError`` (not ported yet).
     ``device=None`` means CUDA and raises without it.
     """
+    # imported here: repro_torch.cur imports the SPSD modules, which import this one
+    from ..cur.cur import cur_sketch_sizes
+
     dev = resolve_device(device)
     if telemetry:
         raise NotImplementedError("telemetry is not ported yet (repro.obs)")
@@ -488,6 +490,8 @@ def adaptive_cur_init(
 def adaptive_cur_finalize(state: PanelState) -> CURResult:
     """Fast-GMR core solve on the admitted columns/rows; unfilled slots get
     zeroed core rows/columns. ``col_idx``/``row_idx`` hold −1 there."""
+    from ..cur.cur import CURResult  # see adaptive_cur_init
+
     ctx = state.ctx
     R = truncated_R(state)
     RSr = ctx.S_R.apply_t(R)

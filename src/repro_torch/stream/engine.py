@@ -24,7 +24,12 @@ keeps only the state that :func:`stream_panels` returns.
 Both zero-pad the ragged tail, which is exact because the sketches were
 extended with ``pad_cols`` at init. Route B — one kernel launch per panel
 through ``PanelOps.panel_kernel`` — is tried first by :func:`panel_update`.
-Telemetry and the distributed hooks are not ported yet.
+
+**Symmetric (tied-operand) streams** (``PanelOps(symmetric=True)``): for a
+square stream whose row factor is tied to the column factor (SPSD / kernel
+matrices, ``R = Cᵀ``) the engine skips the R half of every panel, the
+state's ``R`` is a ``(0, n_pad)`` placeholder, and :func:`truncated_R`
+derives ``Cᵀ``. Telemetry and the distributed hooks are not ported yet.
 """
 
 from __future__ import annotations
@@ -79,7 +84,11 @@ class PanelOps:
       ``fused_step(ctx, C, block, bcol, sc_a, off) -> (ctx, C, scores)`` and
       the gate ``supports_fused(ctx) -> bool``;
     * Route B: ``panel_kernel(ctx, C, M, A_L, off) -> None | (ctx, C, M, sc_a,
-      scores)`` — ``None`` declines and the standard body runs.
+      scores)`` — ``None`` declines and the standard body runs;
+    * ``window_sketches(ctx) -> tuple`` — sketches other than ``S_R`` that
+      the hooks read in panel windows; the engine indexes their windows
+      (and the view kernel's chunks of them) once per stream, as ``S_R``'s;
+    * ``symmetric`` — a tied-operand stream: no R hook, ``R = Cᵀ``.
     """
 
     name: str
@@ -92,9 +101,17 @@ class PanelOps:
     fused_step: Optional[Callable] = None
     supports_fused: Optional[Callable] = None
     panel_kernel: Optional[Callable] = None
+    window_sketches: Optional[Callable] = None
+    symmetric: bool = False
 
     def __post_init__(self):
-        if (self.r_block is None) == (self.update_r is None):
+        if self.symmetric:
+            if self.r_block is not None or self.update_r is not None:
+                raise ValueError(
+                    f"PanelOps {self.name!r} is symmetric (R = Cᵀ is derived); "
+                    "it must not declare r_block / update_r"
+                )
+        elif (self.r_block is None) == (self.update_r is None):
             raise ValueError(f"PanelOps {self.name!r} needs exactly one of r_block / update_r")
 
 
@@ -168,7 +185,9 @@ def panel_update(state: PanelState, A_L: torch.Tensor) -> PanelState:
             ctx, C = ops.update_c(ctx, state.C, A_L, sc_a, off)
         else:
             ctx, C = ops.update_c(ctx, state.C, A_L, sc_a, off, scores)
-    if ops.update_r is not None:
+    if ops.symmetric:
+        R = state.R  # tied operand: R = Cᵀ is derived, nothing to accumulate
+    elif ops.update_r is not None:
         R = ops.update_r(ctx, state.R, A_L, off)
     else:
         R = state.R
@@ -238,8 +257,12 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
         return state
     width = stop - start
     num_panels = padded_n(width, panel) // panel
-    # the bucket orders of S_R's panel windows, built once per stream
+    # the bucket orders of S_R's panel windows, and of every other sketch the
+    # hooks window per panel, built once per stream
     index_windows(state.ops.core_sketches(state.ctx)[1], panel)
+    if state.ops.window_sketches is not None:
+        for S in state.ops.window_sketches(state.ctx):
+            index_windows(S, panel, chunks=True)
     label = f"stream/{state.ops.name}/{'scan' if route == 'chunk' else 'per-panel'}"
     if route == "chunk" and _fused_route_ok(state):
         with record_function(label):
@@ -259,5 +282,8 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
 
 
 def truncated_R(state: PanelState) -> torch.Tensor:
-    """``R`` restricted to the true (unpadded) column range."""
+    """``R`` restricted to the true (unpadded) column range; for a symmetric
+    stream, ``Cᵀ`` (C's rows are never padded)."""
+    if state.ops.symmetric:
+        return state.C.T
     return state.R[:, : state.n]

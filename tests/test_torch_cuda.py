@@ -312,3 +312,97 @@ def test_cuda_stream_routes_match_plain(cuda, sketch, kw, a_dtype):
                  (got.ctx.row_idx, want.ctx.row_idx)):
         assert torch.equal(x, y)
     _close(got.M, want.M, 1e-4 if got.M.dtype == F32 else 7 * 2.0 ** -7)
+
+
+@pytest.mark.parametrize("mode", ["fixed", "adaptive-route-a", "adaptive-route-b",
+                                  "adaptive-evict"])
+def test_cuda_symmetric_stream_routes_match_plain(cuda, mode):
+    """A kernel stream on the engine's symmetric mode, on the card against
+    ``force_plain()``: the fixed stream and the adaptive CountSketch stream
+    through Route A (kernel 1's chunk sketch and per-panel fold), the
+    adaptive Gaussian stream through Route B (kernel 3 every panel, M of
+    s × s), and with ``swap_gain`` on the per-panel route (kernel 2 every
+    panel). Indices and C equal, M within 1e-4 of its largest entry,
+    the R placeholder untouched, X finite."""
+    from repro_torch.spsd import (adaptive_spsd_finalize, adaptive_spsd_init, rbf_kernel_oracle,
+                                  streaming_spsd_finalize, streaming_spsd_init)
+    from repro_torch.stream.engine import stream_panels
+
+    g = torch.Generator(cuda).manual_seed(4)
+    pts = torch.randn((8, 16), generator=g, device=cuda)[torch.randint(0, 8, (600,), generator=g,
+                                                                        device=cuda)]
+    pts += 0.5 * torch.randn(pts.shape, generator=g, device=cuda)
+    K = rbf_kernel_oracle(pts, 1.0 / 64)(None, None)
+    n, c, panel = 600, 16, 128  # 600 = 4·128 + a 88-column tail
+
+    def run():
+        gg = torch.Generator(cuda).manual_seed(5)
+        if mode == "fixed":
+            st = streaming_spsd_init(gg, n, torch.arange(0, n, n // c)[:c], s=160, panel=panel,
+                                     device=cuda)
+            return stream_panels(st, K, panel), streaming_spsd_finalize
+        st = adaptive_spsd_init(gg, n, c, s=160, panel=panel, min_gain=1.0, device=cuda,
+                                sketch="countsketch" if mode.endswith("a") else "gaussian",
+                                swap_gain=1.1 if mode.endswith("evict") else None)
+        # with eviction, the chunk route scores in plain torch (Route A), the
+        # per-panel route through kernel 2, as in the reference
+        route = "per-panel" if mode.endswith("evict") else "chunk"
+        return stream_panels(st, K, panel, route=route), adaptive_spsd_finalize
+
+    ops.reset_launches()
+    got, fin = run()
+    launched = dict(ops.LAUNCHES)
+    with ops.force_plain():
+        want, _ = run()
+    torch.cuda.synchronize()
+    if mode.endswith("b"):
+        assert launched["panel_update"] == 5 and got.M.shape == (160, 160)
+    elif mode.endswith("evict"):
+        assert launched["panel_score"] == 5
+        assert int(got.ctx.n_evicted) == int(want.ctx.n_evicted)
+    else:
+        assert launched["countsketch"] >= 6  # the chunk sketch and 5 folds
+    assert got.R.shape == (0, 640)
+    assert torch.equal(got.C, want.C) and torch.equal(got.ctx.col_idx, want.ctx.col_idx)
+    _close(got.M, want.M, 1e-4)
+    assert bool(torch.isfinite(fin(got).X).all())
+
+
+def test_cuda_sp_svd_stream_matches_plain(cuda, monkeypatch):
+    """SP-SVD on the card through kernel 1's OSNAP paths (Ψ and S_C on the
+    panel, the Ω window on the panel's transpose through the view kernel,
+    the S_R window fold, two launches each per panel) against
+    ``force_plain()``: C, R and M within 1e-4 of their largest entries, the
+    product ``U diag(Σ) Vᵀ`` within 1e-4; a stream resumed on the same
+    state sorts nothing more (Ω's windows carry the orders indexed once)."""
+    from repro_torch.core.svd import sp_svd_finalize, sp_svd_init
+    from repro_torch.stream.engine import stream_panels
+
+    g = torch.Generator(cuda).manual_seed(6)
+    m, n, panel = 1024, 3072, 512
+    A = torch.randn((m, 48), generator=g, device=cuda) @ torch.randn((48, n), generator=g,
+                                                                     device=cuda)
+    A += 0.1 * torch.randn((m, n), generator=g, device=cuda)
+    sizes = dict(c=32, r=32, c0=96, r0=96, s_c=64, s_r=64)
+
+    def init():
+        return sp_svd_init(torch.Generator(cuda).manual_seed(7), m, n, sizes=sizes, panel=panel,
+                           device=cuda)
+
+    sorts = []
+    for name in ("bucket_order", "window_orders"):
+        orig = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _o=orig: sorts.append(a) or _o(*a))
+    ops.reset_launches()
+    got = stream_panels(init(), A, panel, stop=2 * panel)
+    n_sorts = len(sorts)
+    got = stream_panels(got, A, panel)
+    assert len(sorts) == n_sorts  # no panel of the resumed stream sorts
+    assert ops.LAUNCHES["countsketch"] == 8 * (n // panel)
+    with ops.force_plain():
+        want = stream_panels(init(), A, panel)
+    torch.cuda.synchronize()
+    for x, y in ((got.C, want.C), (got.R, want.R), (got.M, want.M)):
+        _close(x, y, 1e-4)
+    prods = [(U * S[None, :]) @ V.T for U, S, V in (sp_svd_finalize(got), sp_svd_finalize(want))]
+    _close(prods[0], prods[1], 1e-4)

@@ -55,7 +55,24 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 4. profile — ``torch.profiler`` over the whole of (a) and (h) (no sort,
    bincount or scan launched per panel), over 8 panels of (b), (c), (d),
    (j), over (i) and over run (f) and one ``faster_spsd``: device time by
-   kernel and the device's idle share.
+   kernel and the device's idle share;
+5. (l) Algorithm 1 — ``fast_gmr`` on (e)'s matrix with (e)'s C and R at
+   s_c = s_r = 1920, with CountSketch (kernel 1: the chunk sketch of A and
+   the view kernel) and with Gaussian sketches, each one's ``error_ratio``
+   against ``exact_gmr`` (at most (e)'s core ratio plus 0.05), ρ, and the
+   §6.1 CountSketch norm estimate against ``torch.linalg.norm(A)``;
+6. (m) telemetry — (a)-(d), (i) and (j) again with ``telemetry=True`` and
+   without, from the same seeds: factors and index sets bitwise equal,
+   launch counts equal, Ψ within 1e-5 of a float64 ``A[:1024]·Ω_test``, the
+   error estimate within 2× of the true error; host and device ms per panel
+   on and off, and the frame's totals;
+7. (n) sharding — ``simulate_sharded_stream`` at W = 4 on (a) (C and R
+   bitwise, kernel 1: 4 chunk sketches and 256 folds), a telemetered (a)
+   (merged frame equals the single stream's), (c) (kernel 3 on every panel,
+   each worker's columns in its slot range), (d) (kernel 2 every panel, no
+   duplicate row), (h) (the reconstruction within 1e-3 of single-host's)
+   and (i) (X within 1e-4); kernel 3 is also held against its plain version
+   at a slot offset (worker 2 of 4) in the kernels phase.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -87,6 +104,12 @@ SVD_K, SVD_EPS, SVD_PANEL, SVD_RATIO_K = 64, 0.5, 512, 10
 SPSD_N, SPSD_D, SPSD_CLUSTERS, SPSD_C = 32768, 64, 16, 128
 SPSD_S = 10 * SPSD_C
 SPSD_MIN_GAIN = 0.01  # (j)'s admission threshold, in mean column energies
+# (l): fast_gmr's sketch size on (e)'s matrix (Table 2 at c = r = 128) and the
+# margin by which its error ratio may exceed (e)'s fast_cur core's (both are
+# draws of the same sketched solve at s = 1920)
+GMR_SKETCH, GMR_MARGIN = 1920, 0.05
+# (m): the estimator's band (the reference's acceptance); (n): data-parallel workers
+EST_BAND, WORKERS = 2.0, 4
 SEED = 0
 # fp32 sums over up to m = 32768 terms, in the kernel's fixed order against
 # cuBLAS's / index_add_'s order: relative to the largest entry of the output
@@ -164,6 +187,11 @@ def device_ms(torch, fn, iters: int = 20) -> tuple:
 
     _, busy, n_ops, _ = device_profile(torch, run)
     return busy / iters, n_ops / iters
+
+
+def card_peaks(torch) -> tuple:
+    """(fp32 FLOP/s, HBM bytes/s) of the card's form factor."""
+    return PEAKS["PCIe"] if "PCIe" in torch.cuda.get_device_name(0) else PEAKS["SXM"]
 
 
 def bound_ms(nbytes: float, flops: float, peaks) -> tuple:
@@ -353,6 +381,7 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     for name in ("bf16", "mixed", "mixed_bf16_acc", "fp32_bf16_acc", "bf16_bf16_acc"):
         check(pu_err[name][1] <= TOL, f"panel_update {name}: rel err {pu_err[name][1]} > {TOL}")
     check(m_bf16[1] <= 2.0 ** -7, f"panel_update bf16 M: rel err {m_bf16[1]} > 2^-7")
+    pu_err["slot_offset"] = panel_update_slot_offset(torch, ops, dev, g, sc, panels[1], srt, C0, M0)
     bf = torch.bfloat16
     bitwise = True
     for a_l, C_, M_ in ((panels[0], C0, M0), (panels[0].to(bf), C0.to(bf), M0.to(bf)),
@@ -746,7 +775,8 @@ def check_indices(torch, idx, hi: int, name: str) -> int:
 
 
 def phase_paths(torch, A, dev) -> tuple:
-    """The four runs of the main path at full width; launches per run."""
+    """The four runs of the main path at full width: summed launches, the
+    runs' state makers (``make(tel)``) and their relative errors."""
     from repro_torch.cur import (cur_error_ratio, cur_relative_error, select_columns,
                                  select_rows, streaming_cur_finalize, streaming_cur_init)
     from repro_torch.kernels import ops
@@ -763,16 +793,19 @@ def phase_paths(torch, A, dev) -> tuple:
     g = gen(0)
     ci = select_columns(g, A, C_BUDGET).idx
     ri = select_rows(g, A, R_BUDGET).idx
+    # tel: the same run with a telemetry frame (its Ω_test drawn after the sketches)
     runs = {
-        "a_fixed_countsketch": lambda: streaming_cur_init(
-            gen(1), m, n, ci, ri, sketch="countsketch", panel=PANEL, device=dev),
-        "b_adaptive_countsketch_chunk": lambda: adaptive_cur_init(
-            gen(2), m, n, C_BUDGET, ri, sketch="countsketch", panel=PANEL, device=dev),
-        "c_adaptive_gaussian_route_b": lambda: adaptive_cur_init(
-            gen(3), m, n, C_BUDGET, ri, sketch="gaussian", panel=PANEL, device=dev),
-        "d_adaptive_gaussian_evict_rows": lambda: adaptive_cur_init(
+        "a_fixed_countsketch": lambda tel=False: streaming_cur_init(
+            gen(1), m, n, ci, ri, sketch="countsketch", panel=PANEL, telemetry=tel, device=dev),
+        "b_adaptive_countsketch_chunk": lambda tel=False: adaptive_cur_init(
+            gen(2), m, n, C_BUDGET, ri, sketch="countsketch", panel=PANEL, telemetry=tel,
+            device=dev),
+        "c_adaptive_gaussian_route_b": lambda tel=False: adaptive_cur_init(
+            gen(3), m, n, C_BUDGET, ri, sketch="gaussian", panel=PANEL, telemetry=tel,
+            device=dev),
+        "d_adaptive_gaussian_evict_rows": lambda tel=False: adaptive_cur_init(
             gen(4), m, n, C_BUDGET, None, r=R_BUDGET, sketch="gaussian", panel=PANEL,
-            swap_gain=2.0, device=dev),
+            swap_gain=2.0, telemetry=tel, device=dev),
     }
     num_panels = n // PANEL  # 256 at full size
     need = {  # the kernel each run must go through, and its least launch count
@@ -782,6 +815,7 @@ def phase_paths(torch, A, dev) -> tuple:
         "d_adaptive_gaussian_evict_rows": ("panel_score", num_panels),
     }
     totals = {k: 0 for k in ops.LAUNCHES}
+    errors = {}
     for name, make in runs.items():
         state = make()
         torch.cuda.synchronize()
@@ -811,6 +845,7 @@ def phase_paths(torch, A, dev) -> tuple:
         ratio = float(cur_error_ratio(A, res))
         check(math.isfinite(rel_err) and math.isfinite(ratio), f"{name}: non-finite error")
         check(rel_err < 1.0, f"{name}: relative error {rel_err} >= 1")
+        errors[name] = rel_err
         emit(f"path/{name}", m=m, n=n, panel=PANEL, panels=num_panels, c=C_BUDGET, r=R_BUDGET,
              s_c=int(state.M.shape[0]), s_r=int(state.M.shape[1]), stream_s=t_stream,
              wall_s=t_total, ms_per_panel=1e3 * t_stream / num_panels, launches=launches,
@@ -820,7 +855,7 @@ def phase_paths(torch, A, dev) -> tuple:
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
         del state, res
         torch.cuda.empty_cache()
-    return totals, runs
+    return totals, runs, errors
 
 
 def item_errors(A_b, res_b) -> tuple:
@@ -831,8 +866,9 @@ def item_errors(A_b, res_b) -> tuple:
     return float(cur_relative_error(A_b, res_b)), float(cur_error_ratio(A_b, res_b))
 
 
-def run_oneshot(torch, A, dev) -> dict:
-    """(e): one-shot ``fast_cur`` on the streaming runs' matrix."""
+def run_oneshot(torch, A, dev) -> tuple:
+    """(e): one-shot ``fast_cur`` on the streaming runs' matrix; its launches
+    and result (whose C and R run (l) reuses)."""
     from repro_torch.cur import cur_sketch_sizes, fast_cur
     from repro_torch.kernels import ops
 
@@ -861,9 +897,7 @@ def run_oneshot(torch, A, dev) -> dict:
          cur_relative_error=rel_err, cur_error_ratio=ratio, peak_mem_gib=peak,
          a_gib=A.numel() * 4 / 2**30,
          select_rows_input="A.T as a strided view read by kernel 1 (no copy of A)")
-    del res
-    torch.cuda.empty_cache()
-    return launches
+    return launches, res, ratio
 
 
 def run_batched(torch, Ab, dev, name: str, selection: str) -> tuple:
@@ -1198,15 +1232,16 @@ def run_spsd(torch, dev) -> list:
          seconds=time.perf_counter() - t0)
     ci = torch.randperm(n, generator=gen(torch, dev, SEED + 51), device=dev)[:c]
     runs = {
-        "i_streaming_spsd": (lambda: streaming_spsd_init(gen(torch, dev, SEED + 52), n, ci, s=s,
-                                                         panel=PANEL, device=dev),
+        "i_streaming_spsd": (lambda tel=False: streaming_spsd_init(
+            gen(torch, dev, SEED + 52), n, ci, s=s, panel=PANEL, telemetry=tel, device=dev),
                              streaming_spsd_finalize, ("countsketch", num_panels)),
         # an RBF kernel's columns share most of their energy, so residuals
         # are small against the mean column energy: the default min_gain = 2
         # admits nothing here and 0.5 stops at the first panel's 16 columns
-        "j_adaptive_spsd_route_b": (lambda: adaptive_spsd_init(
+        "j_adaptive_spsd_route_b": (lambda tel=False: adaptive_spsd_init(
             gen(torch, dev, SEED + 53), n, c, s=s, sketch="gaussian", min_gain=SPSD_MIN_GAIN,
-            panel=PANEL, device=dev), adaptive_spsd_finalize, ("panel_update", num_panels)),
+            panel=PANEL, telemetry=tel, device=dev), adaptive_spsd_finalize,
+            ("panel_update", num_panels)),
     }
     all_launches, results = [], {}
     for name, (make, fin, (kname, count)) in runs.items():
@@ -1287,6 +1322,18 @@ def run_spsd(torch, dev) -> list:
     del state
     torch.cuda.empty_cache()
 
+    # (m): (i) and (j) with telemetry on and off; (n): (i) sharded
+    from repro_torch.core.gmr import residual_norm
+
+    k_norm = float(torch.linalg.norm(K))
+    for name in runs:
+        make, fin, _ = runs[name]
+        all_launches.append(telemetry_run(
+            torch, ops, name, make, K, PANEL, fin, ("C", "M", "col_idx"),
+            lambda res: float(residual_norm(K, res.C, res.X, res.C.T)) / k_norm,
+            window=name.startswith("j_")))
+    all_launches.append(shard_spsd(torch, ops, runs["i_streaming_spsd"], K))
+
     # (k): batch Algorithm 2 through the oracle, beside the baselines
     oracle = rbf_kernel_oracle(X, sigma)
     batch = {}
@@ -1339,6 +1386,383 @@ def run_spsd(torch, dev) -> list:
     return all_launches
 
 
+def run_gmr(torch, A, res_e, ratio_e, dev) -> dict:
+    """(l): Algorithm 1 on (e)'s matrix with (e)'s C and R: ``fast_gmr`` with
+    CountSketch (kernel 1's chunk sketch of A and view kernel) and with
+    Gaussian sketches at s_c = s_r = 1920, each one's ``error_ratio``
+    against ``exact_gmr`` (at most (e)'s core ratio plus ``GMR_MARGIN``),
+    ρ, and the §6.1 norm estimator against ``torch.linalg.norm(A)``."""
+    from repro_torch.core import error_ratio, fast_gmr, rho, sketched_fro_norm
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    C, R = res_e.C, res_e.R
+    out, launches = {}, {k: 0 for k in ops.LAUNCHES}
+    for kind in ("countsketch", "gaussian"):
+        g = gen(torch, dev, SEED + 70)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        X = fast_gmr(g, A, C, R, GMR_SKETCH, GMR_SKETCH, sketch_c=kind)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for k, v in ops.LAUNCHES.items():
+            launches[k] += v
+        check(bool(torch.isfinite(X).all()), f"l {kind}: non-finite X")
+        ratio = float(error_ratio(A, C, X, R))
+        check(math.isfinite(ratio) and ratio <= ratio_e + GMR_MARGIN,
+              f"l {kind}: error ratio {ratio} above (e)'s {ratio_e} + {GMR_MARGIN}")
+        out[kind] = dict(wall_s=wall, launches=dict(ops.LAUNCHES), error_ratio=ratio)
+    check(out["countsketch"]["launches"]["countsketch"] >= 4,
+          "l: fast_gmr with CountSketch did not launch kernel 1")
+    t0 = time.perf_counter()
+    r = float(rho(A, C, R))
+    torch.cuda.synchronize()
+    rho_s = time.perf_counter() - t0
+    check(math.isfinite(r) and r > 0, f"l: rho {r}")
+    ops.reset_launches()
+    est = float(sketched_fro_norm(gen(torch, dev, SEED + 71), A, GMR_SKETCH, GMR_SKETCH))
+    for k, v in ops.LAUNCHES.items():
+        launches[k] += v
+    true = float(torch.linalg.norm(A))
+    check(abs(est - true) <= 0.15 * true, f"l: sketched norm {est} against {true}")
+    emit("path/l_fast_gmr", m=A.shape[0], n=A.shape[1], c=C.shape[1], r=R.shape[0],
+         s_c=GMR_SKETCH, s_r=GMR_SKETCH, **out, fast_cur_core_error_ratio=ratio_e,
+         margin=GMR_MARGIN, rho=r, rho_s=rho_s, sketched_fro_norm=est, fro_norm=true,
+         sketched_fro_norm_rel_err=abs(est - true) / true,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _stream(torch, ops, make, data, panel, **kw):
+    """One stream of a fresh state: (state, launches, host seconds)."""
+    from repro_torch.stream.engine import stream_panels
+
+    state = make()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    state = stream_panels(state, data, panel, **kw)
+    torch.cuda.synchronize()
+    return state, dict(ops.LAUNCHES), time.perf_counter() - t0
+
+
+class _Factors:
+    """The named accumulators and index sets of a state (its ``ctx`` for the
+    ``*_idx`` ones), without the rest of it."""
+
+    def __init__(self, state, fields):
+        self.ctx = self
+        for f in fields:
+            setattr(self, f, getattr(state.ctx, f) if f.endswith("_idx") else getattr(state, f))
+
+
+def _same_bits(torch, a, b, fields, name: str) -> None:
+    for f in fields:
+        x = getattr(a.ctx, f) if f.endswith("_idx") else getattr(a, f)
+        y = getattr(b.ctx, f) if f.endswith("_idx") else getattr(b, f)
+        check(bool(torch.equal(x, y)), f"{name}: {f} differs")
+
+
+def _tel_digest(tel) -> dict:
+    """Totals of a telemetry summary (the per-panel arrays stay on the card)."""
+    from repro_torch.obs import telemetry_summary
+
+    s = telemetry_summary(tel)
+    kinds = {}
+    for ev in s["events"]:
+        for e in ev:
+            kinds[e] = kinds.get(e, 0) + 1
+    return dict(panels_seen=s["panels_seen"], total_admitted=s["total_admitted"],
+                total_evicted=s["total_evicted"], total_rows_admitted=s["total_rows_admitted"],
+                energy_mass=s["energy_mass"], final_occupancy=int(s["occupancy"][-1]),
+                panels_with_event=kinds,
+                score_p50_median=float(sorted(s["score_q"][:, 2])[len(s["score_q"]) // 2]))
+
+
+def telemetry_run(torch, ops, name, make, data, panel, fin, fields, true_error,
+                  window: bool) -> dict:
+    """A run with telemetry off and on, from the same generator seeds:
+    the factors and index sets bitwise equal, the same launches, Ψ within
+    1e-5 (relative) of a float64 ``data[:1024]·Ω_test``, the estimate within
+    ``EST_BAND``× of ``true_error(result)``; host ms per panel on and off
+    over the whole stream (the median of five runs each, taken in turns:
+    off, on, on, off, off, on, ...), device ms per panel from ``torch.profiler`` over
+    the whole stream or, with ``window`` (the adaptive runs, 84-200 device
+    ops per panel), over panels 2-9 with Ψ folded over those 8. Returns the
+    two runs' summed launches."""
+    from repro_torch.obs import estimate_rel_error
+    from repro_torch.obs.telemetry import fold_psi_chunk
+    from repro_torch.stream.engine import stream_panels
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    off, l_off, t_off = _stream(torch, ops, lambda: make(False), data, panel)
+    # keep the factors and index sets only, so one stream's state is alive at a time
+    off = _Factors(off, fields)
+    on, l_on, t_on = _stream(torch, ops, lambda: make(True), data, panel)
+    _same_bits(torch, off, on, fields, f"obs {name}")
+    del off
+    check(l_off == l_on, f"obs {name}: launches differ with telemetry: {l_off} / {l_on}")
+    num_panels = on.n // panel
+    check(int(on.tel.panels_seen) == num_panels, f"obs {name}: {int(on.tel.panels_seen)} panels")
+    omega = on.tel.omega[: on.n].double()
+    num = den = 0.0
+    for r in range(0, 1024, 256):  # float64 rows of A·Ω_test, 256 at a time
+        want = data[r : r + 256].double() @ omega
+        num += float(torch.sum((on.tel.psi[r : r + 256].double() - want) ** 2))
+        den += float(torch.sum(want ** 2))
+    psi_rel = math.sqrt(num / den)
+    check(psi_rel <= 1e-5, f"obs {name}: Psi off A*Omega by {psi_rel}")
+    est = float(estimate_rel_error(on))
+    true = true_error(fin(on))
+    check(true / EST_BAND <= est <= EST_BAND * true, f"obs {name}: estimate {est}, true {true}")
+    digest = _tel_digest(on)
+    # the Ψ fold alone over the whole window (the frame is thrown away after)
+    psi_ms = timed(torch, lambda: fold_psi_chunk(on.tel, data[:, : on.n], 0), iters=5, warmup=1)
+    psi_bound = bound_ms(4 * (data.shape[0] * on.n + on.n * on.tel.psi.shape[1]),
+                         2 * data.shape[0] * on.n * on.tel.psi.shape[1], card_peaks(torch))
+    del on
+    torch.cuda.empty_cache()
+    times = {False: [t_off], True: [t_on]}
+    for tel in (True, False, False, True) * 2:
+        times[tel].append(_stream(torch, ops, lambda: make(tel), data, panel)[2])
+        torch.cuda.empty_cache()
+    t_off, t_on = (sorted(times[tel])[2] for tel in (False, True))
+    dev_ms = {}
+    prof_panels = 8 if window else num_panels
+    for tel in (False, True):
+        state = make(tel)
+        if window:
+            state = stream_panels(state, data, panel, stop=2 * panel)
+        torch.cuda.synchronize()
+        stop = (2 + prof_panels) * panel if window else None
+        wall_ms, busy_ms, n_ops, _ = device_profile(
+            torch, lambda: stream_panels(state, data, panel, stop=stop))
+        dev_ms[tel] = (busy_ms / prof_panels, n_ops / prof_panels)
+        del state
+        torch.cuda.empty_cache()
+    emit(f"obs/{name}", panels=num_panels, factors_bitwise=True, launches=l_on,
+         psi_rel_err_rows_1024=psi_rel, estimate_rel_error=est, true_rel_error=true,
+         estimate_over_true=est / true,
+         host_ms_per_panel={"off": 1e3 * t_off / num_panels, "on": 1e3 * t_on / num_panels},
+         host_ratio=t_on / t_off, host_ms_per_panel_runs={
+             k: [round(1e3 * t / num_panels, 4) for t in times[tel]]
+             for k, tel in (("off", False), ("on", True))},
+         device_ms_per_panel={"off": dev_ms[False][0], "on": dev_ms[True][0]},
+         device_ratio=dev_ms[True][0] / dev_ms[False][0],
+         device_ops_per_panel={"off": dev_ms[False][1], "on": dev_ms[True][1]},
+         profiled_panels="2-9" if window else "all", psi_fold_ms=psi_ms,
+         psi_fold_bound_ms=psi_bound[0], psi_fold_library="torch.matmul, fp32",
+         telemetry_summary=digest,
+         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         seconds=time.perf_counter() - t_phase)
+    return {k: l_off[k] + l_on[k] for k in l_on}
+
+
+def phase_obs(torch, A, runs) -> list:
+    """(m): (a)-(d) with telemetry on and off (``telemetry_run``)."""
+    from repro_torch.cur import cur_relative_error, streaming_cur_finalize
+    from repro_torch.kernels import ops
+    from repro_torch.stream.adaptive import adaptive_cur_finalize
+
+    out = []
+    for name, make in runs.items():
+        fin = streaming_cur_finalize if name.startswith("a_") else adaptive_cur_finalize
+        out.append(telemetry_run(torch, ops, name, make, A, PANEL, fin,
+                                 ("C", "R", "M", "col_idx", "row_idx"),
+                                 lambda res: float(cur_relative_error(A, res)),
+                                 window=not name.startswith("a_")))
+    return out
+
+
+def _sharded(torch, ops, make, data, panel):
+    """``simulate_sharded_stream`` at ``WORKERS`` of a fresh state: (merged,
+    launches, host seconds)."""
+    from repro_torch.stream import simulate_sharded_stream
+
+    state = make()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    merged = simulate_sharded_stream(state, data, panel, WORKERS)
+    torch.cuda.synchronize()
+    return merged, dict(ops.LAUNCHES), time.perf_counter() - t0
+
+
+def _recon_rel_diff(torch, f1, f2, cols: int) -> float:
+    """``‖U₁Σ₁V₁ᵀ − U₂Σ₂V₂ᵀ‖_F / ‖U₁Σ₁V₁ᵀ‖_F`` in column blocks of 1024."""
+    (U1, S1, V1), (U2, S2, V2) = f1, f2
+    US1, US2 = U1 * S1[None], U2 * S2[None]
+    num = den = 0.0
+    for j in range(0, cols, 1024):
+        a = US1 @ V1[j : j + 1024].T
+        den += float(torch.linalg.vector_norm(a)) ** 2
+        num += float(torch.linalg.vector_norm(a.sub_(US2 @ V2[j : j + 1024].T))) ** 2
+    return math.sqrt(num / den)
+
+
+def phase_shard(torch, A, runs, errors, dev) -> list:
+    """(n): ``simulate_sharded_stream`` at W = 4 on (a), (c), (d) and (h)
+    against their single-host runs, and a telemetered (a) whose merged frame
+    must equal the single stream's."""
+    from repro_torch.core.svd import sp_svd_finalize, sp_svd_init, sp_svd_sizes
+    from repro_torch.cur import cur_relative_error, streaming_cur_finalize
+    from repro_torch.kernels import ops
+    from repro_torch.stream import shard_panel_ranges
+    from repro_torch.stream.adaptive import adaptive_cur_finalize
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m, n = A.shape
+    num_panels = n // PANEL
+    launched = []
+    # (a): C and R bitwise, kernel 1 once per worker (chunk sketch) and per panel (fold)
+    make = runs["a_fixed_countsketch"]
+    single, _, t_single = _stream(torch, ops, make, A, PANEL)
+    merged, lw, t_shard = _sharded(torch, ops, make, A, PANEL)
+    launched.append(lw)
+    _same_bits(torch, single, merged, ("C", "R"), "shard a")
+    check(lw["countsketch"] == WORKERS + num_panels,
+          f"shard a: countsketch launched {lw['countsketch']}, want {WORKERS + num_panels}")
+    m_err = err(merged.M, single.M)
+    check(m_err[1] <= TOL, f"shard a: M rel err {m_err[1]} > {TOL}")
+    errs = [float(cur_relative_error(A, streaming_cur_finalize(st))) for st in (single, merged)]
+    emit("shard/a_fixed_countsketch", workers=WORKERS, launches=lw, C_R_bitwise=True,
+         M_max_abs_err=m_err[0], M_rel_err=m_err[1], cur_relative_error_single=errs[0],
+         cur_relative_error_sharded=errs[1], stream_s_single=t_single, stream_s_sharded=t_shard)
+    del single, merged
+
+    # the merged telemetry frame of (a) against the single stream's
+    single, _, _ = _stream(torch, ops, lambda: make(True), A, PANEL)
+    merged, lw, _ = _sharded(torch, ops, lambda: make(True), A, PANEL)
+    launched.append(lw)
+    for f in ("admitted", "evicted", "rows_admitted", "occupancy", "events", "panels_seen"):
+        check(bool(torch.equal(getattr(merged.tel, f), getattr(single.tel, f))),
+              f"shard a telemetry: {f} differs")
+    frame_err = {f: err(getattr(merged.tel, f), getattr(single.tel, f))[1]
+                 for f in ("panel_scores", "panel_energy", "energy_mass")}
+    frame_err["psi"] = float(torch.linalg.norm(merged.tel.psi - single.tel.psi)
+                             / torch.linalg.norm(single.tel.psi))
+    check(all(e <= 1e-5 for e in frame_err.values()), f"shard a telemetry: {frame_err}")
+    emit("shard/a_telemetry_merge", workers=WORKERS, counters_bitwise=True, rel_err=frame_err)
+    del single, merged
+    torch.cuda.empty_cache()
+
+    # (c): Route B in each worker's slot range; (d): kernel 2 every panel, row dedup
+    ranges = shard_panel_ranges(n, PANEL, WORKERS)
+    per = C_BUDGET // WORKERS
+    for name, kname in (("c_adaptive_gaussian_route_b", "panel_update"),
+                        ("d_adaptive_gaussian_evict_rows", "panel_score")):
+        merged, lw, t_shard = _sharded(torch, ops, runs[name], A, PANEL)
+        launched.append(lw)
+        if name.startswith("c_"):
+            check(lw[kname] == num_panels, f"shard {name}: {kname} launched {lw[kname]}")
+        else:
+            check(lw[kname] >= num_panels, f"shard {name}: {kname} launched {lw[kname]}")
+        idx = merged.ctx.col_idx.tolist()
+        for slot, col in enumerate(idx):
+            lo, hi = ranges[slot // per]
+            check(col < 0 or lo <= col < hi, f"shard {name}: slot {slot} holds column {col}")
+        res = adaptive_cur_finalize(merged)
+        n_cols = check_indices(torch, res.col_idx, n, f"shard {name} col_idx")
+        n_rows = check_indices(torch, res.row_idx, m, f"shard {name} row_idx")
+        check(all(bool(torch.isfinite(t).all()) for t in (res.C, res.U, res.R)),
+              f"shard {name}: non-finite factors")
+        rel = float(cur_relative_error(A, res))
+        check(math.isfinite(rel) and rel < 1.0, f"shard {name}: relative error {rel}")
+        emit(f"shard/{name}", workers=WORKERS, launches=lw, stream_s=t_shard,
+             slots_per_worker=per, admitted_per_worker=[
+                 sum(c >= 0 for c in idx[w * per:(w + 1) * per]) for w in range(WORKERS)],
+             slots_in_worker_ranges=True, cols_admitted=n_cols, rows_filled=n_rows,
+             rows_unique=True, cur_relative_error_sharded=rel,
+             cur_relative_error_single=errors[name])
+        del merged, res
+        torch.cuda.empty_cache()
+
+    # (h): Algorithm 3, the view kernel at the workers' panel offsets
+    sizes = sp_svd_sizes(SVD_K, SVD_EPS)
+    make_h = lambda: sp_svd_init(gen(torch, dev, SEED + 40), m, n, sizes=sizes,  # noqa: E731
+                                 panel=SVD_PANEL, device=dev)
+    single, l1, _ = _stream(torch, ops, make_h, A, SVD_PANEL)
+    merged, lw, t_shard = _sharded(torch, ops, make_h, A, SVD_PANEL)
+    launched.append(lw)
+    check(lw == l1, f"shard h: launches {lw} against single-host {l1}")
+    check(bool(torch.equal(merged.R, single.R)), "shard h: R differs")
+    c_err, m_err = err(merged.C, single.C)[1], err(merged.M, single.M)[1]
+    check(max(c_err, m_err) <= TOL, f"shard h: C, M rel err {c_err}, {m_err}")
+    f1, f2 = sp_svd_finalize(single), sp_svd_finalize(merged)
+    diff = _recon_rel_diff(torch, f1, f2, n)
+    check(diff <= 1e-3, f"shard h: reconstructions differ by {diff}")
+    emit("shard/h_fast_sp_svd", workers=WORKERS, launches=lw, stream_s=t_shard, R_bitwise=True,
+         C_rel_err=c_err, M_rel_err=m_err, reconstruction_rel_diff=diff,
+         phase_peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+         phase_seconds=time.perf_counter() - t_phase)
+    del single, merged, f1, f2
+    torch.cuda.empty_cache()
+    return launched
+
+
+def shard_spsd(torch, ops, run, K) -> dict:
+    """(n), (i): the fixed SPSD stream at W = 4 against single-host: C
+    bitwise, X within 1e-4 of its largest entry, ``spsd_error_ratio``."""
+    from repro_torch.spsd import spsd_error_ratio
+
+    make, fin, _ = run
+    single, _, _ = _stream(torch, ops, make, K, PANEL)
+    merged, lw, t_shard = _sharded(torch, ops, make, K, PANEL)
+    _same_bits(torch, single, merged, ("C", "col_idx"), "shard i")
+    r1, r2 = fin(single), fin(merged)
+    x_err = err(r2.X, r1.X)
+    check(x_err[1] <= 1e-4, f"shard i: X off single-host by {x_err[1]} of its largest")
+    ratios = [float(spsd_error_ratio(K, r)) for r in (r1, r2)]
+    check(all(math.isfinite(x) for x in ratios), f"shard i: error ratios {ratios}")
+    emit("shard/i_streaming_spsd", workers=WORKERS, launches=lw, stream_s=t_shard,
+         C_bitwise=True, X_max_abs_err=x_err[0], X_rel_err=x_err[1],
+         spsd_error_ratio_single=ratios[0], spsd_error_ratio_sharded=ratios[1])
+    del single, merged, r1, r2
+    torch.cuda.empty_cache()
+    return lw
+
+
+def panel_update_slot_offset(torch, ops, dev, g, sc, a_l, srt, C0, M0) -> tuple:
+    """Kernel 3 for worker 2 of 4 at the main path's shape: its slot range
+    starts at ``slot_lo = 64`` with 5 slots filled (``n_filled = 69``,
+    ``free = slot_lo + 32 − n_filled``), the other workers' slots hold
+    columns; slots and C equal the plain version's, every admitted slot
+    lies in ``[69, 96)`` and C outside it is untouched. Returns the largest
+    (abs, rel) error of the fp32 outputs."""
+    c, c_local, slot_lo, filled = C_BUDGET, C_BUDGET // WORKERS, 2 * (C_BUDGET // WORKERS), 5
+    n_filled, hi = slot_lo + filled, slot_lo + C_BUDGET // WORKERS
+    C = C0.clone()
+    C[:, : c // 2] = torch.randn((C.shape[0], c // 2), generator=g, device=dev)
+    C[:, hi:] = torch.randn((C.shape[0], c - hi), generator=g, device=dev)
+    C[:, n_filled:hi] = 0.0
+    Q, _ = torch.linalg.qr(torch.randn((sc.shape[0], c_local), generator=g, device=dev))
+    q = (Q * (torch.arange(c_local, device=dev) < filled)).contiguous()
+    kw = dict(min_gain=0.5, run_mean=0.0, true_cols=float(a_l.shape[1]), n_filled=n_filled,
+              free=hi - n_filled, panel_cap=16)
+    got = ops.panel_update(sc, a_l, srt, q, C.clone(), M0.clone(), **kw)
+    with ops.force_plain():
+        want = ops.panel_update(sc, a_l, srt, q, C.clone(), M0.clone(), **kw)
+    slots = got[5]
+    check(bool(torch.equal(slots, want[5])) and bool(torch.equal(got[0], want[0])),
+          "panel_update at a slot offset: slots or C differ")
+    admitted = slots[slots < c]
+    check(admitted.numel() > 0 and bool(((admitted >= n_filled) & (admitted < hi)).all()),
+          f"panel_update at a slot offset: slots {admitted.tolist()} outside [{n_filled}, {hi})")
+    outside = torch.ones(c, dtype=torch.bool, device=dev)
+    outside[n_filled:hi] = False
+    check(bool(torch.equal(got[0][:, outside], C[:, outside])),
+          "panel_update at a slot offset: C changed outside the worker's free slots")
+    e = max((err(x, y) for x, y in zip(got[1:5], want[1:5])), key=lambda e: e[1])
+    check(e[1] <= TOL, f"panel_update at a slot offset: rel err {e[1]} > {TOL}")
+    emit("kernel/panel_update_slot_offset", slot_lo=slot_lo, c_local=c_local, n_filled=n_filled,
+         free=hi - n_filled, admitted=admitted.tolist(), rel_err=e[1])
+    return e
+
+
 def main() -> int:
     import torch
 
@@ -1356,7 +1780,7 @@ def main() -> int:
     smi = nvidia_smi()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
-    peaks = PEAKS["PCIe"] if "PCIe" in kind else PEAKS["SXM"]
+    peaks = card_peaks(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build.build_all()
@@ -1371,17 +1795,31 @@ def main() -> int:
     spills = [k for k, v in usage.items() if v.get("spill_stores", 0) or v.get("spill_loads", 0)]
     check(not spills, f"kernels that spill: {spills}")
 
+    t_start = time.perf_counter()
+    mark = lambda done: emit("elapsed", after=done, s=time.perf_counter() - t_start)  # noqa: E731
     kernels = phase_kernels(torch, ops, peaks, dev)
+    mark("kernels")
 
     t0 = time.perf_counter()
     A, _bounds = drifting_spectrum_matrix(SEED, M_ROWS, N_COLS, device=dev)
     torch.cuda.synchronize()
     emit("data", generator="drifting_spectrum_matrix", shape=[M_ROWS, N_COLS], dtype="float32",
          gib=A.numel() * 4 / 2**30, seconds=time.perf_counter() - t0)
-    totals, runs = phase_paths(torch, A, dev)
+    totals, runs, errors = phase_paths(torch, A, dev)
     phase_route_parity(torch, A, runs)
     phase_profile(torch, A, runs)
-    runs_launches = [run_oneshot(torch, A, dev), run_sp_svd(torch, A, dev)]
+    mark("a-d")
+    launches_e, res_e, ratio_e = run_oneshot(torch, A, dev)
+    runs_launches = [launches_e, run_gmr(torch, A, res_e, ratio_e, dev)]
+    del res_e
+    torch.cuda.empty_cache()
+    mark("e, l")
+    runs_launches.append(run_sp_svd(torch, A, dev))
+    mark("h")
+    runs_launches += phase_obs(torch, A, runs)
+    mark("m: a-d")
+    runs_launches += phase_shard(torch, A, runs, errors, dev)
+    mark("n: a, c, d, h")
     del A, runs
     torch.cuda.empty_cache()
 
@@ -1399,7 +1837,9 @@ def main() -> int:
     runs_launches.append(run_sp_svd_item(torch, Ab[0], dev))
     del Ab, res_f
     torch.cuda.empty_cache()
+    mark("f, g, h item")
     runs_launches += run_spsd(torch, dev)
+    mark("i-k, m: i, j, n: i")
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

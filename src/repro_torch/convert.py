@@ -25,7 +25,7 @@ from .core.sketching import (
 from .device import DeviceLike, resolve_device
 
 __all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays", "sketch_pair",
-           "spsvd_sketches"]
+           "spsvd_sketches", "telemetry_frame", "stream_init_inputs"]
 
 # family name of a reference sketch class -> (kind, fields to carry)
 _FIELDS = {
@@ -112,3 +112,32 @@ def spsvd_sketches(sk, device: DeviceLike = None):
     return SPSVDSketches(**{f.name: sketch_from_arrays(*sketch_arrays(getattr(sk, f.name)),
                                                        device=device)
                             for f in dataclasses.fields(SPSVDSketches)})
+
+
+_FRAME_ARRAYS = ("admitted", "evicted", "rows_admitted", "occupancy", "events", "panel_scores",
+                 "panel_energy", "energy_mass", "psi", "omega", "panels_seen")
+
+
+def telemetry_frame(tel, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.obs.telemetry.TelemetryFrame` holding a
+    reference frame's arrays (read by attribute, ``np.asarray`` of each) and
+    its ``panel`` and ``n``."""
+    from .obs.telemetry import TelemetryFrame
+
+    return TelemetryFrame(**{f: to_tensor(np.asarray(getattr(tel, f)), device)
+                             for f in _FRAME_ARRAYS}, panel=int(tel.panel), n=int(tel.n))
+
+
+def stream_init_inputs(state, device: DeviceLike = None) -> dict:
+    """Keyword arguments that hand a reference streaming state's randomness
+    to the matching port init: ``sketches``, its core sketch pair (``S_C``,
+    ``S_R`` or the SPSD ``S1``, ``S2``, the right one cut back to the true
+    column count), and ``tel_omega``, its frame's Ω_test, when it has one."""
+    ctx = state.ctx
+    left, right = (ctx.S_C, ctx.S_R) if hasattr(ctx, "S_C") else (ctx.S1, ctx.S2)
+    out = {"sketches": (sketch_from_arrays(*sketch_arrays(left), device=device),
+                        sketch_from_arrays(*sketch_arrays(right.cols(0, state.n)),
+                                           device=device))}
+    if getattr(state, "tel", None) is not None:
+        out["tel_omega"] = to_tensor(np.asarray(state.tel.omega), device)
+    return out

@@ -13,7 +13,7 @@ from .sketching import (
     draw_sketch,
     fwht,
 )
-from .gmr import error_ratio, exact_gmr, fast_gmr_core
+from .gmr import error_ratio, exact_gmr, fast_gmr, fast_gmr_core, rho, sketched_fro_norm
 from .projections import psd_project, sym_project
 from .leverage import approx_leverage_scores, leverage_scores
 from .svd import (
@@ -62,7 +62,7 @@ def __getattr__(name):  # PEP 562: lazy re-exports, free of import cycles
 __all__ = [
     "ComposedSketch", "CountSketch", "GaussianSketch", "OSNAPSketch", "RowSampling",
     "SRHTSketch", "draw_sketch", "fwht",
-    "exact_gmr", "fast_gmr_core", "error_ratio",
+    "exact_gmr", "fast_gmr", "fast_gmr_core", "rho", "error_ratio", "sketched_fro_norm",
     "psd_project", "sym_project",
     "approx_leverage_scores", "leverage_scores",
     "fast_sp_svd", "practical_sp_svd", "sp_svd_finalize", "sp_svd_init", "sp_svd_sizes",

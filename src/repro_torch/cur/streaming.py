@@ -5,6 +5,8 @@ selected columns land in their ``C`` slots, ``R[:, cols] = A_L[row_idx, :]``,
 and ``M += (S_C A_L)·S_R[:, cols]ᵀ``. :func:`streaming_cur_finalize` then
 solves the Fast-GMR core ``U = (S_C C)† M (R S_Rᵀ)†``. On the chunk route
 the fixed-index copies are folded once per chunk (:func:`_cur_chunk_fold`).
+``telemetry=True`` streams with :data:`STREAMING_CUR_TEL_OPS` and a
+diagnostics frame (:mod:`repro_torch.obs`).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 from ..core.gmr import fast_gmr_core
 from ..core.sketching import draw_sketch
 from ..device import DeviceLike, resolve_device
+from ..obs.telemetry import check_telemetry, fixed_stream_telemetry, init_telemetry
 from ..stream.engine import (
     PanelOps,
     PanelState,
@@ -31,6 +34,7 @@ __all__ = [
     "StreamingCURState",
     "CURStreamCtx",
     "STREAMING_CUR_OPS",
+    "STREAMING_CUR_TEL_OPS",
     "streaming_cur_init",
     "streaming_cur_update",
     "streaming_cur_finalize",
@@ -80,6 +84,9 @@ STREAMING_CUR_OPS = PanelOps(
     chunk_fold=_cur_chunk_fold,
 )
 
+# the same hooks plus the fixed-index diagnostics fold (repro_torch.obs)
+STREAMING_CUR_TEL_OPS = dataclasses.replace(STREAMING_CUR_OPS, telemetry=fixed_stream_telemetry)
+
 StreamingCURState = PanelState
 
 
@@ -100,6 +107,7 @@ def streaming_cur_init(
     sketches=None,
     panel: Optional[int] = None,
     telemetry: bool = False,
+    tel_omega=None,
     device: DeviceLike = None,
 ) -> StreamingCURState:
     """Allocate zero accumulators and draw (or take) the core sketches.
@@ -116,12 +124,15 @@ def streaming_cur_init(
         dtype: accumulator dtype.
         sketches: pre-drawn ``(S_C, S_R)`` pair (shared randomness).
         panel: fixed streaming width — pads ``R``/``S_R`` to whole panels.
-        telemetry: not ported yet; ``True`` raises ``NotImplementedError``.
+        telemetry: attach a diagnostics frame and the error estimator's test
+            sketch (:mod:`repro_torch.obs`); needs ``panel=``. Factors are the
+            same bits with it on or off.
+        tel_omega: the test sketch Ω_test (n × q, e.g. the reference's
+            draw); by default drawn from ``gen`` after the core sketches.
         device: where the state lives; ``None`` means CUDA (raises without it).
     """
     dev = resolve_device(device)
-    if telemetry:
-        raise NotImplementedError("telemetry is not ported yet (repro.obs)")
+    check_telemetry(telemetry, panel)
     col_idx = torch.as_tensor(col_idx).to(device=dev, dtype=torch.int32).clone()
     row_idx = torch.as_tensor(row_idx).to(device=dev, dtype=torch.int32).clone()
     c, r = col_idx.shape[0], row_idx.shape[0]
@@ -138,14 +149,16 @@ def streaming_cur_init(
         s_c, s_r = S_C.s, S_R.s
     n_pad = padded_n(n, panel) if panel else n
     ctx = CURStreamCtx(col_idx=col_idx, row_idx=row_idx, S_C=S_C, S_R=S_R.pad_cols(n_pad))
+    tel = init_telemetry(gen, m, n, panel, omega=tel_omega, device=dev) if telemetry else None
     return StreamingCURState(
         C=torch.zeros((m, c), dtype=dtype, device=dev),
         R=torch.zeros((r, n_pad), dtype=dtype, device=dev),
         M=torch.zeros((s_c, s_r), dtype=dtype, device=dev),
         offset=0,
         ctx=ctx,
-        ops=STREAMING_CUR_OPS,
+        ops=STREAMING_CUR_TEL_OPS if telemetry else STREAMING_CUR_OPS,
         n=n,
+        tel=tel,
     )
 
 

@@ -20,7 +20,9 @@ panel through kernel 2.
 With the same ``col_idx`` and the RowSampling pair of
 :func:`repro_torch.spsd.batch.leverage_sampling_sketches`, the streamed X
 matches :func:`~repro_torch.spsd.batch.faster_spsd`'s up to fp32 order.
-The sharding hooks and telemetry are not ported yet.
+Both inits take ``telemetry=True`` (the ``*_TEL_OPS`` twins, a frame with
+``m = n``), and adaptive SPSD shards through adaptive CUR's slot-range
+hooks.
 """
 
 from __future__ import annotations
@@ -34,12 +36,17 @@ from ..core.gmr import fast_gmr_core
 from ..core.projections import psd_project
 from ..core.sketching import draw_sketch
 from ..device import DeviceLike, resolve_device
+from ..obs.telemetry import (adaptive_stream_telemetry, check_telemetry, fixed_stream_telemetry,
+                             init_telemetry)
 from ..stream.adaptive import (
     AdaptiveCURCtx,
+    _bind_shard,
     _chunk_fold,
     _core_sketches,
     _fused_step,
+    _merge_ctx,
     _panel_kernel,
+    _prep_shard,
     _sketch_panel,
     _supports_fused,
     _update_c,
@@ -51,6 +58,8 @@ __all__ = [
     "SPSDStreamCtx",
     "STREAMING_SPSD_OPS",
     "ADAPTIVE_SPSD_OPS",
+    "STREAMING_SPSD_TEL_OPS",
+    "ADAPTIVE_SPSD_TEL_OPS",
     "streaming_spsd_init",
     "streaming_spsd_finalize",
     "adaptive_spsd_init",
@@ -97,18 +106,26 @@ STREAMING_SPSD_OPS = PanelOps(
 
 # The column half of adaptive CUR, verbatim, on the symmetric engine: the
 # (0,)-row ``row_idx`` makes the R stripe of ``_chunk_fold`` empty, and
-# Route B's gate takes the Gaussian S₂ as its S_R.
+# Route B's gate takes the Gaussian S₂ as its S_R. Its slot-range sharding
+# hooks come along (no row dedup: there are no rows).
 ADAPTIVE_SPSD_OPS = PanelOps(
     name="adaptive_spsd",
     core_sketches=_core_sketches,
     sketch_panel=_sketch_panel,
     update_c=_update_c,
+    prep_shard=_prep_shard,
+    bind_shard=_bind_shard,
+    merge_ctx=_merge_ctx,
     chunk_fold=_chunk_fold,
     fused_step=_fused_step,
     supports_fused=_supports_fused,
     panel_kernel=_panel_kernel,
     symmetric=True,
 )
+
+# the same hooks plus the diagnostics folds (repro_torch.obs)
+STREAMING_SPSD_TEL_OPS = dataclasses.replace(STREAMING_SPSD_OPS, telemetry=fixed_stream_telemetry)
+ADAPTIVE_SPSD_TEL_OPS = dataclasses.replace(ADAPTIVE_SPSD_OPS, telemetry=adaptive_stream_telemetry)
 
 
 def _resolve_sketch_pair(gen, n, c, s, sketch, osnap_p, dtype, sketches, panel):
@@ -133,7 +150,15 @@ def _resolve_sketch_pair(gen, n, c, s, sketch, osnap_p, dtype, sketches, panel):
     return S1, S2.pad_cols(n_pad), n_pad
 
 
-def _state(ctx, ops, n, c, n_pad, s1, s2, dtype, dev) -> PanelState:
+def _maybe_telemetry(telemetry: bool, gen, n: int, panel, tel_omega, base_ops, tel_ops, dev):
+    """The frame (``m = n``: the stream is square) and the ops twin with the
+    telemetry hook, or ``(None, base_ops)``."""
+    if not telemetry:
+        return None, base_ops
+    return init_telemetry(gen, n, n, panel, omega=tel_omega, device=dev), tel_ops
+
+
+def _state(ctx, ops, n, c, n_pad, s1, s2, dtype, dev, tel) -> PanelState:
     return PanelState(
         C=torch.zeros((n, c), dtype=dtype, device=dev),
         R=torch.zeros((0, n_pad), dtype=dtype, device=dev),  # tied operand: R = Cᵀ
@@ -142,6 +167,7 @@ def _state(ctx, ops, n, c, n_pad, s1, s2, dtype, dev) -> PanelState:
         ctx=ctx,
         ops=ops,
         n=n,
+        tel=tel,
     )
 
 
@@ -149,7 +175,7 @@ def streaming_spsd_init(gen: Optional[torch.Generator], n: int, col_idx, *,
                         s: Optional[int] = None, sketch: str = "countsketch", osnap_p: int = 2,
                         dtype=torch.float32, sketches: Optional[Tuple] = None,
                         panel: Optional[int] = None, telemetry: bool = False,
-                        device: DeviceLike = None) -> PanelState:
+                        tel_omega=None, device: DeviceLike = None) -> PanelState:
     """A fixed-index streaming-SPSD state on the symmetric engine.
 
     Arguments as in the reference's ``streaming_spsd_init``, with ``gen`` (a
@@ -158,12 +184,13 @@ def streaming_spsd_init(gen: Optional[torch.Generator], n: int, col_idx, *,
     the sketch size (default ``min(10·c, n)``, the paper's §6.2 operating
     point); ``sketch`` the family of both draws; ``sketches`` a pre-drawn
     ``(S₁, S₂)``, e.g. :func:`~repro_torch.spsd.batch.leverage_sampling_sketches`;
-    ``panel`` pads S₂ to whole panels. ``telemetry=True`` raises
-    ``NotImplementedError`` (not ported yet); ``device=None`` means CUDA.
+    ``panel`` pads S₂ to whole panels. ``telemetry=True`` (needs ``panel``)
+    attaches a diagnostics frame whose test sketch is ``tel_omega`` (n × q)
+    or drawn from ``gen`` after the pair; call the error estimate after the
+    whole stream. ``device=None`` means CUDA.
     """
     dev = resolve_device(device)
-    if telemetry:
-        raise NotImplementedError("telemetry is not ported yet (repro.obs)")
+    check_telemetry(telemetry, panel)
     col_idx = torch.as_tensor(col_idx).to(device=dev, dtype=torch.int32).clone()
     c = col_idx.shape[0]
     if c and not (0 <= int(col_idx.min()) and int(col_idx.max()) < n):
@@ -174,7 +201,9 @@ def streaming_spsd_init(gen: Optional[torch.Generator], n: int, col_idx, *,
         )
     S1, S2, n_pad = _resolve_sketch_pair(gen, n, c, s, sketch, osnap_p, dtype, sketches, panel)
     ctx = SPSDStreamCtx(col_idx=col_idx, S1=S1, S2=S2)
-    return _state(ctx, STREAMING_SPSD_OPS, n, c, n_pad, S1.s, S2.s, dtype, dev)
+    tel, ops = _maybe_telemetry(telemetry, gen, n, panel, tel_omega, STREAMING_SPSD_OPS,
+                                STREAMING_SPSD_TEL_OPS, dev)
+    return _state(ctx, ops, n, c, n_pad, S1.s, S2.s, dtype, dev, tel)
 
 
 def streaming_spsd_finalize(state: PanelState) -> SPSDResult:
@@ -192,14 +221,14 @@ def adaptive_spsd_init(gen: Optional[torch.Generator], n: int, c: int, *,
                        min_gain: float = 2.0, panel_cap: Optional[int] = None,
                        swap_gain: Optional[float] = None, dtype=torch.float32,
                        sketches: Optional[Tuple] = None, panel: Optional[int] = None,
-                       telemetry: bool = False, device: DeviceLike = None) -> PanelState:
+                       telemetry: bool = False, tel_omega=None,
+                       device: DeviceLike = None) -> PanelState:
     """Adaptive streaming SPSD: kernel columns are admitted in-stream by the
     column policy of :func:`~repro_torch.stream.adaptive.adaptive_cur_init`
     (``min_gain``, ``panel_cap``, ``swap_gain``) with the row machinery off.
     Other arguments as in :func:`streaming_spsd_init`."""
     dev = resolve_device(device)
-    if telemetry:
-        raise NotImplementedError("telemetry is not ported yet (repro.obs)")
+    check_telemetry(telemetry, panel)
     S1, S2, n_pad = _resolve_sketch_pair(gen, n, c, s, sketch, osnap_p, dtype, sketches, panel)
     zeros_i = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
     ctx = AdaptiveCURCtx(
@@ -221,7 +250,9 @@ def adaptive_spsd_init(gen: Optional[torch.Generator], n: int, c: int, *,
         n=n,
         evict=swap_gain is not None,
     )
-    return _state(ctx, ADAPTIVE_SPSD_OPS, n, c, n_pad, S1.s, S2.s, dtype, dev)
+    tel, ops = _maybe_telemetry(telemetry, gen, n, panel, tel_omega, ADAPTIVE_SPSD_OPS,
+                                ADAPTIVE_SPSD_TEL_OPS, dev)
+    return _state(ctx, ops, n, c, n_pad, S1.s, S2.s, dtype, dev, tel)
 
 
 def adaptive_spsd_finalize(state: PanelState) -> SPSDResult:

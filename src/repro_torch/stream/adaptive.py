@@ -25,8 +25,15 @@ Routes through the engine (:mod:`repro_torch.stream.engine`):
 
 Slot writes use :func:`_scatter_drop`, which needs no host sync; the host
 reads one value per panel only where a loop or a branch needs it (the
-eviction loop's candidate count, the backfill's "any fresh row" test). The
-distributed (sharding) hooks are not ported yet; this is one worker.
+eviction loop's candidate count, the backfill's "any fresh row" test).
+
+Sharding (:mod:`repro_torch.stream.distributed`): each worker admits into
+its own ``c/W`` column-slot and ``r/W`` row-slot range starting at
+``slot_lo`` (``_prep_shard``/``_bind_shard``), so every free-slot test is
+``slot_lo + c_local − n_filled``; ``_merge_ctx`` sums the disjoint per-slot
+state and ``_merge_state`` folds rows that two workers both admitted into
+the lowest slot. :func:`allocate_shared_budget` is the same greedy at group
+granularity (the serving stack's per-head ranks).
 """
 
 from __future__ import annotations
@@ -41,22 +48,61 @@ from ..core.sketching import GaussianSketch, draw_sketch
 from ..device import DeviceLike, resolve_device
 from ..kernels import ops
 from ..kernels.ref import top_k_desc
+from ..obs.telemetry import adaptive_stream_telemetry, check_telemetry, init_telemetry
 from .engine import PanelOps, PanelState, padded_n, truncated_R
 
 __all__ = [
     "AdaptiveCURCtx",
     "AdaptiveRowState",
     "ADAPTIVE_CUR_OPS",
+    "ADAPTIVE_CUR_TEL_OPS",
     "adaptive_cur_init",
     "adaptive_cur_finalize",
+    "allocate_shared_budget",
 ]
+
+
+def allocate_shared_budget(scores: torch.Tensor, budget: int, *, floor: int = 0,
+                           cap: Optional[int] = None) -> torch.Tensor:
+    """Split a shared rank ``budget`` across groups by greedy marginal gain.
+
+    ``scores`` is ``(G, K)``: each group's marginal gains for its ``j``-th
+    unit, sorted descending along the last axis. Every group gets ``floor``
+    units; the rest of the budget goes one unit at a time to the globally
+    best remaining marginal of the window ``[floor, cap)`` (``cap`` defaults
+    to ``K``), ties to the lower flat index (group-major), as the
+    reference's ``jax.lax.top_k``. Non-positive marginals are never bought,
+    so the sum may fall short of the budget. Returns ``(G,)`` int32 with
+    ``floor <= out <= cap``; raises ``ValueError`` unless
+    ``0 <= floor <= cap`` and ``budget >= G·floor``.
+    """
+    G, K = scores.shape
+    cap = K if cap is None else min(int(cap), K)
+    if floor < 0 or cap < floor:
+        raise ValueError(f"need 0 <= floor <= cap, got floor={floor} cap={cap}")
+    extra = int(budget) - G * floor
+    if extra < 0:
+        raise ValueError(f"budget {budget} cannot cover floor {floor} x {G} groups")
+    W = cap - floor
+    if W == 0 or extra == 0:
+        return torch.full((G,), floor, dtype=torch.int32, device=scores.device)
+    window = scores[:, floor:cap].reshape(-1)  # (G·W,) marginal gains
+    vals, idx = top_k_desc(window, min(extra, G * W))
+    picks = (vals > 0).to(torch.int32)  # dead marginals are never bought
+    counts = torch.zeros((G,), dtype=torch.int32, device=scores.device)
+    return floor + counts.index_add_(0, idx // W, picks)
 
 
 @dataclasses.dataclass
 class AdaptiveRowState:
     """Adaptive row-admission state (only when rows are adaptive); see the
     reference's docstring. ``gram`` covers the S_R windows of ``[seen_lo, off)``
-    when the backfill reads it; ``sr_dense`` is the dense S_R, built once."""
+    when the backfill reads it; ``sr_dense`` is the dense S_R, built once
+    and never written, so worker copies share it (``FRESH_SHARED``).
+    ``seen_lo`` is the first column this worker saw; a worker owns the
+    ``r_local`` row slots from ``slot_lo``."""
+
+    FRESH_SHARED = ("sr_dense",)  # read-only fields fresh_state does not clone
 
     row_sketch: torch.Tensor  # (m, s_r) running A S_Rᵀ over seen columns
     backfill: torch.Tensor  # (r, s_r) pre-panel sketches of this panel's admits
@@ -66,9 +112,10 @@ class AdaptiveRowState:
     sr_dense: torch.Tensor  # (s_r, n_pad)
     n_filled: torch.Tensor  # () int32 — next free row slot
     min_gain: float
-    seen_lo: int  # first column offset seen, −1 = none yet
+    seen_lo: int  # first column offset this worker saw, −1 = none yet
     r_local: int
     panel_cap: int
+    slot_lo: int = 0  # first row slot this worker may fill
 
 
 @dataclasses.dataclass
@@ -92,6 +139,7 @@ class AdaptiveCURCtx:
     panel_cap: int
     n: int
     evict: bool = False
+    slot_lo: int = 0  # first column slot this worker may fill
 
 
 def _scatter_drop(X: torch.Tensor, dim: int, slots: torch.Tensor, src: torch.Tensor,
@@ -137,7 +185,8 @@ def _whitened_basis(mat: torch.Tensor) -> torch.Tensor:
 
 
 def _admitted_basis(ctx: AdaptiveCURCtx) -> torch.Tensor:
-    return _whitened_basis(ctx.ScC)
+    """Whitened basis of this worker's admitted-slot sketches."""
+    return _whitened_basis(ctx.ScC[:, ctx.slot_lo : ctx.slot_lo + ctx.c_local])
 
 
 def _score_columns(Qm: torch.Tensor, sc_a: torch.Tensor) -> tuple:
@@ -178,7 +227,7 @@ def _admit_or_evict_columns(ctx: AdaptiveCURCtx, C, block, col0, sc_a, resid2, e
     if not ctx.evict:
         # admission only: candidate k (best first) takes slot n_filled + rank
         ranks = torch.cumsum(cand_ok.to(torch.int32), 0) - 1
-        admit = cand_ok & (ranks < ctx.c_local - ctx.n_filled)
+        admit = cand_ok & (ranks < ctx.slot_lo + ctx.c_local - ctx.n_filled)
         slots = torch.where(admit, ctx.n_filled + ranks, c_total)
         _scatter_drop(C, 1, slots, cand_A, admit)
         _scatter_drop(ctx.ScC, 1, slots, cand_sc, admit)
@@ -190,9 +239,13 @@ def _admit_or_evict_columns(ctx: AdaptiveCURCtx, C, block, col0, sc_a, resid2, e
     # Sequential: each decision changes the slot table the next one sees.
     # Eligible candidates lead the best-first list (their scores beat the −1
     # mask) and an ineligible one changes nothing, so the loop stops at them.
+    hi = ctx.slot_lo + ctx.c_local
+    ids = torch.arange(c_total, device=C.device)
+    in_range = (ids >= ctx.slot_lo) & (ids < hi)
     for k in range(int(cand_ok.sum())):
-        admit = ctx.n_filled < ctx.c_local  # a free slot is left
-        scores = torch.where(ctx.col_idx >= 0, ctx.slot_score,
+        admit = ctx.n_filled < hi  # a free slot is left in this worker's range
+        # the weakest admitted slot of this worker's range
+        scores = torch.where(in_range & (ctx.col_idx >= 0), ctx.slot_score,
                              torch.full_like(ctx.slot_score, float("inf")))
         victim = torch.argmin(scores)
         swap = ~admit & (cand_res[k] > ctx.swap_gain * scores[victim])
@@ -221,8 +274,10 @@ def _admit_rows(ctx: AdaptiveCURCtx, A_L, off):
     gram = rows.gram + rows.gram_pending
     gram_pending = Sw @ Sw.T
 
-    filled = ctx.row_idx >= 0
-    basis = row_sketch[ctx.row_idx.clamp(min=0).long()]
+    # the basis of this worker's row slots (a zero-suffixed prefix of its range)
+    row_idx_local = ctx.row_idx[rows.slot_lo : rows.slot_lo + rows.r_local]
+    filled = row_idx_local >= 0
+    basis = row_sketch[row_idx_local.clamp(min=0).long()]
     basis = torch.where(filled[:, None], basis, torch.zeros((), dtype=basis.dtype, device=basis.device))
     Qm = _whitened_basis(basis.T)
     t = row_sketch.float() @ Qm
@@ -230,13 +285,13 @@ def _admit_rows(ctx: AdaptiveCURCtx, A_L, off):
     resid2 = torch.clamp(row_energy - torch.sum(t * t, dim=1), min=0.0)
 
     taken = torch.zeros(m + 1, dtype=torch.bool, device=A_L.device)
-    taken[torch.where(filled, ctx.row_idx, m).long()] = True
+    taken[torch.where(filled, row_idx_local, m).long()] = True
     mean_energy = torch.sum(row_energy) / m
     eligible = (resid2 > rows.min_gain * mean_energy) & ~taken[:m]
 
     K = min(rows.panel_cap, m)
     _, top = top_k_desc(torch.where(eligible, resid2, torch.full_like(resid2, -1.0)), K)
-    free = rows.r_local - rows.n_filled
+    free = rows.slot_lo + rows.r_local - rows.n_filled
     cap = torch.clamp(torch.minimum(free, eligible.sum()), max=rows.panel_cap)
     ar = torch.arange(K, device=A_L.device)
     admit = ar < cap
@@ -349,7 +404,7 @@ def _panel_kernel(ctx: AdaptiveCURCtx, C, M, A_L, off):
     srt = ctx.S_R.mat[:, off : off + L].T  # (L, s_r) window, no copy
     run_mean = ctx.energy / torch.clamp(ctx.cols_seen, min=1.0)
     true_cols = float(min(max(ctx.n - off, 1), L))
-    free = ctx.c_local - ctx.n_filled
+    free = ctx.slot_lo + ctx.c_local - ctx.n_filled
     C, M, sc_a, resid2, energy, slots = ops.panel_update(
         ctx.S_C.mat[:, : A_L.shape[0]], A_L, srt, Qm, C, M,
         min_gain=ctx.min_gain, run_mean=run_mean, true_cols=true_cols,
@@ -366,17 +421,123 @@ def _panel_kernel(ctx: AdaptiveCURCtx, C, M, A_L, off):
     return ctx, C, M, sc_a, (resid2, energy)
 
 
+def _prep_shard(ctx: AdaptiveCURCtx, num_workers: int) -> AdaptiveCURCtx:
+    """Split the column (and row) slot budgets into ``/W`` per-worker ranges;
+    raises when a budget does not divide."""
+    if ctx.c_local % num_workers:
+        raise ValueError(f"column budget c={ctx.c_local} must divide across {num_workers} workers")
+    rows = ctx.rows
+    if rows is not None:
+        if rows.r_local % num_workers:
+            raise ValueError(f"row budget r={rows.r_local} must divide across {num_workers} workers")
+        rows = dataclasses.replace(rows, r_local=rows.r_local // num_workers)
+    return dataclasses.replace(ctx, c_local=ctx.c_local // num_workers, rows=rows)
+
+
+def _bind_shard(ctx: AdaptiveCURCtx, w: int) -> AdaptiveCURCtx:
+    """Bind worker ``w`` to its slot ranges: it fills from ``w·c_local`` (and
+    ``w·r_local`` for rows)."""
+    lo = w * ctx.c_local
+    n_filled = torch.full((), lo, dtype=torch.int32, device=ctx.ScC.device)
+    rows = ctx.rows
+    if rows is not None:
+        lo_r = w * rows.r_local
+        rows = dataclasses.replace(rows, slot_lo=lo_r, n_filled=torch.full(
+            (), lo_r, dtype=torch.int32, device=ctx.ScC.device))
+    return dataclasses.replace(ctx, slot_lo=lo, n_filled=n_filled, rows=rows)
+
+
+def _sum(xs):
+    return sum(xs[1:], xs[0])
+
+
+def _merge_ctx(ctxs) -> AdaptiveCURCtx:
+    """Merge the workers' ctxs: their slot ranges are disjoint, so the
+    per-slot state sums exactly, and the ``−1``-sentinel index tables merge
+    by their maximum; ``row_sketch`` sums to the whole stream's ``A S_Rᵀ``
+    (the workers saw disjoint column ranges)."""
+    base = ctxs[0]
+    rows = None
+    if base.rows is not None:
+        rs = [c.rows for c in ctxs]
+        rows = dataclasses.replace(
+            base.rows,
+            row_sketch=_sum([r.row_sketch for r in rs]),
+            backfill=torch.zeros_like(base.rows.backfill),  # per-panel scratch
+            gram=torch.zeros_like(base.rows.gram),  # worker-local prefix state
+            gram_pending=torch.zeros_like(base.rows.gram_pending),
+            admit_off=torch.amax(torch.stack([r.admit_off for r in rs]), dim=0),
+            n_filled=_sum([r.n_filled - r.slot_lo for r in rs]).to(torch.int32),
+            slot_lo=0,
+            seen_lo=0,
+            r_local=base.row_idx.shape[0],
+        )
+    return dataclasses.replace(
+        base,
+        ScC=_sum([c.ScC for c in ctxs]),
+        col_idx=torch.amax(torch.stack([c.col_idx for c in ctxs]), dim=0),
+        row_idx=torch.amax(torch.stack([c.row_idx for c in ctxs]), dim=0),
+        slot_score=_sum([c.slot_score for c in ctxs]),
+        n_filled=_sum([c.n_filled - c.slot_lo for c in ctxs]).to(torch.int32),
+        slot_lo=0,
+        energy=_sum([c.energy for c in ctxs]),
+        cols_seen=_sum([c.cols_seen for c in ctxs]),
+        n_evicted=_sum([c.n_evicted for c in ctxs]).to(torch.int32),
+        rows=rows,
+        c_local=base.col_idx.shape[0],
+    )
+
+
+def _merge_state(state: PanelState) -> PanelState:
+    """Cross-worker row dedup after a merge: rows are global, so two workers
+    can admit the same row into different slots. Each filled slot's
+    canonical slot is the lowest one holding the same row; a duplicate's
+    ``R`` row (its columns are disjoint from the canonical one's: the
+    workers saw disjoint ranges) is added into the canonical row, and the
+    duplicate slot is zeroed and freed (``row_idx``/``admit_off`` −1,
+    ``n_filled`` one less). Nothing to do with fixed rows."""
+    ctx = state.ctx
+    if ctx.rows is None:
+        return state
+    idx = ctx.row_idx
+    r = idx.shape[0]
+    ar = torch.arange(r, device=idx.device)
+    filled = idx >= 0
+    same = (idx[:, None] == idx[None, :]) & filled[:, None] & filled[None, :]
+    canon = torch.argmax(same.to(torch.int32), dim=0)  # lowest slot with the same row
+    dup = filled & (canon != ar)
+    # T[i, j] = 1 ⇔ slot j's content lands in slot i; duplicates are nobody's
+    # canonical slot, so T·R consolidates and zeroes them in one product
+    T = ar[:, None] == torch.where(filled, canon, r)[None, :]
+    R = T.to(state.R.dtype) @ state.R
+    rows = ctx.rows
+    big = torch.iinfo(torch.int32).max
+    admit_grp = torch.amin(torch.where(same, rows.admit_off[None, :], big), dim=1)
+    admit_off = torch.where(dup, -1, torch.where(filled, admit_grp, rows.admit_off))
+    rows = dataclasses.replace(rows, admit_off=admit_off.to(torch.int32),
+                               n_filled=(rows.n_filled - dup.sum()).to(torch.int32))
+    ctx = dataclasses.replace(ctx, row_idx=torch.where(dup, -1, idx).to(torch.int32), rows=rows)
+    return dataclasses.replace(state, R=R, ctx=ctx)
+
+
 ADAPTIVE_CUR_OPS = PanelOps(
     name="adaptive_cur",
     core_sketches=_core_sketches,
     sketch_panel=_sketch_panel,
     update_c=_update_c,
     update_r=_update_r,
+    prep_shard=_prep_shard,
+    bind_shard=_bind_shard,
+    merge_ctx=_merge_ctx,
+    merge_state=_merge_state,
     chunk_fold=_chunk_fold,
     fused_step=_fused_step,
     supports_fused=_supports_fused,
     panel_kernel=_panel_kernel,
 )
+
+# the same hooks plus the per-panel diagnostics fold (repro_torch.obs)
+ADAPTIVE_CUR_TEL_OPS = dataclasses.replace(ADAPTIVE_CUR_OPS, telemetry=adaptive_stream_telemetry)
 
 
 def adaptive_cur_init(
@@ -402,6 +563,7 @@ def adaptive_cur_init(
     sketches=None,
     panel: Optional[int] = None,
     telemetry: bool = False,
+    tel_omega=None,
     device: DeviceLike = None,
 ) -> PanelState:
     """Allocate an adaptive streaming-CUR state with an empty column budget.
@@ -409,15 +571,18 @@ def adaptive_cur_init(
     Arguments as in the reference's ``adaptive_cur_init``, with ``gen`` (a
     ``torch.Generator`` on ``device``, unused when ``sketches`` is given) in
     place of the key. ``row_idx=None`` with ``r=`` turns on adaptive rows.
-    ``telemetry=True`` raises ``NotImplementedError`` (not ported yet).
-    ``device=None`` means CUDA and raises without it.
+    ``telemetry=True`` attaches a diagnostics frame
+    (:class:`~repro_torch.obs.telemetry.TelemetryFrame`) and needs ``panel=``;
+    its test sketch Ω_test is ``tel_omega`` (n × q, e.g. the reference's
+    draw) or drawn from ``gen`` after the core sketches. Factors are the
+    same bits with it on or off. ``device=None`` means CUDA and raises
+    without it.
     """
     # imported here: repro_torch.cur imports the SPSD modules, which import this one
     from ..cur.cur import cur_sketch_sizes
 
     dev = resolve_device(device)
-    if telemetry:
-        raise NotImplementedError("telemetry is not ported yet (repro.obs)")
+    check_telemetry(telemetry, panel)
     adaptive_rows = row_idx is None
     if adaptive_rows:
         if r is None:
@@ -476,14 +641,16 @@ def adaptive_cur_init(
         n=n,
         evict=swap_gain is not None,
     )
+    tel = init_telemetry(gen, m, n, panel, omega=tel_omega, device=dev) if telemetry else None
     return PanelState(
         C=torch.zeros((m, c), dtype=dtype, device=dev),
         R=torch.zeros((r, n_pad), dtype=dtype, device=dev),
         M=torch.zeros((s_c, s_r), dtype=dtype, device=dev),
         offset=0,
         ctx=ctx,
-        ops=ADAPTIVE_CUR_OPS,
+        ops=ADAPTIVE_CUR_TEL_OPS if telemetry else ADAPTIVE_CUR_OPS,
         n=n,
+        tel=tel,
     )
 
 

@@ -29,18 +29,30 @@ through ``PanelOps.panel_kernel`` — is tried first by :func:`panel_update`.
 square stream whose row factor is tied to the column factor (SPSD / kernel
 matrices, ``R = Cᵀ``) the engine skips the R half of every panel, the
 state's ``R`` is a ``(0, n_pad)`` placeholder, and :func:`truncated_R`
-derives ``Cᵀ``. Telemetry and the distributed hooks are not ported yet.
+derives ``Cᵀ``.
+
+**Telemetry** (:mod:`repro_torch.obs`): a state with a frame in
+``state.tel`` and ops with a ``telemetry`` hook folds each panel's
+diagnostics after its updates, and :func:`stream_panels` folds the
+estimator's ``Ψ += A_window·Ω_test`` once over the consumed window before
+the route is chosen. With ``tel=None`` the engine runs exactly what it
+runs without telemetry. **Sharding** (:mod:`repro_torch.stream.distributed`)
+runs workers on :func:`fresh_state` copies through the ``prep_shard``,
+``bind_shard``, ``merge_ctx`` and ``merge_state`` hooks.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
-from ..core.sketching import fold_apply_t, index_windows
+from ..core.sketching import (ComposedSketch, CountSketch, GaussianSketch, OSNAPSketch,
+                              RowSampling, SRHTSketch, fold_apply_t, index_windows)
+from ..obs.spans import span
+from ..obs.telemetry import EVENT_QUARANTINED, fold_psi_chunk
 
 __all__ = [
     "PanelOps",
@@ -51,7 +63,12 @@ __all__ = [
     "copy_selected_columns",
     "truncated_R",
     "with_quarantine",
+    "zero_nonfinite_panels",
+    "fresh_state",
 ]
+
+# sketch objects are read-only (bar their order caches): worker copies share them
+_SKETCHES = (GaussianSketch, SRHTSketch, CountSketch, OSNAPSketch, RowSampling, ComposedSketch)
 
 ROUTES = ("chunk", "per-panel")
 
@@ -88,6 +105,15 @@ class PanelOps:
     * ``window_sketches(ctx) -> tuple`` — sketches other than ``S_R`` that
       the hooks read in panel windows; the engine indexes their windows
       (and the view kernel's chunks of them) once per stream, as ``S_R``'s;
+    * ``telemetry(tel, ctx_pre, ctx_post, A_L, sc_a, scores, off) -> tel`` —
+      runs last, only for a state with a frame, and writes only the frame.
+      It reads ``A_L``'s width, never its values: Route A passes a
+      ``(0, panel)`` placeholder, or, for ops without ``fused_step`` (no
+      per-panel ctx update), one ``(0, chunk width)`` placeholder with the
+      whole chunk sketch;
+    * sharding: ``prep_shard(ctx, W) -> ctx`` once per run,
+      ``bind_shard(ctx, w) -> ctx`` per worker, ``merge_ctx(ctxs) -> ctx``
+      and ``merge_state(state) -> state`` after the accumulators are summed;
     * ``symmetric`` — a tied-operand stream: no R hook, ``R = Cᵀ``.
     """
 
@@ -102,6 +128,11 @@ class PanelOps:
     supports_fused: Optional[Callable] = None
     panel_kernel: Optional[Callable] = None
     window_sketches: Optional[Callable] = None
+    telemetry: Optional[Callable] = None
+    prep_shard: Optional[Callable] = None
+    bind_shard: Optional[Callable] = None
+    merge_ctx: Optional[Callable] = None
+    merge_state: Optional[Callable] = None
     symmetric: bool = False
 
     def __post_init__(self):
@@ -121,9 +152,11 @@ class PanelState:
 
     ``R`` is allocated at the padded width ``ceil(n/panel)·panel`` when a
     panel width is given at init; ``n`` is the true column count.
-    ``offset`` (a host integer) counts the columns consumed. ``quarantined``
-    is ``None`` or a 0-dim int32 counter that arms the non-finite panel
-    guard (:func:`with_quarantine`). Unknown attributes resolve on ``ctx``.
+    ``offset`` (a host integer) counts the columns consumed. ``tel`` is
+    ``None`` or the diagnostics frame (:class:`~repro_torch.obs.telemetry.TelemetryFrame`).
+    ``quarantined`` is ``None`` or a 0-dim int32 counter that arms the
+    non-finite panel guard (:func:`with_quarantine`). Unknown attributes
+    resolve on ``ctx``.
     """
 
     C: torch.Tensor
@@ -133,6 +166,7 @@ class PanelState:
     ctx: Any
     ops: PanelOps
     n: int
+    tel: Any = None
     quarantined: Optional[torch.Tensor] = None
 
     def __getattr__(self, name):
@@ -147,8 +181,9 @@ class PanelState:
 
 def with_quarantine(state: PanelState) -> PanelState:
     """Arm the non-finite panel guard: from then on a panel carrying NaN/Inf
-    is zero-scaled (it contributes exactly what an all-zero panel would) and
-    counted in ``state.quarantined``. Idempotent."""
+    is zero-scaled (it contributes exactly what an all-zero panel would),
+    counted in ``state.quarantined`` and, with telemetry, flagged
+    ``EVENT_QUARANTINED`` in its frame slot. Idempotent."""
     if state.quarantined is None:
         state.quarantined = torch.zeros((), dtype=torch.int32, device=state.M.device)
     return state
@@ -159,21 +194,77 @@ def padded_n(n: int, panel: int) -> int:
     return ((n + panel - 1) // panel) * panel
 
 
+def zero_nonfinite_panels(block: torch.Tensor, panel: int) -> torch.Tensor:
+    """``block`` with every ``panel``-wide column group that carries a
+    NaN/Inf zeroed (a ragged tail is its own group): the quarantine guard's
+    rule at block granularity, applied to the window the ``Ψ`` fold reads
+    before the per-panel guard runs, so a quarantined panel adds nothing
+    to ``Ψ`` either. ``block`` starts on a panel boundary."""
+    m, w = block.shape
+    P = padded_n(w, panel) // panel
+    padded = torch.nn.functional.pad(block, (0, P * panel - w))
+    fin = torch.all(torch.isfinite(padded.reshape(m, P, panel)), dim=2).all(dim=0)
+    mask = fin.repeat_interleave(panel)[:w]
+    return torch.where(mask[None, :], block, torch.zeros((), dtype=block.dtype, device=block.device))
+
+
+def _fresh(x):
+    """A copy of ``x`` whose tensors a stream may update without touching
+    ``x``'s: tensors cloned, sketches shared, dataclasses copied field by
+    field (but for the read-only fields a class lists in ``FRESH_SHARED``)."""
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, _SKETCHES) or not dataclasses.is_dataclass(x) or isinstance(x, type):
+        return x
+    shared = getattr(x, "FRESH_SHARED", ())
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name) if f.name in shared else _fresh(getattr(x, f.name))
+        for f in dataclasses.fields(x) if f.init})
+
+
+def fresh_state(state: PanelState) -> PanelState:
+    """A copy of ``state`` that streams independently of it: the
+    accumulators (C, R, M), every ctx tensor, the telemetry frame and the
+    quarantine counter cloned; the sketches shared. The port's counterpart
+    of the reference's ``fresh_pytree`` (the engine updates in place)."""
+    return dataclasses.replace(
+        state, C=state.C.clone(), R=state.R.clone(), M=state.M.clone(),
+        ctx=_fresh(state.ctx), tel=_fresh(state.tel), quarantined=_fresh(state.quarantined))
+
+
+def _snapshot(ctx):
+    """The ctx as it stands, for a telemetry hook to compare with after the
+    panel: the hooks rebind the counters they change, so a shallow copy
+    (of nested state too) keeps the old ones."""
+    if not dataclasses.is_dataclass(ctx) or isinstance(ctx, _SKETCHES):
+        return ctx
+    snap = copy.copy(ctx)
+    for f in dataclasses.fields(ctx):
+        v = getattr(ctx, f.name)
+        if dataclasses.is_dataclass(v) and not isinstance(v, _SKETCHES):
+            object.__setattr__(snap, f.name, copy.copy(v))
+    return snap
+
+
 def panel_update(state: PanelState, A_L: torch.Tensor) -> PanelState:
     """Consume one L-column panel at ``state.offset`` (accumulators in place)."""
     L = A_L.shape[1]
     off = state.offset
     ops = state.ops
+    bad = None
     if state.quarantined is not None:
         bad = ~torch.all(torch.isfinite(A_L))
         A_L = torch.where(bad, torch.zeros((), dtype=A_L.dtype, device=A_L.device), A_L)
         state.quarantined.add_(bad.to(torch.int32))
+    tel = state.tel
+    has_tel = ops.telemetry is not None and tel is not None
+    ctx_pre = _snapshot(state.ctx) if has_tel else None
 
     fast = None
     if ops.panel_kernel is not None:
         fast = ops.panel_kernel(state.ctx, state.C, state.M, A_L, off)
     if fast is not None:
-        ctx, C, M, _sc_a, _scores = fast
+        ctx, C, M, sc_a, scores = fast
     else:
         S_C, S_R = ops.core_sketches(state.ctx)
         if ops.sketch_panel is not None:
@@ -192,7 +283,13 @@ def panel_update(state: PanelState, A_L: torch.Tensor) -> PanelState:
     else:
         R = state.R
         R[:, off : off + L] = ops.r_block(ctx, A_L, off).to(R.dtype)
-    state.C, state.R, state.M, state.ctx = C, R, M, ctx
+    # the telemetry fold runs last: it reads the panel's outcome, writes the frame only
+    if has_tel:
+        tel = ops.telemetry(tel, ctx_pre, ctx, A_L, sc_a, scores, off)
+    if bad is not None and tel is not None:
+        t = off // tel.panel
+        tel.events[t : t + 1].add_(bad.to(torch.int32).reshape(1) * EVENT_QUARANTINED)
+    state.C, state.R, state.M, state.ctx, state.tel = C, R, M, ctx, tel
     state.offset = off + L
     return state
 
@@ -216,22 +313,34 @@ def _fused_scan(state: PanelState, block, bcol0: int, window, num_panels: int,
     sketches side by side), the panel-invariant factor writes once through
     ``chunk_fold``, then per panel only the ``M`` fold — kept per panel so
     its summation order matches the per-panel body — and ``fused_step``.
-    ``window`` is columns ``[bcol0, bcol0 + num_panels·panel)`` of ``block``."""
+    ``window`` is columns ``[bcol0, bcol0 + num_panels·panel)`` of ``block``.
+    A telemetry hook runs per panel after ``fused_step``, on a ``(0, panel)``
+    placeholder; for ops without ``fused_step`` (nothing in the ctx changes
+    per panel) it runs once over the whole chunk sketch."""
     ops = state.ops
     start = state.offset
+    width = num_panels * panel
     S_C, S_R = ops.core_sketches(state.ctx)
     sca = S_C.apply(window)
-    ctx, C, R = ops.chunk_fold(state.ctx, state.C, state.R, block, bcol0, start,
-                               num_panels * panel)
+    ctx, C, R = ops.chunk_fold(state.ctx, state.C, state.R, block, bcol0, start, width)
+    tel = state.tel
+    has_tel = ops.telemetry is not None and tel is not None
+    tel_per_panel = has_tel and ops.fused_step is not None
+    placeholder = block.new_zeros((0, panel)) if tel_per_panel else None
     M = state.M
     for t in range(num_panels):
         off = start + t * panel
         sc_a = sca[:, t * panel : (t + 1) * panel]
         fold_apply_t(S_R.cols(off, panel), sc_a, M)
         if ops.fused_step is not None:
-            ctx, C, _ = ops.fused_step(ctx, C, block, bcol0 + t * panel, sc_a, off)
-    state.C, state.R, state.M, state.ctx = C, R, M, ctx
-    state.offset = start + num_panels * panel
+            ctx_pre = _snapshot(ctx) if tel_per_panel else None
+            ctx, C, scores = ops.fused_step(ctx, C, block, bcol0 + t * panel, sc_a, off)
+            if tel_per_panel:
+                tel = ops.telemetry(tel, ctx_pre, ctx, placeholder, sc_a, scores, off)
+    if has_tel and not tel_per_panel:
+        tel = ops.telemetry(tel, ctx, ctx, block.new_zeros((0, width)), sca, None, start)
+    state.C, state.R, state.M, state.ctx, state.tel = C, R, M, ctx, tel
+    state.offset = start + width
     return state
 
 
@@ -239,7 +348,8 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
                   stop: Optional[int] = None, route: str = "chunk") -> PanelState:
     """Drive columns ``[offset, stop)`` of ``A`` through the engine in
     ``panel``-wide panels, zero-padding the ragged tail (see the module
-    docstring for ``route``). The accumulators are updated in place."""
+    docstring for ``route``). The accumulators are updated in place. A
+    telemetered state first folds ``Ψ`` over the whole window, once."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if A.device != state.M.device:
@@ -264,14 +374,18 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
         for S in state.ops.window_sketches(state.ctx):
             index_windows(S, panel, chunks=True)
     label = f"stream/{state.ops.name}/{'scan' if route == 'chunk' else 'per-panel'}"
-    if route == "chunk" and _fused_route_ok(state):
-        with record_function(label):
+    with span(label):
+        if state.ops.telemetry is not None and state.tel is not None:
+            block = A[:, start:stop]
+            if state.quarantined is not None:  # a quarantined panel adds nothing to Ψ
+                block = zero_nonfinite_panels(block, panel)
+            fold_psi_chunk(state.tel, block, start)
+        if route == "chunk" and _fused_route_ok(state):
             if width == num_panels * panel:
                 return _fused_scan(state, A, start, A[:, start:stop], num_panels, panel)
             chunk = A.new_zeros((A.shape[0], num_panels * panel))
             chunk[:, :width] = A[:, start:stop]
             return _fused_scan(state, chunk, 0, chunk, num_panels, panel)
-    with record_function(label):
         for off in range(start, stop, panel):
             w = min(panel, stop - off)
             A_L = A[:, off : off + w]

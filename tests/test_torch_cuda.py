@@ -406,3 +406,108 @@ def test_cuda_sp_svd_stream_matches_plain(cuda, monkeypatch):
         _close(x, y, 1e-4)
     prods = [(U * S[None, :]) @ V.T for U, S, V in (sp_svd_finalize(got), sp_svd_finalize(want))]
     _close(prods[0], prods[1], 1e-4)
+
+
+@pytest.mark.parametrize("mode", ["fixed-route-a", "fixed-per-panel", "adaptive-route-a",
+                                  "adaptive-route-b", "adaptive-evict-rows"])
+def test_cuda_telemetry_on_off_bitwise(cuda, mode):
+    """Telemetry on the card changes neither the factors nor the launches:
+    a small stream with and without a frame gives C, R, M and the index sets
+    bit for bit and the same launch counts, on Route A (kernel 1), the
+    per-panel route, Route B (kernel 3) and the per-panel body with kernel
+    2; Ψ within 1e-5 (relative to its norm) of a float64 ``A·Ω_test``."""
+    from repro_torch.cur import streaming_cur_init
+    from repro_torch.data.synthetic import spiked_decay_matrix
+    from repro_torch.stream.adaptive import adaptive_cur_init
+    from repro_torch.stream.engine import stream_panels
+
+    A, _ = spiked_decay_matrix(0, 512, 400, n_spikes=12, device=cuda)
+    A += 0.3 * torch.randn(A.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+
+    def run(tel):
+        g = torch.Generator(cuda).manual_seed(2)
+        common = dict(s_c=96, s_r=96, panel=64, telemetry=tel, device=cuda)
+        if mode.startswith("fixed"):
+            st = streaming_cur_init(g, 512, 400, torch.arange(0, 400, 25), torch.arange(16),
+                                    sketch="countsketch", **common)
+        else:
+            kw = dict(sketch="countsketch") if mode.endswith("a") else dict(sketch="gaussian")
+            if mode.endswith("rows"):
+                kw.update(swap_gain=2.0, r=8)
+            st = adaptive_cur_init(g, 512, 400, 12, None if "rows" in mode else torch.arange(16),
+                                   panel_cap=3, **kw, **common)
+        ops.reset_launches()
+        st = stream_panels(st, A, 64, route="per-panel" if "per-panel" in mode else "chunk")
+        torch.cuda.synchronize()
+        return st, dict(ops.LAUNCHES)
+
+    (off, l_off), (on, l_on) = run(False), run(True)
+    assert l_off == l_on and sum(l_on.values()) >= 7
+    if mode == "adaptive-route-b":
+        assert l_on["panel_update"] == 7
+    if mode == "adaptive-evict-rows":
+        assert l_on["panel_score"] == 7
+    for x, y in ((off.C, on.C), (off.R, on.R), (off.M, on.M), (off.ctx.col_idx, on.ctx.col_idx),
+                 (off.ctx.row_idx, on.ctx.row_idx)):
+        assert torch.equal(x, y)
+    want = A.double() @ on.tel.omega[:400].double()
+    assert float(torch.linalg.norm(on.tel.psi.double() - want)) <= 1e-5 * float(
+        torch.linalg.norm(want))
+    assert int(on.tel.panels_seen) == 7
+
+
+def test_cuda_sharded_fixed_cur_bitwise(cuda):
+    """A W = 2 sharded fixed stream on the card: C and R bit for bit those of
+    the single-host stream, M within 1e-4 of its largest entry; kernel 1
+    runs one chunk sketch per worker and one fold per panel."""
+    from repro_torch.cur import streaming_cur_init
+    from repro_torch.stream import simulate_sharded_stream, stream_panels
+
+    g = torch.Generator(cuda).manual_seed(3)
+    A = torch.randn((384, 640), generator=g, device=cuda)
+
+    def init():
+        return streaming_cur_init(torch.Generator(cuda).manual_seed(4), 384, 640,
+                                  torch.arange(0, 640, 40), torch.arange(0, 384, 24),
+                                  sketch="countsketch", s_c=128, s_r=128, panel=64, device=cuda)
+
+    single = stream_panels(init(), A, 64)
+    ops.reset_launches()
+    shard = simulate_sharded_stream(init(), A, 64, 2)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["countsketch"] == 2 + 10
+    assert torch.equal(shard.C, single.C) and torch.equal(shard.R, single.R)
+    _close(shard.M, single.M, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_cuda_panel_update_at_slot_offset(cuda, dtype):
+    """Kernel 3 for a worker whose slot range starts at ``slot_lo > 0`` and
+    is partly filled (``n_filled = slot_lo + 2``, ``free = slot_lo + c_local
+    − n_filled``): slots and C equal to the plain version's, every admitted
+    slot inside ``[n_filled, slot_lo + c_local)``, C outside that range
+    untouched."""
+    sc, a_l, srt, _, _, M, _ = _inputs(cuda, c=32)
+    slot_lo, c_local = 16, 8
+    n_filled = slot_lo + 2
+    rng = np.random.default_rng(5)
+    C = torch.from_numpy(rng.standard_normal((300, 32)).astype(np.float32)).to(cuda)
+    C[:, n_filled : slot_lo + c_local] = 0.0  # this worker's free slots
+    Q, _ = torch.linalg.qr(torch.randn((72, c_local), device=cuda))
+    q = (Q * (torch.arange(c_local, device=cuda) < 2)).contiguous()
+    kw = dict(min_gain=0.5, run_mean=0.0, true_cols=float(a_l.shape[1]), n_filled=n_filled,
+              free=slot_lo + c_local - n_filled, panel_cap=4)
+    args = (sc, a_l.to(dtype), srt, q) if dtype == F32 else (sc.to(BF16), a_l.to(BF16),
+                                                              srt.to(BF16), q)
+    got = ops.panel_update(*args, C.clone(), M.clone(), **kw)
+    with ops.force_plain():
+        want = ops.panel_update(*args, C.clone(), M.clone(), **kw)
+    slots = got[5]
+    assert torch.equal(slots, want[5]) and torch.equal(got[0], want[0])
+    admitted = slots[slots < 32]
+    assert admitted.numel() > 0
+    assert bool(((admitted >= n_filled) & (admitted < slot_lo + c_local)).all())
+    outside = torch.ones(32, dtype=torch.bool, device=cuda)
+    outside[n_filled : slot_lo + c_local] = False
+    assert torch.equal(got[0][:, outside], C[:, outside])
+    _close(got[1], want[1], 1e-4)

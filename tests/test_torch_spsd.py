@@ -376,9 +376,9 @@ def test_streaming_init_validation():
         tspsd.adaptive_spsd_init(torch.Generator(), N, N + 1, panel=40, device="cpu")
     with pytest.raises(ValueError, match="s > 0"):
         tspsd.adaptive_spsd_init(torch.Generator(), N, 8, s=-3, panel=40, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="panel"):  # telemetry needs a panel width
         tspsd.streaming_spsd_init(torch.Generator(), N, [1], telemetry=True, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="panel"):
         tspsd.adaptive_spsd_init(torch.Generator(), N, 4, telemetry=True, device="cpu")
     with pytest.raises(NotImplementedError):  # SRHT has no column windows
         tspsd.streaming_spsd_init(torch.Generator(), 64, [1], s=16, sketch="srht", device="cpu")

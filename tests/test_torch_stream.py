@@ -376,7 +376,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     st = adaptive_cur_init(torch.Generator(), 16, 16, 2, [0], s_c=8, s_r=8, device="cpu")
     with pytest.raises(ValueError):
         stream_panels(st, torch.zeros(16, 16, device="meta"), 8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="panel"):  # telemetry needs a panel width
         adaptive_cur_init(torch.Generator(), 16, 16, 2, [0], telemetry=True, device="cpu")
 
 

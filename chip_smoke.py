@@ -72,7 +72,27 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    each worker's columns in its slot range), (d) (kernel 2 every panel, no
    duplicate row), (h) (the reconstruction within 1e-3 of single-host's)
    and (i) (X within 1e-4); kernel 3 is also held against its plain version
-   at a slot offset (worker 2 of 4) in the kernels phase.
+   at a slot offset (worker 2 of 4) in the kernels phase;
+8. (o) resume — ``run_resilient_stream`` with telemetry on (a), (b), (c)
+   and (i): killed at panel 150 of 256 (70 of 128 for (i)) and resumed from
+   its checkpoints in a second invocation, equal bit for bit to the
+   uninterrupted drive at the same cadence (chunks of 4, a checkpoint every
+   2; (c) 16 and 4); bytes per checkpoint, save and restore ms, panels
+   replayed, host ms per panel of the chunked drive beside the whole
+   stream; (a) also at its last panel, the ``ckpt_every=8`` overhead, one
+   of four workers of ``run_resilient_sharded_stream`` killed, and
+   ``run_resilient_loop`` restoring onto the card after ``fail_at_step``;
+9. (p) chaos — the chaos lane's seeded schedule (``tools/chaos_check.py``:
+   a crash, two NaN panels, a drop, a duplicate, a straggler) over (a),
+   (b), (i), equal bit for bit to a clean quarantined drive with those
+   panels zeroed, the registry's counts those of the faults;
+10. (q) mesh — ``mesh_sharded_stream`` in 2 and 4 gloo ranks on this one
+   card, sharing A and K through CUDA IPC (one copy of each, never one per
+   rank), for (a) telemetered, (c), (d) and (i), against
+   ``simulate_sharded_stream`` (and (a) at W = 2 against the resilient
+   sharded driver); an NCCL group of one rank runs (a) against the
+   single-host stream. Checkpoints go to ``build/chip_smoke_ckpt/``
+   (gitignored) and are removed.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -82,9 +102,13 @@ no result and exits 1.
 
 from __future__ import annotations
 
+import functools
 import importlib
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -141,6 +165,20 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def fault_schedule(rng, num_panels: int) -> dict:
+    """The chaos lane's seeded fault plan (``tools/chaos_check.py``): a
+    crash, two NaN panels, a drop, a duplicate and a straggler at distinct
+    panels drawn from one permutation."""
+    panels = rng.permutation(num_panels)
+    return dict(
+        crash_at_panel=int(panels[0]),
+        corrupt_panels=tuple(sorted(int(p) for p in panels[1:3])),
+        drop_panels=(int(panels[3]),),
+        duplicate_panels=(int(panels[4]),),
+        straggler_panels=(int(panels[5]),),
+    )
 
 
 def nvidia_smi() -> str:
@@ -774,39 +812,45 @@ def check_indices(torch, idx, hi: int, name: str) -> int:
     return int(filled.numel())
 
 
+# (a)-(d): each run's generator seed offset (one seeded generator per run, so a
+# run can be rebuilt exactly, also in another process)
+PATH_RUNS = {"a_fixed_countsketch": 1, "b_adaptive_countsketch_chunk": 2,
+             "c_adaptive_gaussian_route_b": 3, "d_adaptive_gaussian_evict_rows": 4}
+
+
+def path_state(name: str, m: int, n: int, ci, ri, dev, tel: bool = False):
+    """A fresh state of run ``name`` of (a)-(d) over an m x n stream; ``tel``:
+    the same run with a telemetry frame (its Ω_test drawn after the sketches)."""
+    import torch
+
+    from repro_torch.cur import streaming_cur_init
+    from repro_torch.stream.adaptive import adaptive_cur_init
+
+    g = gen(torch, dev, SEED + 10 + PATH_RUNS[name])
+    if name.startswith("a_"):
+        return streaming_cur_init(g, m, n, ci, ri, sketch="countsketch", panel=PANEL,
+                                  telemetry=tel, device=dev)
+    if name.startswith("d_"):
+        return adaptive_cur_init(g, m, n, C_BUDGET, None, r=R_BUDGET, sketch="gaussian",
+                                 panel=PANEL, swap_gain=2.0, telemetry=tel, device=dev)
+    return adaptive_cur_init(g, m, n, C_BUDGET, ri, panel=PANEL, telemetry=tel, device=dev,
+                             sketch="countsketch" if name.startswith("b_") else "gaussian")
+
+
 def phase_paths(torch, A, dev) -> tuple:
     """The four runs of the main path at full width: summed launches, the
     runs' state makers (``make(tel)``) and their relative errors."""
     from repro_torch.cur import (cur_error_ratio, cur_relative_error, select_columns,
-                                 select_rows, streaming_cur_finalize, streaming_cur_init)
+                                 select_rows, streaming_cur_finalize)
     from repro_torch.kernels import ops
-    from repro_torch.stream.adaptive import adaptive_cur_finalize, adaptive_cur_init
+    from repro_torch.stream.adaptive import adaptive_cur_finalize
     from repro_torch.stream.engine import stream_panels
 
     m, n = A.shape
-
-    def gen(k):  # one seeded generator per run, so a run can be rebuilt exactly
-        g = torch.Generator(device=dev)
-        g.manual_seed(SEED + 10 + k)
-        return g
-
-    g = gen(0)
+    g = gen(torch, dev, SEED + 10)
     ci = select_columns(g, A, C_BUDGET).idx
     ri = select_rows(g, A, R_BUDGET).idx
-    # tel: the same run with a telemetry frame (its Ω_test drawn after the sketches)
-    runs = {
-        "a_fixed_countsketch": lambda tel=False: streaming_cur_init(
-            gen(1), m, n, ci, ri, sketch="countsketch", panel=PANEL, telemetry=tel, device=dev),
-        "b_adaptive_countsketch_chunk": lambda tel=False: adaptive_cur_init(
-            gen(2), m, n, C_BUDGET, ri, sketch="countsketch", panel=PANEL, telemetry=tel,
-            device=dev),
-        "c_adaptive_gaussian_route_b": lambda tel=False: adaptive_cur_init(
-            gen(3), m, n, C_BUDGET, ri, sketch="gaussian", panel=PANEL, telemetry=tel,
-            device=dev),
-        "d_adaptive_gaussian_evict_rows": lambda tel=False: adaptive_cur_init(
-            gen(4), m, n, C_BUDGET, None, r=R_BUDGET, sketch="gaussian", panel=PANEL,
-            swap_gain=2.0, telemetry=tel, device=dev),
-    }
+    runs = {name: functools.partial(path_state, name, m, n, ci, ri, dev) for name in PATH_RUNS}
     num_panels = n // PANEL  # 256 at full size
     need = {  # the kernel each run must go through, and its least launch count
         "a_fixed_countsketch": ("countsketch", num_panels),
@@ -1197,6 +1241,33 @@ def spsd_points(torch, dev):
     return X, sigma
 
 
+def spsd_data(torch, dev) -> tuple:
+    """(i)-(k)'s RBF kernel: its points, σ, the kernel K on the card and
+    (i)'s columns."""
+    from repro_torch.spsd import rbf_kernel_oracle
+
+    t0 = time.perf_counter()
+    X, sigma = spsd_points(torch, dev)
+    K = rbf_kernel_oracle(X, sigma)(None, None)
+    torch.cuda.synchronize()
+    emit("data", generator="rbf_kernel_oracle over clustered points", shape=[SPSD_N, SPSD_N],
+         d=SPSD_D, clusters=SPSD_CLUSTERS, sigma=sigma, dtype="float32",
+         gib=K.numel() * 4 / 2**30, seconds=time.perf_counter() - t0)
+    ci = torch.randperm(SPSD_N, generator=gen(torch, dev, SEED + 51), device=dev)[:SPSD_C]
+    return X, sigma, K, ci
+
+
+def spsd_state(ci, dev, tel: bool = False):
+    """A fresh state of (i): fixed streaming SPSD over the kernel's columns
+    ``ci``, CountSketch pair (``tel``: with a telemetry frame)."""
+    import torch
+
+    from repro_torch.spsd import streaming_spsd_init
+
+    return streaming_spsd_init(gen(torch, dev, SEED + 52), SPSD_N, ci, s=SPSD_S, panel=PANEL,
+                               telemetry=tel, device=dev)
+
+
 def spsd_checks(torch, name: str, K, res) -> dict:
     """Finite factors, a PSD X (smallest eigenvalue above −1e-5 of the
     largest) and the §6.2 error, for one SPSD result."""
@@ -1223,18 +1294,10 @@ def run_spsd(torch, dev) -> list:
 
     n, c, s = SPSD_N, SPSD_C, SPSD_S
     num_panels = n // PANEL
-    t0 = time.perf_counter()
-    X, sigma = spsd_points(torch, dev)
-    K = rbf_kernel_oracle(X, sigma)(None, None)
-    torch.cuda.synchronize()
-    emit("data", generator="rbf_kernel_oracle over clustered points", shape=[n, n], d=SPSD_D,
-         clusters=SPSD_CLUSTERS, sigma=sigma, dtype="float32", gib=K.numel() * 4 / 2**30,
-         seconds=time.perf_counter() - t0)
-    ci = torch.randperm(n, generator=gen(torch, dev, SEED + 51), device=dev)[:c]
+    X, sigma, K, ci = spsd_data(torch, dev)
     runs = {
-        "i_streaming_spsd": (lambda tel=False: streaming_spsd_init(
-            gen(torch, dev, SEED + 52), n, ci, s=s, panel=PANEL, telemetry=tel, device=dev),
-                             streaming_spsd_finalize, ("countsketch", num_panels)),
+        "i_streaming_spsd": (functools.partial(spsd_state, ci, dev), streaming_spsd_finalize,
+                             ("countsketch", num_panels)),
         # an RBF kernel's columns share most of their energy, so residuals
         # are small against the mean column energy: the default min_gain = 2
         # admits nothing here and 0.5 stops at the first panel's 16 columns
@@ -1763,6 +1826,579 @@ def panel_update_slot_offset(torch, ops, dev, g, sc, a_l, srt, C0, M0) -> tuple:
     return e
 
 
+# (o)-(q): checkpoints go to the gitignored build directory and are removed after each run
+CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
+# (o): crash panels of the 256-panel streams and of (i)'s 128; per run the
+# resilient cadence (chunk panels, checkpoint every so many chunks): the
+# reference's defaults, but (c), whose Gaussian sketches make a save ~0.8 GB
+CRASH_A, CRASH_I = 150, 70
+RESUME_CADENCE = {"a_fixed_countsketch": (4, 2), "b_adaptive_countsketch_chunk": (4, 2),
+                  "c_adaptive_gaussian_route_b": (16, 4), "i_streaming_spsd": (4, 2)}
+RESUME_TIMED = 3  # timed drives per side, taken in turns; saves and restores timed
+# (o), (a): run_resilient_loop over 64 one-chunk steps fails at step 37 and
+# restores the checkpoint of step 32
+LOOP_FAIL_AT, LOOP_CKPT_EVERY = 37, 8
+# (o), (a) and (c): the NaN panels of the armed drive against the unarmed one
+QUARANTINE_PANELS = (40, 200)
+# (p): the chaos lane's seed; (q): the gloo ranks sharing the card
+CHAOS_SEED, MESH_WORKERS = 0, (2, 4)
+# the frame's float fields of a sharded run reduced per chunk against per range
+# (the reference's multi-device tolerance), and M summed over four ranks in
+# gloo's order against the in-process order
+FRAME_TOL, MESH_M_TOL = 1e-5, 1e-6
+_READ_ONLY = re.compile(r"\.(S_C|S_R|S1|S2)\.|\.omega$|\.sr_dense$")
+_FRAME_FLOATS = (".tel.panel_scores", ".tel.panel_energy", ".tel.energy_mass", ".tel.psi")
+
+
+def state_tensors(state) -> dict:
+    """The tensors a stream writes — accumulators, ctx, frame — by their
+    checkpoint keys; the read-only sketches, Ω_test and dense S_R left out."""
+    from repro_torch.checkpoint.checkpoint import _leaves
+
+    return {k: v for k, v, scalar in _leaves(state) if scalar is None and not _READ_ONLY.search(k)}
+
+
+def same_state(torch, a, b, name: str, tol: dict = None) -> dict:
+    """Every written tensor of ``a`` equals ``b``'s bit for bit, but the keys
+    of ``tol`` (within their relative tolerance); the host offsets equal.
+    Returns the relative errors of the toleranced keys."""
+    ta, tb = state_tensors(a), state_tensors(b)
+    check(ta.keys() == tb.keys(), f"{name}: leaves {sorted(ta.keys() ^ tb.keys())} differ")
+    check(a.offset == b.offset, f"{name}: offset {a.offset} against {b.offset}")
+    errs = {}
+    for k, x in ta.items():
+        if tol and k in tol:
+            errs[k] = err(x, tb[k])[1] if x.numel() else 0.0
+            check(errs[k] <= tol[k], f"{name}: {k} rel err {errs[k]} > {tol[k]}")
+        else:
+            check(bool(torch.equal(x, tb[k])), f"{name}: {k} differs")
+    return errs
+
+
+def host_s(torch, fn):
+    """``(fn(), host seconds)`` around a synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def median(xs) -> float:
+    return float(sorted(xs)[len(xs) // 2])
+
+
+def resilient_cases(A, K, runs, make_i, names) -> list:
+    """``(name, make, data, crash panel)`` of the runs ``names``."""
+    cases = [(n, runs[n], A, CRASH_A) for n in names if n in runs]
+    if "i_streaming_spsd" in names:
+        cases.append(("i_streaming_spsd", make_i, K, CRASH_I))
+    return cases
+
+
+def phase_resume(torch, A, K, runs, make_i) -> list:
+    """(o): ``run_resilient_stream`` with telemetry on (a), (b), (c), (i):
+    killed at a panel, resumed from its checkpoints in a second invocation,
+    and held bitwise against an uninterrupted drive at the same cadence
+    (C, R, M, the ctx, the frame's counters and Ψ); bytes per checkpoint,
+    save and restore ms, panels replayed, host ms per panel of the chunked
+    drive beside the whole-stream ``stream_panels`` and with a checkpoint
+    every 8 chunks; (a) and (c) a quarantined kill-and-resume against an
+    unarmed drive of zeroed panels. (a) also crashes at its last panel,
+    kills one worker of
+    ``run_resilient_sharded_stream`` at W = 4 and runs ``run_resilient_loop``
+    with ``fail_at_step`` one chunk per step. Returns the drives' launches."""
+    from repro_torch.checkpoint.checkpoint import _host_snapshot, _leaves
+    from repro_torch.kernels import ops
+    from repro_torch.stream import (ArrayPanelSource, FaultInjector, FaultPlan, InjectedCrash,
+                                    restore_stream_state, run_resilient_stream, save_stream_state,
+                                    stream_panels)
+
+    launched = []
+    for name, make, data, crash in resilient_cases(
+            A, K, runs, make_i, ("a_fixed_countsketch", "b_adaptive_countsketch_chunk",
+                                 "c_adaptive_gaussian_route_b", "i_streaming_spsd")):
+        t_case = time.perf_counter()
+        cp, every = RESUME_CADENCE[name]
+        num_panels = data.shape[1] // PANEL
+        src = ArrayPanelSource(data, PANEL)
+        d = CKPT_ROOT / name
+        shutil.rmtree(d, ignore_errors=True)
+        # host ms per panel, in turns: the chunked drive without checkpoints
+        # (the last one is the reference), the whole stream, and the chunked
+        # drive with a checkpoint every 8 chunks (the reference's +ckpt8)
+        chunked_s, whole_s, ck8_s = [], [], []
+        for _ in range(RESUME_TIMED):
+            st = make(True)
+            ops.reset_launches()
+            (ref, rep0), t = host_s(torch, lambda: run_resilient_stream(st, src, chunk_panels=cp))
+            chunked_s.append(t)
+            l_clean = dict(ops.LAUNCHES)
+            st = make(True)
+            _, t = host_s(torch, lambda: stream_panels(st, data, PANEL))
+            whole_s.append(t)
+            st = make(True)
+            _, t = host_s(torch, lambda: run_resilient_stream(
+                st, src, chunk_panels=cp, ckpt_dir=str(d / "ck8"), ckpt_every=8, resume=False))
+            ck8_s.append(t)
+        check(rep0.panels_consumed == num_panels, f"resume {name}: clean drive stopped early")
+        shutil.rmtree(d, ignore_errors=True)
+        del st
+        # killed before the chunk holding panel `crash`, resumed in a second invocation
+        inj = FaultInjector(src, FaultPlan(crash_at_panel=crash))
+        ops.reset_launches()
+        try:
+            run_resilient_stream(make(True), inj, chunk_panels=cp, ckpt_dir=str(d),
+                                 ckpt_every=every)
+            fail(f"resume {name}: the injected crash did not fire")
+        except InjectedCrash:
+            pass
+        st, rep = run_resilient_stream(make(True), inj, chunk_panels=cp, ckpt_dir=str(d),
+                                       ckpt_every=every)
+        torch.cuda.synchronize()
+        l_kill = dict(ops.LAUNCHES)
+        launched += [l_clean, l_kill]
+        consumed = crash // cp * cp  # the panels the killed drive had consumed
+        check(rep.resumed_from is not None and rep.resumed_from <= consumed,
+              f"resume {name}: resumed from {rep.resumed_from}")
+        same_state(torch, ref, st, f"resume {name}")
+        ckpt_bytes = os.path.getsize(d / f"step_{rep.panels_consumed:08d}.ckpt")
+        # save and restore times of the final state (durable=False, as the driver saves)
+        tdir, template = CKPT_ROOT / "timing", make(True)
+        saves, restores, snaps = [], [], []
+        for _ in range(RESUME_TIMED):
+            _, t = host_s(torch, lambda: _host_snapshot(_leaves(st), copy_cpu=False))
+            snaps.append(t)
+            _, t = host_s(torch, lambda: save_stream_state(str(tdir), st, num_panels, keep_last=1,
+                                                           durable=False))
+            saves.append(t)
+            (back, _, _), t = host_s(torch, lambda: restore_stream_state(str(tdir), template))
+            restores.append(t)
+        same_state(torch, st, back, f"resume {name}: restore")
+        check(back.C.device == st.C.device and back.M.data_ptr() != st.M.data_ptr(),
+              f"resume {name}: restore placement")
+        del back, template
+        shutil.rmtree(tdir, ignore_errors=True)
+        out = dict(chunk_panels=cp, ckpt_every=every, crash_at_panel=crash,
+                   resumed_from=rep.resumed_from, panels_replayed=consumed - rep.resumed_from,
+                   checkpoints_after_resume=rep.checkpoints, bitwise=True,
+                   ckpt_bytes=ckpt_bytes, save_ms=1e3 * median(saves),
+                   save_ms_all=[1e3 * x for x in saves], snapshot_ms=1e3 * median(snaps),
+                   restore_ms=1e3 * median(restores),
+                   restore_ms_all=[1e3 * x for x in restores],
+                   chunked_ms_per_panel=1e3 * median(chunked_s) / num_panels,
+                   whole_stream_ms_per_panel=1e3 * median(whole_s) / num_panels,
+                   ckpt8_over_none=median(ck8_s) / median(chunked_s),
+                   ckpt8_s_all=ck8_s, none_s_all=chunked_s,
+                   launches_clean_drive=l_clean, launches_kill_resume=l_kill)
+        out["chunked_over_whole"] = out["chunked_ms_per_panel"] / out["whole_stream_ms_per_panel"]
+        del st, ref
+        shutil.rmtree(d, ignore_errors=True)
+        if name.startswith(("a_", "i_")):  # the cheap streams: where the chunked drive's time goes
+            st = make(True)
+            wall_ms, busy_ms, n_ops, top = device_profile(
+                torch, lambda: run_resilient_stream(st, src, chunk_panels=cp))
+            out["chunked_profile"] = dict(
+                wall_ms=wall_ms, device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
+                device_ops_per_chunk=n_ops / (num_panels // cp), top_device_ms=top)
+            del st
+        if name.startswith(("a_", "c_")):
+            out["quarantine_drill"] = quarantine_drill(torch, name, make, src, cp, every, crash,
+                                                       launched)
+        if name.startswith("a_"):
+            out.update(resume_drills_a(torch, make, data, src, cp, every, launched))
+        out["seconds"] = time.perf_counter() - t_case
+        emit(f"resume/{name}", **out)
+        torch.cuda.empty_cache()
+    return launched
+
+
+def quarantine_drill(torch, name, make, src, cp, every, crash, launched) -> dict:
+    """(o), (a) and (c): two NaN panels, an armed drive killed and resumed,
+    against an unarmed drive of the source with those panels zeroed: an
+    armed state leaves Route A for the per-panel body ((c) stays on Route
+    B), and the result must not change, bit for bit, through a restore."""
+    from repro_torch.kernels import ops
+    from repro_torch.obs import EVENT_QUARANTINED
+    from repro_torch.stream import FaultInjector, FaultPlan, InjectedCrash, run_resilient_stream
+
+    bad = QUARANTINE_PANELS
+    ref, _ = run_resilient_stream(make(True), ZeroedSource(src, bad), chunk_panels=cp)
+    d = CKPT_ROOT / f"quarantine_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    inj = FaultInjector(src, FaultPlan(crash_at_panel=crash, corrupt_panels=bad))
+    ops.reset_launches()
+    try:
+        run_resilient_stream(make(True), inj, chunk_panels=cp, ckpt_dir=str(d), ckpt_every=every,
+                             quarantine=True)
+        fail(f"quarantine {name}: the injected crash did not fire")
+    except InjectedCrash:
+        pass
+    st, rep = run_resilient_stream(make(True), inj, chunk_panels=cp, ckpt_dir=str(d),
+                                   ckpt_every=every, quarantine=True)
+    torch.cuda.synchronize()
+    launched.append(dict(ops.LAUNCHES))
+    check(rep.quarantined == len(bad), f"quarantine {name}: quarantined {rep.quarantined}")
+    st.quarantined = None  # the unarmed drive has neither the count nor the event bit
+    st.tel.events &= ~EVENT_QUARANTINED
+    # the frame's float fields are reduced per chunk on Route A, per panel off it
+    frame = same_state(torch, ref, st, f"quarantine {name}", {k: FRAME_TOL for k in _FRAME_FLOATS})
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(corrupt_panels=list(bad), resumed_from=rep.resumed_from, quarantined=len(bad),
+                factors_bitwise_vs_unarmed_zeroed=True, frame_rel_err=frame,
+                launches=launched[-1])
+
+
+def resume_drills_a(torch, make, data, src, cp, every, launched) -> dict:
+    """(o), (a) only: the crash at the last panel, one killed worker of
+    four, and ``run_resilient_loop``."""
+    from repro_torch.checkpoint import run_resilient_loop
+    from repro_torch.kernels import ops
+    from repro_torch.stream import (FaultInjector, FaultPlan, InjectedCrash,
+                                    run_resilient_sharded_stream, run_resilient_stream,
+                                    stream_panels)
+
+    num_panels = data.shape[1] // PANEL
+    ref, _ = run_resilient_stream(make(True), src, chunk_panels=cp)
+    d = CKPT_ROOT / "a_drills"
+    shutil.rmtree(d, ignore_errors=True)
+    inj = FaultInjector(src, FaultPlan(crash_at_panel=num_panels - 1))
+    try:
+        run_resilient_stream(make(True), inj, chunk_panels=cp, ckpt_dir=str(d / "last"),
+                             ckpt_every=every)
+        fail("resume a: the crash at the last panel did not fire")
+    except InjectedCrash:
+        pass
+    st, rep = run_resilient_stream(make(True), inj, chunk_panels=cp, ckpt_dir=str(d / "last"),
+                                   ckpt_every=every)
+    same_state(torch, ref, st, "resume a, last panel")
+    last_resumed = rep.resumed_from
+    del st
+    # one of four workers killed, resumed from its own directory, against the healthy run
+    healthy, _ = run_resilient_sharded_stream(make(True), src, WORKERS, chunk_panels=cp)
+    state0 = make(True)
+    inj = FaultInjector(src, FaultPlan(crash_at_panel=CRASH_A))
+    ops.reset_launches()
+    try:
+        run_resilient_sharded_stream(state0, inj, WORKERS, ckpt_dir=str(d / "shard"),
+                                     chunk_panels=cp, ckpt_every=every)
+        fail("resume a sharded: the injected crash did not fire")
+    except InjectedCrash:
+        pass
+    st, reps = run_resilient_sharded_stream(state0, inj, WORKERS, ckpt_dir=str(d / "shard"),
+                                            chunk_panels=cp, ckpt_every=every)
+    torch.cuda.synchronize()
+    launched.append(dict(ops.LAUNCHES))
+    crashed = CRASH_A // (num_panels // WORKERS)  # the workers before it had finished
+    check(all(r.resumed_from is not None for r in reps[:crashed])
+          and all(r.resumed_from is None for r in reps[crashed + 1:]),
+          f"resume a sharded: resumed {[r.resumed_from for r in reps]}")
+    same_state(torch, healthy, st, "resume a sharded")
+    del healthy, st, state0
+
+    # run_resilient_loop: one chunk per step; the failure restores the checkpoint before it
+    def loop(ckpt_dir: Path, fail_at):
+        held = {}
+
+        def step_fn(state, batch, step):
+            held["state"] = stream_panels(state, batch, PANEL, col0=step * cp * PANEL)
+            return held["state"], {"offset": held["state"].offset}
+
+        report = run_resilient_loop(
+            state=make(True), step_fn=step_fn, n_steps=num_panels // cp, ckpt_dir=str(ckpt_dir),
+            batch_fn=lambda step: data[:, step * cp * PANEL:(step + 1) * cp * PANEL],
+            ckpt_every=LOOP_CKPT_EVERY, fail_at_step=fail_at)
+        return held["state"], report
+
+    whole, _ = loop(d / "loop_clean", None)
+    ops.reset_launches()
+    failed, report = loop(d / "loop_fail", LOOP_FAIL_AT)
+    launched.append(dict(ops.LAUNCHES))
+    check(report.restarts == 1 and failed.C.device == data.device,
+          "resume a loop: no restart onto the card")
+    same_state(torch, whole, failed, "resume a loop")
+    restored_onto = str(failed.C.device)
+    del whole, failed
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(last_panel_crash=dict(resumed_from=last_resumed, bitwise=True),
+                sharded_w4_worker_killed=dict(workers=WORKERS, crash_at_panel=CRASH_A,
+                                              resumed=[r.resumed_from for r in reps],
+                                              bitwise=True),
+                resilient_loop=dict(steps=num_panels // cp, fail_at_step=LOOP_FAIL_AT,
+                                    restarts=report.restarts,
+                                    restored_onto=restored_onto,
+                                    bitwise=True))
+
+
+class ZeroedSource:
+    """A panel source whose reads of ``panels`` come back zero there, in a
+    clone of the chunk (the source's data is left as it is)."""
+
+    def __init__(self, source, panels):
+        self.source, self.panels = source, tuple(panels)
+        self.panel, self.n, self.num_panels = source.panel, source.n, source.num_panels
+
+    def read_chunk(self, lo: int, num: int):
+        tag, chunk = self.source.read_chunk(lo, num)
+        bad = [t for t in self.panels if lo <= t < lo + num]
+        if bad:
+            chunk = chunk.clone()
+            for t in bad:
+                chunk[:, (t - lo) * self.panel:(t - lo + 1) * self.panel] = 0
+        return tag, chunk
+
+
+def phase_chaos(torch, A, K, runs, make_i) -> list:
+    """(p): the chaos lane's schedule from ``CHAOS_SEED`` over (a), (b), (i)
+    — a crash, two NaN panels, a drop, a duplicate, a straggler — through
+    retry, dedup, checkpoint-resume and quarantine, held bitwise against a
+    clean quarantined drive with the corrupted panels zeroed (in a clone);
+    quarantined 2, the registry's counts those of the faults that fired."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.obs import EVENT_QUARANTINED, MetricsRegistry, set_registry
+    from repro_torch.stream import (ArrayPanelSource, FaultInjector, FaultPlan, InjectedCrash,
+                                    run_resilient_stream)
+
+    rng = np.random.RandomState(CHAOS_SEED)  # one draw per run, in order, as the lane draws
+    launched = []
+    for name, make, data, _ in resilient_cases(
+            A, K, runs, make_i, ("a_fixed_countsketch", "b_adaptive_countsketch_chunk",
+                                 "i_streaming_spsd")):
+        t_case = time.perf_counter()
+        num_panels = data.shape[1] // PANEL
+        sched = fault_schedule(rng, num_panels)
+        plan = FaultPlan(straggler_delay_s=0.002, **sched)
+        src = ArrayPanelSource(data, PANEL)
+        ref, _ = run_resilient_stream(make(True), ZeroedSource(src, plan.corrupt_panels),
+                                      quarantine=True)
+        d = CKPT_ROOT / f"chaos_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        reg = MetricsRegistry(enabled=True)
+        prev = set_registry(reg)
+        inj = FaultInjector(src, plan)
+        ops.reset_launches()
+        try:
+            try:
+                run_resilient_stream(make(True), inj, ckpt_dir=str(d), quarantine=True)
+                fail(f"chaos {name}: the injected crash did not fire")
+            except InjectedCrash:
+                pass
+            st, rep = run_resilient_stream(make(True), inj, ckpt_dir=str(d), quarantine=True)
+            torch.cuda.synchronize()
+        finally:
+            set_registry(prev)
+        launched.append(dict(ops.LAUNCHES))
+        counters = dict(reg.counters)
+        flagged = torch.nonzero(st.tel.events & EVENT_QUARANTINED).flatten().tolist()
+        check(rep.quarantined == 2 and int(st.quarantined) == 2, f"chaos {name}: quarantined")
+        check(flagged == list(plan.corrupt_panels), f"chaos {name}: flagged panels {flagged}")
+        check(counters.get("stream/resilient/quarantined") == 2, f"chaos {name}: {counters}")
+        check(inj._dropped == set(plan.drop_panels), f"chaos {name}: the drop did not fire")
+        check(counters.get("stream/resilient/retries") == len(inj._dropped) + len(inj._duplicated),
+              f"chaos {name}: retries {counters}")
+        # the only differences from the clean drive: the count and the event bit
+        st.quarantined.zero_()
+        st.tel.events &= ~EVENT_QUARANTINED
+        same_state(torch, ref, st, f"chaos {name}")
+        check(bool(torch.isfinite(data).all()), f"chaos {name}: the source's data was written")
+        emit(f"chaos/{name}", seed=CHAOS_SEED, schedule=sched, resumed_from=rep.resumed_from,
+             retries=rep.retries, quarantined=rep.quarantined,
+             duplicate_fired=bool(inj._duplicated), registry=counters, bitwise=True,
+             launches=launched[-1], seconds=time.perf_counter() - t_case)
+        del ref, st
+        shutil.rmtree(d, ignore_errors=True)
+    return launched
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_rank(rank: int, world: int, port: int, jobs: dict, out_q) -> None:
+    """One gloo rank of (q), in its own process on the card: each job's
+    column block (a view of the parent's tensor, shared through CUDA IPC)
+    through ``mesh_sharded_stream``, launches and ``all_reduce`` calls
+    counted over that call alone; then rank 0's merged state is broadcast
+    and every rank compares it with its own, and rank 0 holds its state
+    against ``simulate_sharded_stream`` at the same W (C, R, indices and
+    counters bitwise; M bitwise at W = 2, within ``MESH_M_TOL`` beyond) and,
+    for (a) at W = 2, against ``run_resilient_sharded_stream``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build, ops
+    from repro_torch.stream import (ArrayPanelSource, mesh_sharded_stream, padded_n,
+                                    run_resilient_sharded_stream, simulate_sharded_stream)
+
+    if any(data.is_cuda for _, data in jobs.values()):
+        build.build_all()  # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    real, calls, coll_ms = dist.all_reduce, [0], []
+    real(torch.zeros(1, device="cuda" if torch.cuda.is_available() else "cpu"))  # connects
+
+    def counted(t, *args, **kwargs):  # counts, and times each collective alone
+        calls[0] += 1
+        out, s = host_s(torch, lambda: real(t, *args, **kwargs))
+        coll_ms.append(1e3 * s)
+        return out
+
+    dist.all_reduce = counted
+    try:
+        results = {}
+        for name, (make, data) in jobs.items():
+            n_pad = padded_n(data.shape[1], PANEL)
+            block = data[:, rank * n_pad // world:(rank + 1) * n_pad // world]
+            state0 = make()
+            torch.cuda.synchronize()
+            dist.barrier()  # rank 0's checks of the job before do not count as waiting here
+            ops.reset_launches()
+            calls[0] = 0
+            coll_ms.clear()
+            merged, t = host_s(torch, lambda: mesh_sharded_stream(state0, block, PANEL))
+            res = dict(launches=dict(ops.LAUNCHES), all_reduce_calls=calls[0], host_s=t,
+                       all_reduce_ms=sum(coll_ms), largest_all_reduce_ms=sorted(coll_ms)[-3:],
+                       block_cols=block.shape[1])
+            same = True
+            for x in state_tensors(merged).values():
+                if x.numel():
+                    r0 = x.clone()
+                    dist.broadcast(r0, src=0)
+                    same &= bool(torch.equal(r0, x))
+            res["same_as_rank0"] = same
+            if rank == 0:
+                tol = {".M": MESH_M_TOL} if world > 2 else {}
+                if world > 2:
+                    tol.update({k: MESH_M_TOL for k in (".tel.psi", ".tel.energy_mass",
+                                                        ".ctx.energy", ".ctx.rows.row_sketch")})
+                sim = simulate_sharded_stream(make(), data, PANEL, world)
+                res["vs_simulate_rel_err"] = same_state(torch, sim, merged, f"mesh {name}", tol)
+                del sim
+                if name.startswith("a_") and world == 2:
+                    rs, _ = run_resilient_sharded_stream(make(), ArrayPanelSource(data, PANEL),
+                                                         world)
+                    res["vs_resilient_rel_err"] = same_state(
+                        torch, rs, merged, f"mesh {name} resilient",
+                        {k: FRAME_TOL for k in _FRAME_FLOATS})
+                    del rs
+            results[name] = res
+            del merged, state0
+            torch.cuda.empty_cache()
+        out_q.put((rank, results))
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0) -> dict:
+    """Run ``mesh_rank`` in ``world`` spawned processes and gather their
+    results; a failed rank fails the phase (the others are stopped)."""
+    import queue
+
+    mp = torch.multiprocessing
+    out_q = mp.get_context("spawn").Queue()
+    procs = mp.start_processes(mesh_rank, args=(world, free_port(), jobs, out_q), nprocs=world,
+                               join=False, start_method="spawn")
+    results, deadline = {}, time.monotonic() + timeout
+    try:
+        while len(results) < world:
+            try:
+                rank, out = out_q.get(timeout=1.0)
+                results[rank] = out
+            except queue.Empty:
+                procs.join(timeout=0)  # raises if a rank failed
+                check(time.monotonic() < deadline, f"mesh W={world}: ranks did not report")
+        while not procs.join(timeout=1.0):
+            check(time.monotonic() < deadline, f"mesh W={world}: ranks did not exit")
+    finally:
+        for p in procs.processes:
+            if p.is_alive():
+                p.terminate()
+    return results
+
+
+def phase_mesh(torch, A, K, ci_ri, ci_i, dev) -> list:
+    """(q): ``mesh_sharded_stream`` in W = 2 and 4 gloo ranks on this one card
+    ((a) telemetered, (c), (d), (i); ``mesh_rank``) — the ranks share the
+    parent's A and K through CUDA IPC, never a copy — with the kernel build
+    reused by the ranks; then an NCCL group of one rank in this process runs
+    (a) against the single-host stream, bitwise. Two ranks sharing one card
+    say nothing about scaling across cards. Returns the ranks' launches."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import build, ops
+    from repro_torch.stream import mesh_sharded_stream, stream_panels
+
+    m, n = A.shape
+    ci, ri = (x.cpu() for x in ci_ri)
+    jobs = {name: (functools.partial(path_state, name, m, n, ci, ri, dev, name.startswith("a_")),
+                   A) for name in ("a_fixed_countsketch", "c_adaptive_gaussian_route_b",
+                                   "d_adaptive_gaussian_evict_rows")}
+    jobs["i_streaming_spsd"] = (functools.partial(spsd_state, ci_i.cpu(), dev), K)
+    need = {"a_fixed_countsketch": ("countsketch", n // PANEL),
+            "c_adaptive_gaussian_route_b": ("panel_update", n // PANEL),
+            "d_adaptive_gaussian_evict_rows": ("panel_score", n // PANEL),
+            "i_streaming_spsd": ("countsketch", SPSD_N // PANEL)}
+    libs = sorted((build.BUILD_ROOT / build.source_hash()).glob("lib*.so"))
+    mtimes = [p.stat().st_mtime_ns for p in libs]
+    launched = []
+    for world in MESH_WORKERS:
+        results, wall = host_s(torch, lambda: spawn_ranks(torch, world, jobs))
+        for name in jobs:
+            per_rank = [results[r][name] for r in range(world)]
+            check(all(r["same_as_rank0"] for r in per_rank), f"mesh {name} W={world}: ranks differ")
+            calls = {r["all_reduce_calls"] for r in per_rank}
+            check(len(calls) == 1, f"mesh {name} W={world}: all_reduce calls {calls}")
+            total = {k: sum(r["launches"][k] for r in per_rank) for k in ops.LAUNCHES}
+            launched.append(total)
+            kname, count = need[name]
+            check(total[kname] >= count, f"mesh {name} W={world}: {kname} launched {total[kname]}")
+            emit(f"mesh/{name}_w{world}", backend="gloo", workers=world,
+                 all_reduce_calls_per_call=calls.pop(),
+                 launches_per_rank=[r["launches"] for r in per_rank],
+                 host_s_per_rank=[r["host_s"] for r in per_rank],
+                 all_reduce_ms_per_rank=[r["all_reduce_ms"] for r in per_rank],
+                 largest_all_reduce_ms_rank0=per_rank[0]["largest_all_reduce_ms"],
+                 block_cols=per_rank[0]["block_cols"], ranks_equal=True,
+                 vs_simulate=dict(bitwise_but=per_rank[0]["vs_simulate_rel_err"]),
+                 vs_resilient=per_rank[0].get("vs_resilient_rel_err"))
+        emit(f"mesh/w{world}", spawn_to_exit_s=wall, shared_operands="CUDA IPC views, no copies")
+    check(libs and [p.stat().st_mtime_ns for p in libs] == mtimes,
+          "mesh: the ranks rebuilt kernels")
+
+    # an NCCL group of one rank in this process: (a) against the single-host stream
+    make = functools.partial(path_state, "a_fixed_countsketch", m, n, ci, ri, dev)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev))  # creates the communicator
+        single = stream_panels(make(), A, PANEL)
+        state0 = make()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        merged, t = host_s(torch, lambda: mesh_sharded_stream(state0, A, PANEL))
+        launched.append(dict(ops.LAUNCHES))
+        same_state(torch, single, merged, "mesh nccl")
+    finally:
+        dist.destroy_process_group()
+    emit("mesh/a_fixed_countsketch_nccl_w1", backend="nccl", workers=1, host_s=t,
+         launches=launched[-1], bitwise_vs_single_host=True, build_reused_by_ranks=True,
+         note="gloo ranks share one card: parity and collective counts, not scaling across cards")
+    del single, merged, state0
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1820,7 +2456,19 @@ def main() -> int:
     mark("m: a-d")
     runs_launches += phase_shard(torch, A, runs, errors, dev)
     mark("n: a, c, d, h")
-    del A, runs
+    _, _, K, ci_i = spsd_data(torch, dev)
+    make_i = functools.partial(spsd_state, ci_i, dev)
+    try:
+        runs_launches += phase_resume(torch, A, K, runs, make_i)
+        mark("o: resume")
+        runs_launches += phase_chaos(torch, A, K, runs, make_i)
+        mark("p: chaos")
+        runs_launches += phase_mesh(torch, A, K, runs["a_fixed_countsketch"].args[3:5], ci_i,
+                                    dev)
+        mark("q: mesh")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    del A, K, runs
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()

@@ -56,6 +56,9 @@ EVENT_BUDGET_FULL = 8  # the worker's column budget is full after this panel
 EVENT_QUARANTINED = 16  # the panel carried NaN/Inf and was zero-scaled
 
 _QUANTILES = (0.0, 25.0, 50.0, 75.0, 100.0)
+# the fields worker frames merge by summation (all but ``omega``)
+_SUMMED = ("admitted", "evicted", "rows_admitted", "occupancy", "events", "panel_scores",
+           "panel_energy", "energy_mass", "psi", "panels_seen")
 
 
 @dataclasses.dataclass
@@ -94,13 +97,18 @@ class TelemetryFrame:
             xs = [getattr(f, name) for f in frames]
             return sum(xs[1:], xs[0])
 
-        return dataclasses.replace(
-            frames[0],
-            **{name: tot(name) for name in (
-                "admitted", "evicted", "rows_admitted", "occupancy", "events", "panel_scores",
-                "panel_energy", "energy_mass", "psi", "panels_seen")},
-            omega=self.omega,
-        )
+        return dataclasses.replace(frames[0], **{name: tot(name) for name in _SUMMED},
+                                   omega=self.omega)
+
+    def collective(self, group=None) -> "TelemetryFrame":
+        """:meth:`merge` across the ranks of a ``torch.distributed`` group,
+        in place: one ``all_reduce(SUM)`` per summed field; ``omega``, the
+        same on every rank, is left alone (a sum would scale it by W)."""
+        import torch.distributed as dist
+
+        for name in _SUMMED:
+            dist.all_reduce(getattr(self, name), op=dist.ReduceOp.SUM, group=group)
+        return self
 
 
 def check_telemetry(telemetry: bool, panel: Optional[int]) -> None:

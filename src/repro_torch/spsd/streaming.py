@@ -42,6 +42,7 @@ from ..stream.adaptive import (
     AdaptiveCURCtx,
     _bind_shard,
     _chunk_fold,
+    _collective_ctx,
     _core_sketches,
     _fused_step,
     _merge_ctx,
@@ -116,6 +117,7 @@ ADAPTIVE_SPSD_OPS = PanelOps(
     prep_shard=_prep_shard,
     bind_shard=_bind_shard,
     merge_ctx=_merge_ctx,
+    collective_ctx=_collective_ctx,
     chunk_fold=_chunk_fold,
     fused_step=_fused_step,
     supports_fused=_supports_fused,

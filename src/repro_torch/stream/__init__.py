@@ -1,5 +1,5 @@
-"""Panel-streaming engine, in-process sharding and adaptive CUR of the port
-(counterpart of ``repro.stream``)."""
+"""Panel-streaming engine, sharding, adaptive CUR and resilient ingestion of
+the port (counterpart of ``repro.stream``)."""
 
 from .adaptive import (
     ADAPTIVE_CUR_OPS,
@@ -9,7 +9,12 @@ from .adaptive import (
     adaptive_cur_init,
     allocate_shared_budget,
 )
-from .distributed import merge_states, shard_panel_ranges, simulate_sharded_stream
+from .distributed import (
+    merge_states,
+    mesh_sharded_stream,
+    shard_panel_ranges,
+    simulate_sharded_stream,
+)
 from .engine import (
     PanelOps,
     PanelState,
@@ -23,6 +28,31 @@ from .engine import (
     zero_nonfinite_panels,
 )
 
+# resilient ingestion (and the checkpoint module it needs) load on first use
+_RESILIENT_EXPORTS = (
+    "ArrayPanelSource",
+    "FaultInjector",
+    "FaultPlan",
+    "InjectedCrash",
+    "PanelSource",
+    "QuarantineAbort",
+    "StreamReport",
+    "TransientReadError",
+    "restore_stream_state",
+    "run_resilient_sharded_stream",
+    "run_resilient_stream",
+    "save_stream_state",
+)
+
+
+def __getattr__(name):  # PEP 562
+    if name in _RESILIENT_EXPORTS:
+        from . import resilient as _resilient
+
+        return getattr(_resilient, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "ADAPTIVE_CUR_OPS",
     "AdaptiveCURCtx",
@@ -35,6 +65,7 @@ __all__ = [
     "copy_selected_columns",
     "fresh_state",
     "merge_states",
+    "mesh_sharded_stream",
     "padded_n",
     "panel_update",
     "shard_panel_ranges",
@@ -43,4 +74,5 @@ __all__ = [
     "truncated_R",
     "with_quarantine",
     "zero_nonfinite_panels",
+    *_RESILIENT_EXPORTS,
 ]

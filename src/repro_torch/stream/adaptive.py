@@ -31,7 +31,8 @@ Sharding (:mod:`repro_torch.stream.distributed`): each worker admits into
 its own ``c/W`` column-slot and ``r/W`` row-slot range starting at
 ``slot_lo`` (``_prep_shard``/``_bind_shard``), so every free-slot test is
 ``slot_lo + c_local − n_filled``; ``_merge_ctx`` sums the disjoint per-slot
-state and ``_merge_state`` folds rows that two workers both admitted into
+state (``_collective_ctx`` does the same with collectives across the ranks
+of ``mesh_sharded_stream``) and ``_merge_state`` folds rows that two workers both admitted into
 the lowest slot. :func:`allocate_shared_budget` is the same greedy at group
 granularity (the serving stack's per-head ranks).
 """
@@ -488,6 +489,50 @@ def _merge_ctx(ctxs) -> AdaptiveCURCtx:
     )
 
 
+def _collective_ctx(ctx: AdaptiveCURCtx, group=None) -> AdaptiveCURCtx:
+    """:func:`_merge_ctx` as collectives over a ``torch.distributed`` group
+    (every rank gets the merged ctx): ``all_reduce(SUM)`` of the disjoint
+    per-slot state and the running sums, ``all_reduce(MAX)`` of the
+    ``−1``-sentinel index tables, the per-worker scratch zeroed and the slot
+    ranges reset to start at 0. Reduces the rank's own tensors in place."""
+    import torch.distributed as dist
+
+    def red(t, op=dist.ReduceOp.SUM):
+        if t.numel():
+            dist.all_reduce(t, op=op, group=group)
+        return t
+
+    mx = dist.ReduceOp.MAX
+    rows = ctx.rows
+    if rows is not None:
+        rows = dataclasses.replace(
+            rows,
+            row_sketch=red(rows.row_sketch),
+            backfill=torch.zeros_like(rows.backfill),  # per-panel scratch
+            gram=torch.zeros_like(rows.gram),  # worker-local prefix state
+            gram_pending=torch.zeros_like(rows.gram_pending),
+            admit_off=red(rows.admit_off, mx),
+            n_filled=red((rows.n_filled - rows.slot_lo).to(torch.int32)),
+            slot_lo=0,
+            seen_lo=0,
+            r_local=ctx.row_idx.shape[0],
+        )
+    return dataclasses.replace(
+        ctx,
+        ScC=red(ctx.ScC),
+        col_idx=red(ctx.col_idx, mx),
+        row_idx=red(ctx.row_idx, mx),
+        slot_score=red(ctx.slot_score),
+        n_filled=red((ctx.n_filled - ctx.slot_lo).to(torch.int32)),
+        slot_lo=0,
+        energy=red(ctx.energy),
+        cols_seen=red(ctx.cols_seen),
+        n_evicted=red(ctx.n_evicted),
+        rows=rows,
+        c_local=ctx.col_idx.shape[0],
+    )
+
+
 def _merge_state(state: PanelState) -> PanelState:
     """Cross-worker row dedup after a merge: rows are global, so two workers
     can admit the same row into different slots. Each filled slot's
@@ -529,6 +574,7 @@ ADAPTIVE_CUR_OPS = PanelOps(
     prep_shard=_prep_shard,
     bind_shard=_bind_shard,
     merge_ctx=_merge_ctx,
+    collective_ctx=_collective_ctx,
     merge_state=_merge_state,
     chunk_fold=_chunk_fold,
     fused_step=_fused_step,

@@ -38,7 +38,8 @@ estimator's ``Ψ += A_window·Ω_test`` once over the consumed window before
 the route is chosen. With ``tel=None`` the engine runs exactly what it
 runs without telemetry. **Sharding** (:mod:`repro_torch.stream.distributed`)
 runs workers on :func:`fresh_state` copies through the ``prep_shard``,
-``bind_shard``, ``merge_ctx`` and ``merge_state`` hooks.
+``bind_shard``, ``merge_ctx`` (or, across processes, ``collective_ctx``)
+and ``merge_state`` hooks.
 """
 
 from __future__ import annotations
@@ -114,6 +115,10 @@ class PanelOps:
     * sharding: ``prep_shard(ctx, W) -> ctx`` once per run,
       ``bind_shard(ctx, w) -> ctx`` per worker, ``merge_ctx(ctxs) -> ctx``
       and ``merge_state(state) -> state`` after the accumulators are summed;
+      ``collective_ctx(ctx, group) -> ctx`` is ``merge_ctx`` as collectives
+      over a ``torch.distributed`` group, run by every rank of
+      :func:`~repro_torch.stream.distributed.mesh_sharded_stream` once per
+      call, never per panel;
     * ``symmetric`` — a tied-operand stream: no R hook, ``R = Cᵀ``.
     """
 
@@ -132,6 +137,7 @@ class PanelOps:
     prep_shard: Optional[Callable] = None
     bind_shard: Optional[Callable] = None
     merge_ctx: Optional[Callable] = None
+    collective_ctx: Optional[Callable] = None
     merge_state: Optional[Callable] = None
     symmetric: bool = False
 
@@ -345,17 +351,23 @@ def _fused_scan(state: PanelState, block, bcol0: int, window, num_panels: int,
 
 
 def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
-                  stop: Optional[int] = None, route: str = "chunk") -> PanelState:
-    """Drive columns ``[offset, stop)`` of ``A`` through the engine in
+                  stop: Optional[int] = None, route: str = "chunk", col0: int = 0) -> PanelState:
+    """Drive columns ``[offset, stop)`` of the stream through the engine in
     ``panel``-wide panels, zero-padding the ragged tail (see the module
-    docstring for ``route``). The accumulators are updated in place. A
-    telemetered state first folds ``Ψ`` over the whole window, once."""
+    docstring for ``route``). ``A`` holds the stream's columns from ``col0``
+    on (the whole stream by default; a chunk or a worker's column block
+    starting at ``col0 <= offset`` otherwise), and ``stop`` defaults to the
+    end of ``A`` or of the stream, whichever is first. The accumulators are
+    updated in place. A telemetered state first folds ``Ψ`` over the whole
+    window, once."""
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     if A.device != state.M.device:
         raise ValueError(f"A is on {A.device} but the state lives on {state.M.device}")
-    n = A.shape[1]
+    n = col0 + A.shape[1]
     start = state.offset
+    if start < col0:
+        raise ValueError(f"A starts at column {col0}, after the state's offset {start}")
     stop = min(n, state.n) if stop is None else stop
     if state.R.shape[1] < padded_n(stop - start, panel) + start:
         raise ValueError(
@@ -374,20 +386,21 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
         for S in state.ops.window_sketches(state.ctx):
             index_windows(S, panel, chunks=True)
     label = f"stream/{state.ops.name}/{'scan' if route == 'chunk' else 'per-panel'}"
+    lo, hi = start - col0, stop - col0  # the window in A's own columns
     with span(label):
         if state.ops.telemetry is not None and state.tel is not None:
-            block = A[:, start:stop]
+            block = A[:, lo:hi]
             if state.quarantined is not None:  # a quarantined panel adds nothing to Ψ
                 block = zero_nonfinite_panels(block, panel)
             fold_psi_chunk(state.tel, block, start)
         if route == "chunk" and _fused_route_ok(state):
             if width == num_panels * panel:
-                return _fused_scan(state, A, start, A[:, start:stop], num_panels, panel)
+                return _fused_scan(state, A, lo, A[:, lo:hi], num_panels, panel)
             chunk = A.new_zeros((A.shape[0], num_panels * panel))
-            chunk[:, :width] = A[:, start:stop]
+            chunk[:, :width] = A[:, lo:hi]
             return _fused_scan(state, chunk, 0, chunk, num_panels, panel)
-        for off in range(start, stop, panel):
-            w = min(panel, stop - off)
+        for off in range(lo, hi, panel):
+            w = min(panel, hi - off)
             A_L = A[:, off : off + w]
             if w != panel:
                 A_L = torch.nn.functional.pad(A_L, (0, panel - w))

@@ -511,3 +511,165 @@ def test_cuda_panel_update_at_slot_offset(cuda, dtype):
     outside[n_filled : slot_lo + c_local] = False
     assert torch.equal(got[0][:, outside], C[:, outside])
     _close(got[1], want[1], 1e-4)
+
+
+def _resilient_inits(cuda):
+    """A fixed CountSketch stream (kernel 1: chunk sketch and folds) and an
+    adaptive Gaussian one (Route B: kernel 3 every panel), both telemetered,
+    with a 384 x 640 operand on the card."""
+    from repro_torch.cur import streaming_cur_init
+    from repro_torch.stream.adaptive import adaptive_cur_init
+
+    A = torch.randn((384, 640), generator=torch.Generator(cuda).manual_seed(3), device=cuda)
+
+    def fixed():
+        return streaming_cur_init(torch.Generator(cuda).manual_seed(4), 384, 640,
+                                  torch.arange(0, 640, 40), torch.arange(0, 384, 24),
+                                  sketch="countsketch", s_c=128, s_r=128, panel=64,
+                                  telemetry=True, device=cuda)
+
+    def adaptive():
+        return adaptive_cur_init(torch.Generator(cuda).manual_seed(5), 384, 640, 16,
+                                 torch.arange(0, 384, 24), sketch="gaussian", s_c=96, s_r=96,
+                                 panel=64, panel_cap=3, telemetry=True, device=cuda)
+
+    return A, {"fixed-kernel-1": (fixed, "countsketch"), "adaptive-kernel-3": (adaptive,
+                                                                               "panel_update")}
+
+
+def _same_state(a, b):
+    from repro_torch.checkpoint.checkpoint import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    assert [k for k, _, _ in la] == [k for k, _, _ in lb]
+    for (k, x, _), (_, y, _) in zip(la, lb):
+        assert (torch.equal(x, y) if torch.is_tensor(x) else x == y), k
+
+
+@pytest.mark.parametrize("pack", [False, True], ids=["dir", "packed"])
+def test_cuda_checkpoint_restores_onto_cuda(cuda, pack, tmp_path):
+    """A CUDA stream state's checkpoint restores onto the card, in fresh
+    storage, with the template's sketch objects and the saved bits."""
+    from repro_torch.checkpoint import restore, save
+    from repro_torch.stream import stream_panels
+
+    A, inits = _resilient_inits(cuda)
+    make = inits["adaptive-kernel-3"][0]
+    st = stream_panels(make(), A, 64, stop=192)
+    save(str(tmp_path), 3, st, pack=pack)
+    template = make()
+    out, _, step = restore(str(tmp_path), template)
+    assert step == 3 and out.offset == 192
+    assert all(x.is_cuda for x in (out.C, out.R, out.M, out.ctx.ScC, out.tel.psi))
+    assert out.C.data_ptr() != template.C.data_ptr()
+    assert out.ctx.S_C is template.ctx.S_C
+    _same_state(out, st)
+
+
+@pytest.mark.parametrize("name", ["fixed-kernel-1", "adaptive-kernel-3"])
+def test_cuda_kill_and_resume_bitwise(cuda, name, tmp_path):
+    """Killed at panel 6 of 10 and resumed from its checkpoints in a second
+    invocation, a stream on the card equals its uninterrupted run bit for
+    bit (C, R, M, the ctx, the frame), through its kernel."""
+    from repro_torch.stream import (ArrayPanelSource, FaultInjector, FaultPlan, InjectedCrash,
+                                    run_resilient_stream)
+
+    A, inits = _resilient_inits(cuda)
+    make, kname = inits[name]
+    src = ArrayPanelSource(A, 64)
+    ref, _ = run_resilient_stream(make(), src, chunk_panels=2)
+    inj = FaultInjector(src, FaultPlan(crash_at_panel=6))
+    ops.reset_launches()
+    with pytest.raises(InjectedCrash):
+        run_resilient_stream(make(), inj, chunk_panels=2, ckpt_dir=str(tmp_path), ckpt_every=1)
+    st, rep = run_resilient_stream(make(), inj, chunk_panels=2, ckpt_dir=str(tmp_path),
+                                   ckpt_every=1)
+    torch.cuda.synchronize()
+    assert rep.resumed_from == 6 and ops.LAUNCHES[kname] > 0
+    _same_state(ref, st)
+
+
+def test_cuda_nccl_group_of_one_runs_mesh(cuda):
+    """``mesh_sharded_stream`` in an NCCL group of one rank: the single-host
+    stream's bits."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.stream import mesh_sharded_stream, stream_panels
+
+    A, inits = _resilient_inits(cuda)
+    make = inits["fixed-kernel-1"][0]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    try:
+        merged = mesh_sharded_stream(make(), A, 64)
+    finally:
+        dist.destroy_process_group()
+    _same_state(merged, stream_panels(make(), A, 64))
+
+
+def _gloo_rank(rank, world, port, A, out_q):
+    """A gloo rank on the card: its block of the parent's A (CUDA IPC)
+    through ``mesh_sharded_stream``; reports C, R, M and kernel 1's launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.cur import streaming_cur_init
+    from repro_torch.stream import mesh_sharded_stream
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=120))
+    try:
+        st = streaming_cur_init(torch.Generator("cuda").manual_seed(4), 384, 640,
+                                torch.arange(0, 640, 40), torch.arange(0, 384, 24),
+                                sketch="countsketch", s_c=128, s_r=128, panel=64, device="cuda")
+        ops.reset_launches()
+        w = A.shape[1] // world
+        merged = mesh_sharded_stream(st, A[:, rank * w:(rank + 1) * w], 64)
+        # numpy arrays travel by value; a CPU tensor would be shared through
+        # a file descriptor this process no longer serves once it exits
+        out_q.put((rank, merged.C.cpu().numpy(), merged.R.cpu().numpy(), merged.M.cpu().numpy(),
+                   ops.LAUNCHES["countsketch"]))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_cuda_gloo_ranks_share_operand_and_reuse_build(cuda):
+    """Two spawned gloo ranks on the one card take views of the parent's A
+    through CUDA IPC and load the libraries already built (their files are
+    not written again); their merged state equals ``simulate_sharded_stream``
+    at W = 2 bit for bit (M is a + b in either order)."""
+    import socket
+
+    from repro_torch.cur import streaming_cur_init
+    from repro_torch.kernels import build
+    from repro_torch.stream import simulate_sharded_stream
+
+    A, _ = _resilient_inits(cuda)
+    build.build_all()
+    libs = sorted((build.BUILD_ROOT / build.source_hash()).glob("lib*.so"))
+    mtimes = [p.stat().st_mtime_ns for p in libs]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mp = torch.multiprocessing
+    out_q = mp.get_context("spawn").Queue()
+    procs = mp.start_processes(_gloo_rank, args=(2, port, A, out_q), nprocs=2, join=False,
+                               start_method="spawn")
+    got = dict((r[0], r[1:]) for r in (out_q.get(timeout=300) for _ in range(2)))
+    while not procs.join(timeout=60):
+        pass
+    assert libs and [p.stat().st_mtime_ns for p in libs] == mtimes
+    want = simulate_sharded_stream(streaming_cur_init(
+        torch.Generator(cuda).manual_seed(4), 384, 640, torch.arange(0, 640, 40),
+        torch.arange(0, 384, 24), sketch="countsketch", s_c=128, s_r=128, panel=64,
+        device=cuda), A, 64, 2)
+    for rank in (0, 1):
+        C, R, M, launches = got[rank]
+        assert launches == 1 + 5  # one chunk sketch and five folds per rank
+        assert np.array_equal(C, want.C.cpu().numpy()) and np.array_equal(R, want.R.cpu().numpy())
+        assert np.array_equal(M, want.M.cpu().numpy())

@@ -92,7 +92,25 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    ``simulate_sharded_stream`` (and (a) at W = 2 against the resilient
    sharded driver); an NCCL group of one rank runs (a) against the
    single-host stream. Checkpoints go to ``build/chip_smoke_ckpt/``
-   (gitignored) and are removed.
+   (gitignored) and are removed;
+11. (r) dense serving — llama3.2-1b at full width (16 layers, d_model 2048,
+   GQA 32/8 heads of 64, d_ff 8192, vocab 128256, tied, bf16), weights
+   from ``init_params`` with a seeded generator, ``generate`` over 8
+   requests of 2048 seeded tokens, 64 greedy tokens: parameters, prefill
+   and decode ms (CUDA events), tokens/s, peak GiB, ``cache_nbytes``; one
+   request's prefill logits through SDPA against the plain attention path;
+12. (s) compressed serving — (r) with the reference CLI's
+   ``KVCompressionConfig(rank=16, oversample=2, panel=32, decode_panel=8,
+   refresh_every=32, min_rank=4)``, uniform then adaptive: conversion and
+   decode ms, kernel 1's stacked launches per conversion (at 1024 heads and
+   at 128: equal) and per fold, ``cache_nbytes`` against (r)'s, the
+   ``serve/kv_rel_err`` histogram, each head's error over the optimal
+   error at its rank (never below it), the tokens against (r); a rank-8
+   head batch within the reference's 0.05, and the stacked engine against
+   a per-head loop of the plain versions on 4 heads (1e-5).
+   The kernels phase holds kernel 1's stacked launch (gather, transposed,
+   fold, view; fp32 and bf16) against its plain version at (s)'s shapes:
+   the conversion's 1024 heads and a fold's 64.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -138,6 +156,18 @@ SEED = 0
 # fp32 sums over up to m = 32768 terms, in the kernel's fixed order against
 # cuBLAS's / index_add_'s order: relative to the largest entry of the output
 TOL = 1e-4
+# (r), (s): llama3.2-1b at full width serving 8 requests of 2048 seeded tokens,
+# 64 greedy tokens each; (s) compresses the KV caches with the reference CLI's
+# settings (src/repro/launch/serve.py:42-45 at --kv-compress 16)
+SERVE_ARCH, SERVE_B, SERVE_S, SERVE_T = "llama3.2-1b", 8, 2048, 64
+SERVE_KC = dict(rank=16, oversample=2, panel=32, decode_panel=8, refresh_every=32, min_rank=4)
+# SDPA's prefill logits against the plain attention path's, both bf16: each of
+# the 16 layers rounds its attention output to bf16 (2^-8) at other places, so
+# at most 16 x 2^-8 of the largest logit if the roundings added up
+SERVE_LOGIT_TOL = 16 * 2.0 ** -8
+# no head's error may fall below the optimal rank-k error (Eckart-Young), bar
+# fp32 rounding of the two norms
+OPT_SLACK = 1e-3
 # published H100 peaks (NVIDIA data sheet, dense, at the full power limit):
 # non-tensor fp32 FLOP/s and HBM bytes/s, by form factor
 PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12)}
@@ -151,6 +181,9 @@ KERNEL_INFO = {
                          replaces="src/repro/kernels/panel_update.py:143"),
     "twoside_sketch": dict(source="src/repro_torch/kernels/csrc/twoside_sketch.cu",
                            replaces="src/repro/kernels/twoside_sketch.py:46"),
+    # kernel 1's stacked launch: a head batch of OSNAPs in one launch
+    "countsketch_batched": dict(source="src/repro_torch/kernels/csrc/countsketch.cu",
+                                replaces="src/repro/kernels/countsketch.py:42"),
 }
 
 
@@ -453,6 +486,90 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     out["countsketch"]["max_abs_err"] = max(out["countsketch"]["max_abs_err"],
                                             countsketch_sp_svd(torch, ops, dev, g, peaks)[0])
     out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
+    out["countsketch_batched"] = kernel_batched(torch, ops, dev, g, peaks)
+    return out
+
+
+def kernel_batched(torch, ops, dev, g, peaks) -> dict:
+    """Kernel 1's stacked launches at (s)'s shapes, one launch per OSNAP
+    apply for a whole head batch: the prefill conversion's N = 1024 heads
+    (16 layers x 8 requests x 8 kv-heads, one of K and V) at head_dim 64 and
+    panel 32, and a decode fold's N = 64 (one layer) at panel 8; OSNAP p =
+    4, s_c = s_r = 96, c0 = 64. Each held against its plain version
+    (``force_plain``) with fp32 and bf16 operands: S_C on a panel window
+    (gather), the Ω window on the panel's transpose (transposed output), the
+    S_R fold into M, and, for the conversion, S_R on the column-major V_R of
+    finalize (the view kernel). Times at the conversion's S_C panel shape:
+    the kernel, the plain version and one ``index_add_`` over the flattened
+    ``item·s + hash`` buckets of pre-signed rows."""
+    from repro_torch.core.sketching import StackedOSNAPSketch
+
+    hd, n_max, p, s, c0, r = 64, SERVE_S + SERVE_T, 4, 96, 64, 32
+    errs, shapes = {}, {}
+    for name, N, L in (("conversion", 1024, SERVE_KC["panel"]),
+                       ("decode_fold", 64, SERVE_KC["decode_panel"])):
+        base = 0 if name == "conversion" else SERVE_S
+        S_C = StackedOSNAPSketch.draw(g, N, s, hd, p=p)
+        S_R = StackedOSNAPSketch.draw(g, N, s, n_max, p=p).index_windows(L, base)
+        Om = StackedOSNAPSketch.draw(g, N, c0, n_max, p=p).index_windows(L, base)
+        hist = torch.randn((N, hd, n_max), generator=g, device=dev)
+        off = base + 3 * L
+        for dt in (torch.float32, torch.bfloat16):
+            A_L = hist.to(dt)[:, :, off : off + L]
+            M0 = torch.randn((N, s, s), generator=g, device=dev)
+            cases = {
+                "gather": lambda: S_C.apply(A_L),  # noqa: B023
+                "transposed": lambda: Om.cols(off, L).apply_t(A_L),  # noqa: B023
+                "fold": lambda: S_R.cols(off, L).fold_t(  # noqa: B023
+                    S_C.apply(A_L).to(dt), M0.clone()),  # noqa: B023
+            }
+            if name == "conversion":
+                V = torch.randn((N, r, n_max), generator=g, device=dev).to(dt).transpose(1, 2)
+                cases["view"] = lambda: S_R.apply(V)  # noqa: B023
+            for case, fn in cases.items():
+                ops.reset_launches()
+                got = fn()
+                launched = ops.LAUNCHES["countsketch_batched"]
+                check(launched == (2 if case == "fold" else 1),
+                      f"countsketch batched {name}/{case}: {launched} launches")
+                with ops.force_plain():
+                    want = fn()
+                e = err(got, want)
+                check(e[1] <= TOL, f"countsketch batched {name}/{case} {dt}: rel err {e[1]}")
+                errs[f"{name}/{case}/{str(dt).split('.')[-1]}"] = e
+        shapes[name] = dict(items=N, parts=p, head_dim=hd, panel=L, s=s, c0=c0)
+        if name != "conversion":
+            continue
+        # times at the conversion's S_C panel shape, panels rotated out of L2
+        n_rot = 8
+        panels = [hist[:, :, i * L : (i + 1) * L] for i in range(n_rot)]
+        it = iter(range(10**9))
+        kern = lambda: S_C.apply(panels[next(it) % n_rot])  # noqa: E731
+        idx = (S_C.hashes.long() + (torch.arange(N, device=dev) * s)[:, None, None]).reshape(-1)
+        signed = [(P[:, None] * S_C.signs[..., None]).reshape(N * p * hd, L) for P in panels]
+        acc = torch.zeros((N * s, L), device=dev)
+        lib = lambda: acc.index_add_(0, idx, signed[next(it) % n_rot])  # noqa: E731
+        k_ev, k_ms = timed(torch, kern), device_ms(torch, kern)[0]
+        with ops.force_plain():
+            p_ev, p_ms = timed(torch, kern), device_ms(torch, kern)[0]
+        lib_ev, lib_ms = timed(torch, lib), device_ms(torch, lib)[0]
+        K = N * p
+        # the panel read once; each part's order (rows and offsets) and signs;
+        # the output written once
+        nbytes = 4 * (N * hd * L + K * hd + K * (s + 1) + K * hd + N * s * L)
+        b, by = bound_ms(nbytes, K * hd * L, peaks)
+        out = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
+        emit("kernel/countsketch_batched", shape=shapes, ms=k_ms, plain_ms=p_ms,
+             library_ms=lib_ms, timing="device ms per call (torch.profiler)", events_ms=k_ev,
+             plain_events_ms=p_ev, library_events_ms=lib_ev,
+             library="one index_add_ over item*s + hash buckets of pre-signed rows",
+             bound_ms=b, bound_by=by, bytes=nbytes, rel_err={k: v[1] for k, v in errs.items()})
+        del panels, signed, acc
+    out["max_abs_err"] = max(e[0] for e in errs.values())
+    out["max_rel_err"] = max(e[1] for e in errs.values())
+    emit("kernel/countsketch_batched_cases", shape=shapes,
+         max_abs_err=out["max_abs_err"], rel_err={k: v[1] for k, v in errs.items()})
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2399,6 +2516,234 @@ def phase_mesh(torch, A, K, ci_ri, ci_i, dev) -> list:
     return launched
 
 
+def serve_errors(torch, cfg, dense: dict, comp: dict) -> tuple:
+    """Every converted head's relative error against its own prompt history,
+    and the optimal error at the head's rank (``torch.linalg.svdvals``):
+    ``(errors, optima)``, each (layers · 2 · B · KV,)."""
+    from repro_torch.serve import LowRankKV, compression_error
+
+    errs, opts = [], []
+    for layer, cache in zip(dense["layers"], comp["layers"]):
+        for name, fac in (("k", cache.k_fac), ("v", cache.v_fac)):
+            check(all(bool(torch.isfinite(t).all()) for t in (fac.v_s, fac.sigma, fac.u)),
+                  f"non-finite {name} factors")
+            hist = layer[name][:, :SERVE_S].permute(0, 2, 1, 3).float()  # (B, KV, S, hd)
+            errs.append(compression_error(hist, LowRankKV(fac.v_s[:, :, :SERVE_S], fac.sigma,
+                                                          fac.u)).reshape(-1))
+            sv2 = torch.linalg.svdvals(hist) ** 2  # (B, KV, hd), descending
+            rank = (fac.sigma > 0).sum(-1, keepdim=True)
+            tail = torch.where(torch.arange(sv2.shape[-1], device=sv2.device) >= rank, sv2, 0)
+            opts.append(torch.sqrt(tail.sum(-1) / sv2.sum(-1)).reshape(-1))
+    return torch.cat(errs), torch.cat(opts)
+
+
+def serve_profile(torch, model, cfg, cache, toks) -> dict:
+    """``torch.profiler`` over 8 decode steps from ``cache`` (fed ``toks``):
+    wall and device-busy ms per step, the idle share, the top kernels."""
+    from repro_torch.models import decode_step
+
+    def steps():
+        for t in range(8):
+            decode_step(model, cfg, cache, toks[:, t : t + 1])
+
+    wall, busy, n_ops, top = device_profile(torch, steps)
+    return dict(wall_ms_per_step=wall / 8, device_busy_ms_per_step=busy / 8,
+                device_idle_share=1 - busy / wall, device_ops_per_step=n_ops / 8,
+                top_device_ms=top)
+
+
+def serve_convert_parts(torch, dense: dict, kc) -> dict:
+    """The K half of a conversion in its parts, CUDA events around each
+    (the profiler's post-processing of the ~10^5 launches of a whole
+    conversion takes minutes): the stacked engine's init, its 64 panels,
+    and finalize (batched QR, core solve and SVD) over all 1024 heads."""
+    from repro_torch.core.svd import spsvd_stacked_finalize
+    from repro_torch.serve.kv_compress import _fac_width, _stacked_init, _stream_stack
+
+    hist = torch.stack([layer["k"] for layer in dense["layers"]])  # (L, B, n_max, KV, hd)
+    Lr, B, n_max, KV, hd = hist.shape
+    hist_T = hist.permute(0, 1, 3, 4, 2).reshape(Lr * B * KV, hd, n_max).float()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    state = _stacked_init(gen(torch, hist.device, SEED + 64), Lr * B * KV, hd, n_max, kc,
+                          device=hist.device)
+    ev[1].record()
+    _stream_stack(state, hist_T, SERVE_S, kc)
+    ev[2].record()
+    spsvd_stacked_finalize(state, k=_fac_width(hd, kc))
+    ev[3].record()
+    torch.cuda.synchronize()
+    return dict(heads=Lr * B * KV, init_ms=ev[0].elapsed_time(ev[1]),
+                panels_ms=ev[1].elapsed_time(ev[2]), panels=SERVE_S // kc.panel,
+                finalize_ms=ev[2].elapsed_time(ev[3]))
+
+
+def serve_synthetic(torch, ops, dev) -> dict:
+    """The reference's own bound on a rank-8 head batch (hd 64, S 2048, rank
+    16, oversample 4: every head's error < 0.05), and the stacked engine
+    against a per-head loop on 4 of its heads: the stacked state with kernel
+    1, the per-head engines with the plain versions (``force_plain``)."""
+    from repro_torch.core.svd import spsvd_stacked_finalize, spsvd_engine_finalize
+    from repro_torch.serve import KVCompressionConfig, compress_head_batch, compression_error
+    from repro_torch.serve.kv_compress import (_engine_init, _fac_width, _stacked_init,
+                                               _stream_stack)
+    from repro_torch.stream.engine import panel_update
+
+    g = gen(torch, dev, SEED + 70)
+    B, KV, hd = SERVE_B, 8, 64
+    coef = torch.randn((B, KV, SERVE_S, 8), generator=g, device=dev)
+    hist = coef @ torch.randn((B, KV, 8, hd), generator=g, device=dev)
+    kc = KVCompressionConfig(rank=16, oversample=4, panel=128)
+    errs = compression_error(hist, compress_head_batch(g, hist, kc))
+    check(bool((errs < 0.05).all()), f"rank-8 heads: largest error {float(errs.max())} >= 0.05")
+    kc = KVCompressionConfig(**SERVE_KC)
+    hist_T = hist[0, :4].transpose(1, 2).contiguous()  # (4, hd, S)
+    stacked = _stacked_init(g, 4, hd, SERVE_S, kc, device=dev)
+    _stream_stack(stacked, hist_T, SERVE_S, kc)
+    U, S, V = spsvd_stacked_finalize(stacked)
+    worst = {"C": 0.0, "R": 0.0, "M": 0.0, "sigma": 0.0, "reconstruction": 0.0}
+    with ops.force_plain():
+        for i in range(4):
+            h = _engine_init(None, hd, SERVE_S, kc, sketches=stacked.sk.head(i), device=dev)
+            for off in range(0, SERVE_S, kc.panel):
+                panel_update(h, hist_T[i, :, off : off + kc.panel])
+            u, sig, v = spsvd_engine_finalize(h)
+            for key, got, want in (("C", stacked.C[i], h.C), ("R", stacked.R[i], h.R),
+                                   ("M", stacked.M[i], h.M), ("sigma", S[i], sig),
+                                   ("reconstruction", (U[i] * S[i]) @ V[i].T, (u * sig) @ v.T)):
+                worst[key] = max(worst[key], err(got, want)[1])
+    check(max(worst.values()) <= 1e-5, f"stacked engine against the per-head loop: {worst}")
+    return dict(rank8_max_error=float(errs.max()), rank8_heads=int(errs.numel()),
+                stacked_vs_per_head_rel_err=worst, fac_width=_fac_width(hd, kc))
+
+
+def phase_serve(torch, ops, dev) -> list:
+    """(r) dense and (s) compressed serving of llama3.2-1b at full width:
+    ``generate`` over 8 requests of 2048 seeded tokens, 64 greedy tokens.
+    Launch counts are reset just before and read just after each
+    ``generate``; its timings are CUDA events."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, init_params, param_count, prefill
+    from repro_torch.models.attention import plain_attention
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache, generate
+
+    cfg = get_arch(SERVE_ARCH).full_config()
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(1.2e9 < n_params < 1.3e9, f"llama3.2-1b has {n_params} parameters")
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), generator=gen(torch, dev, SEED + 61),
+                           device=dev)
+    n_max = SERVE_S + SERVE_T
+    # a short run of each path first (module loads, cuBLAS/cuSOLVER handles),
+    # and one full-size prefill (the allocator's pool, the products' plans)
+    generate(model, cfg, prompt[:2, :256], 9, kv_compress=KVCompressionConfig(**SERVE_KC))
+    generate(model, cfg, prompt[:2, :256], 2)
+    prefill(model, cfg, prompt, n_max)
+    launched = []
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # the weights and what earlier phases hold
+    ops.reset_launches()
+    t_r = {}
+    toks_r = generate(model, cfg, prompt, SERVE_T, timings=t_r)
+    launched.append(dict(ops.LAUNCHES))
+    peak_r = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    check(toks_r.shape == (SERVE_B, SERVE_T) and int(toks_r.min()) >= 0
+          and int(toks_r.max()) < cfg.vocab_size, "(r): tokens out of range")
+    dense_bytes = cache_nbytes(init_cache(cfg, SERVE_B, n_max, device=dev))
+    lg_sdpa, _ = prefill(model, cfg, prompt[:1], n_max)
+    with plain_attention():
+        lg_plain, _ = prefill(model, cfg, prompt[:1], n_max)
+    check(bool(torch.isfinite(lg_sdpa).all()), "(r): non-finite logits")
+    e_abs, e_rel = err(lg_sdpa, lg_plain)
+    check(e_rel <= SERVE_LOGIT_TOL, f"(r): SDPA prefill logits rel err {e_rel} > {SERVE_LOGIT_TOL}")
+    decode_ms = t_r["decode"] / (SERVE_T - 1)
+    emit("serve/r_dense", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
+         batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, prefill_ms=t_r["prefill"],
+         decode_ms_per_token=decode_ms, tokens_per_s=SERVE_B * (SERVE_T - 1) / t_r["decode"] * 1e3,
+         timing="CUDA events around prefill and the decode loop",
+         peak_mem_over_resident_gib=peak_r, resident_gib=resident / 2**30,
+         cache_nbytes=dense_bytes, launches=launched[-1],
+         prefill_logits_vs_plain_attention=dict(max_abs_err=e_abs, rel_err=e_rel,
+                                                tol=SERVE_LOGIT_TOL, request=0))
+    del lg_sdpa, lg_plain
+    _, cache = prefill(model, cfg, prompt, n_max)
+    emit("profile/r_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks_r))
+    del cache
+
+    dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
+    n_folds = (SERVE_T - 1) // dp  # per layer, over the decode steps
+    n_refresh = n_folds * dp // every
+    per_conv = 2 * (SERVE_S // SERVE_KC["panel"] * 4 + 2)  # K and V: 4 per panel, 2 at finalize
+    per_fold, per_refresh = 2 * 4, 2 * 2
+    for adaptive in (False, True):
+        mode = "adaptive" if adaptive else "uniform"
+        kc = KVCompressionConfig(**SERVE_KC, adaptive=adaptive)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t_s = {}
+        toks = generate(model, cfg, prompt, SERVE_T, gen=gen(torch, dev, SEED + 62),
+                        kv_compress=kc, timings=t_s)
+        launched.append(dict(ops.LAUNCHES))
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        total = launched[-1]["countsketch_batched"]
+        want = per_conv + cfg.n_layers * (n_folds * per_fold + n_refresh * per_refresh)
+        check(total == want, f"(s) {mode}: kernel 1 launched {total} times, want {want}")
+        # the conversion again, alone: its launches at N = 1024 heads and at
+        # N = 128 (one request), the factors against the histories
+        _, dense = prefill(model, cfg, prompt, n_max)
+        _, dense1 = prefill(model, cfg, prompt[:1], n_max)
+        ops.reset_launches()
+        comp1 = compress_prefill_cache(gen(torch, dev, SEED + 63), cfg, dense1, kc)
+        conv_1 = ops.LAUNCHES["countsketch_batched"]
+        del comp1, dense1
+        ops.reset_launches()
+        comp = compress_prefill_cache(gen(torch, dev, SEED + 63), cfg, dense, kc)
+        conv_n = ops.LAUNCHES["countsketch_batched"]
+        check(conv_n == conv_1 == per_conv,
+              f"(s) {mode}: conversion launches {conv_n} (N = 1024), {conv_1} (N = 128)")
+        errs, opts = serve_errors(torch, cfg, dense, comp)
+        check(bool((errs >= opts * (1 - OPT_SLACK)).all()),
+              f"(s) {mode}: a head beats its optimal error")
+        ratio = errs / opts
+        reg = MetricsRegistry()
+        reg.record_kv_compression(errs)
+        comp_bytes = cache_nbytes(comp)
+        if not adaptive:  # where the time goes: the conversion, and 8 steps with one fold
+            emit("profile/s_convert", **serve_convert_parts(torch, dense, kc))
+            emit("profile/s_decode_8_steps", **serve_profile(torch, model, cfg, comp, toks))
+        emit(f"serve/s_compressed_{mode}", kc=dict(SERVE_KC, adaptive=adaptive),
+             heads=int(errs.numel()), convert_ms=t_s["convert"], prefill_ms=t_s["prefill"],
+             decode_ms_per_token=t_s["decode"] / (SERVE_T - 1),
+             dense_decode_ms_per_token=decode_ms,
+             tokens_per_s=SERVE_B * (SERVE_T - 1) / t_s["decode"] * 1e3,
+             folds_per_layer=n_folds, refreshes_per_layer=n_refresh,
+             kernel1_launches=dict(generate=total, per_conversion=conv_n,
+                                   per_conversion_one_request=conv_1,
+                                   per_layer_fold=per_fold, per_layer_refresh=per_refresh),
+             cache_nbytes=comp_bytes, dense_cache_nbytes=dense_bytes,
+             compressed_over_dense=comp_bytes / dense_bytes,
+             kv_rel_err=reg.histogram_summary("serve/kv_rel_err"),
+             error_over_optimal=dict(min=float(ratio.min()), median=float(ratio.median()),
+                                     max=float(ratio.max())),
+             tokens_agree_with_dense=float((toks == toks_r).float().mean()),
+             first_token_agrees=float((toks[:, 0] == toks_r[:, 0]).float().mean()),
+             peak_mem_over_resident_gib=peak, launches=launched[-1])
+        del comp, dense, errs, opts
+        torch.cuda.empty_cache()
+    emit("serve/s_synthetic", **serve_synthetic(torch, ops, dev))
+    del model
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2488,6 +2833,8 @@ def main() -> int:
     mark("f, g, h item")
     runs_launches += run_spsd(torch, dev)
     mark("i-k, m: i, j, n: i")
+    runs_launches += phase_serve(torch, ops, dev)
+    mark("r, s: serve")
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

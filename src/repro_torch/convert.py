@@ -4,7 +4,14 @@ The JAX package's sketches and index sets, handed over as numpy arrays,
 become the port's objects on a chosen device, so both packages run on the
 same randomness. Nothing here imports the reference: the caller does the
 JAX → numpy step (``np.asarray``). A bfloat16 array (numpy's ``ml_dtypes``
-bfloat16, which torch cannot wrap) arrives as a torch bfloat16 tensor.
+bfloat16, which torch cannot wrap) arrives as a torch bfloat16 tensor, its
+bits viewed as ``uint16`` on the way (never rounded through another type).
+
+The serving slice adds the model and its caches: :func:`model_params`
+(a reference parameter pytree → the port's :class:`~repro_torch.models.Transformer`),
+:func:`dense_cache` (a reference prefill cache → the port's per-layer
+cache) and :func:`compressed_kv_sketches` (a reference ``CompressedKV``'s
+engine sketches → the port's stacked sketches).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from .core.sketching import (
 from .device import DeviceLike, resolve_device
 
 __all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays", "sketch_pair",
-           "spsvd_sketches", "telemetry_frame", "stream_init_inputs"]
+           "spsvd_sketches", "telemetry_frame", "stream_init_inputs", "model_params",
+           "dense_cache", "stacked_spsvd_sketches", "compressed_kv_sketches"]
 
 # family name of a reference sketch class -> (kind, fields to carry)
 _FIELDS = {
@@ -41,8 +49,8 @@ def to_tensor(x, device: DeviceLike = None, dtype=None) -> torch.Tensor:
     """A fresh tensor on ``device`` holding the numpy array ``x``, in its own
     dtype unless ``dtype`` is given."""
     arr = np.array(x, copy=True)
-    if arr.dtype.name == "bfloat16":  # exact: bfloat16 is a subset of float32
-        t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    if arr.dtype.name == "bfloat16":  # the same 16 bits, viewed
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
     return t.to(device=resolve_device(device), dtype=dtype or t.dtype)
@@ -141,3 +149,86 @@ def stream_init_inputs(state, device: DeviceLike = None) -> dict:
     if getattr(state, "tel", None) is not None:
         out["tel_omega"] = to_tensor(np.asarray(state.tel.omega), device)
     return out
+
+
+def _unstack(tree, reps: int) -> list:
+    """A per-repeat list of a reference pytree of numpy arrays stacked on
+    a leading repeat axis (a scanned segment's), or ``[tree]``."""
+    if reps == 1:
+        return [tree]
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, reps) for k, v in tree.items()}
+        return [{k: v[r] for k, v in parts.items()} for r in range(reps)]
+    arr = np.asarray(tree)
+    return [arr[r] for r in range(reps)]
+
+
+def model_params(np_params, cfg, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.models.Transformer` holding a
+    reference parameter pytree (leaves as numpy arrays, ``ml_dtypes``
+    bfloat16 included). Scanned segments' leaves are unstacked along their
+    leading repeat axis, in ``segments(cfg)`` order, into one block per
+    layer; every tensor keeps its dtype and bits."""
+    from .models.transformer import Transformer, segments
+
+    dev = resolve_device(device)
+    state = {"embed.tok": np_params["embed"]["tok"], "final_norm": np_params["final_norm"]["scale"]}
+    if "lm_head" in np_params["embed"]:
+        state["embed.lm_head"] = np_params["embed"]["lm_head"]
+    layer = 0
+    for seg, seg_params in zip(segments(cfg), np_params["segments"]):
+        per_pos = [_unstack(p, seg.n_repeat) for p in seg_params]
+        for rep in range(seg.n_repeat):
+            for pos in range(len(seg.unit)):
+                p = per_pos[pos][rep]
+                state[f"blocks.{layer}.norm1"] = p["norm1"]["scale"]
+                for name, w in p["mixer"].items():
+                    state[f"blocks.{layer}.mixer.{name}"] = w
+                if "norm2" in p:
+                    state[f"blocks.{layer}.norm2"] = p["norm2"]["scale"]
+                    for name, w in p["ffn"].items():
+                        state[f"blocks.{layer}.ffn.{name}"] = w
+                layer += 1
+    model = Transformer(torch.Generator(), cfg, torch.device("meta"))
+    model.load_state_dict({k: to_tensor(v, dev) for k, v in state.items()}, assign=True)
+    return model
+
+
+def dense_cache(ref_cache, cfg, device: DeviceLike = None) -> dict:
+    """The port's ``{"layers": [...], "length": int}`` from a reference
+    prefill cache (``{"segments": ..., "length"}``, leaves as numpy),
+    unstacking scanned segments into one cache per layer."""
+    from .models.transformer import segments
+
+    layers = []
+    for seg, seg_cache in zip(segments(cfg), ref_cache["segments"]):
+        per_pos = [_unstack(c, seg.n_repeat) for c in seg_cache]
+        for rep in range(seg.n_repeat):
+            for pos in range(len(seg.unit)):
+                layers.append({k: to_tensor(v, device) for k, v in per_pos[pos][rep].items()})
+    return {"layers": layers, "length": int(np.asarray(ref_cache["length"]))}
+
+
+def stacked_spsvd_sketches(sk, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.core.svd.StackedSPSVDSketches` from a
+    ``vmap``-ped reference SP-SVD ``ctx`` (per-head engines drawn under
+    ``vmap``), its leading axes flattened row-major into the head axis."""
+    from .core.sketching import StackedOSNAPSketch
+    from .core.svd import OSNAP_FIELDS, StackedSPSVDSketches
+
+    def heads(x, tail: int, dtype=None):
+        x = np.asarray(x)
+        return to_tensor(x.reshape((-1,) + x.shape[x.ndim - tail:]), device, dtype)
+
+    osnaps = {f: StackedOSNAPSketch(hashes=heads(getattr(sk, f).hashes, 2, torch.int32),
+                                    signs=heads(getattr(sk, f).signs, 2, torch.float32),
+                                    s=int(getattr(sk, f).s))
+              for f in OSNAP_FIELDS}
+    return StackedSPSVDSketches(**osnaps, g_r=heads(sk.g_r.mat, 2), g_c=heads(sk.g_c.mat, 2))
+
+
+def compressed_kv_sketches(ckv, device: DeviceLike = None) -> tuple:
+    """``(k_sketches, v_sketches)``: :func:`stacked_spsvd_sketches` of a
+    reference ``CompressedKV``'s K and V engines (leading axes (B, KV), or
+    (n_repeat, B, KV) for a scanned segment)."""
+    return tuple(stacked_spsvd_sketches(eng.ctx, device) for eng in (ckv.k_eng, ckv.v_eng))

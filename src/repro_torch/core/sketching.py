@@ -35,6 +35,7 @@ __all__ = [
     "SRHTSketch",
     "CountSketch",
     "OSNAPSketch",
+    "StackedOSNAPSketch",
     "RowSampling",
     "ComposedSketch",
     "draw_sketch",
@@ -356,6 +357,145 @@ class OSNAPSketch:
             s=self.s,
             p=self.p,
         )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class StackedOSNAPSketch:
+    """N OSNAP sketches (s × m, ``p`` parts each) stacked on a head axis:
+    the counterpart of the reference's ``vmap`` over per-head OSNAPs. Each
+    method applies all N at once, item ``n`` to item ``n`` of a stacked
+    operand, in one launch of kernel 1 on CUDA tensors
+    (:func:`~repro_torch.kernels.ops.countsketch_batched`), with the bits
+    of ``head(n)``'s own method.
+
+    The bucket orders the kernel walks are built once per sketch (one sort
+    for all N·p parts), and, after :meth:`index_windows` (``L``, ``base``),
+    for every ``L``-wide window of the grid that starts at column ``base``:
+    a window ``cols(base + w·L, L)`` then takes its slice, and
+    :meth:`items` keeps the slices of its heads.
+    """
+
+    hashes: torch.Tensor  # (N, p, m) int32 in [0, s)
+    signs: torch.Tensor  # (N, p, m) float32, ±1/√p (0 in padded columns)
+    s: int
+    _order: list = dataclasses.field(default_factory=list, repr=False, compare=False)
+    # (L, base) -> (perm (N·p, m − base), start (N·p, windows, s+1))
+    _windows: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    @staticmethod
+    def draw(gen: torch.Generator, N: int, s: int, m: int, p: int = 2,
+             dtype=torch.float32) -> "StackedOSNAPSketch":
+        """N independent OSNAP draws in one call (not the bits of N
+        :meth:`OSNAPSketch.draw` calls)."""
+        dev = gen.device
+        hashes = torch.randint(0, s, (N, p, m), generator=gen, device=dev, dtype=torch.int32)
+        signs = torch.randint(0, 2, (N, p, m), generator=gen, device=dev).to(dtype) * 2 - 1
+        return StackedOSNAPSketch(hashes=hashes,
+                                  signs=signs.to(_scaled(dtype)) * (1.0 / math.sqrt(p)), s=s)
+
+    @property
+    def N(self) -> int:
+        return self.hashes.shape[0]
+
+    @property
+    def p(self) -> int:
+        return self.hashes.shape[1]
+
+    @property
+    def m(self) -> int:
+        return self.hashes.shape[2]
+
+    def head(self, i: int) -> OSNAPSketch:
+        return OSNAPSketch(hashes=self.hashes[i], signs=self.signs[i], s=self.s, p=self.p)
+
+    def items(self, lo: int, hi: int) -> "StackedOSNAPSketch":
+        """Heads ``[lo, hi)`` (views), with their slices of the orders built so far."""
+        p = self.p
+        sub = StackedOSNAPSketch(hashes=self.hashes[lo:hi], signs=self.signs[lo:hi], s=self.s)
+        sub._order.extend((perm[lo * p : hi * p], start[lo * p : hi * p])
+                          for perm, start in self._order)
+        sub._windows.update({key: (perm[lo * p : hi * p], start[lo * p : hi * p])
+                             for key, (perm, start) in self._windows.items()})
+        return sub
+
+    def order(self) -> tuple:
+        """Every part's whole :func:`~repro_torch.kernels.ops.bucket_order`:
+        (N·p, m) rows and (N·p, s+1) offsets."""
+        if not self._order:
+            perm, start = ops.batched_window_orders(
+                self.hashes.reshape(self.N * self.p, self.m), self.s, max(self.m, 1))
+            self._order.append((perm, start[:, 0]))
+        return self._order[0]
+
+    def index_windows(self, L: int, base: int = 0) -> "StackedOSNAPSketch":
+        """Build, once, the orders of every ``L``-wide window of columns
+        ``[base, m)`` (one sort for all heads and parts; the last window
+        ragged where ``L`` does not divide ``m − base``)."""
+        if (L, base) not in self._windows:
+            h = self.hashes[:, :, base:].reshape(self.N * self.p, self.m - base)
+            self._windows[(L, base)] = ops.batched_window_orders(h, self.s, L)
+        return self
+
+    def chunk_orders(self) -> tuple:
+        """The view kernel's ``VIEW_CHUNK``-row chunk orders of the whole sketch."""
+        return self.index_windows(ops.VIEW_CHUNK)._windows[(ops.VIEW_CHUNK, 0)]
+
+    def cols(self, offset: int, size: int) -> "StackedOSNAPSketch":
+        """The window ``S[:, offset:offset+size]`` of every head, with its
+        orders where an indexed grid has it."""
+        _window(self.m, offset, size)
+        win = StackedOSNAPSketch(hashes=self.hashes[:, :, offset : offset + size],
+                                 signs=self.signs[:, :, offset : offset + size], s=self.s)
+        V = ops.VIEW_CHUNK
+        for (L, base), (perm, start) in self._windows.items():
+            rel = offset - base
+            if size == L and rel >= 0 and rel % L == 0 and not win._order:
+                win._order.append((perm[:, rel : rel + L], start[:, rel // L]))
+            if (L, base) == (V, 0) and size > V and offset % V == 0 and (
+                    size % V == 0 or offset + size == self.m):
+                win._windows[(V, 0)] = (perm[:, offset : offset + size],
+                                        start[:, offset // V : -(-(offset + size) // V)])
+        return win
+
+    def pad_cols(self, total: int) -> "StackedOSNAPSketch":
+        if total <= self.m:
+            return self
+        pad = (self.N, self.p, total - self.m)
+        return StackedOSNAPSketch(hashes=torch.cat([self.hashes, self.hashes.new_zeros(pad)], 2),
+                                  signs=torch.cat([self.signs, self.signs.new_zeros(pad)], 2),
+                                  s=self.s)
+
+    def _kernel_orders(self, A: torch.Tensor, transpose_out: bool) -> dict:
+        if not A.is_cuda:
+            return {}
+        if ops.reads_columns(A[0], transpose_out):
+            return {"chunks": self.chunk_orders()}
+        return {"order": self.order()}
+
+    def _rows(self, rows: int) -> "StackedOSNAPSketch":
+        return self if rows == self.m else self.cols(0, rows)
+
+    def apply(self, A: torch.Tensor) -> torch.Tensor:
+        """``S_n @ A[n]`` for A (N, rows, ncols), rows ≤ m → (N, s, ncols)."""
+        sk = self._rows(A.shape[1])
+        out = ops.countsketch_batched(sk.hashes, sk.signs, A, self.s,
+                                      **sk._kernel_orders(A, False))
+        return out.to(torch.promote_types(self.signs.dtype, A.dtype))
+
+    def apply_t(self, A: torch.Tensor) -> torch.Tensor:
+        """``A[n] @ S_nᵀ`` for A (N, ncols, rows), rows ≤ m → (N, ncols, s)."""
+        At = A.transpose(1, 2)
+        sk = self._rows(At.shape[1])
+        out = ops.countsketch_batched(sk.hashes, sk.signs, At, self.s, transpose_out=True,
+                                      **sk._kernel_orders(At, True))
+        return out.to(torch.promote_types(self.signs.dtype, A.dtype))
+
+    def fold_t(self, X: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+        """``M.add_(self.apply_t(X).to(M.dtype))``, bit for bit, with no dense
+        intermediate: kernel 1 folds each bucket's sum of parts into M."""
+        sk = self._rows(X.shape[2])
+        return ops.countsketch_batched_fold(sk.hashes, sk.signs, X, M,
+                                            order=sk.order() if X.is_cuda else None)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,18 @@ sketched core solve and a small SVD.
 Randomness: the inits draw from a ``torch.Generator``, or take pre-drawn
 :class:`SPSVDSketches` (parity tests hand the reference's across through
 :func:`repro_torch.convert.spsvd_sketches`).
+
+**A stack of N heads** (:class:`StackedSPSVDState`, the counterpart of the
+reference's ``vmap(vmap(spsvd_engine_init / panel_update /
+spsvd_engine_finalize))`` over its KV compressor's heads): C (N, m, c), R
+(N, r, n_pad), M (N, s_c, s_r), the OSNAP sketches stacked
+(:class:`~repro_torch.core.sketching.StackedOSNAPSketch`) and G_C, G_R as
+(N, c, c0), (N, r, r0). Each OSNAP apply of a panel is one launch of
+kernel 1 for all N heads (four per panel: Ψ, S_C, the Ω window, the S_R
+fold), so the launches do not grow with N; the Gaussian products are
+``torch.bmm`` (plain products the reference leaves to XLA), and finalize
+takes batched QR, the batched core solve and a batched SVD. Head ``n``
+computes what the per-head engine computes on ``sketches.head(n)``.
 """
 
 from __future__ import annotations
@@ -32,7 +44,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..stream.engine import PanelOps, PanelState, padded_n, panel_update, stream_panels, truncated_R
 from .gmr import _solve_least_squares, fast_gmr_core
-from .sketching import GaussianSketch, OSNAPSketch, draw_sketch
+from .sketching import GaussianSketch, OSNAPSketch, StackedOSNAPSketch, draw_sketch
 
 __all__ = [
     "SPSVDSketches",
@@ -47,6 +59,12 @@ __all__ = [
     "fast_sp_svd",
     "practical_sp_svd",
     "svd_error_ratio",
+    "StackedSPSVDSketches",
+    "StackedSPSVDState",
+    "spsvd_stacked_init",
+    "spsvd_stacked_update",
+    "spsvd_stacked_scan",
+    "spsvd_stacked_finalize",
 ]
 
 
@@ -234,3 +252,139 @@ def svd_error_ratio(A: torch.Tensor, U, S, V, k: int) -> torch.Tensor:
     sv = torch.linalg.svdvals(A.to(dt))
     den = torch.sqrt(torch.sum(sv[k:] ** 2))
     return num / torch.clamp(den, min=torch.finfo(dt).tiny) - 1.0
+
+
+# ---------------------------------------------------------------------------
+# A stack of N heads: the reference's vmap over per-head engines
+# ---------------------------------------------------------------------------
+
+OSNAP_FIELDS = ("psi", "omega", "s_c", "s_r")
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedSPSVDSketches:
+    """The six operators of Algorithm 3 for N heads: OSNAPs stacked, the
+    Gaussians as (N, rows, cols) tensors."""
+
+    psi: StackedOSNAPSketch  # (r0, m) per head
+    g_r: torch.Tensor  # (N, r, r0)
+    omega: StackedOSNAPSketch  # (c0, n_pad)
+    g_c: torch.Tensor  # (N, c, c0)
+    s_c: StackedOSNAPSketch  # (s_c, m)
+    s_r: StackedOSNAPSketch  # (s_r, n_pad)
+
+    def head(self, i: int) -> SPSVDSketches:
+        return SPSVDSketches(psi=self.psi.head(i), g_r=GaussianSketch(self.g_r[i]),
+                             omega=self.omega.head(i), g_c=GaussianSketch(self.g_c[i]),
+                             s_c=self.s_c.head(i), s_r=self.s_r.head(i))
+
+    def items(self, lo: int, hi: int) -> "StackedSPSVDSketches":
+        """Heads ``[lo, hi)`` as views, with the window orders built so far."""
+        return StackedSPSVDSketches(**{f: getattr(self, f).items(lo, hi) for f in OSNAP_FIELDS},
+                                    g_r=self.g_r[lo:hi], g_c=self.g_c[lo:hi])
+
+
+@dataclasses.dataclass
+class StackedSPSVDState:
+    """Algorithm 3's accumulators for N heads, updated in place; ``offset``
+    (a host int) counts the columns each head has consumed, ``n`` is the
+    true column count."""
+
+    C: torch.Tensor  # (N, m, c)
+    R: torch.Tensor  # (N, r, n_pad)
+    M: torch.Tensor  # (N, s_c, s_r)
+    offset: int
+    n: int
+    sk: StackedSPSVDSketches
+
+    def items(self, lo: int, hi: int) -> "StackedSPSVDState":
+        """Heads ``[lo, hi)``: a state whose accumulators are views of these
+        (a panel folded into it lands here) with its own offset."""
+        return StackedSPSVDState(C=self.C[lo:hi], R=self.R[lo:hi], M=self.M[lo:hi],
+                                 offset=self.offset, n=self.n, sk=self.sk.items(lo, hi))
+
+    def head(self, i: int) -> SPSVDState:
+        """Head ``i`` as a per-head engine state (views of these accumulators)."""
+        return SPSVDState(C=self.C[i], R=self.R[i], M=self.M[i], offset=self.offset,
+                          ctx=self.sk.head(i), ops=SP_SVD_OPS, n=self.n)
+
+
+def spsvd_stacked_init(gen: Optional[torch.Generator], N: int, m: int, n: int, *, sizes: dict,
+                       dtype=torch.float32, osnap_p: int = 2, panel: Optional[int] = None,
+                       sketches: Optional[StackedSPSVDSketches] = None,
+                       device: DeviceLike = None) -> StackedSPSVDState:
+    """:func:`spsvd_engine_init` for N heads at once: zero accumulators and
+    the stacked sketches (``sketches``, or drawn from ``gen`` in the order
+    ψ, G_R, Ω, G_C, S_C, S_R, each for all N heads). ``panel`` pads Ω, S_R
+    and R to whole panels. ``device=None`` means CUDA (raises without it)."""
+    dev = resolve_device(device)
+    c, r, c0, r0, s_c, s_r = (sizes[x] for x in ("c", "r", "c0", "r0", "s_c", "s_r"))
+    n_pad = padded_n(n, panel) if panel else n
+    if sketches is None:
+        if gen is None:
+            raise ValueError("pass a generator or pre-drawn `sketches`")
+        gauss = lambda rows, cols: (torch.randn((N, rows, cols), generator=gen, device=dev,  # noqa: E731
+                                                dtype=dtype) * (1.0 / math.sqrt(rows)))
+        osnap = lambda s_, m_: StackedOSNAPSketch.draw(gen, N, s_, m_, p=osnap_p, dtype=dtype)  # noqa: E731
+        psi, g_r = osnap(r0, m), gauss(r, r0)
+        omega, g_c = osnap(c0, n), gauss(c, c0)
+        sketches = StackedSPSVDSketches(psi=psi, g_r=g_r, omega=omega, g_c=g_c,
+                                        s_c=osnap(s_c, m), s_r=osnap(s_r, n))
+    sk = dataclasses.replace(sketches, omega=sketches.omega.pad_cols(n_pad),
+                             s_r=sketches.s_r.pad_cols(n_pad))
+    return StackedSPSVDState(
+        C=torch.zeros((N, m, c), dtype=dtype, device=dev),
+        R=torch.zeros((N, r, n_pad), dtype=dtype, device=dev),
+        M=torch.zeros((N, s_c, s_r), dtype=dtype, device=dev),
+        offset=0, n=n, sk=sk)
+
+
+def spsvd_stacked_update(state: StackedSPSVDState, A_L: torch.Tensor) -> StackedSPSVDState:
+    """Consume one panel ``A_L`` (N, m, L) of every head at ``state.offset``
+    (the per-head :func:`~repro_torch.stream.engine.panel_update`'s steps, in
+    its order): ``M += (S_C A_L)·S_R[:, cols]ᵀ``, ``C += (A_L Ω[:, cols]ᵀ)
+    G_Cᵀ``, ``R[:, cols] = G_R (Ψ A_L)``."""
+    sk, off, L = state.sk, state.offset, A_L.shape[2]
+    sc_a = sk.s_c.apply(A_L)  # (N, s_c, L)
+    sk.s_r.cols(off, L).fold_t(sc_a, state.M)
+    a_omega = sk.omega.cols(off, L).apply_t(A_L)  # (N, m, c0)
+    state.C.add_(torch.bmm(a_omega, sk.g_c.transpose(1, 2)).to(state.C.dtype))
+    state.R[:, :, off : off + L] = torch.bmm(sk.g_r, sk.psi.apply(A_L)).to(state.R.dtype)
+    state.offset = off + L
+    return state
+
+
+def spsvd_stacked_scan(state: StackedSPSVDState, A: torch.Tensor, num_panels: int,
+                       panel: int) -> StackedSPSVDState:
+    """``num_panels`` panels of the full stacked operand ``A`` (N, m, ≥
+    offset + num_panels·panel) at the state's offset (the counterpart of
+    :func:`~repro_torch.stream.engine.scan_panels`). The Ω and S_R windows
+    of the panel grid are indexed once, before the first panel."""
+    base = state.offset % panel
+    state.sk.omega.index_windows(panel, base)
+    state.sk.s_r.index_windows(panel, base)
+    for _ in range(num_panels):
+        off = state.offset
+        spsvd_stacked_update(state, A[:, :, off : off + panel])
+    return state
+
+
+def spsvd_stacked_finalize(state: StackedSPSVDState, k: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`spsvd_engine_finalize` of every head: ``(U (N, m, k), Σ (N, k),
+    V (N, n, k))``, through batched QR, the batched sketched core solve and
+    a batched SVD."""
+    sk = state.sk
+    R = state.R[:, :, : state.n]
+    dt = torch.promote_types(state.C.dtype, torch.float32)
+    U_C, _ = torch.linalg.qr(state.C.to(dt))  # (N, m, c)
+    V_R, _ = torch.linalg.qr(R.transpose(1, 2).to(dt))  # (N, n, r)
+    ScU = sk.s_c.apply(U_C.to(state.C.dtype)).to(dt)  # (N, s_c, c)
+    SrV = sk.s_r.apply(V_R.to(state.C.dtype)).to(dt)  # (N, s_r, r)
+    core = fast_gmr_core(ScU, state.M.to(dt), SrV.transpose(1, 2))
+    U_N, S, V_Nt = torch.linalg.svd(core, full_matrices=False)
+    U = U_C @ U_N
+    V = V_R @ V_Nt.transpose(1, 2)
+    if k is not None:
+        U, S, V = U[..., :k], S[..., :k], V[..., :k]
+    return U, S, V

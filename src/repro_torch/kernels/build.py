@@ -36,6 +36,12 @@ SIGNATURES = {
         "countsketch_launch": [_I, _P, _P, _P, _P, _L, _L, _P, _L, _L, _I, _I, _P],
         "countsketch_fold_launch": [_I, _I, _I, _P, _P, _P, _P, _L, _L, _P, _L, _I, _I, _P],
         "countsketch_view_launch": [_I, _P, _P, _P, _P, _P, _L, _I, _I, _P, _L, _L, _I, _I, _P],
+        "countsketch_batched_launch": [_I, _P, _P, _P, _P, _L, _L, _L, _P, _L, _L, _L, _I, _I,
+                                       _I, _I, _L, _L, _L, _P],
+        "countsketch_batched_fold_launch": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _P, _L, _L, _I,
+                                            _I, _I, _I, _L, _L, _L, _P],
+        "countsketch_batched_view_launch": [_I, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _L, _L,
+                                            _L, _I, _I, _I, _I, _L, _L, _L, _P],
     },
     "panel_score": {
         "panel_score_launch": [_I, _I, _P, _L, _P, _L, _P, _L, _I, _P, _I, _P, _P, _P, _P,

@@ -4,10 +4,12 @@ Counterpart of ``repro/kernels/countsketch.py``. The kernels sum each
 bucket's rows in ascending row order; the orders they walk are built in plain
 torch, once per sketch: :func:`bucket_order` for a whole sketch (or window),
 :func:`window_orders` for every window of a grid at once (a streamed sketch's
-panels, or the view kernel's chunks). Call through
-:func:`repro_torch.kernels.ops.countsketch_apply` and
-:func:`repro_torch.kernels.ops.countsketch_fold`, which check the arguments
-and count launches.
+panels, or the view kernel's chunks), and :func:`batched_window_orders` for
+a stack of K sketches at once (the head batch of the KV compressor: every
+head's OSNAP parts, each window of each). Call through
+:func:`repro_torch.kernels.ops.countsketch_apply`,
+:func:`repro_torch.kernels.ops.countsketch_fold` and their batched
+counterparts, which check the arguments and count launches.
 """
 
 from __future__ import annotations
@@ -37,14 +39,30 @@ def window_orders(hashes: torch.Tensor, s: int, L: int) -> tuple:
     stable sort of the key ``window·s + hash``: ``perm`` (m,), window ``w``'s
     rows relative to ``w·L`` at ``perm[w·L : (w+1)·L]``, and ``start``
     (windows, s+1), window ``w``'s offsets into that slice. Both int32."""
-    m, dev = hashes.shape[0], hashes.device
+    perm, start = batched_window_orders(hashes[None], s, L)
+    return perm[0], start[0]
+
+
+def batched_window_orders(hashes: torch.Tensor, s: int, L: int) -> tuple:
+    """:func:`window_orders` of each of K stacked sketches, ``hashes``
+    (K, m), from one stable sort of the key ``(item·windows + window)·s +
+    hash``: ``perm`` (K, m) and ``start`` (K, windows, s+1), item ``k``'s
+    window orders at ``perm[k]``, ``start[k]``. With ``L >= m`` each item's
+    one window is its whole :func:`bucket_order`."""
+    K, m = hashes.shape
+    dev = hashes.device
     nw = -(-m // L)
+    if nw == 0:
+        return (torch.zeros((K, 0), dtype=torch.int32, device=dev),
+                torch.zeros((K, 0, s + 1), dtype=torch.int32, device=dev))
     rows = torch.arange(m, device=dev)
-    keys, perm = torch.sort((rows // L) * s + hashes.long(), stable=True)
-    first = torch.arange(nw, device=dev)
+    item = torch.arange(K, device=dev)[:, None]
+    keys, perm = torch.sort(((item * nw + rows // L) * s + hashes.long()).reshape(-1),
+                            stable=True)
+    first = torch.arange(K * nw, device=dev)
     bounds = first[:, None] * s + torch.arange(s + 1, device=dev)
-    start = torch.searchsorted(keys, bounds) - (first * L)[:, None]
-    return (perm % L).to(torch.int32), start.to(torch.int32)
+    start = torch.searchsorted(keys, bounds) - ((first // nw) * m + (first % nw) * L)[:, None]
+    return (perm % m % L).reshape(K, m).to(torch.int32), start.reshape(K, nw, s + 1).to(torch.int32)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -90,3 +108,52 @@ def countsketch_fold_kernel(perm, start, signs, x, M, *, round_bf16: bool) -> No
         M.data_ptr(), M.stride(0), M.shape[1], x.shape[0], _stream(x),
     )
     _raise(rc, "countsketch fold kernel")
+
+
+def countsketch_batched_kernel(perm, start, signs, a, out, *, a_strides, out_strides, s: int,
+                               items: int, parts: int, order_strides) -> None:
+    """Launch on the current stream, over ``items`` items of ``parts``
+    CountSketches each: ``out[n, b, j] = Σ_q Σ_{h[n,q,i]=b} signs[n,q,i]·a[n,i,j]``,
+    the parts' sums added in order. ``a_strides`` and ``out_strides`` are
+    (item, row, column) strides; ``order_strides`` the strides between
+    consecutive (item, part) sketches of ``perm``, ``start`` and ``signs``
+    (the gather kernel with a batch grid axis)."""
+    rc = launcher("countsketch", "batched_launch")(
+        DTYPE_CODE[a.dtype], perm.data_ptr(), start.data_ptr(), signs.data_ptr(), a.data_ptr(),
+        a_strides[0], a_strides[1], a_strides[2], out.data_ptr(), out_strides[0],
+        out_strides[1], out_strides[2], s, a.shape[2], items, parts, order_strides[0],
+        order_strides[1], order_strides[2], _stream(a),
+    )
+    _raise(rc, "countsketch batched kernel")
+
+
+def countsketch_batched_fold_kernel(perm, start, signs, x, M, *, s: int, items: int,
+                                    parts: int, order_strides) -> None:
+    """``M[n, i, b] += Σ_q Σ_{h[n,q,k]=b} signs[n,q,k]·x[n,i,k]`` on the
+    current stream for row-major items of ``M`` (items, rows, s): the
+    batched fold (the parts' sums added in order, then into M). Buckets
+    without rows in any part are left alone."""
+    rc = launcher("countsketch", "batched_fold_launch")(
+        DTYPE_CODE[x.dtype], DTYPE_CODE[M.dtype], perm.data_ptr(), start.data_ptr(),
+        signs.data_ptr(), x.data_ptr(), x.stride(0), x.stride(2), x.stride(1), M.data_ptr(),
+        M.stride(0), M.stride(1), s, x.shape[1], items, parts, order_strides[0],
+        order_strides[1], order_strides[2], _stream(x),
+    )
+    _raise(rc, "countsketch batched fold kernel")
+
+
+def countsketch_batched_view_kernel(perm, start, hashes, signs, a, out, *, out_strides, s: int,
+                                    items: int, parts: int, order_strides) -> None:
+    """The view kernel over ``items·parts`` sketches: sketch ``k`` reads
+    item ``k // parts`` of the column-major stack ``a`` (items, m, ncols)
+    and writes its own slab ``out[k]`` (``out_strides``: sketch, bucket,
+    column); ``(perm, start)`` are each sketch's ``VIEW_CHUNK`` chunk
+    orders, ``order_strides`` the strides between sketches of ``perm``,
+    ``start`` and ``hashes``/``signs``."""
+    rc = launcher("countsketch", "batched_view_launch")(
+        DTYPE_CODE[a.dtype], perm.data_ptr(), start.data_ptr(), hashes.data_ptr(),
+        signs.data_ptr(), a.data_ptr(), a.stride(0), a.stride(2), a.shape[1], a.shape[2],
+        out.data_ptr(), out_strides[0], out_strides[1], out_strides[2], s, VIEW_CHUNK,
+        items * parts, parts, order_strides[0], order_strides[1], order_strides[2], _stream(a),
+    )
+    _raise(rc, "countsketch batched view kernel")

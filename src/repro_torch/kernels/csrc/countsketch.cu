@@ -30,6 +30,17 @@
 //     M[:, b] += (X S_w^T)[:, b] straight into the row-major M, rounded as
 //     `M.add_(fold.to(dtype))` rounds; buckets the window leaves empty are
 //     skipped, so only the touched columns of M are read and written.
+//   the batch axis (blockIdx.z) - gather, fold and view kernels take an
+//     item count and per-item strides for the operand, the output (or M),
+//     the signs and the bucket orders, so one launch applies a whole stack
+//     of sketches: the KV compressor's head batch (one OSNAP per attention
+//     head, N up to 16 layers x 8 requests x 8 kv-heads). The gather and
+//     fold kernels also walk `parts` CountSketches per item and add their
+//     sums in order (an OSNAP of p parts: ((S_1 a + S_2 a) + S_3 a) + ...,
+//     the bits of the per-head sum of parts); the view kernel writes each
+//     part's slab and the wrapper adds them. Bound: bytes, as above - each
+//     head's panel (64 x 32 fp32 at the compressor's shapes) is read once
+//     per part and its (s x 32) output written once.
 //   view_kernel - S A for a column-major A (the transposed view A^T that
 //     row selection sketches), read along A's contiguous dimension. A block
 //     owns 32 output columns (a band of A^T's columns, contiguous in memory)
@@ -61,45 +72,80 @@ __device__ __forceinline__ void fold_into(bf16* o, float v, int) {
   *o = __float2bfloat16_rn(__fadd_rn(__bfloat162float(*o), __bfloat162float(r)));
 }
 
-template <typename T, typename TO, bool BUCKET_FAST, bool ACC>
+// Where the sketches of a launch are: item n's part q is sketch k = n parts + q,
+// its order at perm + k perm_ks and start + k start_ks, its signs (and, for
+// the view kernel, hashes) at + k signs_ks. One sketch: all strides 0.
+struct Stack {
+  int parts;
+  long long a_is, o_is, perm_ks, start_ks, signs_ks;
+};
+constexpr Stack ONE = {1, 0, 0, 0, 0, 0};
+
+// STACK = false is the single-sketch kernel as it was before the stack
+// existed (its loop compiles alone: a parts loop around it cost the main
+// path's per-panel launches a third more time on the card).
+template <typename T, typename TO, bool BUCKET_FAST, bool ACC, bool STACK>
 __global__ void __launch_bounds__(256) gather_kernel(
     const int* __restrict__ perm, const int* __restrict__ start,
     const float* __restrict__ signs, const T* __restrict__ a, long long a_rs,
     long long a_cs, TO* __restrict__ out, long long o_rs, long long o_cs,
-    int s, int ncols, int round_bf16) {
+    int s, int ncols, int round_bf16, Stack st) {
   const int fast = blockIdx.x * 32 + threadIdx.x;
   const int slow = blockIdx.y * 8 + threadIdx.y;
   const int j = BUCKET_FAST ? slow : fast;
   const int b = BUCKET_FAST ? fast : slow;
   if (j >= ncols || b >= s) return;
-  const int p0 = start[b], end = start[b + 1];
-  if (ACC && p0 == end) return;  // an empty bucket adds nothing to M
-  float acc = 0.f;
-  for (int p = p0; p < end; ++p) {
-    const int r = perm[p];
-    const float v = __fmul_rn(signs[r], to_f(a[(long long)r * a_rs + (long long)j * a_cs]));
-    acc = __fadd_rn(acc, v);
+  float total = 0.f;
+  if constexpr (!STACK) {
+    const int p0 = start[b], end = start[b + 1];
+    if (ACC && p0 == end) return;  // an empty bucket adds nothing to M
+    for (int p = p0; p < end; ++p) {
+      const int r = perm[p];
+      const float v = __fmul_rn(signs[r], to_f(a[(long long)r * a_rs + (long long)j * a_cs]));
+      total = __fadd_rn(total, v);
+    }
+  } else {
+    const long long item = blockIdx.z;
+    const T* col = a + item * st.a_is + (long long)j * a_cs;
+    bool touched = false;
+    for (int q = 0; q < st.parts; ++q) {
+      const long long k = item * st.parts + q;
+      const int* pk = perm + k * st.perm_ks;
+      const int* sk = start + k * st.start_ks;
+      const float* gk = signs + k * st.signs_ks;
+      const int p0 = sk[b], end = sk[b + 1];
+      touched |= p0 != end;
+      float acc = 0.f;
+      for (int p = p0; p < end; ++p) {
+        const int r = pk[p];
+        acc = __fadd_rn(acc, __fmul_rn(gk[r], to_f(col[(long long)r * a_rs])));
+      }
+      total = q == 0 ? acc : __fadd_rn(total, acc);  // the parts in order
+    }
+    if (ACC && !touched) return;  // an empty bucket adds nothing to M
+    out += item * st.o_is;
   }
   TO* o = out + (long long)b * o_rs + (long long)j * o_cs;
   if constexpr (ACC)
-    fold_into(o, acc, round_bf16);
+    fold_into(o, total, round_bf16);
   else
-    *o = acc;
+    *o = total;
 }
 
-template <typename T, typename TO, bool ACC>
+template <typename T, typename TO, bool ACC, bool STACK = false>
 int launch_gather(const void* perm, const void* start, const void* signs, const void* a,
                   long long a_rs, long long a_cs, void* out, long long o_rs, long long o_cs,
-                  int s, int ncols, int round_bf16, cudaStream_t st) {
+                  int s, int ncols, int round_bf16, int items, Stack stk, cudaStream_t st) {
   const bool bucket_fast = (o_rs == 1);  // output contiguous along buckets
   const int n_fast = bucket_fast ? s : ncols;
   const int n_slow = bucket_fast ? ncols : s;
   dim3 block(32, 8);
-  dim3 grid((n_fast + 31) / 32, (n_slow + 7) / 8);
-  auto kern = bucket_fast ? gather_kernel<T, TO, true, ACC> : gather_kernel<T, TO, false, ACC>;
+  dim3 grid((n_fast + 31) / 32, (n_slow + 7) / 8, items);
+  auto kern = bucket_fast ? gather_kernel<T, TO, true, ACC, STACK>
+                          : gather_kernel<T, TO, false, ACC, STACK>;
   kern<<<grid, block, 0, st>>>((const int*)perm, (const int*)start, (const float*)signs,
                                (const T*)a, a_rs, a_cs, (TO*)out, o_rs, o_cs, s, ncols,
-                               round_bf16);
+                               round_bf16, stk);
   return (int)cudaGetLastError();
 }
 
@@ -168,11 +214,20 @@ inline size_t view_smem(int group) {
 // blockIdx.y. `perm` lists each chunk's rows (chunk-relative) bucket by
 // bucket, ascending within a bucket; tab[c][b] is the offset of bucket b's
 // first row in chunk c's list (tab[c][s] the chunk's length).
-template <typename T, bool VEC>
+template <typename T, bool VEC, bool STACK>
 __global__ void __launch_bounds__(VIEW_THREADS) view_kernel(
     const int* __restrict__ perm, const int* __restrict__ tab, const int* __restrict__ hashes,
     const float* __restrict__ signs, const T* __restrict__ a, long long lda, int m, int ncols,
-    float* __restrict__ out, long long o_rs, long long o_cs, int s, int group) {
+    float* __restrict__ out, long long o_rs, long long o_cs, int s, int group, Stack st) {
+  if constexpr (STACK) {  // sketch k reads item k / parts of a, writes its own slab of out
+    const long long k = blockIdx.z;
+    perm += k * st.perm_ks;
+    tab += k * st.start_ks;
+    hashes += k * st.signs_ks;
+    signs += k * st.signs_ks;
+    a += (k / st.parts) * st.a_is;
+    out += k * st.o_is;
+  }
   extern __shared__ __align__(16) float vbuf[];
   float* tile = vbuf;                   // [VIEW_CHUNK][TP]
   float* sums = tile + VIEW_CHUNK * TP;  // [group][TP]
@@ -238,19 +293,22 @@ __global__ void __launch_bounds__(VIEW_THREADS) view_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool STACK = false>
 int launch_view(const void* perm, const void* tab, const void* hashes, const void* signs,
                 const void* a, long long lda, int m, int ncols, void* out, long long o_rs,
-                long long o_cs, int s, cudaStream_t st) {
+                long long o_cs, int s, int sketches, Stack stk, cudaStream_t st) {
   const int groups = (s + VIEW_GROUP - 1) / VIEW_GROUP;
   const int group = (s + groups - 1) / groups;
   const int smem = (int)view_smem(group);
-  auto kern = rt::sm90::aligned16((const T*)a, lda) ? view_kernel<T, true> : view_kernel<T, false>;
+  // 16-byte loads need every item's columns aligned, not only the first's
+  const bool vec = rt::sm90::aligned16((const T*)a, lda) &&
+                   (sketches <= stk.parts || rt::sm90::aligned16((const T*)a, stk.a_is));
+  auto kern = vec ? view_kernel<T, true, STACK> : view_kernel<T, false, STACK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid(groups, (ncols + VIEW_BJ - 1) / VIEW_BJ);
+  dim3 grid(groups, (ncols + VIEW_BJ - 1) / VIEW_BJ, sketches);
   kern<<<grid, VIEW_THREADS, smem, st>>>((const int*)perm, (const int*)tab, (const int*)hashes,
                                          (const float*)signs, (const T*)a, lda, m, ncols,
-                                         (float*)out, o_rs, o_cs, s, group);
+                                         (float*)out, o_rs, o_cs, s, group, stk);
   return (int)cudaGetLastError();
 }
 
@@ -266,10 +324,10 @@ extern "C" int countsketch_launch(int dtype, const void* perm, const void* start
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
     return launch_gather<float, float, false>(perm, start, signs, a, a_rs, a_cs, out, o_rs, o_cs,
-                                              s, ncols, 0, st);
+                                              s, ncols, 0, 1, ONE, st);
   if (dtype == 1)
     return launch_gather<bf16, float, false>(perm, start, signs, a, a_rs, a_cs, out, o_rs, o_cs,
-                                             s, ncols, 0, st);
+                                             s, ncols, 0, 1, ONE, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -282,7 +340,7 @@ extern "C" int countsketch_fold_launch(int a_dtype, int m_dtype, int round_bf16,
   cudaStream_t st = (cudaStream_t)stream;
 #define RT_FOLD(T, TO)                                                                        \
   return launch_gather<T, TO, true>(perm, start, signs, a, a_rs, a_cs, M, 1, ldm, s, ncols, \
-                                    round_bf16, st)
+                                    round_bf16, 1, ONE, st)
   if (a_dtype == 0 && m_dtype == 0) RT_FOLD(float, float);
   if (a_dtype == 0 && m_dtype == 1) RT_FOLD(float, bf16);
   if (a_dtype == 1 && m_dtype == 0) RT_FOLD(bf16, float);
@@ -301,8 +359,78 @@ extern "C" int countsketch_view_launch(int dtype, const void* perm, const void* 
   cudaStream_t st = (cudaStream_t)stream;
   if (chunk != VIEW_CHUNK) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_view<float>(perm, tab, hashes, signs, a, lda, m, ncols, out, o_rs, o_cs, s, st);
+    return launch_view<float>(perm, tab, hashes, signs, a, lda, m, ncols, out, o_rs, o_cs, s, 1,
+                              ONE, st);
   if (dtype == 1)
-    return launch_view<bf16>(perm, tab, hashes, signs, a, lda, m, ncols, out, o_rs, o_cs, s, st);
+    return launch_view<bf16>(perm, tab, hashes, signs, a, lda, m, ncols, out, o_rs, o_cs, s, 1,
+                             ONE, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The stacked launches: `items` items of `parts` sketches each (perm_ks,
+// start_ks, signs_ks: strides between consecutive sketches). Grids carry the
+// items on blockIdx.z, so at most 65535 of them (65535 sketches for the view).
+
+// out[n] = sum over parts q of S_{n,q} a[n] (the gather kernel).
+extern "C" int countsketch_batched_launch(int dtype, const void* perm, const void* start,
+                                          const void* signs, const void* a, long long a_is,
+                                          long long a_rs, long long a_cs, void* out,
+                                          long long o_is, long long o_rs, long long o_cs, int s,
+                                          int ncols, int items, int parts, long long perm_ks,
+                                          long long start_ks, long long signs_ks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Stack stk = {parts, a_is, o_is, perm_ks, start_ks, signs_ks};
+  if (items < 1 || items > 65535 || parts < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_gather<float, float, false, true>(perm, start, signs, a, a_rs, a_cs, out, o_rs,
+                                                    o_cs, s, ncols, 0, items, stk, st);
+  if (dtype == 1)
+    return launch_gather<bf16, float, false, true>(perm, start, signs, a, a_rs, a_cs, out, o_rs,
+                                                   o_cs, s, ncols, 0, items, stk, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// M[n][j, b] += (sum over parts of S_{n,q} a[n])[b, j] for row-major items of M.
+extern "C" int countsketch_batched_fold_launch(int a_dtype, int m_dtype, const void* perm,
+                                               const void* start, const void* signs,
+                                               const void* a, long long a_is, long long a_rs,
+                                               long long a_cs, void* M, long long m_is,
+                                               long long ldm, int s, int ncols, int items,
+                                               int parts, long long perm_ks, long long start_ks,
+                                               long long signs_ks, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Stack stk = {parts, a_is, m_is, perm_ks, start_ks, signs_ks};
+  if (items < 1 || items > 65535 || parts < 1) return (int)cudaErrorInvalidValue;
+#define RT_BFOLD(T, TO)                                                                       \
+  return launch_gather<T, TO, true, true>(perm, start, signs, a, a_rs, a_cs, M, 1, ldm, s, ncols, \
+                                          0, items, stk, st)
+  if (a_dtype == 0 && m_dtype == 0) RT_BFOLD(float, float);
+  if (a_dtype == 0 && m_dtype == 1) RT_BFOLD(float, bf16);
+  if (a_dtype == 1 && m_dtype == 0) RT_BFOLD(bf16, float);
+  if (a_dtype == 1 && m_dtype == 1) RT_BFOLD(bf16, bf16);
+#undef RT_BFOLD
+  return (int)cudaErrorInvalidValue;
+}
+
+// out[k] = S_k a[k / parts] for every sketch k < sketches of a stack of
+// column-major items (element (i, j) of item n at n a_is + j lda + i).
+extern "C" int countsketch_batched_view_launch(int dtype, const void* perm, const void* tab,
+                                               const void* hashes, const void* signs,
+                                               const void* a, long long a_is, long long lda,
+                                               int m, int ncols, void* out, long long o_ks,
+                                               long long o_rs, long long o_cs, int s, int chunk,
+                                               int sketches, int parts, long long perm_ks,
+                                               long long tab_ks, long long hs_ks,
+                                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Stack stk = {parts, a_is, o_ks, perm_ks, tab_ks, hs_ks};
+  if (chunk != VIEW_CHUNK || sketches < 1 || sketches > 65535 || parts < 1)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_view<float, true>(perm, tab, hashes, signs, a, lda, m, ncols, out, o_rs, o_cs,
+                                    s, sketches, stk, st);
+  if (dtype == 1)
+    return launch_view<bf16, true>(perm, tab, hashes, signs, a, lda, m, ncols, out, o_rs, o_cs,
+                                   s, sketches, stk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,7 +7,8 @@ Dispatch rule, the same for every wrapper:
   the arguments are outside what the kernel takes. There is no fallback.
 
 ``LAUNCHES`` counts, per kernel, the calls that launched it (a plain
-integer each); :func:`reset_launches` sets them to 0. Two test hooks:
+integer each; kernel 1's stacked launches, one for a whole head batch,
+under ``countsketch_batched``); :func:`reset_launches` sets them to 0. Two test hooks:
 ``_FORCE_KERNEL_ROUTE`` makes :func:`kernel_route_enabled` true on the CPU,
 so the engine's kernel route (Route B) runs there with the plain versions;
 :func:`force_plain` makes CUDA tensors take the plain versions, so a run on
@@ -22,13 +23,16 @@ import contextlib
 import torch
 
 from . import ref
-from .countsketch import (VIEW_CHUNK, bucket_order, countsketch_fold_kernel, countsketch_kernel,
-                          countsketch_view_kernel, window_orders)
+from .countsketch import (VIEW_CHUNK, batched_window_orders, bucket_order,
+                          countsketch_batched_fold_kernel, countsketch_batched_kernel,
+                          countsketch_batched_view_kernel, countsketch_fold_kernel,
+                          countsketch_kernel, countsketch_view_kernel, window_orders)
 from .panel_score import panel_score_kernel
 from .panel_update import panel_update_kernel
 from .twoside_sketch import twoside_sketch_kernel
 
-LAUNCHES = {"countsketch": 0, "panel_score": 0, "panel_update": 0, "twoside_sketch": 0}
+LAUNCHES = {"countsketch": 0, "countsketch_batched": 0, "panel_score": 0, "panel_update": 0,
+            "twoside_sketch": 0}
 
 # Test hook: take the kernel route on the CPU (plain versions run there).
 _FORCE_KERNEL_ROUTE = False
@@ -189,6 +193,124 @@ def countsketch_fold(hashes, signs, x, M, *, order=None, fold_dtype=torch.float3
     return M
 
 
+def _stack_args(hashes, signs, a, rows_dim: int) -> tuple:
+    _check(hashes.dim() == 3 and signs.shape == hashes.shape and a.dim() == 3
+           and a.shape[0] == hashes.shape[0] and a.shape[rows_dim] == hashes.shape[2],
+           f"need hashes/signs (N, p, m) and a stack of N operands with m rows, got "
+           f"{tuple(hashes.shape)}, {tuple(signs.shape)}, {tuple(a.shape)}")
+    return hashes.shape
+
+
+def _stack_on_card(hashes, signs, *orders) -> None:
+    """The layout the stacked launches take: every (item, part) sketch at a
+    fixed stride, contiguous along its columns, the same for hashes and
+    signs; each order array contiguous along its last dimension."""
+    _check(hashes.dtype == torch.int32 and signs.dtype == torch.float32,
+           "hashes must be int32 and signs float32")
+    N, p, _ = hashes.shape
+    for t in (hashes, signs):
+        _check(t.stride(2) == 1 and (N == 1 or t.stride(0) == p * t.stride(1)),
+               f"sketch stacks need unit column strides and evenly spaced parts, got {t.stride()}")
+    _check(hashes.stride() == signs.stride(), "hashes and signs must share strides")
+    for t in orders:
+        _check(t.dtype == torch.int32 and t.stride(-1) == 1, "orders must be int32 rows")
+    _check(N <= 65535, f"at most 65535 items a launch, got {N}")
+
+
+def _whole_orders(hashes, s: int, L: int) -> tuple:
+    N, p, m = hashes.shape
+    return batched_window_orders(hashes.reshape(N * p, m), s, L)
+
+
+def countsketch_batched(hashes, signs, a, s: int, *, order=None, chunks=None,
+                        transpose_out: bool = False):
+    """``out[n] = Σ_q S_{n,q}·a[n]`` for a stack of N items of ``p``
+    CountSketches each (an OSNAP per item), the parts added in order, fp32.
+
+    ``hashes``/``signs`` are (N, p, m); ``a`` is (N, m, ncols) with any
+    strides. Returns (N, s, ncols), or with ``transpose_out`` the contiguous
+    (N, ncols, s). One launch for the whole stack: items whose operands are
+    column-major (as :func:`reads_columns` decides for one) go to the view
+    kernel, which walks ``chunks`` — the (N·p, m) and (N·p, chunks, s+1)
+    :func:`batched_window_orders` at ``VIEW_CHUNK`` — and writes one slab
+    per part, added here in order; the rest to the gather kernel, which
+    walks ``order`` — (N·p, m) rows and (N·p, s+1) offsets, any row
+    strides. Either is built here when not given.
+    """
+    N, p, m = _stack_args(hashes, signs, a, 1)
+    ncols = a.shape[2]
+    if not _on_card(hashes, signs, a):
+        out = ref.countsketch_batched_ref(hashes, signs, a, s)
+        return out.transpose(1, 2).contiguous() if transpose_out else out
+    _check(a.dtype in _DTYPES, f"a must be float32 or bfloat16, got {a.dtype}")
+    view = reads_columns(a[0], transpose_out)
+    _check((ncols if transpose_out else s) <= 8 * 65535 and (ncols <= 32 * 65535 or not view),
+           f"too many outputs: s={s}, ncols={ncols}")
+    shape = (N, ncols, s) if transpose_out else (N, s, ncols)
+    out = torch.empty(shape, dtype=torch.float32, device=a.device)
+    if m == 0 or ncols == 0 or s == 0 or N == 0:
+        return out.zero_()
+    if view:
+        perm, start = chunks if chunks is not None else _whole_orders(hashes, s, VIEW_CHUNK)
+        _stack_on_card(hashes, signs, perm, start)
+        _check(N * p <= 65535, f"at most 65535 sketches a view launch, got {N * p}")
+        slabs = torch.empty((N * p,) + shape[1:], dtype=torch.float32, device=a.device)
+        strides = (slabs.stride(0), 1, s) if transpose_out else slabs.stride()
+        countsketch_batched_view_kernel(
+            perm, start, hashes, signs, a, slabs, out_strides=strides, s=s, items=N, parts=p,
+            order_strides=(perm.stride(0), start.stride(0), signs.stride(1)))
+        slabs = slabs.view((N, p) + shape[1:])
+        out.copy_(slabs[:, 0])
+        for q in range(1, p):
+            out.add_(slabs[:, q])
+    else:
+        if order is None:
+            perm, start = _whole_orders(hashes, s, m)
+            order = (perm, start[:, 0])
+        perm, start = order
+        _stack_on_card(hashes, signs, perm, start)
+        strides = (out.stride(0), 1, s) if transpose_out else out.stride()
+        countsketch_batched_kernel(
+            perm, start, signs, a, out, a_strides=a.stride(), out_strides=strides, s=s, items=N,
+            parts=p, order_strides=(perm.stride(0), start.stride(0), signs.stride(1)))
+    LAUNCHES["countsketch_batched"] += 1
+    return out
+
+
+def countsketch_batched_fold(hashes, signs, x, M, *, order=None):
+    """``M[n] += (Σ_q x[n]·S_{n,q}ᵀ).to(M.dtype)`` in place for a stack of N
+    items of ``p`` CountSketches (``s = M.shape[2]`` buckets): the batched
+    per-panel fold of ``x = S_C·A_L`` (N, rows, m) into ``M`` (N, rows, s),
+    with the bits of ``M.add_(apply_t(x))`` per item — the parts' fp32 sums
+    added in order, then into ``M``. ``order`` as for
+    :func:`countsketch_batched`'s gather kernel; on the card each item of
+    ``M`` has contiguous rows, and buckets without rows in any part leave
+    ``M`` as it is. Returns ``M``."""
+    N, p, m = _stack_args(hashes, signs, x, 2)
+    _check(M.dim() == 3 and M.shape[:2] == x.shape[:2],
+           f"x (N, rows, m) and M (N, rows, s) must share N and rows, got "
+           f"{tuple(x.shape)}, {tuple(M.shape)}")
+    s = M.shape[2]
+    if not _on_card(hashes, signs, x, M):
+        return M.add_(ref.countsketch_batched_ref(hashes, signs, x.transpose(1, 2), s)
+                      .transpose(1, 2).to(M.dtype))
+    _check(x.dtype in _DTYPES and M.dtype in _DTYPES,
+           f"x and M must be float32 or bfloat16, got {x.dtype}, {M.dtype}")
+    _check(M.stride(2) == 1, f"M's items need contiguous rows, got strides {M.stride()}")
+    _check(x.shape[1] <= 8 * 65535, f"too many rows: {x.shape[1]}")
+    if M.numel() and m:
+        if order is None:
+            perm, start = _whole_orders(hashes, s, m)
+            order = (perm, start[:, 0])
+        perm, start = order
+        _stack_on_card(hashes, signs, perm, start)
+        countsketch_batched_fold_kernel(perm, start, signs, x, M, s=s, items=N, parts=p,
+                                        order_strides=(perm.stride(0), start.stride(0),
+                                                       signs.stride(1)))
+        LAUNCHES["countsketch_batched"] += 1
+    return M
+
+
 def panel_score(sc, a_l, q):
     """``(sc_a, resid2, energy)`` of one panel, fp32: ``sc_a = S_C·A_L`` (s_c, L),
     ``energy_j = ‖sc_a[:, j]‖²``, ``resid2_j = max(energy_j − ‖qᵀ sc_a[:, j]‖², 0)``.
@@ -318,6 +440,9 @@ __all__ = [
     "kernel_route_enabled",
     "bucket_order",
     "window_orders",
+    "batched_window_orders",
+    "countsketch_batched",
+    "countsketch_batched_fold",
     "reads_columns",
     "countsketch_apply",
     "countsketch_fold",

@@ -31,6 +31,27 @@ def countsketch_ref(hashes: torch.Tensor, signs: torch.Tensor, a: torch.Tensor, 
     return out.index_add_(0, hashes.long(), signed)
 
 
+def countsketch_batched_ref(hashes: torch.Tensor, signs: torch.Tensor, a: torch.Tensor,
+                            s: int) -> torch.Tensor:
+    """The per-item :func:`countsketch_ref` of a stack: ``out[n] = Σ_q
+    countsketch_ref(hashes[n, q], signs[n, q], a[n], s)``, the ``p`` parts
+    added in order, fp32. ``hashes``/``signs`` (N, p, m), ``a`` (N, m,
+    ncols) → (N, s, ncols). Each part is one ``index_add_`` over the
+    flattened buckets ``n·s + hash`` (no two items share a bucket), which on
+    the CPU adds each bucket's rows in order: the per-item sums bit for bit."""
+    N, p, m = hashes.shape
+    ncols = a.shape[2]
+    base = (torch.arange(N, device=a.device) * s)[:, None]
+    out = None
+    for q in range(p):
+        idx = (hashes[:, q].long() + base).reshape(-1)
+        signed = (a.float() * signs[:, q, :, None].float()).reshape(N * m, ncols)
+        part = torch.zeros((N * s, ncols), dtype=torch.float32, device=a.device)
+        part.index_add_(0, idx, signed)
+        out = part if out is None else out + part
+    return out.reshape(N, s, ncols)
+
+
 def panel_score_ref(sc: torch.Tensor, a_l: torch.Tensor, q: torch.Tensor) -> tuple:
     """``(sc_a, resid2, energy)``: ``sc_a = S_C·A_L``, the column energies and
     the residual energies against the zero-masked basis ``q``, all fp32."""

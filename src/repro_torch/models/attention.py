@@ -1,0 +1,154 @@
+"""Attention forward passes: GQA with RoPE'd inputs, full-causal and
+sliding-window (counterpart of ``repro/models/attention.py``).
+
+* :func:`flash_attention` — prefill and training forward. On a CUDA tensor
+  it calls ``torch.nn.functional.scaled_dot_product_attention`` (the
+  reference computes attention in plain XLA, outside any Pallas kernel);
+  on the CPU, or inside :func:`plain_attention`, it runs
+  :func:`flash_attention_plain`, the reference's block-online-softmax
+  evaluation restated in plain PyTorch, which the tests hold against the
+  reference and ``chip_smoke.py`` holds SDPA against on the card.
+* :func:`decode_attention` — one query against a cache with a length mask,
+  fp32 softmax, as the reference.
+
+The flash backward (the reference's ``_flash_bwd_impl``) waits for the
+training slice (``ROADMAP.md`` §1).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+_PLAIN = False
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within the block, CUDA tensors take :func:`flash_attention_plain` too."""
+    global _PLAIN
+    prev, _PLAIN = _PLAIN, True
+    try:
+        yield
+    finally:
+        _PLAIN = prev
+
+
+def _block_pairs(nbq: int, window_blocks: Optional[int]):
+    """The lower-triangle (i, j) block pairs (window-restricted), in the
+    reference's order, with the first and last pair of each query block."""
+    pairs = []
+    for i in range(nbq):
+        j_lo = 0 if window_blocks is None else max(0, i - window_blocks)
+        for j in range(j_lo, i + 1):
+            pairs.append((i, j, j == j_lo, j == i))
+    return pairs
+
+
+def flash_attention_plain(q, k, v, *, window: Optional[int] = None, chunk: int = 512):
+    """The reference's block-triangular online-softmax attention.
+
+    q: (B, S, H, D); k, v: (B, S, KV, D) with H % KV == 0 (query heads
+    grouped per KV head, KV never repeated). Scores and the running
+    max/sum in fp32, ``p`` cast to ``v``'s dtype for the value product, as
+    the reference. Returns (B, S, H, Dv) in q's dtype.
+    """
+    B, S, H, D = q.shape
+    KV, Dv = k.shape[2], v.shape[3]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    c = min(chunk, S)
+    pad = (-S) % c
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    Sp = S + pad
+    wb = None if window is None else (window + c - 1) // c
+    qg = q.reshape(B, Sp, KV, G, D)
+    out = torch.zeros((B, Sp, H, Dv), dtype=torch.float32, device=q.device)
+    ar = torch.arange(c, device=q.device)
+    m = l = acc = None
+    for i, j, new, last in _block_pairs(Sp // c, wb):
+        qi = qg[:, i * c : (i + 1) * c]
+        kj = k[:, j * c : (j + 1) * c]
+        vj = v[:, j * c : (j + 1) * c]
+        s = torch.einsum("bqkgd,bpkd->bkgqp", qi, kj).float() * scale
+        qpos, kpos = i * c + ar, j * c + ar
+        mask = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= (qpos[:, None] - kpos[None, :]) < window
+        mask &= (kpos < S)[None, :]
+        s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+        if new:  # the stats restart at each query block's first kv block
+            m = torch.full((B, KV, G, c), NEG_INF, device=q.device)
+            l = torch.zeros((B, KV, G, c), device=q.device)
+            acc = torch.zeros((B, KV, G, c, Dv), device=q.device)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + torch.sum(p, dim=-1)
+        pv = torch.einsum("bkgqp,bpkd->bkgqd", p.to(v.dtype), vj).float()
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+        if last:
+            blk = acc / torch.clamp(l, min=1e-37)[..., None]
+            out[:, i * c : (i + 1) * c] = blk.permute(0, 3, 1, 2, 4).reshape(B, c, H, Dv)
+    return out[:, :S].to(q.dtype)
+
+
+def _sdpa(q, k, v, window: Optional[int]):
+    # SDPA wants (B, H, S, D); GQA through enable_gqa (KV heads not repeated)
+    S = q.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    gqa = q.shape[2] != k.shape[2]
+    if window is None:
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=gqa)
+    else:
+        pos = torch.arange(S, device=q.device)
+        diff = pos[:, None] - pos[None, :]
+        mask = (diff >= 0) & (diff < window)
+        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                             enable_gqa=gqa)
+    return o.transpose(1, 2)
+
+
+def flash_attention(q, k, v, *, window: Optional[int] = None, chunk: int = 512):
+    """Causal (optionally sliding-window) attention, (B, S, H, D) in and out:
+    SDPA on a CUDA tensor, :func:`flash_attention_plain` on the CPU or
+    inside :func:`plain_attention`."""
+    if q.is_cuda and not _PLAIN:
+        return _sdpa(q, k, v, window)
+    return flash_attention_plain(q, k, v, window=window, chunk=chunk)
+
+
+def decode_attention(q, k_cache, v_cache, length: int, *, window: Optional[int] = None):
+    """One-token attention against a cache.
+
+    q: (B, 1, H, D); caches: (B, Smax, KV, D); ``length`` tokens valid (a
+    host int). fp32 softmax; the value product in the cache's dtype.
+    """
+    B, _, H, D = q.shape
+    KV, Dv, Smax = k_cache.shape[2], v_cache.shape[3], k_cache.shape[1]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bpkd->bkgp", qg, k_cache).float() * scale
+    pos = torch.arange(Smax, device=q.device)
+    mask = pos < length
+    if window is not None:
+        mask &= pos >= (length - window)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgp,bpkd->bkgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(B, 1, H, Dv)
+
+
+__all__ = ["NEG_INF", "decode_attention", "flash_attention", "flash_attention_plain",
+           "plain_attention"]

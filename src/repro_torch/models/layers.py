@@ -1,0 +1,83 @@
+"""Shared neural layers (counterpart of ``repro/models/layers.py``): RMSNorm,
+RoPE, FFN (SwiGLU/GELU), embeddings, the LM head.
+
+Norms compute in fp32 whatever the parameter dtype. The reference's
+``shard_act`` activation-sharding hints are the identity on one card, so
+the port leaves them out.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+
+def truncated_normal_(t: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
+    """Fill ``t`` with ``scale`` × a standard normal truncated to [−2, 2] (the
+    reference's ``truncated_normal_init``; the same distribution, not the
+    same bits), drawn in fp32 and cast to ``t``'s dtype."""
+    x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.copy_(x * scale)
+
+
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotate pairs (non-interleaved / llama layout), angles in fp32.
+
+    x: (..., S, H, D); positions: broadcastable to (..., S).
+    """
+    d = x.shape[-1]
+    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)  # (d/2,)
+    angles = positions[..., :, None].float() * freqs  # (..., S, d/2)
+    cos = torch.cos(angles)[..., :, None, :]  # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = x[..., : d // 2].float(), x[..., d // 2 :].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """SwiGLU (``silu``) or the non-gated GELU MLP (tanh GELU, as
+    ``jax.nn.gelu``); ``p`` holds ``w_up``, ``w_down`` and, for SwiGLU,
+    ``w_gate``, each used as ``x @ w``."""
+    up = x @ p.w_up
+    if activation == "silu":
+        h = F.silu(x @ p.w_gate) * up
+    elif activation == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(activation)
+    return h @ p.w_down
+
+
+def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return tok[tokens.long()]
+
+
+def lm_logits(embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """fp32 logits through the tied head ``tokᵀ`` or ``lm_head``, with the
+    optional ``logit_softcap``."""
+    w = embed.tok.T if cfg.tie_embeddings else embed.lm_head
+    logits = (x @ w).float()
+    if cfg.logit_softcap:
+        cap = cfg.logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits
+
+
+def init_scale(fan_in: int) -> float:
+    return 1.0 / math.sqrt(fan_in)

@@ -1,0 +1,148 @@
+"""Decoder stack (counterpart of ``repro/models/transformer.py``).
+
+The reference scans stacked per-repeat parameters over each segment; the
+port holds one :class:`~repro_torch.models.blocks.Block` module per layer
+in a :class:`Transformer` and runs a plain loop over the layers, in the
+reference's execution order (segment by segment, each repeat's unit in
+turn). Forward passes only: training waits for its slice.
+
+Entry points:
+  init_params    — a :class:`Transformer` drawn from a ``torch.Generator``
+  train_logits   — (B, S) tokens → (B, S, V) fp32 logits + aux loss
+  prefill        — prompt → last-position logits + cache
+  decode_step    — one token + cache → logits + cache (updated in place)
+  init_cache     — zeroed cache for a batch and cache length
+
+A cache is ``{"layers": [per-layer cache, ...], "length": int}``, the
+layers in execution order; ``length`` is a host int, so no step reads a
+device value back.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..device import DeviceLike, resolve_device
+from . import blocks as blk
+from .config import BlockSpec, ModelConfig, Segment, compile_pattern
+from .layers import embed_tokens, init_scale, lm_logits, rmsnorm, truncated_normal_
+
+__all__ = ["Transformer", "segments", "layer_specs", "init_params", "forward_hidden",
+           "train_logits", "init_cache", "prefill", "decode_step", "param_count"]
+
+
+def segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
+    return compile_pattern(cfg.pattern)
+
+
+def layer_specs(cfg: ModelConfig) -> Tuple[BlockSpec, ...]:
+    """Every layer's spec in execution order: segment by segment, repeat by
+    repeat, the unit's positions in turn."""
+    return tuple(spec for seg in segments(cfg) for _ in range(seg.n_repeat) for spec in seg.unit)
+
+
+class Embedding(nn.Module):
+    """Token table ``tok`` (V, D) and, untied, the head ``lm_head`` (D, V)."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__()
+        dt = cfg.param_dtype
+        self.tok = nn.Parameter(truncated_normal_(
+            torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=device), gen, 0.02),
+            requires_grad=False)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(truncated_normal_(
+                torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt, device=device), gen,
+                init_scale(cfg.d_model)), requires_grad=False)
+
+
+class Transformer(nn.Module):
+    """The model's parameters: ``embed``, one block per layer, ``final_norm``."""
+
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, device):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = Embedding(gen, cfg, device)
+        self.blocks = nn.ModuleList(blk.init_block(gen, spec, cfg, device)
+                                    for spec in layer_specs(cfg))
+        self.final_norm = nn.Parameter(torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
+                                                  device=device), requires_grad=False)
+
+
+def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
+                device: DeviceLike = None) -> Transformer:
+    """A :class:`Transformer` with the reference's initialisation (truncated
+    normals at its scales, unit norms), drawn from ``gen`` on ``device``
+    (``None`` means CUDA and raises without it). ``gen=None`` seeds 0."""
+    dev = resolve_device(device)
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+    return Transformer(gen, cfg, dev)
+
+
+def _layers(params: Transformer, cfg: ModelConfig):
+    return zip(layer_specs(cfg), params.blocks)
+
+
+@torch.no_grad()
+def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
+                   dense_moe: bool = False):
+    """Final-normed hidden states (B, S, D) and the aux loss (0 for the
+    dense FFN)."""
+    x = embed_tokens(params.embed.tok, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for spec, block in _layers(params, cfg):
+        x, a = blk.block_train(block, spec, cfg, x)
+        aux = aux + a
+    return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
+
+
+def train_logits(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
+                 dense_moe: bool = False):
+    h, aux = forward_hidden(params, cfg, tokens, vision, dense_moe=dense_moe)
+    return lm_logits(params.embed, h, cfg), aux
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+               device: DeviceLike = None) -> dict:
+    dev = resolve_device(device)
+    return {"layers": [blk.init_block_cache(spec, cfg, batch, cache_len, dev)
+                       for spec in layer_specs(cfg)], "length": 0}
+
+
+@torch.no_grad()
+def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, vision=None, *,
+            dense_moe: bool = False):
+    """Run the prompt (B, S); returns the last position's logits (B, 1, V)
+    and a cache of ``cache_len`` positions holding it."""
+    B, S = tokens.shape
+    x = embed_tokens(params.embed.tok, tokens)
+    caches = []
+    for spec, block in _layers(params, cfg):
+        x, _, c = blk.block_prefill(block, spec, cfg, x, cache_len)
+        caches.append(c)
+    h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
+    return lm_logits(params.embed, h, cfg), {"layers": caches, "length": S}
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
+                dense_moe: bool = False):
+    """token: (B, 1) ints. Returns (logits (B, 1, V), cache); the cache is
+    updated in place and its ``length`` advanced."""
+    x = embed_tokens(params.embed.tok, token)
+    length = cache["length"]
+    layers = cache["layers"]
+    for i, (spec, block) in enumerate(_layers(params, cfg)):
+        x, layers[i] = blk.block_decode(block, spec, cfg, x, layers[i], length)
+    h = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    cache["length"] = length + 1
+    return lm_logits(params.embed, h, cfg), cache
+
+
+def param_count(params: nn.Module) -> int:
+    return sum(p.numel() for p in params.parameters())

@@ -1,0 +1,281 @@
+"""Decode-native compressed KV cache: the panel engine carried through
+decode (counterpart of ``repro/serve/kv_cache.py``).
+
+Each converted attention layer's cache is a :class:`CompressedKV` holding,
+for its B·KV heads (row-major over (batch, kv-head)):
+
+* the stacked Algorithm-3 engine state
+  (:class:`~repro_torch.core.svd.StackedSPSVDState`) that has consumed every
+  token up to ``eng_len``;
+* the last finalized factors ``H ≈ V_s Σ Uᵀ`` covering ``fac_len`` tokens;
+* a dense *recent* window ``(B, refresh_every, KV, hd)`` holding the
+  tokens newer than ``fac_len`` exactly.
+
+Every decoded token is appended to the recent window; once
+``decode_panel`` tokens are pending past ``eng_len`` they are folded into
+the engine as one panel of every head (one launch of kernel 1 per OSNAP
+apply for the layer's whole head batch), and once ``refresh_every`` tokens
+have accumulated past ``fac_len`` the engine is refactorized and the recent
+window reset. Attention is exact over the recent window and rank-r over
+the prefix, with one joint softmax across both score blocks.
+
+The reference gates the fold and the refresh with ``lax.cond`` on device
+ints inside its one compiled step; the port keeps ``length``, ``eng_len``
+and ``fac_len`` as host ints, so the policy branches on the host with no
+read-back per token. The engines update in place.
+
+A scanned segment's layers (the reference's ``n_repeat`` axis) convert
+together as one stack of ``n_repeat·B·KV`` heads; each layer's cache then
+holds views of its heads (``StackedSPSVDState.items``), and the window
+orders of the decode folds are built once per cache, on the grid of
+``decode_panel`` windows that starts at the prompt's length.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..core.svd import StackedSPSVDState, spsvd_stacked_finalize, spsvd_stacked_update
+from ..device import DeviceLike, resolve_device
+from ..models.config import ATTN, ModelConfig
+from ..models.transformer import segments
+from ..obs.metrics import MetricsRegistry, default_registry
+from ..obs.spans import span
+from .kv_compress import (KVCompressionConfig, LowRankKV, _allocate_ranks, _fac_width, _factors,
+                          _stacked_init, _stream_stack)
+
+__all__ = ["CompressedKV", "cache_nbytes", "compress_prefill_cache", "init_compressed_kv"]
+
+
+@dataclasses.dataclass
+class CompressedKV:
+    """One layer's compressed KV cache.
+
+    Invariants: ``fac_len <= eng_len <= length``; tokens ``[0, fac_len)``
+    are represented by ``k_fac``/``v_fac``; tokens ``[fac_len, length)``
+    sit densely in ``recent_*`` at slot ``pos - fac_len``; tokens
+    ``[0, eng_len)`` have been folded into ``k_eng``/``v_eng``;
+    ``eng_len - fac_len`` is a multiple of ``decode_panel`` below
+    ``refresh_every``.
+    """
+
+    k_eng: StackedSPSVDState  # B·KV heads
+    v_eng: StackedSPSVDState
+    k_fac: LowRankKV  # v_s (B, KV, n_max, fw), sigma (B, KV, fw), u (B, KV, hd, fw)
+    v_fac: LowRankKV
+    recent_k: torch.Tensor  # (B, refresh_every, KV, hd), model dtype
+    recent_v: torch.Tensor
+    fac_len: int  # tokens covered by the factors
+    eng_len: int  # tokens folded into the engines
+    kc: KVCompressionConfig
+
+    def append_attend(self, q, k, v, length: int):
+        """Append one decoded token and attend against the full history.
+
+        ``q``: (B, 1, H, hd) RoPE'd queries; ``k``/``v``: (B, 1, KV, hd)
+        the new token's projections; ``length``: tokens already cached.
+        Returns ``(o, self)`` with ``o`` (B, 1, H, hd), the contract of
+        :func:`~repro_torch.models.attention.decode_attention`; the cache is
+        updated in place.
+        """
+        slot = length - self.fac_len
+        self.recent_k[:, slot] = k[:, 0].to(self.recent_k.dtype)
+        self.recent_v[:, slot] = v[:, 0].to(self.recent_v.dtype)
+        new_len = length + 1
+        if new_len - self.eng_len == self.kc.decode_panel:
+            self._fold()
+        return _attend(self, q, new_len), self
+
+    def _fold(self) -> None:
+        # fold the decode_panel pending tokens [eng_len, eng_len + dp) into
+        # both engines, every head at once; refactorize once refresh_every
+        # tokens have accumulated past the factors
+        dp = self.kc.decode_panel
+        B, _, KV, hd = self.recent_k.shape
+        start = self.eng_len - self.fac_len
+        for recent, eng in ((self.recent_k, self.k_eng), (self.recent_v, self.v_eng)):
+            win = recent[:, start : start + dp]  # (B, dp, KV, hd)
+            spsvd_stacked_update(eng, win.permute(0, 2, 3, 1).reshape(B * KV, hd, dp).float())
+        self.eng_len += dp
+        if self.eng_len - self.fac_len == self.kc.refresh_every:
+            self._refresh()
+
+    def _refresh(self) -> None:
+        # the new factors cover everything the engines have seen; the recent
+        # window restarts empty at the new fac_len
+        fw = self.k_fac.sigma.shape[-1]
+        B, _, KV, _ = self.recent_k.shape
+        self.k_fac = _finalize_heads(self.k_eng, self.kc, fw, B, KV)
+        self.v_fac = _finalize_heads(self.v_eng, self.kc, fw, B, KV)
+        self.recent_k.zero_()
+        self.recent_v.zero_()
+        self.fac_len = self.eng_len
+
+
+def _finalize_heads(eng: StackedSPSVDState, kc: KVCompressionConfig, fw: int, B: int,
+                    KV: int) -> LowRankKV:
+    # Algorithm-3 finalize of every head at the stored factor width; rows of
+    # V past eng_len are zero (QR of zero rows) and masked by fac_len anyway
+    fac = _factors(*spsvd_stacked_finalize(eng, k=fw), B, KV)
+    if kc.adaptive:
+        fac = LowRankKV(v_s=fac.v_s, sigma=_allocate_ranks(fac.sigma, kc)[0], u=fac.u)
+    return fac
+
+
+def _attend(cache: CompressedKV, q, new_len: int):
+    # one softmax over the rank-r factor scores (positions below fac_len)
+    # and the exact recent scores (positions in [fac_len, new_len)), fp32,
+    # cast back to the query's dtype
+    B, _, H, hd = q.shape
+    W, KV = cache.recent_k.shape[1], cache.recent_k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, KV, G, hd).float()
+    neg = torch.full((), -1e30, device=q.device)
+    kf, vf = cache.k_fac, cache.v_fac
+    uq = torch.einsum("bkdr,bkgd->bkgr", kf.u, qg) * kf.sigma[:, :, None, :]
+    s_fac = torch.einsum("bksr,bkgr->bkgs", kf.v_s, uq) * scale  # (B, KV, G, n_max)
+    n_max = s_fac.shape[-1]
+    s_fac = torch.where(torch.arange(n_max, device=q.device) < cache.fac_len, s_fac, neg)
+    s_rec = torch.einsum("bkgd,bwkd->bkgw", qg, cache.recent_k.float()) * scale  # (B, KV, G, W)
+    s_rec = torch.where(torch.arange(W, device=q.device) < new_len - cache.fac_len, s_rec, neg)
+    p = torch.softmax(torch.cat([s_fac, s_rec], dim=-1), dim=-1)
+    p_fac, p_rec = p[..., :n_max], p[..., n_max:]
+    pv = torch.einsum("bkgs,bksr->bkgr", p_fac, vf.v_s) * vf.sigma[:, :, None, :]
+    o = torch.einsum("bkgr,bkdr->bkgd", pv, vf.u)
+    o = o + torch.einsum("bkgw,bwkd->bkgd", p_rec, cache.recent_v.float())
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def init_compressed_kv(gen: Optional[torch.Generator], kc: KVCompressionConfig, *, batch: int,
+                       n_kv_heads: int, head_dim: int, n_max: int, dtype=torch.float32,
+                       sketches: Optional[tuple] = None,
+                       device: DeviceLike = None) -> CompressedKV:
+    """A fresh empty compressed cache for ``n_max`` tokens: the K engines'
+    sketches drawn first, then the V engines' (or ``sketches=(k, v)``
+    stacked sketches, heads row-major over (batch, kv-head))."""
+    dev = resolve_device(device)
+    N = batch * n_kv_heads
+    fw = _fac_width(head_dim, kc)
+    eng = [_stacked_init(gen, N, head_dim, n_max, kc, device=dev,
+                         sketches=None if sketches is None else sketches[half])
+           for half in range(2)]
+    for e in eng:
+        e.sk.omega.index_windows(kc.decode_panel)
+        e.sk.s_r.index_windows(kc.decode_panel)
+    zero = lambda: LowRankKV(  # noqa: E731
+        v_s=torch.zeros((batch, n_kv_heads, n_max, fw), device=dev),
+        sigma=torch.zeros((batch, n_kv_heads, fw), device=dev),
+        u=torch.zeros((batch, n_kv_heads, head_dim, fw), device=dev))
+    recent = lambda: torch.zeros((batch, kc.refresh_every, n_kv_heads, head_dim),  # noqa: E731
+                                 dtype=dtype, device=dev)
+    return CompressedKV(k_eng=eng[0], v_eng=eng[1], k_fac=zero(), v_fac=zero(),
+                        recent_k=recent(), recent_v=recent(), fac_len=0, eng_len=0, kc=kc)
+
+
+def _convert_stack(gen, dense_layers: list, prompt_len: int, kc: KVCompressionConfig,
+                   sketches: Optional[tuple]) -> list:
+    """Dense ATTN caches of R layers (each K/V (B, n_max, KV, hd)) → one
+    :class:`CompressedKV` per layer, all R·B·KV heads streamed as one
+    stack: the first ``prompt_len`` tokens scanned and factorized, the
+    engines' column domain the whole ``n_max``, so decode keeps appending."""
+    R = len(dense_layers)
+    B, n_max, KV, hd = dense_layers[0]["k"].shape
+    H = B * KV
+    fw = _fac_width(hd, kc)
+    halves = []
+    for half, name in enumerate(("k", "v")):
+        hist = torch.stack([c[name] for c in dense_layers])  # (R, B, n_max, KV, hd)
+        hist_T = hist.permute(0, 1, 3, 4, 2).reshape(R * H, hd, n_max).float()
+        state = _stacked_init(gen, R * H, hd, n_max, kc, device=hist.device,
+                              sketches=None if sketches is None else sketches[half])
+        _stream_stack(state, hist_T, prompt_len, kc)
+        del hist, hist_T
+        U, sig, V = spsvd_stacked_finalize(state, k=fw)
+        fac = _factors(U, sig, V, R * B, KV)
+        if kc.adaptive:
+            fac = LowRankKV(v_s=fac.v_s, sigma=_allocate_ranks(fac.sigma, kc)[0], u=fac.u)
+        # the decode folds' windows: one grid per cache, from the prompt's end
+        state.sk.omega.index_windows(kc.decode_panel, prompt_len)
+        state.sk.s_r.index_windows(kc.decode_panel, prompt_len)
+        halves.append((state, fac))
+    out = []
+    dt, dev = dense_layers[0]["k"].dtype, dense_layers[0]["k"].device
+    for r in range(R):
+        views = [(st.items(r * H, (r + 1) * H),
+                  LowRankKV(v_s=f.v_s[r * B : (r + 1) * B], sigma=f.sigma[r * B : (r + 1) * B],
+                            u=f.u[r * B : (r + 1) * B]))
+                 for st, f in halves]
+        recent = [torch.zeros((B, kc.refresh_every, KV, hd), dtype=dt, device=dev)
+                  for _ in range(2)]
+        out.append(CompressedKV(k_eng=views[0][0], v_eng=views[1][0], k_fac=views[0][1],
+                                v_fac=views[1][1], recent_k=recent[0], recent_v=recent[1],
+                                fac_len=prompt_len, eng_len=prompt_len, kc=kc))
+    return out
+
+
+def compress_prefill_cache(gen: Optional[torch.Generator], cfg: ModelConfig, cache: dict,
+                           kc: KVCompressionConfig, *,
+                           registry: Optional[MetricsRegistry] = None,
+                           sketches: Optional[dict] = None) -> dict:
+    """Convert every global-attention (``ATTN``) layer cache of a prefilled
+    cache to :class:`CompressedKV`; other mixers' caches pass through.
+
+    The layers of one segment position (a scanned segment's ``n_repeat``
+    layers) convert as one stack of heads; stacks go in segment order,
+    positions in turn, each drawing its K then its V sketches from ``gen``,
+    or taking ``sketches[i] = (k, v)`` (stacked over repeats, batch and
+    kv-heads, row-major), ``i`` the reference's flat position (one per
+    segment position). Returns a new cache dict; the old dense caches of
+    converted layers are no longer referenced from it.
+    """
+    reg = registry if registry is not None else default_registry()
+    prompt_len = int(cache["length"])
+    layers = list(cache["layers"])
+    n_conv = 0
+    with span("serve/kv_cache/convert", reg):
+        li, first = 0, 0
+        for seg in segments(cfg):
+            for pos, spec in enumerate(seg.unit):
+                if spec.mixer == ATTN:
+                    idx = [first + rep * len(seg.unit) + pos for rep in range(seg.n_repeat)]
+                    conv = _convert_stack(gen, [layers[i] for i in idx], prompt_len, kc,
+                                          None if sketches is None else sketches[li])
+                    for i, c in zip(idx, conv):
+                        layers[i] = c
+                    n_conv += len(idx)
+                li += 1
+            first += seg.n_repeat * len(seg.unit)
+    out = {"layers": layers, "length": cache["length"]}
+    if reg.enabled:
+        reg.inc("serve/kv_layers_converted", n_conv)
+        reg.set_gauge("serve/kv_cache_bytes", cache_nbytes(out))
+    return out
+
+
+def _leaves(x):
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _leaves(v)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            if not f.name.startswith("_"):  # derived indexes (bucket orders) are not state
+                yield from _leaves(getattr(x, f.name))
+
+
+def cache_nbytes(cache) -> int:
+    """Bytes of every tensor of a cache: for a :class:`CompressedKV` the
+    carried engine state (accumulators and sketches) and the recent window
+    as well as the factors — honest accounting, as the reference's. The
+    bucket orders built from the sketches are left out (derived, not
+    state)."""
+    return sum(t.numel() * t.element_size() for t in _leaves(cache))

@@ -22,6 +22,7 @@ from .engine import (
     fresh_state,
     padded_n,
     panel_update,
+    scan_panels,
     stream_panels,
     truncated_R,
     with_quarantine,
@@ -68,6 +69,7 @@ __all__ = [
     "mesh_sharded_stream",
     "padded_n",
     "panel_update",
+    "scan_panels",
     "shard_panel_ranges",
     "simulate_sharded_stream",
     "stream_panels",

@@ -59,6 +59,7 @@ __all__ = [
     "PanelOps",
     "PanelState",
     "panel_update",
+    "scan_panels",
     "stream_panels",
     "padded_n",
     "copy_selected_columns",
@@ -406,6 +407,20 @@ def stream_panels(state: PanelState, A: torch.Tensor, panel: int, *,
                 A_L = torch.nn.functional.pad(A_L, (0, panel - w))
             state = panel_update(state, A_L)
     return state
+
+
+def scan_panels(state: PanelState, A: torch.Tensor, num_panels: int, panel: int, *,
+                fused: bool = True) -> PanelState:
+    """``num_panels`` whole panels of the full operand ``A`` at the state's
+    offset (the reference's ``scan_panels``): :func:`stream_panels` up to
+    ``offset + num_panels·panel`` on the chunk route (``fused``) or the
+    per-panel body. The caller guarantees the panels lie inside ``A``;
+    ragged tails go through :func:`stream_panels`."""
+    stop = state.offset + num_panels * panel
+    if stop > A.shape[1]:
+        raise ValueError(f"{num_panels} panels of {panel} from column {state.offset} "
+                         f"pass the operand's {A.shape[1]} columns")
+    return stream_panels(state, A, panel, stop=stop, route="chunk" if fused else "per-panel")
 
 
 def truncated_R(state: PanelState) -> torch.Tensor:

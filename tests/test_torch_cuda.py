@@ -80,8 +80,8 @@ def test_cuda_kernels_match_plain(cuda, dtypes, srt_view):
         want_ps = ops.panel_score(sc, a_l, q)
         want_pu = ops.panel_update(sc, a_l, srt, q, C.clone(), M.clone(), **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES == {"countsketch": 2, "panel_score": 2, "panel_update": 2,
-                            "twoside_sketch": 0}
+    assert ops.LAUNCHES == {"countsketch": 2, "countsketch_batched": 0, "panel_score": 2,
+                            "panel_update": 2, "twoside_sketch": 0}
     _close(got_cs, want_cs)
     _close(got_ct, want_cs.T)
     for g, w in zip(got_ps, want_ps):
@@ -673,3 +673,156 @@ def test_cuda_gloo_ranks_share_operand_and_reuse_build(cuda):
         assert launches == 1 + 5  # one chunk sketch and five folds per rank
         assert np.array_equal(C, want.C.cpu().numpy()) and np.array_equal(R, want.R.cpu().numpy())
         assert np.array_equal(M, want.M.cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# kernel 1 over a head batch, and the serving path (dense and compressed)
+# ---------------------------------------------------------------------------
+
+
+def _stack_inputs(dev, N, p, s, m, ncols, seed=6):
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.integers(0, s, (N, p, m)).astype(np.int32)).to(dev)
+    sg = torch.from_numpy((rng.choice([-1.0, 1.0], (N, p, m)) / np.sqrt(p)).astype(np.float32))
+    A = torch.from_numpy(rng.standard_normal((N, m, ncols)).astype(np.float32)).to(dev)
+    return h, sg.to(dev), A
+
+
+def _per_item(h, sg, A, s, transpose_out=False):
+    """Each item's parts through the single-sketch kernel, added in order."""
+    outs = []
+    for n in range(h.shape[0]):
+        parts = [ops.countsketch_apply(h[n, q].contiguous(), sg[n, q].contiguous(), A[n], s,
+                                       transpose_out=transpose_out) for q in range(h.shape[1])]
+        out = parts[0]
+        for x in parts[1:]:
+            out = out + x
+        outs.append(out)
+    return torch.stack(outs)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("layout", ["rows", "panel-transposed", "column-major", "fold"])
+def test_cuda_countsketch_batched_matches_per_item_and_plain(cuda, layout, dtype):
+    """One launch for the stack; bit for bit the per-item kernels' sums of
+    parts (the same bucket orders, the parts added in order), and within
+    1e-5 of the plain version."""
+    N, p, s = 40, 4, 96
+    if layout == "rows":  # S_C·A_L of a panel window (rows contiguous, a row stride)
+        h, sg, A = _stack_inputs(cuda, N, p, s, 64, 100)
+        A, kw = A[:, :, 20:52].to(dtype), {}
+    elif layout == "panel-transposed":  # the Ω window on a panel's transpose
+        h, sg, _ = _stack_inputs(cuda, N, p, s, 32, 1)
+        hist = torch.randn((N, 64, 100), device=cuda).to(dtype)
+        A, kw = hist[:, :, 20:52].transpose(1, 2), {"transpose_out": True}
+    elif layout == "column-major":  # S_R·V_R at finalize (the view kernel)
+        h, sg, A = _stack_inputs(cuda, N, p, s, 600, 32)
+        A, kw = A.transpose(1, 2).contiguous().transpose(1, 2).to(dtype), {}
+    else:
+        h, sg, X = _stack_inputs(cuda, N, p, s, 32, 96)
+        X = X.transpose(1, 2).contiguous().to(dtype)  # (N, 96, 32): rows of sc_a
+        M0 = torch.randn((N, 96, s), device=cuda)
+        ops.reset_launches()
+        got = ops.countsketch_batched_fold(h, sg, X, M0.clone())
+        assert ops.LAUNCHES["countsketch_batched"] == 1
+        want = M0 + _per_item(h, sg, X.transpose(1, 2), s).transpose(1, 2)
+        assert torch.equal(got, want)
+        with ops.force_plain():
+            _close(got, ops.countsketch_batched_fold(h, sg, X, M0.clone()))
+        return
+    ops.reset_launches()
+    got = ops.countsketch_batched(h, sg, A, s, **kw)
+    assert ops.LAUNCHES["countsketch_batched"] == 1
+    assert torch.equal(got, _per_item(h, sg, A, s, **kw))
+    with ops.force_plain():
+        _close(got, ops.countsketch_batched(h, sg, A, s, **kw))
+
+
+def _to(sk, dev):
+    """Stacked sketches moved to ``dev`` (fresh orders there)."""
+    import dataclasses
+
+    from repro_torch.core.sketching import StackedOSNAPSketch
+
+    return dataclasses.replace(sk, **{
+        f: StackedOSNAPSketch(hashes=getattr(sk, f).hashes.to(dev),
+                              signs=getattr(sk, f).signs.to(dev), s=getattr(sk, f).s)
+        for f in ("psi", "omega", "s_c", "s_r")}, g_r=sk.g_r.to(dev), g_c=sk.g_c.to(dev))
+
+
+def test_cuda_stacked_engine_matches_per_head_and_cpu(cuda):
+    """The stacked engine's launches do not grow with the heads; its M is
+    the per-head engine's on the card bit for bit, C and R within 1e-5
+    (torch.bmm against per-head products); against the CPU's, σ within 1e-5
+    and the whole rank-c reconstruction within 1e-4 (cuSOLVER's QR and SVD
+    against LAPACK's, as the CPU tests hold the port to XLA's)."""
+    from repro_torch.core import svd
+    from repro_torch.stream.engine import panel_update
+
+    sizes = dict(c=32, r=32, c0=64, r0=64, s_c=96, s_r=96)
+    launches = []
+    for N in (8, 64):
+        g = torch.Generator(cuda).manual_seed(N)
+        st = svd.spsvd_stacked_init(g, N, 64, 300, sizes=sizes, osnap_p=4, device=cuda)
+        A = torch.randn((N, 64, 300), generator=g, device=cuda)
+        ops.reset_launches()
+        svd.spsvd_stacked_scan(st, A, 9, 32)
+        svd.spsvd_stacked_update(st, A[:, :, 288:])
+        U, S, V = svd.spsvd_stacked_finalize(st)
+        launches.append(ops.LAUNCHES["countsketch_batched"])
+    assert launches[0] == launches[1] == 10 * 4 + 2
+    for i in (0, 17, 63):
+        h = svd.spsvd_engine_init(None, 64, 300, sizes=sizes, osnap_p=4, sketches=st.sk.head(i),
+                                  device=cuda)
+        for off in range(0, 288, 32):
+            panel_update(h, A[i][:, off : off + 32])
+        panel_update(h, A[i][:, 288:])
+        assert torch.equal(st.M[i], h.M)
+        _close(st.C[i], h.C)
+        _close(st.R[i], h.R)
+    cpu = svd.spsvd_stacked_init(None, 64, 64, 300, sizes=sizes, osnap_p=4,
+                                 sketches=_to(st.sk, "cpu"), device="cpu")
+    svd.spsvd_stacked_scan(cpu, A.cpu(), 9, 32)
+    svd.spsvd_stacked_update(cpu, A.cpu()[:, :, 288:])
+    Uc, Sc, Vc = svd.spsvd_stacked_finalize(cpu)
+    _close(S.cpu(), Sc)
+    _close(((U * S[:, None]) @ V.transpose(1, 2)).cpu(), (Uc * Sc[:, None]) @ Vc.transpose(1, 2),
+           tol=1e-4)
+
+
+@pytest.mark.parametrize("compressed", [False, True], ids=["dense", "compressed"])
+def test_cuda_generate_matches_cpu(cuda, compressed):
+    """Greedy generation of the fp32 llama smoke config on the card gives
+    the CPU's tokens (the same weights and sketches), with kernel 1 launched
+    by the compressed cache's conversion and folds."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.svd import StackedSPSVDSketches
+    from repro_torch.core.sketching import StackedOSNAPSketch
+    from repro_torch.models import init_params
+    from repro_torch.serve import KVCompressionConfig, generate
+
+    cfg = get_arch("llama3.2-1b").smoke_config()
+    model = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(1))
+    kw = {}
+    if compressed:
+        kc = KVCompressionConfig(rank=4, oversample=2, panel=8, decode_panel=4, refresh_every=8)
+        g = torch.Generator().manual_seed(2)
+        N, hd, n_max = cfg.n_layers * 2 * cfg.n_kv_heads, cfg.head_dim, 40 + 12
+        c = 8
+
+        def draw():
+            osn = lambda s, m: StackedOSNAPSketch.draw(g, N, s, m, p=4)  # noqa: E731
+            return StackedSPSVDSketches(psi=osn(2 * c, hd), g_r=torch.randn((N, c, 2 * c), generator=g),
+                                        omega=osn(2 * c, n_max), g_c=torch.randn((N, c, 2 * c), generator=g),
+                                        s_c=osn(3 * c, hd), s_r=osn(3 * c, n_max))
+
+        sk = (draw(), draw())
+        kw = dict(kv_compress=kc, kv_sketches={0: sk})
+    want = generate(model, cfg, prompt, 12, **kw)
+    if compressed:
+        kw["kv_sketches"] = {0: tuple(_to(x, cuda) for x in sk)}
+    ops.reset_launches()
+    got = generate(model.to(cuda), cfg, prompt.to(cuda), 12, **kw)
+    assert torch.equal(got.cpu(), want)
+    assert (ops.LAUNCHES["countsketch_batched"] > 0) == compressed

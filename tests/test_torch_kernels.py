@@ -119,6 +119,106 @@ def test_view_kernel_takes_column_major_operands():
     assert not ops.reads_columns(X[:1].T) and not ops.reads_columns(X[:, :1])
 
 
+# kernel 1 over a stack of items (the KV compressor's head batch): N items
+# of p CountSketch parts each, one launch on the card
+
+
+def _stack(seed, N, p, s, m, ncols):
+    rng = np.random.default_rng(seed)
+    h = rng.integers(0, s, (N, p, m)).astype(np.int32)
+    sg = (rng.choice([-1.0, 1.0], (N, p, m)) / np.sqrt(p)).astype(np.float32)
+    A = rng.standard_normal((N, m, ncols)).astype(np.float32)
+    return h, sg, A
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_countsketch_batched_plain_matches_pallas_per_item(dtype):
+    """Item n's output is the sum, in part order, of the reference's Pallas
+    kernel (interpret mode) over its parts."""
+    N, p, s, m, ncols = 3, 2, 40, 100, 30
+    h, sg, A = _stack(1, N, p, s, m, ncols)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    Aj = jnp.asarray(A).astype(jdt)
+    At = _t(np.asarray(Aj.astype(jnp.float32))).to(getattr(torch, dtype))
+    got = ops.countsketch_batched(_t(h), _t(sg), At, s)
+    assert got.shape == (N, s, ncols) and got.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2.5e-2
+    for n in range(N):
+        want = sum(jk.countsketch_apply(jnp.asarray(h[n, q]), jnp.asarray(sg[n, q]), Aj[n], s,
+                                        interpret=True) for q in range(p))
+        _close(got[n], want, tol, f"item {n}")
+
+
+def test_countsketch_batched_plain_is_the_per_item_plain_bitwise():
+    """The flattened ``index_add_`` is each item's ``countsketch_ref``, its
+    parts added in order, bit for bit; the transposed output and the fold
+    are ``.T`` and ``M.add_(apply_t)`` of it."""
+    N, p, s, m, ncols = 4, 3, 9, 50, 7
+    h, sg, A = (_t(x) for x in _stack(2, N, p, s, m, ncols))
+    got = ops.countsketch_batched(h, sg, A, s)
+    for n in range(N):
+        want = ref.countsketch_ref(h[n, 0], sg[n, 0], A[n], s)
+        for q in range(1, p):
+            want = want + ref.countsketch_ref(h[n, q], sg[n, q], A[n], s)
+        assert torch.equal(got[n], want)
+    assert torch.equal(ops.countsketch_batched(h, sg, A, s, transpose_out=True),
+                       got.transpose(1, 2))
+    X = A.transpose(1, 2).contiguous()  # (N, ncols, m): rows folded into s buckets
+    M0 = torch.from_numpy(np.random.default_rng(3).standard_normal((N, ncols, s)).astype(
+        np.float32))
+    M = ops.countsketch_batched_fold(h, sg, X, M0.clone())
+    assert torch.equal(M, M0 + got.transpose(1, 2))
+
+
+def _emulate_batched_kernel(h, sg, A, s):
+    """The CUDA stacked gather kernel's arithmetic: per item, per part, each
+    bucket's rows in ascending order (one sort for all items and parts),
+    products and sums rounded to fp32, the parts' sums added in order."""
+    N, p, m = h.shape
+    perm, start = ops.batched_window_orders(h.reshape(N * p, m), s, m)
+    out = torch.zeros((N, s, A.shape[2]))
+    for n in range(N):
+        for b in range(s):
+            total = None
+            for q in range(p):
+                k = n * p + q
+                acc = torch.zeros(A.shape[2])
+                for e in range(int(start[k, 0, b]), int(start[k, 0, b + 1])):
+                    r = int(perm[k, e])
+                    acc = acc + sg[n, q, r] * A[n, r]
+                total = acc if total is None else total + acc
+            out[n, b] = total
+    return out
+
+
+def test_countsketch_batched_kernel_order_is_the_plain_order():
+    N, p, s, m, ncols = 3, 2, 6, 40, 5
+    h, sg, A = (_t(x) for x in _stack(4, N, p, s, m, ncols))
+    assert torch.equal(ops.countsketch_batched(h, sg, A, s), _emulate_batched_kernel(h, sg, A, s))
+
+
+@pytest.mark.parametrize("m,s,L", [(1000, 37, 64), (65, 9, 16), (40, 12, 40)])
+def test_batched_window_orders_are_each_items_window_orders(m, s, L):
+    """One sort over K stacked sketches gives each item's ``window_orders``."""
+    K = 5
+    h = _t(np.random.default_rng(m + s).integers(0, s, (K, m)).astype(np.int32))
+    perm, start = ops.batched_window_orders(h, s, L)
+    assert perm.shape == (K, m) and start.shape == (K, -(-m // L), s + 1)
+    for k in range(K):
+        want_perm, want_start = ops.window_orders(h[k], s, L)
+        assert torch.equal(perm[k], want_perm) and torch.equal(start[k], want_start)
+
+
+def test_batched_wrappers_refuse_mismatched_stacks():
+    h, sg, A = (_t(x) for x in _stack(5, 2, 2, 8, 20, 3))
+    with pytest.raises(ValueError):
+        ops.countsketch_batched(h, sg, A[:, :10], 8)  # rows ≠ m
+    with pytest.raises(ValueError):
+        ops.countsketch_batched(h, sg[:1], A, 8)
+    with pytest.raises(ValueError):
+        ops.countsketch_batched_fold(h, sg, A.transpose(1, 2), torch.zeros(2, 4, 8))
+
+
 # ---------------------------------------------------------------------------
 # kernel 4: twoside_sketch
 # ---------------------------------------------------------------------------
@@ -535,8 +635,10 @@ def test_cpu_tensors_take_plain_versions_without_counting():
     ops.countsketch_apply(torch.zeros(5, dtype=torch.int32), torch.ones(5), torch.ones(5, 3), 4)
     ops.panel_score(torch.ones(4, 5), torch.ones(5, 3), torch.zeros(4, 2))
     ops.twoside_sketch(torch.ones(4, 5), torch.ones(2, 5, 3), torch.ones(3, 6))
-    assert ops.LAUNCHES == {"countsketch": 0, "panel_score": 0, "panel_update": 0,
-                            "twoside_sketch": 0}
+    ops.countsketch_batched(torch.zeros((2, 1, 5), dtype=torch.int32), torch.ones(2, 1, 5),
+                            torch.ones(2, 5, 3), 4)
+    assert ops.LAUNCHES == {"countsketch": 0, "countsketch_batched": 0, "panel_score": 0,
+                            "panel_update": 0, "twoside_sketch": 0}
     assert not ops.kernel_route_enabled(torch.ones(1))
 
 

@@ -1,0 +1,264 @@
+"""The port's model stack (``repro_torch.models``, ``repro_torch.configs``)
+against the JAX reference on shared inputs.
+
+Weights come from the reference's ``init_params`` and cross through
+:func:`repro_torch.convert.model_params` (bf16 leaves as their bits);
+tokens are drawn with numpy. Tolerances:
+
+* configs and segment patterns: equal field by field;
+* attention (fp32): 2e-5 absolute, the reference's own test's bound on its
+  flash attention against the naive one (both sides fp32, different
+  summation orders and ``exp`` implementations);
+* fp32 logits: 1e-5 of the largest |logit| (three layers of fp32 products
+  summed in other orders, and other ``rsqrt``/``cos``/``sin`` ulps);
+* bf16 logits: 3e-2 of the largest |logit| — both sides round every
+  activation to bf16 (2^-8 relative), at different places (XLA fuses, the
+  port rounds after each op), through three layers.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as rconfigs
+from repro import models as rmodels
+from repro.models import attention as rattn
+from repro_torch import configs as pconfigs
+from repro_torch import convert
+from repro_torch import models as pmodels
+from repro_torch.models import attention as pattn
+
+LOGIT_ARCHS = ["llama3.2-1b", "phi4-mini-3.8b", "mistral-nemo-12b", "musicgen-large",
+               "gemma3-12b"]
+B, S, N_DECODE = 2, 40, 3
+
+
+def _t(x, dtype=None):
+    t = torch.from_numpy(np.array(x))
+    return t.to(dtype) if dtype else t
+
+
+def _close(got, want, tol, what=""):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, f"{what}: max abs err {err} > {tol} x {scale}"
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+
+def _fields(cfg) -> dict:
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    d["pattern"] = tuple(b.signature for b in cfg.pattern)
+    return d
+
+
+@pytest.mark.parametrize("which", ["full_config", "smoke_config"])
+@pytest.mark.parametrize("arch_id", list(rconfigs.ARCH_IDS))
+def test_configs_match_reference_field_by_field(arch_id, which):
+    ref = getattr(rconfigs.get_arch(arch_id), which)()
+    port = getattr(pconfigs.get_arch(arch_id), which)()
+    assert [f.name for f in dataclasses.fields(port)] == [f.name for f in dataclasses.fields(ref)]
+    assert _fields(port) == _fields(ref)
+    assert port.param_dtype == getattr(torch, ref.dtype)
+    assert port.d_inner == ref.d_inner
+    assert port.validate_tpu_alignment() == ref.validate_tpu_alignment()
+    assert pconfigs.get_arch(arch_id).SUPPORTED_SHAPES == rconfigs.get_arch(arch_id).SUPPORTED_SHAPES
+
+
+def test_registry_answers_every_reference_arch():
+    assert pconfigs.ARCH_IDS == rconfigs.ARCH_IDS
+    assert pconfigs.supported_cells() == rconfigs.supported_cells()
+    assert pconfigs.SHAPES == {k: pconfigs.ShapeCell(*dataclasses.astuple(v))
+                               for k, v in rconfigs.SHAPES.items()}
+    with pytest.raises(KeyError):
+        pconfigs.get_arch("no-such-arch")
+
+
+def _patterns():
+    out = {}
+    for arch_id in rconfigs.ARCH_IDS:
+        for which in ("full_config", "smoke_config"):
+            out[f"{arch_id}:{which}"] = getattr(rconfigs.get_arch(arch_id), which)().pattern
+    A, L, M = (rmodels.BlockSpec(k) for k in (rmodels.ATTN, rmodels.ATTN_LOCAL, rmodels.MAMBA2))
+    out.update({"single": (A,), "alternating": (A, L) * 5, "prefix_then_unit": (M, M, A, L, A, L),
+                "ragged": (A, A, L, A, A, L, A), "unit_9": (A,) * 8 + (L,)})
+    return out
+
+
+PATTERNS = _patterns()
+
+
+@pytest.mark.parametrize("name", list(PATTERNS))
+def test_compile_pattern_matches_reference(name):
+    pat = PATTERNS[name]
+    port_pat = tuple(pmodels.BlockSpec(b.mixer, b.ffn) for b in pat)
+    want = [(tuple(b.signature for b in s.unit), s.n_repeat) for s in rmodels.compile_pattern(pat)]
+    got = [(tuple(b.signature for b in s.unit), s.n_repeat)
+           for s in pmodels.compile_pattern(port_pat)]
+    assert got == want
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+# the reference's cases (tests/test_models_smoke.py): (B, S, H, KV, D, window, chunk)
+ATTN_CASES = [(2, 128, 4, 2, 16, None, 32), (1, 200, 8, 8, 8, None, 64),
+              (2, 256, 4, 1, 16, 48, 32), (1, 96, 2, 2, 8, 20, 32)]
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_flash_attention_matches_reference(case):
+    Bq, Sq, H, KV, D, window, chunk = case
+    rng = np.random.default_rng(sum(x or 0 for x in case))
+    q, k, v = (rng.standard_normal(shape).astype(np.float32)
+               for shape in ((Bq, Sq, H, D), (Bq, Sq, KV, D), (Bq, Sq, KV, D)))
+    want = rattn.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window,
+                                 chunk=chunk)
+    got = pattn.flash_attention(_t(q), _t(k), _t(v), window=window, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("window", [None, 24])
+def test_decode_attention_matches_reference(window):
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    kc, vc = (rng.standard_normal((2, 64, 2, 16)).astype(np.float32) for _ in range(2))
+    for length in (1, 37, 64):
+        want = rattn.decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                      jnp.asarray(length), window=window)
+        got = pattn.decode_attention(_t(q), _t(kc), _t(vc), length, window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# logits with converted weights
+# ---------------------------------------------------------------------------
+
+
+def _reference_run(cfg, seed: int = 0):
+    """The reference's weights (numpy leaves), its train_logits, prefill and
+    three greedy decode steps, jitted; the tokens each step was fed."""
+    params = jax.jit(lambda k: rmodels.init_params(k, cfg))(jax.random.key(seed))
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    logits, _ = jax.jit(lambda p, t: rmodels.train_logits(p, cfg, t))(params, toks)
+    lg, cache = jax.jit(lambda p, t: rmodels.prefill(p, cfg, t, S + N_DECODE + 1))(params, toks)
+    step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg, c, t))
+    fed, steps = [], []
+    prefill_cache = jax.tree.map(np.asarray, cache)
+    tok = jnp.argmax(lg, -1).astype(jnp.int32)
+    for _ in range(N_DECODE):
+        fed.append(np.asarray(tok))
+        lg_t, cache = step(params, cache, tok)
+        steps.append(np.asarray(lg_t))
+        tok = jnp.argmax(lg_t, -1).astype(jnp.int32)
+    return dict(params=jax.tree.map(np.asarray, params), toks=toks, logits=np.asarray(logits),
+                prefill=np.asarray(lg), cache=prefill_cache, fed=fed, steps=steps)
+
+
+def _port_logits(cfg, ref, tol):
+    model = convert.model_params(ref["params"], cfg, device="cpu")
+    toks = _t(ref["toks"])
+    logits, aux = pmodels.train_logits(model, cfg, toks)
+    assert float(aux) == 0.0
+    _close(logits, ref["logits"], tol, "train_logits")
+    lg, cache = pmodels.prefill(model, cfg, toks, S + N_DECODE + 1)
+    assert cache["length"] == S
+    _close(lg, ref["prefill"], tol, "prefill")
+    for t, (tok, want) in enumerate(zip(ref["fed"], ref["steps"])):
+        lg, cache = pmodels.decode_step(model, cfg, cache, _t(tok))
+        _close(lg, want, tol, f"decode step {t}")
+    assert cache["length"] == S + N_DECODE
+    return model
+
+
+@pytest.mark.parametrize("arch_id", LOGIT_ARCHS)
+def test_smoke_logits_match_reference(arch_id):
+    cfg_r = rconfigs.get_arch(arch_id).smoke_config()
+    cfg_p = pconfigs.get_arch(arch_id).smoke_config()
+    ref = _reference_run(cfg_r)
+    model = _port_logits(cfg_p, ref, 1e-5)
+    assert pmodels.param_count(model) == rmodels.param_count(ref["params"])
+
+
+def test_bf16_smoke_logits_and_leaves_match_reference():
+    """A bf16 config: every converted leaf keeps its bits, and the logits
+    agree within the bf16 tolerance."""
+    cfg_r = dataclasses.replace(rconfigs.get_arch("llama3.2-1b").smoke_config(), dtype="bfloat16")
+    cfg_p = dataclasses.replace(pconfigs.get_arch("llama3.2-1b").smoke_config(), dtype="bfloat16")
+    ref = _reference_run(cfg_r, seed=3)
+    model = _port_logits(cfg_p, ref, 3e-2)
+    tok = ref["params"]["embed"]["tok"]
+    assert tok.dtype.name == "bfloat16" and model.embed.tok.dtype == torch.bfloat16
+    assert np.array_equal(model.embed.tok.view(torch.int16).numpy(), tok.view(np.int16))
+    w_q = ref["params"]["segments"][0][0]["mixer"]["w_q"]  # (n_repeat, D, H·hd)
+    for layer in range(cfg_p.n_layers):
+        got = model.blocks[layer].mixer.w_q.view(torch.int16).numpy()
+        assert np.array_equal(got, w_q[layer].view(np.int16))
+
+
+def test_dense_cache_converter_continues_the_reference_decode():
+    """A reference prefill cache converted to the port's per-layer cache
+    decodes as the reference does from it (gemma3: ring and full caches)."""
+    cfg_r = rconfigs.get_arch("gemma3-12b").smoke_config()
+    cfg_p = pconfigs.get_arch("gemma3-12b").smoke_config()
+    ref = _reference_run(cfg_r, seed=1)
+    model = convert.model_params(ref["params"], cfg_p, device="cpu")
+    cache = convert.dense_cache(ref["cache"], cfg_p, device="cpu")
+    assert cache["length"] == S and len(cache["layers"]) == cfg_p.n_layers
+    assert cache["layers"][0]["k"].shape == (B, cfg_p.window, cfg_p.n_kv_heads, cfg_p.head_dim)
+    lg, _ = pmodels.decode_step(model, cfg_p, cache, _t(ref["fed"][0]))
+    _close(lg, ref["steps"][0], 1e-5, "decode from a converted cache")
+
+
+def test_scanned_segments_unstack_in_layer_order():
+    """llama's 3 layers are one scanned segment: layer i of the port holds
+    repeat i of the reference's stacked leaves."""
+    cfg_r = rconfigs.get_arch("llama3.2-1b").smoke_config()
+    cfg_p = pconfigs.get_arch("llama3.2-1b").smoke_config()
+    assert [s.n_repeat for s in pmodels.segments(cfg_p)] == [3]
+    params = jax.tree.map(np.asarray, jax.jit(lambda k: rmodels.init_params(k, cfg_r))(
+        jax.random.key(7)))
+    model = convert.model_params(params, cfg_p, device="cpu")
+    seg = params["segments"][0][0]
+    for layer, block in enumerate(model.blocks):
+        assert np.array_equal(block.ffn.w_down.numpy(), seg["ffn"]["w_down"][layer])
+        assert np.array_equal(block.norm1.numpy(), seg["norm1"]["scale"][layer])
+
+
+def test_entry_points_raise_without_cuda_and_unported_blocks_name_their_item():
+    cfg = pconfigs.get_arch("llama3.2-1b").smoke_config()
+    g = torch.Generator()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pmodels.init_params(g, cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            pmodels.init_cache(cfg, 1, 8)
+    for arch_id in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-1.3b", "zamba2-1.2b",
+                    "llama-3.2-vision-90b"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5\.[123]"):
+            pmodels.init_params(g, pconfigs.get_arch(arch_id).smoke_config(), device="cpu")
+
+
+def test_port_init_draws_the_reference_distribution():
+    """Not the reference's bits (torch cannot reproduce jax.random): the same
+    shapes and dtypes, truncated-normal scales and unit norms."""
+    cfg = pconfigs.get_arch("phi4-mini-3.8b").smoke_config()
+    g = torch.Generator()
+    g.manual_seed(0)
+    model = pmodels.init_params(g, cfg, device="cpu")
+    ref = jax.tree.map(np.asarray, jax.jit(lambda k: rmodels.init_params(
+        k, rconfigs.get_arch("phi4-mini-3.8b").smoke_config()))(jax.random.key(0)))
+    w = model.blocks[0].mixer.w_q
+    assert w.shape == ref["segments"][0][0]["mixer"]["w_q"].shape[1:]
+    assert float(w.abs().max()) <= 2.0 / np.sqrt(cfg.d_model) + 1e-6
+    assert torch.equal(model.final_norm, torch.ones(cfg.d_model))
+    assert "lm_head" in ref["embed"] and model.embed.lm_head.shape == ref["embed"]["lm_head"].shape

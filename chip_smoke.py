@@ -110,7 +110,31 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    a per-head loop of the plain versions on 4 heads (1e-5).
    The kernels phase holds kernel 1's stacked launch (gather, transposed,
    fold, view; fp32 and bf16) against its plain version at (s)'s shapes:
-   the conversion's 1024 heads and a fold's 64.
+   the conversion's 1024 heads and a fold's 64, and at (u)'s: 64 heads of
+   head_dim 128, the conversion's and a fold's;
+13. (t) MoE and MLA serving — deepseek-v2-lite's full config, nothing cut
+   (27 layers, d_model 2048, MLA with kv_lora 512 and rope 64, 64 experts
+   top-6 plus 2 shared, bf16; 15,706,470,400 parameters), (r)'s 8 requests
+   of 2048 seeded tokens, 64 greedy tokens through ``generate`` with the
+   capacity dispatch: prefill and decode ms, tokens/s, the latent cache's
+   bytes, peak memory, the dropped share of prefill assignments (16 groups
+   of 1024 tokens, capacity 120) and the expert loads, read by rerunning
+   ``generate`` block by block (``walk_generate``: its tokens must be
+   ``generate``'s) with ``route`` and ``dispatch_slots`` on each MoE
+   layer's input; beside them, at the first MoE layer, an fp32 rerun and
+   Gaussian router inputs (``routing_witness``); gates: (1) SDPA's
+   prefill logits against the plain attention path's, which a wrong
+   softmax scale (1/sqrt(128)) must fail, (2) ``moe_ffn`` at
+   capacity factor E/k against ``moe_ffn_dense`` on one MoE layer over 2 x
+   2048 tokens, (3) no decode assignment dropped, (4) the compressed-cache
+   conversion passes every latent through, bit for bit; which SDPA
+   backends take MLA's shapes (Q, K 192 wide, V 128);
+14. (u) kimi-k2 at full width, depth cut to its first two layers (one
+   dense, one MoE of 384 experts; 19,967,675,392 parameters), 8 requests
+   of 2048 seeded tokens, 32 greedy tokens, with the dense KV cache and
+   with (s)'s compressed one: prefill, conversion and decode ms, kernel
+   1's stacked launches (head_dim 128), ``cache_nbytes`` against the dense
+   cache, each head's error over its optimum (never below it).
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -120,6 +144,7 @@ no result and exits 1.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import importlib
 import json
@@ -165,6 +190,15 @@ SERVE_KC = dict(rank=16, oversample=2, panel=32, decode_panel=8, refresh_every=3
 # the 16 layers rounds its attention output to bf16 (2^-8) at other places, so
 # at most 16 x 2^-8 of the largest logit if the roundings added up
 SERVE_LOGIT_TOL = 16 * 2.0 ** -8
+# (t): deepseek-v2-lite's full config (15,706,470,400 parameters) serving (r)'s
+# requests; its latent cache is 27 layers x 8 x 2112 x (512 + 64) bf16. (u):
+# kimi-k2 at full width cut to its first two layers (one dense, one MoE),
+# 32 greedy tokens. SDPA's MLA prefill logits against the plain path's: (r)'s
+# bound scaled to 27 layers
+DEEPSEEK_ARCH, DEEPSEEK_PARAMS = "deepseek-v2-lite-16b", 15_706_470_400
+DEEPSEEK_LATENT_BYTES = 27 * SERVE_B * (SERVE_S + SERVE_T) * (512 + 64) * 2
+DEEPSEEK_LOGIT_TOL = 27 * 2.0 ** -8
+KIMI_ARCH, KIMI_DEPTH, KIMI_PARAMS, KIMI_T = "kimi-k2-1t-a32b", 2, 19_967_675_392, 32
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -491,24 +525,30 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
 
 
 def kernel_batched(torch, ops, dev, g, peaks) -> dict:
-    """Kernel 1's stacked launches at (s)'s shapes, one launch per OSNAP
-    apply for a whole head batch: the prefill conversion's N = 1024 heads
-    (16 layers x 8 requests x 8 kv-heads, one of K and V) at head_dim 64 and
-    panel 32, and a decode fold's N = 64 (one layer) at panel 8; OSNAP p =
-    4, s_c = s_r = 96, c0 = 64. Each held against its plain version
-    (``force_plain``) with fp32 and bf16 operands: S_C on a panel window
-    (gather), the Ω window on the panel's transpose (transposed output), the
-    S_R fold into M, and, for the conversion, S_R on the column-major V_R of
-    finalize (the view kernel). Times at the conversion's S_C panel shape:
-    the kernel, the plain version and one ``index_add_`` over the flattened
-    ``item·s + hash`` buckets of pre-signed rows."""
+    """Kernel 1's stacked launches at (s)'s and (u)'s shapes, one launch per
+    OSNAP apply for a whole head batch: (s)'s prefill conversion, N = 1024
+    heads (16 layers x 8 requests x 8 kv-heads, one of K and V) at head_dim
+    64 and panel 32, and a decode fold's N = 64 (one layer) at panel 8;
+    (u)'s conversion and decode folds, N = 64 heads (8 requests x 8
+    kv-heads of one layer) at head_dim 128, panel 32 and 8; the folds'
+    windows from the prompt's end; OSNAP p = 4, s_c = s_r = 96, c0 = 64. Each held against
+    its plain version (``force_plain``) with fp32 and bf16 operands: S_C on
+    a panel window (gather), the Ω window on the panel's transpose
+    (transposed output), the S_R fold into M, and, for the conversions, S_R
+    on the column-major V_R of finalize (the view kernel).
+    Times at each conversion's S_C panel shape: the kernel, the plain
+    version and one ``index_add_`` over the flattened ``item·s + hash``
+    buckets of pre-signed rows (the kernels line carries (s)'s; (u)'s goes
+    to its own line)."""
     from repro_torch.core.sketching import StackedOSNAPSketch
 
-    hd, n_max, p, s, c0, r = 64, SERVE_S + SERVE_T, 4, 96, 64, 32
-    errs, shapes = {}, {}
-    for name, N, L in (("conversion", 1024, SERVE_KC["panel"]),
-                       ("decode_fold", 64, SERVE_KC["decode_panel"])):
-        base = 0 if name == "conversion" else SERVE_S
+    n_max, p, s, c0, r = SERVE_S + SERVE_T, 4, 96, 64, 32
+    errs, shapes, out = {}, {}, {}
+    for name, N, L, hd in (("conversion", 1024, SERVE_KC["panel"], 64),
+                           ("decode_fold", 64, SERVE_KC["decode_panel"], 64),
+                           ("conversion_hd128", SERVE_B * 8, SERVE_KC["panel"], 128),
+                           ("decode_fold_hd128", SERVE_B * 8, SERVE_KC["decode_panel"], 128)):
+        base = 0 if name.startswith("conversion") else SERVE_S
         S_C = StackedOSNAPSketch.draw(g, N, s, hd, p=p)
         S_R = StackedOSNAPSketch.draw(g, N, s, n_max, p=p).index_windows(L, base)
         Om = StackedOSNAPSketch.draw(g, N, c0, n_max, p=p).index_windows(L, base)
@@ -523,7 +563,7 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
                 "fold": lambda: S_R.cols(off, L).fold_t(  # noqa: B023
                     S_C.apply(A_L).to(dt), M0.clone()),  # noqa: B023
             }
-            if name == "conversion":
+            if name.startswith("conversion"):
                 V = torch.randn((N, r, n_max), generator=g, device=dev).to(dt).transpose(1, 2)
                 cases["view"] = lambda: S_R.apply(V)  # noqa: B023
             for case, fn in cases.items():
@@ -538,7 +578,7 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
                 check(e[1] <= TOL, f"countsketch batched {name}/{case} {dt}: rel err {e[1]}")
                 errs[f"{name}/{case}/{str(dt).split('.')[-1]}"] = e
         shapes[name] = dict(items=N, parts=p, head_dim=hd, panel=L, s=s, c0=c0)
-        if name != "conversion":
+        if not name.startswith("conversion"):
             continue
         # times at the conversion's S_C panel shape, panels rotated out of L2
         n_rot = 8
@@ -558,13 +598,15 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
         # the output written once
         nbytes = 4 * (N * hd * L + K * hd + K * (s + 1) + K * hd + N * s * L)
         b, by = bound_ms(nbytes, K * hd * L, peaks)
-        out = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
-        emit("kernel/countsketch_batched", shape=shapes, ms=k_ms, plain_ms=p_ms,
+        out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
+        line = "kernel/countsketch_batched" + ("" if name == "conversion" else "_hd128")
+        emit(line, shape=shapes[name], ms=k_ms, plain_ms=p_ms,
              library_ms=lib_ms, timing="device ms per call (torch.profiler)", events_ms=k_ev,
              plain_events_ms=p_ev, library_events_ms=lib_ev,
              library="one index_add_ over item*s + hash buckets of pre-signed rows",
              bound_ms=b, bound_by=by, bytes=nbytes, rel_err={k: v[1] for k, v in errs.items()})
         del panels, signed, acc
+    out = out["conversion"]
     out["max_abs_err"] = max(e[0] for e in errs.values())
     out["max_rel_err"] = max(e[1] for e in errs.values())
     emit("kernel/countsketch_batched_cases", shape=shapes,
@@ -2578,11 +2620,11 @@ def serve_convert_parts(torch, dense: dict, kc) -> dict:
                 finalize_ms=ev[2].elapsed_time(ev[3]))
 
 
-def serve_synthetic(torch, ops, dev) -> dict:
-    """The reference's own bound on a rank-8 head batch (hd 64, S 2048, rank
-    16, oversample 4: every head's error < 0.05), and the stacked engine
-    against a per-head loop on 4 of its heads: the stacked state with kernel
-    1, the per-head engines with the plain versions (``force_plain``)."""
+def serve_synthetic(torch, ops, dev, hd: int = 64) -> dict:
+    """The reference's own bound on a rank-8 head batch (head_dim ``hd``, S
+    2048, rank 16, oversample 4: every head's error < 0.05), and the stacked
+    engine against a per-head loop on 4 of its heads: the stacked state with
+    kernel 1, the per-head engines with the plain versions (``force_plain``)."""
     from repro_torch.core.svd import spsvd_stacked_finalize, spsvd_engine_finalize
     from repro_torch.serve import KVCompressionConfig, compress_head_batch, compression_error
     from repro_torch.serve.kv_compress import (_engine_init, _fac_width, _stacked_init,
@@ -2590,7 +2632,7 @@ def serve_synthetic(torch, ops, dev) -> dict:
     from repro_torch.stream.engine import panel_update
 
     g = gen(torch, dev, SEED + 70)
-    B, KV, hd = SERVE_B, 8, 64
+    B, KV = SERVE_B, 8
     coef = torch.randn((B, KV, SERVE_S, 8), generator=g, device=dev)
     hist = coef @ torch.randn((B, KV, 8, hd), generator=g, device=dev)
     kc = KVCompressionConfig(rank=16, oversample=4, panel=128)
@@ -2614,7 +2656,7 @@ def serve_synthetic(torch, ops, dev) -> dict:
                 worst[key] = max(worst[key], err(got, want)[1])
     check(max(worst.values()) <= 1e-5, f"stacked engine against the per-head loop: {worst}")
     return dict(rank8_max_error=float(errs.max()), rank8_heads=int(errs.numel()),
-                stacked_vs_per_head_rel_err=worst, fac_width=_fac_width(hd, kc))
+                stacked_vs_per_head_rel_err=worst, fac_width=_fac_width(hd, kc), head_dim=hd)
 
 
 def phase_serve(torch, ops, dev) -> list:
@@ -2744,6 +2786,422 @@ def phase_serve(torch, ops, dev) -> list:
     return launched
 
 
+# position buckets of a request for the router inputs' spread (prefill)
+COS_BUCKETS = ((0, 16), (16, 256), (256, 1024), (1024, SERVE_S))
+
+
+def walk_stack(torch, blocks, specs, cfg, x, mix) -> tuple:
+    """``x`` through the blocks as ``prefill`` and ``decode_step`` run them:
+    ``mix(i, spec, block, x)`` runs block i's mixer half (its spec with no
+    FFN) and returns the residual, then ``apply_ffn`` its FFN half. At each
+    MoE layer ``route`` and ``dispatch_slots`` are called on the FFN's input
+    itself: ``(x, [record per MoE layer])``, a record holding the experts,
+    the kept mask, P, the capacity and, over a prompt, how close each
+    token's input lies to its request's mean (cosine, by position bucket)."""
+    from repro_torch.models.blocks import apply_ffn
+    from repro_torch.models.config import MOE, NONE, BlockSpec
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.moe import dispatch_groups, dispatch_slots, route
+
+    recs = []
+    for i, (spec, block) in enumerate(zip(specs, blocks)):
+        x = mix(i, BlockSpec(spec.mixer, NONE), block, x)
+        if spec.ffn == MOE:
+            u = rmsnorm(block.norm2, x, cfg.norm_eps)
+            B, S, D = u.shape
+            r = route(block.ffn, u.reshape(B * S, D), cfg)
+            P, cap = dispatch_groups(B * S, cfg)
+            _, keep = dispatch_slots(r.experts, P, cap, cfg.n_experts)
+            rec = dict(layer=i, experts=r.experts, keep=keep, P=P, cap=cap, E=cfg.n_experts)
+            if S > 1:
+                cos = torch.nn.functional.cosine_similarity(
+                    u.float(), u.float().mean(1, keepdim=True), dim=-1)
+                rec["cos_to_request_mean"] = {f"[{a}, {b})": float(cos[:, a:b].mean())
+                                              for a, b in COS_BUCKETS if b <= S}
+            recs.append(rec)
+        x, _ = apply_ffn(block, spec, cfg, x)
+    return x, recs
+
+
+def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None) -> tuple:
+    """``generate``'s greedy run again, block by block through
+    :func:`walk_stack`: the prompt, then a decode step on each of ``toks``
+    but the last (``convert`` turns the prefilled cache into the decode
+    cache, as ``kv_compress`` does). Returns the routing records of the
+    prefill and of the decode steps, and the share of steps whose argmax is
+    ``generate``'s next token (1 when the walk is the same computation)."""
+    from repro_torch.models import layer_specs
+    from repro_torch.models import blocks as blk
+    from repro_torch.models.layers import embed_tokens, lm_logits, rmsnorm
+
+    S, specs = prompt.shape[1], layer_specs(cfg)
+    caches = [None] * len(specs)
+
+    def pre(i, spec, block, x):
+        x, caches[i] = blk.block_prefill(block, spec, cfg, x, n_max)
+        return x
+
+    def next_token(x):
+        h = rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps)
+        return torch.argmax(lm_logits(model.embed, h, cfg), dim=-1).to(torch.int32)
+
+    x, pre_recs = walk_stack(torch, model.blocks, specs, cfg,
+                             embed_tokens(model.embed.tok, prompt), pre)
+    agree = [torch.equal(next_token(x), toks[:, :1])]
+    if convert is not None:
+        caches[:] = convert({"layers": caches, "length": S})["layers"]
+    dec_recs = []
+    for j in range(toks.shape[1] - 1):
+        def dec(i, spec, block, x, length=S + j):
+            x, caches[i] = blk.block_decode(block, spec, cfg, x, caches[i], length)
+            return x
+
+        x, recs = walk_stack(torch, model.blocks, specs, cfg,
+                             embed_tokens(model.embed.tok, toks[:, j : j + 1]), dec)
+        dec_recs += recs
+        agree.append(torch.equal(next_token(x), toks[:, j + 1 : j + 2]))
+    return pre_recs, dec_recs, sum(agree) / len(agree)
+
+
+def route_stats(torch, recs) -> dict:
+    """Over routing records (one per MoE layer and pass): groups and
+    capacity, the dropped share of assignments (all and per layer), and the
+    largest expert load over the mean, over the whole batch and per group."""
+    dropped = sum(int((~r["keep"]).sum()) for r in recs)
+    total = sum(r["keep"].numel() for r in recs)
+    load, group_load, per_layer = [], [], {}
+    for r in recs:
+        experts, P, E = r["experts"], r["P"], r["E"]
+        counts = torch.bincount(experts.reshape(-1), minlength=E).float()
+        load.append(float(counts.max() / counts.mean()))
+        grp = torch.arange(P, device=experts.device).repeat_interleave(experts.numel() // P)
+        gc = torch.bincount(grp * E + experts.reshape(-1), minlength=P * E).float()
+        group_load.append(float(gc.max() / gc.mean()))
+        d = per_layer.setdefault(r["layer"], [0, 0])
+        d[0] += int((~r["keep"]).sum())
+        d[1] += r["keep"].numel()
+    return dict(layers=len(per_layer), passes=len(recs), groups=sorted({r["P"] for r in recs}),
+                capacity=sorted({r["cap"] for r in recs}), assignments=total, dropped=dropped,
+                dropped_share=dropped / total if total else 0.0,
+                dropped_share_by_layer={i: d / n for i, (d, n) in per_layer.items()},
+                load_max_over_mean=dict(max=max(load), mean=sum(load) / len(load)),
+                group_load_max_over_mean=dict(max=max(group_load),
+                                              mean=sum(group_load) / len(group_load)))
+
+
+def routing_witness(torch, model, cfg, prompt, recs, n_max: int, dev) -> dict:
+    """Why (t)'s prefill drops: at the first MoE layer, the bf16 run's
+    dropped share and router-input spread beside (a) the same two layers
+    in fp32 (the bf16 weights widened; TF32 off) and (b) i.i.d. Gaussian
+    router inputs of the same shape. The CPU test
+    ``test_full_width_router_input_and_drops_match_reference`` holds the
+    fp32 router input and drops against the reference's."""
+    import copy
+
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import layer_specs
+    from repro_torch.models.layers import embed_tokens
+    from repro_torch.models.moe import dispatch_groups, dispatch_slots, route
+
+    first = recs[0]
+    i1 = first["layer"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    blocks32 = [copy.deepcopy(b).float() for b in model.blocks[: i1 + 1]]
+    x32 = embed_tokens(model.embed.tok, prompt).float()
+    _, recs32 = walk_stack(torch, blocks32, layer_specs(cfg)[: i1 + 1], cfg32, x32,
+                           lambda i, spec, b, x: blk.block_prefill(b, spec, cfg32, x, n_max)[0])
+    del blocks32, x32
+    torch.cuda.empty_cache()
+    T, D = prompt.numel(), cfg.d_model
+    u = torch.randn((T, D), generator=gen(torch, dev, SEED + 88), device=dev,
+                    dtype=cfg.param_dtype)
+    r = route(model.blocks[i1].ffn, u, cfg)
+    P, cap = dispatch_groups(T, cfg)
+    _, keep = dispatch_slots(r.experts, P, cap, cfg.n_experts)
+    gauss = dict(layer=i1, experts=r.experts, keep=keep, P=P, cap=cap, E=cfg.n_experts)
+    out = {}
+    for name, rec in (("bf16", first), ("fp32", recs32[0]), ("gaussian_input", gauss)):
+        st = route_stats(torch, [rec])
+        out[name] = dict(dropped_share=st["dropped_share"],
+                         group_load_max_over_mean=st["group_load_max_over_mean"]["max"],
+                         cos_to_request_mean=rec.get("cos_to_request_mean"))
+    out["fp32_experts_equal_bf16"] = float((recs32[0]["experts"] == first["experts"])
+                                           .float().mean())
+    out["layer"] = i1
+    return out
+
+
+def sdpa_backends(torch, cfg, dev) -> dict:
+    """Which SDPA backends take MLA's prefill shapes (one request: Q, K of
+    nope + rope = 192, V of 128), the one its dispatcher picks, and the
+    device kernels three default calls run (``torch.profiler``)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    H, S = cfg.n_heads, SERVE_S
+    g = gen(torch, dev, SEED + 90)
+    qk = cfg.nope_head_dim + cfg.rope_head_dim
+    q, k = (torch.randn((1, H, S, qk), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((1, H, S, cfg.v_head_dim), generator=g, device=dev, dtype=torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    accepts = {}
+    names = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH")
+    for b in (getattr(SDPBackend, n) for n in names if hasattr(SDPBackend, n)):
+        try:
+            with sdpa_kernel(b):
+                sdpa(q, k, v, is_causal=True)
+            accepts[b.name] = True
+        except RuntimeError as e:
+            accepts[b.name] = str(e).splitlines()[0][:120]
+    torch.cuda.synchronize()
+    def three():
+        for _ in range(3):
+            sdpa(q, k, v, is_causal=True)
+
+    *_, top, _names = device_profile(torch, three, names=True)
+    # the backend SDPA's dispatcher picks for these inputs, as it reports it
+    chosen = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+    check(accepts.get(chosen) is True, f"(t): SDPA picks {chosen}, which refused the shapes")
+    return dict(shape=dict(q=list(q.shape), v=list(v.shape)), accepts=accepts,
+                default=chosen, default_kernels=top)
+
+
+def phase_deepseek(torch, ops, dev) -> list:
+    """(t) deepseek-v2-lite at its full config, nothing cut: MLA with its
+    latent cache, the capacity dispatch (``generate``'s default) over 8
+    requests of 2048 seeded tokens, 64 greedy tokens; gates (1)-(4)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, param_count, prefill
+    from repro_torch.models.attention import plain_attention
+    from repro_torch.models.moe import dispatch_groups, dispatch_slots, moe_ffn, moe_ffn_dense
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache, generate
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    cfg = get_arch(DEEPSEEK_ARCH).full_config()
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 80), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == DEEPSEEK_PARAMS, f"(t): {n_params} parameters, want {DEEPSEEK_PARAMS}")
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                           generator=gen(torch, dev, SEED + 81), device=dev)
+    n_max = SERVE_S + SERVE_T
+    generate(model, cfg, prompt[:2, :256], 9)  # module loads, handles, plans
+    _, cache = prefill(model, cfg, prompt, n_max)  # the allocator's pool at full size
+    del cache
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t_t = {}
+    toks = generate(model, cfg, prompt, SERVE_T, timings=t_t)
+    launched = dict(ops.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    check(toks.shape == (SERVE_B, SERVE_T) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, "(t): tokens out of range")
+    # the dispatch statistics: generate's run again, block by block, each MoE
+    # layer's routing taken on its input; the walk must give generate's tokens
+    pre_recs, dec_recs, walk_agree = walk_generate(torch, model, cfg, prompt, toks, n_max)
+    check(walk_agree == 1.0, f"(t): the layer walk agrees with generate on {walk_agree} of steps")
+    pre, dec = route_stats(torch, pre_recs), route_stats(torch, dec_recs)
+    n_moe = sum(spec.ffn == "moe" for spec in cfg.pattern)
+    check(pre["layers"] == n_moe and pre["groups"] == [16] and pre["capacity"] == [120],
+          f"(t): prefill dispatch {pre}")
+    # gate (3): at T = 8 the dispatch takes one group of capacity 8, and an
+    # expert gets at most one assignment per token, so nothing may drop
+    check(dec["passes"] == n_moe * (SERVE_T - 1) and dec["groups"] == [1]
+          and dec["capacity"] == [8] and dec["dropped"] == 0, f"(t): decode dispatch {dec}")
+    witness = routing_witness(torch, model, cfg, prompt, pre_recs, n_max, dev)
+    pre["cos_to_request_mean_by_layer"] = {r["layer"]: r["cos_to_request_mean"] for r in pre_recs}
+    del pre_recs, dec_recs
+
+    # gate (1): SDPA's prefill logits against the plain attention path's
+    lg_sdpa, cache1 = prefill(model, cfg, prompt[:1], n_max)
+    with plain_attention():
+        lg_plain, _ = prefill(model, cfg, prompt[:1], n_max)
+    check(bool(torch.isfinite(lg_sdpa).all()), "(t): non-finite logits")
+    e_abs, e_rel = err(lg_sdpa, lg_plain)
+    check(e_rel <= DEEPSEEK_LOGIT_TOL,
+          f"(t): SDPA prefill logits rel err {e_rel} > {DEEPSEEK_LOGIT_TOL}")
+    # the gate's power: the plain path with a wrong softmax scale, 1/sqrt(128)
+    # (V's width) for 1/sqrt(192) -- q scaled by sqrt(192/128) in every layer,
+    # RoPE being linear -- must fail it
+    qk = cfg.nope_head_dim + cfg.rope_head_dim
+    saved = [b.mixer.w_q.clone() for b in model.blocks]
+    for b in model.blocks:
+        b.mixer.w_q.mul_(math.sqrt(qk / cfg.v_head_dim))
+    with plain_attention():
+        lg_ctl, _ = prefill(model, cfg, prompt[:1], n_max)
+    for b, w in zip(model.blocks, saved):
+        b.mixer.w_q.copy_(w)
+    c_abs, c_rel = err(lg_ctl, lg_sdpa)
+    check(c_rel > DEEPSEEK_LOGIT_TOL,
+          f"(t): a wrong MLA softmax scale passes gate (1): rel err {c_rel}")
+    del lg_sdpa, lg_plain, lg_ctl, cache1, saved
+    backends = sdpa_backends(torch, cfg, dev)
+
+    # gate (2): at capacity_factor E/k a group's capacity is its token count,
+    # so the dispatch is the dropless function; one MoE layer, 2 x 2048 tokens.
+    # Each side rounds the k weighted expert outputs and their sum to bf16 at
+    # other places: at most (k + 1) x 2^-8 of the largest entry
+    moe_tol = (cfg.moe_top_k + 1) * 2.0 ** -8
+    x = torch.randn((2, SERVE_S, cfg.d_model), generator=gen(torch, dev, SEED + 82), device=dev,
+                    dtype=cfg.param_dtype)
+    full = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    block = model.blocks[1].ffn
+    got, r = moe_ffn(block, x, full)
+    P, cap = dispatch_groups(2 * SERVE_S, full)
+    _, keep = dispatch_slots(r.experts, P, cap, cfg.n_experts)
+    check(cap == 2 * SERVE_S // P and bool(keep.all()), "(t): capacity E/k dropped an assignment")
+    want, r_d = moe_ffn_dense(block, x, cfg)
+    m_abs, m_rel = err(got, want)
+    check(m_rel <= moe_tol, f"(t): moe_ffn at E/k against moe_ffn_dense: rel err {m_rel}")
+    check(float(r.aux_loss()) == float(r_d.aux_loss()),
+          "(t): aux loss differs between the MoE paths")
+    del x, got, want, r, r_d, keep
+
+    # gate (4): the compressed-cache conversion leaves MLA latents as they are
+    _, cache = prefill(model, cfg, prompt, n_max)
+    latent_bytes = cache_nbytes(cache)
+    check(latent_bytes == DEEPSEEK_LATENT_BYTES,
+          f"(t): latent cache {latent_bytes} B, want {DEEPSEEK_LATENT_BYTES}")
+    reg = MetricsRegistry()
+    ops.reset_launches()
+    comp = compress_prefill_cache(gen(torch, dev, SEED + 83), cfg, cache,
+                                  KVCompressionConfig(**SERVE_KC), registry=reg)
+    check(reg.counters.get("serve/kv_layers_converted", 0) == 0
+          and ops.LAUNCHES["countsketch_batched"] == 0, "(t): an MLA layer was converted")
+    check(all(c["latent"] is d["latent"] and torch.equal(c["latent"], d["latent"])
+              for c, d in zip(comp["layers"], cache["layers"])), "(t): latents changed")
+    del comp, cache
+    decode_ms = t_t["decode"] / (SERVE_T - 1)
+    emit("serve/t_deepseek", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
+         batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, dense_moe=False,
+         prefill_ms=t_t["prefill"], decode_ms_per_token=decode_ms,
+         tokens_per_s=SERVE_B * (SERVE_T - 1) / t_t["decode"] * 1e3,
+         timing="CUDA events around prefill and the decode loop",
+         latent_cache_nbytes=latent_bytes, peak_mem_over_resident_gib=peak,
+         resident_gib=resident / 2**30, resident_from_earlier_phases_gib=resident_before / 2**30,
+         prefill_dispatch=pre, decode_dispatch=dec, launches=launched,
+         prefill_logits_vs_plain_attention=dict(max_abs_err=e_abs, rel_err=e_rel,
+                                                tol=DEEPSEEK_LOGIT_TOL, request=0,
+                                                wrong_scale_control_rel_err=c_rel),
+         routing_witness=witness, walk_agrees_with_generate=walk_agree,
+         moe_capacity_ek_vs_dropless=dict(max_abs_err=m_abs, rel_err=m_rel, tol=moe_tol,
+                                          tokens=2 * SERVE_S, layer=1),
+         mla_sdpa=backends, latents_pass_through=True)
+    _, cache = prefill(model, cfg, prompt, n_max)
+    emit("profile/t_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks))
+    del cache, model
+    torch.cuda.empty_cache()
+    return [launched]
+
+
+def phase_kimi(torch, ops, dev) -> list:
+    """(u) kimi-k2 at full width, depth cut to its first two layers (one
+    dense, one MoE): ``generate`` over 8 requests of 2048 seeded tokens, 32
+    greedy tokens, with the dense KV cache and with the compressed one at
+    (s)'s settings; kernel 1's stacked launch at head_dim 128."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, init_params, param_count, prefill
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache, generate
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()
+    full = get_arch(KIMI_ARCH).full_config()
+    cfg = dataclasses.replace(full, n_layers=KIMI_DEPTH, pattern=full.pattern[:KIMI_DEPTH])
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 84), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == KIMI_PARAMS, f"(u): {n_params} parameters, want {KIMI_PARAMS}")
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                           generator=gen(torch, dev, SEED + 85), device=dev)
+    n_max = SERVE_S + KIMI_T
+    kc = KVCompressionConfig(**SERVE_KC)
+    generate(model, cfg, prompt[:2, :256], 9, kv_compress=kc)
+    _, cache = prefill(model, cfg, prompt, n_max)
+    del cache
+
+    runs, launched = {}, []
+    for mode in ("dense", "compressed"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ops.reset_launches()
+        t_u = {}
+        toks = generate(model, cfg, prompt, KIMI_T, gen=gen(torch, dev, SEED + 86),
+                        kv_compress=kc if mode == "compressed" else None, timings=t_u)
+        launched.append(dict(ops.LAUNCHES))
+        check(toks.shape == (SERVE_B, KIMI_T) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size, f"(u) {mode}: tokens out of range")
+        conv = None if mode == "dense" else (  # generate's conversion, from the same seed
+            lambda c: compress_prefill_cache(gen(torch, dev, SEED + 86), cfg, c, kc))
+        pre_recs, dec_recs, walk_agree = walk_generate(torch, model, cfg, prompt, toks, n_max,
+                                                       convert=conv)
+        check(walk_agree == 1.0,
+              f"(u) {mode}: the layer walk agrees with generate on {walk_agree} of steps")
+        runs[mode] = dict(prefill_ms=t_u["prefill"], convert_ms=t_u["convert"],
+                          decode_ms_per_token=t_u["decode"] / (KIMI_T - 1),
+                          tokens_per_s=SERVE_B * (KIMI_T - 1) / t_u["decode"] * 1e3,
+                          peak_mem_over_resident_gib=(torch.cuda.max_memory_allocated()
+                                                      - resident) / 2**30,
+                          prefill_dispatch=route_stats(torch, pre_recs),
+                          decode_dispatch=route_stats(torch, dec_recs),
+                          launches=launched[-1], tokens=toks)
+        del pre_recs, dec_recs
+    dp = SERVE_KC["decode_panel"]
+    n_folds = (KIMI_T - 1) // dp
+    n_refresh = n_folds * dp // SERVE_KC["refresh_every"]
+    per_stack = 2 * (SERVE_S // SERVE_KC["panel"] * 4 + 2)  # K and V of one layer
+    per_conv = cfg.n_layers * per_stack  # each layer its own segment: one stack each
+    want = per_conv + cfg.n_layers * (n_folds * 2 * 4 + n_refresh * 2 * 2)
+    total = launched[1]["countsketch_batched"]
+    check(launched[0]["countsketch_batched"] == 0, "(u) dense: kernel 1 launched")
+    check(total == want, f"(u): kernel 1 launched {total} times, want {want}")
+    check(runs["dense"]["decode_dispatch"]["dropped"] == 0
+          and runs["compressed"]["decode_dispatch"]["dropped"] == 0, "(u): a decode drop")
+
+    # the conversion alone: its launches, the factors against the histories
+    _, dense = prefill(model, cfg, prompt, n_max)
+    ops.reset_launches()
+    comp = compress_prefill_cache(gen(torch, dev, SEED + 87), cfg, dense, kc)
+    conv_n = ops.LAUNCHES["countsketch_batched"]
+    check(conv_n == per_conv, f"(u): conversion launched kernel 1 {conv_n} times")
+    errs, opts = serve_errors(torch, cfg, dense, comp)
+    ratio = errs / opts
+    check(bool((errs >= opts * (1 - OPT_SLACK)).all()), "(u): a head beats its optimal error")
+    comp_bytes = cache_nbytes(comp)
+    dense_bytes = cache_nbytes(init_cache(cfg, SERVE_B, n_max, device=dev))
+    toks_d, toks_c = runs["dense"].pop("tokens"), runs["compressed"].pop("tokens")
+    emit("serve/u_kimi", arch=cfg.name, depth=KIMI_DEPTH, full_depth=full.n_layers,
+         params=n_params, dtype=cfg.dtype, init_s=init_s, batch=SERVE_B, prompt_len=SERVE_S,
+         new_tokens=KIMI_T, kc=SERVE_KC, head_dim=cfg.head_dim,
+         heads_per_stack=SERVE_B * cfg.n_kv_heads, timing="CUDA events", runs=runs,
+         kernel1_launches=dict(generate=total, per_conversion=conv_n, per_stack=per_stack,
+                               per_layer_fold=2 * 4, folds_per_layer=n_folds,
+                               refreshes_per_layer=n_refresh),
+         cache_nbytes=comp_bytes, dense_cache_nbytes=dense_bytes,
+         compressed_over_dense=comp_bytes / dense_bytes, heads=int(errs.numel()),
+         kv_rel_err=dict(min=float(errs.min()), median=float(errs.median()),
+                         max=float(errs.max())),
+         error_over_optimal=dict(min=float(ratio.min()), median=float(ratio.median()),
+                                 max=float(ratio.max())),
+         tokens_agree_with_dense=float((toks_c == toks_d).float().mean()),
+         resident_gib=resident_before / 2**30)
+    del comp, dense, errs, opts, model
+    torch.cuda.empty_cache()
+    emit("serve/u_synthetic", **serve_synthetic(torch, ops, dev, hd=cfg.head_dim))
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -2835,6 +3293,10 @@ def main() -> int:
     mark("i-k, m: i, j, n: i")
     runs_launches += phase_serve(torch, ops, dev)
     mark("r, s: serve")
+    runs_launches += phase_deepseek(torch, ops, dev)
+    mark("t: deepseek")
+    runs_launches += phase_kimi(torch, ops, dev)
+    mark("u: kimi")
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

@@ -8,7 +8,8 @@ bfloat16, which torch cannot wrap) arrives as a torch bfloat16 tensor, its
 bits viewed as ``uint16`` on the way (never rounded through another type).
 
 The serving slice adds the model and its caches: :func:`model_params`
-(a reference parameter pytree → the port's :class:`~repro_torch.models.Transformer`),
+(a reference parameter pytree → the port's :class:`~repro_torch.models.Transformer`,
+laid out by :func:`model_state`),
 :func:`dense_cache` (a reference prefill cache → the port's per-layer
 cache) and :func:`compressed_kv_sketches` (a reference ``CompressedKV``'s
 engine sketches → the port's stacked sketches).
@@ -32,7 +33,7 @@ from .core.sketching import (
 from .device import DeviceLike, resolve_device
 
 __all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays", "sketch_pair",
-           "spsvd_sketches", "telemetry_frame", "stream_init_inputs", "model_params",
+           "spsvd_sketches", "telemetry_frame", "stream_init_inputs", "model_state", "model_params",
            "dense_cache", "stacked_spsvd_sketches", "compressed_kv_sketches"]
 
 # family name of a reference sketch class -> (kind, fields to carry)
@@ -163,15 +164,25 @@ def _unstack(tree, reps: int) -> list:
     return [arr[r] for r in range(reps)]
 
 
-def model_params(np_params, cfg, device: DeviceLike = None):
-    """The port's :class:`~repro_torch.models.Transformer` holding a
-    reference parameter pytree (leaves as numpy arrays, ``ml_dtypes``
-    bfloat16 included). Scanned segments' leaves are unstacked along their
-    leading repeat axis, in ``segments(cfg)`` order, into one block per
-    layer; every tensor keeps its dtype and bits."""
-    from .models.transformer import Transformer, segments
+def _flatten(prefix: str, tree, out: dict) -> None:
+    """A nested dict's leaves into ``out`` under dotted names below ``prefix``
+    (``""``: the top-level names)."""
+    for name, v in tree.items():
+        key = f"{prefix}.{name}" if prefix else name
+        if isinstance(v, dict):
+            _flatten(key, v, out)
+        else:
+            out[key] = v
 
-    dev = resolve_device(device)
+
+def model_state(np_params, cfg) -> dict:
+    """The port's state-dict names → the reference's leaves (numpy arrays;
+    zero-stride ``np.broadcast_to`` views stand in for shapes alone): scanned
+    segments' leaves unstacked along their leading repeat axis, in
+    ``segments(cfg)`` order, into one block per layer; nested dicts (MoE's
+    ``shared`` experts) flattened into dotted names."""
+    from .models.transformer import segments
+
     state = {"embed.tok": np_params["embed"]["tok"], "final_norm": np_params["final_norm"]["scale"]}
     if "lm_head" in np_params["embed"]:
         state["embed.lm_head"] = np_params["embed"]["lm_head"]
@@ -182,13 +193,23 @@ def model_params(np_params, cfg, device: DeviceLike = None):
             for pos in range(len(seg.unit)):
                 p = per_pos[pos][rep]
                 state[f"blocks.{layer}.norm1"] = p["norm1"]["scale"]
-                for name, w in p["mixer"].items():
-                    state[f"blocks.{layer}.mixer.{name}"] = w
+                _flatten(f"blocks.{layer}.mixer", p["mixer"], state)
                 if "norm2" in p:
                     state[f"blocks.{layer}.norm2"] = p["norm2"]["scale"]
-                    for name, w in p["ffn"].items():
-                        state[f"blocks.{layer}.ffn.{name}"] = w
+                    _flatten(f"blocks.{layer}.ffn", p["ffn"], state)
                 layer += 1
+    return state
+
+
+def model_params(np_params, cfg, device: DeviceLike = None):
+    """The port's :class:`~repro_torch.models.Transformer` holding a
+    reference parameter pytree (leaves as numpy arrays, ``ml_dtypes``
+    bfloat16 included), laid out by :func:`model_state`; every tensor keeps
+    its dtype and bits (MoE's fp32 router beside bf16 experts included)."""
+    from .models.transformer import Transformer
+
+    dev = resolve_device(device)
+    state = model_state(np_params, cfg)
     model = Transformer(torch.Generator(), cfg, torch.device("meta"))
     model.load_state_dict({k: to_tensor(v, dev) for k, v in state.items()}, assign=True)
     return model
@@ -197,7 +218,8 @@ def model_params(np_params, cfg, device: DeviceLike = None):
 def dense_cache(ref_cache, cfg, device: DeviceLike = None) -> dict:
     """The port's ``{"layers": [...], "length": int}`` from a reference
     prefill cache (``{"segments": ..., "length"}``, leaves as numpy),
-    unstacking scanned segments into one cache per layer."""
+    unstacking scanned segments into one cache per layer (K/V dicts, MLA's
+    ``{"latent": ...}``)."""
     from .models.transformer import segments
 
     layers = []

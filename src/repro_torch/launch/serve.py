@@ -4,11 +4,13 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b --smoke \\
       --batch 4 --prompt-len 64 --gen 32 --kv-compress 16
 
-Runs on the card (``--device cpu`` runs on the CPU). ``--mesh`` takes only
-``1x1``: the port serves on one card. ``--smoke`` is the reference's flag
-as it is: ``store_true`` with ``default=True``, so the command line always
-serves the arch's ``smoke_config()`` (``ROADMAP.md`` §3, behaviour of the
-reference).
+Runs on the card (``--device cpu`` runs on the CPU). MoE archs
+(``--arch deepseek-v2-lite-16b``, ``kimi-k2-1t-a32b``) serve through the
+dropless MoE path (``dense_moe=True``), as the reference CLI does.
+``--mesh`` takes only ``1x1``: the port serves on one card. ``--smoke`` is
+the reference's flag as it is: ``store_true`` with ``default=True``, so the
+command line always serves the arch's ``smoke_config()`` (``ROADMAP.md``
+§3, behaviour of the reference).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def main(argv=None):
     timings = {}
     t0 = time.perf_counter()
     out = generate(params, cfg, prompt, args.gen, gen=gen, temperature=args.temperature,
-                   kv_compress=kc, timings=timings)
+                   dense_moe=True, kv_compress=kc, timings=timings)
     dt = time.perf_counter() - t0
     n_tok = args.batch * args.gen
     mode = (f"compressed kv @ rank {kc.rank}" + (" adaptive" if kc.adaptive else "")

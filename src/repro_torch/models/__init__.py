@@ -1,7 +1,7 @@
-"""Decoder stack of the port (counterpart of ``repro/models``): the dense
-GQA blocks on a plain loop over layers. MLA, MoE, Mamba-2, cross-attention
-and shared attention raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them."""
+"""Decoder stack of the port (counterpart of ``repro/models``): GQA and MLA
+mixers, dense and MoE FFNs, on a plain loop over layers. Mamba-2,
+cross-attention and shared attention raise ``NotImplementedError`` naming
+the ``ROADMAP.md`` item that ports them."""
 
 from .config import (
     ATTN,
@@ -18,6 +18,8 @@ from .config import (
     Segment,
     compile_pattern,
 )
+from .mla import MLA, mla_decode, mla_prefill, mla_train
+from .moe import MoE, Routing, moe_capacity, moe_ffn, moe_ffn_dense
 from .transformer import (
     Transformer,
     decode_step,
@@ -34,6 +36,8 @@ from .transformer import (
 __all__ = [
     "ATTN", "ATTN_LOCAL", "CROSS", "DENSE", "MAMBA2", "MLA", "MOE", "NONE", "SHARED_ATTN",
     "BlockSpec", "ModelConfig", "Segment", "compile_pattern",
+    "MLA", "mla_decode", "mla_prefill", "mla_train",
+    "MoE", "Routing", "moe_capacity", "moe_ffn", "moe_ffn_dense",
     "Transformer", "decode_step", "forward_hidden", "init_cache", "init_params",
     "layer_specs", "param_count", "prefill", "segments", "train_logits",
 ]

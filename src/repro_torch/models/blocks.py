@@ -1,21 +1,28 @@
 """Residual blocks (counterpart of ``repro/models/blocks.py``): pre-norm
 mixer plus pre-norm FFN, with per-kind caches.
 
-The port has the GQA mixer for ``ATTN`` and ``ATTN_LOCAL`` and the dense
-FFN. Every block kind exposes, as the reference:
+The port has the GQA mixer for ``ATTN`` and ``ATTN_LOCAL``, the MLA mixer,
+the dense FFN and the MoE FFN. Every block kind exposes, as the reference:
 
   init_block(gen, spec, cfg, device)                          → Block
-  block_train(block, spec, cfg, x, extras)                    → (x, aux_loss)
-  block_prefill(block, spec, cfg, x, cache_len, extras)       → (x, aux, cache)
-  block_decode(block, spec, cfg, x, cache, length, extras)    → (x, cache)
+  block_train(block, spec, cfg, x, extras, dense_moe)         → (x, aux_loss)
+  block_prefill(block, spec, cfg, x, cache_len, extras, dense_moe) → (x, cache)
+  block_decode(block, spec, cfg, x, cache, length, extras, dense_moe) → (x, cache)
   init_block_cache(spec, cfg, batch, cache_len, device)       → cache
 
+and :func:`apply_ffn`, the FFN half alone (a spec with ``ffn=NONE`` runs
+the mixer half alone). Only ``block_train`` forms MoE's aux loss; the
+reference's ``block_prefill`` also returns it, and its compiler drops the
+unused sum.
+
 Cache layouts: ``attn`` K/V (B, cache_len, KV, hd), the full history;
-``attn_local`` K/V (B, window, KV, hd), a ring. Decode writes the new
-token into the cache in place (the reference returns an updated copy);
-``length`` is a host int. A cache that is not a dict is a pluggable
-backend (:class:`repro_torch.serve.kv_cache.CompressedKV`) that owns its
-append and attention through ``append_attend``.
+``attn_local`` K/V (B, window, KV, hd), a ring; ``mla`` the latent
+(B, cache_len, r + rope). Decode writes the new token into the cache in
+place (the reference returns an updated copy); ``length`` is a host int.
+A cache that is not a dict is a pluggable backend
+(:class:`repro_torch.serve.kv_cache.CompressedKV`) that owns its append and
+attention through ``append_attend``. ``dense_moe`` picks the MoE FFN's
+dropless loop over its capacity-bounded dispatch.
 """
 
 from __future__ import annotations
@@ -23,15 +30,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from . import mla as mla_mod
+from . import moe as moe_mod
 from .attention import decode_attention, flash_attention
 from .config import (ATTN, ATTN_LOCAL, CROSS, DENSE, MAMBA2, MLA, MOE, NONE, SHARED_ATTN,
                      BlockSpec, ModelConfig)
-from .layers import apply_rope, ffn, init_scale, rmsnorm, truncated_normal_
+from .layers import FFN, apply_rope, ffn, init_scale, param, positions, rmsnorm
 
-# mixers and FFNs the port does not have yet, and the ROADMAP.md §1 item that ports them
+# mixers the port does not have yet, and the ROADMAP.md §1 item that ports them
 UNPORTED = {
-    MLA: "5.1 (MoE and MLA)",
-    MOE: "5.1 (MoE and MLA)",
     MAMBA2: "5.2 (Mamba-2 SSD and shared attention)",
     SHARED_ATTN: "5.2 (Mamba-2 SSD and shared attention)",
     CROSS: "5.3 (cross-attention and the modality stubs)",
@@ -41,11 +48,6 @@ UNPORTED = {
 def _unported(kind: str):
     return NotImplementedError(
         f"{kind!r} blocks are not ported yet: ROADMAP.md §1 item {UNPORTED[kind]}")
-
-
-def _param(gen, shape, dtype, device, scale) -> nn.Parameter:
-    t = torch.empty(shape, dtype=dtype, device=device)
-    return nn.Parameter(truncated_normal_(t, gen, scale), requires_grad=False)
 
 
 def _ones(d, dtype, device) -> nn.Parameter:
@@ -58,38 +60,35 @@ class GQA(nn.Module):
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
         D, H, KV, hd, dt = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.param_dtype
-        self.w_q = _param(gen, (D, H * hd), dt, device, init_scale(D))
-        self.w_k = _param(gen, (D, KV * hd), dt, device, init_scale(D))
-        self.w_v = _param(gen, (D, KV * hd), dt, device, init_scale(D))
-        self.w_o = _param(gen, (H * hd, D), dt, device, init_scale(H * hd))
-
-
-class FFN(nn.Module):
-    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or the GELU MLP (no gate)."""
-
-    def __init__(self, gen, cfg: ModelConfig, device):
-        super().__init__()
-        D, F, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-        if cfg.activation == "silu":
-            self.w_gate = _param(gen, (D, F), dt, device, init_scale(D))
-        self.w_up = _param(gen, (D, F), dt, device, init_scale(D))
-        self.w_down = _param(gen, (F, D), dt, device, init_scale(F))
+        self.w_q = param(gen, (D, H * hd), dt, device, init_scale(D))
+        self.w_k = param(gen, (D, KV * hd), dt, device, init_scale(D))
+        self.w_v = param(gen, (D, KV * hd), dt, device, init_scale(D))
+        self.w_o = param(gen, (H * hd, D), dt, device, init_scale(H * hd))
 
 
 class Block(nn.Module):
-    """One residual layer's parameters: ``norm1``, ``mixer``, ``norm2``, ``ffn``."""
+    """One residual layer's parameters: ``norm1``, ``mixer`` (:class:`GQA` or
+    :class:`~repro_torch.models.mla.MLA`), ``norm2``, ``ffn`` (:class:`FFN` or
+    :class:`~repro_torch.models.moe.MoE`)."""
 
     def __init__(self, gen, spec: BlockSpec, cfg: ModelConfig, device):
         super().__init__()
-        if spec.mixer not in (ATTN, ATTN_LOCAL):
+        if spec.mixer not in (ATTN, ATTN_LOCAL, MLA):
             raise _unported(spec.mixer)
-        if spec.ffn not in (DENSE, NONE):
-            raise _unported(spec.ffn)
         self.norm1 = _ones(cfg.d_model, cfg.param_dtype, device)
-        self.mixer = GQA(gen, cfg, device)
+        if spec.mixer == MLA:
+            self.mixer = mla_mod.MLA(gen, cfg, device)
+        else:
+            self.mixer = GQA(gen, cfg, device)
+        if spec.ffn == NONE:
+            return
+        self.norm2 = _ones(cfg.d_model, cfg.param_dtype, device)
         if spec.ffn == DENSE:
-            self.norm2 = _ones(cfg.d_model, cfg.param_dtype, device)
-            self.ffn = FFN(gen, cfg, device)
+            self.ffn = FFN(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype, cfg.activation, device)
+        elif spec.ffn == MOE:
+            self.ffn = moe_mod.MoE(gen, cfg, device)
+        else:
+            raise ValueError(spec.ffn)
 
 
 def init_block(gen, spec: BlockSpec, cfg: ModelConfig, device) -> Block:
@@ -116,13 +115,9 @@ def _gqa_qkv(p: GQA, x, positions, cfg: ModelConfig, theta: float):
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
-def _positions(B: int, S: int, device, start: int = 0):
-    return torch.arange(start, start + S, device=device)[None].expand(B, S)
-
-
 def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
     B, S, _ = x.shape
-    q, k, v = _gqa_qkv(p, x, _positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
+    q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
     o = flash_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
     return o.reshape(B, S, -1) @ p.w_o
@@ -130,7 +125,7 @@ def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
 
 def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
     B, S, _ = x.shape
-    q, k, v = _gqa_qkv(p, x, _positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
+    q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
     o = flash_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
     if spec_mixer == ATTN_LOCAL:  # ring buffer: token t at slot t % window
@@ -149,7 +144,7 @@ def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
 
 def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: int):
     B = x.shape[0]
-    q, k, v = _gqa_qkv(p, x, _positions(B, 1, x.device, length), cfg,
+    q, k, v = _gqa_qkv(p, x, positions(B, 1, x.device, length), cfg,
                        _theta_for(spec_mixer, cfg))
     if not isinstance(cache, dict):
         # pluggable cache backend: owns its append and attention
@@ -173,38 +168,60 @@ def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: int):
 # ---------------------------------------------------------------------------
 
 
-def _apply_ffn(block: Block, spec: BlockSpec, cfg: ModelConfig, x):
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+def apply_ffn(block: Block, spec: BlockSpec, cfg: ModelConfig, x, dense_moe: bool = False):
+    """The block's FFN half on the mixer's residual ``x``: ``(x, routing)``,
+    the MoE layer's :class:`~repro_torch.models.moe.Routing` or ``None``."""
     if spec.ffn == NONE:
-        return x, aux
+        return x, None
     h = rmsnorm(block.norm2, x, cfg.norm_eps)
-    return x + ffn(block.ffn, h, cfg.activation), aux
+    if spec.ffn == MOE:
+        out, r = (moe_mod.moe_ffn_dense if dense_moe else moe_mod.moe_ffn)(block.ffn, h, cfg)
+        return x + out, r
+    return x + ffn(block.ffn, h, cfg.activation), None
 
 
-def block_train(block: Block, spec: BlockSpec, cfg: ModelConfig, x, extras=None):
+def block_train(block: Block, spec: BlockSpec, cfg: ModelConfig, x, extras=None, *,
+                dense_moe: bool = False):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    x = x + _gqa_train(block.mixer, spec.mixer, cfg, h)
-    return _apply_ffn(block, spec, cfg, x)
+    if spec.mixer == MLA:
+        x = x + mla_mod.mla_train(block.mixer, h, cfg)
+    else:
+        x = x + _gqa_train(block.mixer, spec.mixer, cfg, h)
+    x, r = apply_ffn(block, spec, cfg, x, dense_moe)
+    aux = r.aux_loss() if r is not None else torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
+    return x, aux
 
 
 def block_prefill(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache_len: int,
-                  extras=None):
+                  extras=None, *, dense_moe: bool = False):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    y, cache = _gqa_prefill(block.mixer, spec.mixer, cfg, h, cache_len)
-    x, aux = _apply_ffn(block, spec, cfg, x + y)
-    return x, aux, cache
+    if spec.mixer == MLA:
+        y, latent = mla_mod.mla_prefill(block.mixer, h, cfg, cache_len)
+        cache = {"latent": latent}
+    else:
+        y, cache = _gqa_prefill(block.mixer, spec.mixer, cfg, h, cache_len)
+    x, _ = apply_ffn(block, spec, cfg, x + y, dense_moe)
+    return x, cache
 
 
 def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, length: int,
-                 extras=None):
+                 extras=None, *, dense_moe: bool = False):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    y, cache = _gqa_decode(block.mixer, spec.mixer, cfg, h, cache, length)
-    x, _ = _apply_ffn(block, spec, cfg, x + y)
+    if spec.mixer == MLA:
+        y, latent = mla_mod.mla_decode(block.mixer, h, cfg, cache["latent"], length)
+        cache = {"latent": latent}
+    else:
+        y, cache = _gqa_decode(block.mixer, spec.mixer, cfg, h, cache, length)
+    x, _ = apply_ffn(block, spec, cfg, x + y, dense_moe)
     return x, cache
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
     KV, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.param_dtype
+    if spec.mixer == MLA:
+        return {"latent": torch.zeros((batch, cache_len, cfg.kv_lora_rank + cfg.rope_head_dim),
+                                      dtype=dt, device=device)}
     if spec.mixer == ATTN_LOCAL:
         shape = (batch, cfg.window, KV, hd)
     elif spec.mixer == ATTN:

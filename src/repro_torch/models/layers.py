@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from .config import ModelConfig
 
@@ -20,7 +21,13 @@ from .config import ModelConfig
 def truncated_normal_(t: torch.Tensor, gen: torch.Generator, scale: float) -> torch.Tensor:
     """Fill ``t`` with ``scale`` × a standard normal truncated to [−2, 2] (the
     reference's ``truncated_normal_init``; the same distribution, not the
-    same bits), drawn in fp32 and cast to ``t``'s dtype."""
+    same bits), drawn in fp32 and cast to ``t``'s dtype. A stack (three or
+    more dims, e.g. MoE experts (E, D, F)) is drawn one leading slice at a
+    time, so the fp32 temporary is one slice, never the whole stack."""
+    if t.dim() >= 3:
+        for i in range(t.shape[0]):
+            truncated_normal_(t[i], gen, scale)
+        return t
     x = torch.empty(t.shape, dtype=torch.float32, device=t.device)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.copy_(x * scale)
@@ -48,6 +55,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     sin = torch.sin(angles)[..., :, None, :]
     x1, x2 = x[..., : d // 2].float(), x[..., d // 2 :].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def param(gen, shape, dtype, device, scale: float) -> nn.Parameter:
+    """A frozen parameter of ``shape`` drawn by :func:`truncated_normal_`."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    return nn.Parameter(truncated_normal_(t, gen, scale), requires_grad=False)
+
+
+class FFN(nn.Module):
+    """SwiGLU (``w_gate``, ``w_up``, ``w_down``) or the GELU MLP (no gate) of
+    width ``d_ff`` (the reference's ``init_ffn``): ``cfg.d_ff`` for a dense
+    layer, ``n_shared_experts · d_ff_expert`` for MoE's shared experts."""
+
+    def __init__(self, gen, d_model: int, d_ff: int, dtype, activation: str, device):
+        super().__init__()
+        if activation == "silu":
+            self.w_gate = param(gen, (d_model, d_ff), dtype, device, init_scale(d_model))
+        self.w_up = param(gen, (d_model, d_ff), dtype, device, init_scale(d_model))
+        self.w_down = param(gen, (d_ff, d_model), dtype, device, init_scale(d_ff))
+
+
+def positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
+    """Token positions ``start .. start + S − 1`` for each of B rows (B, S)."""
+    return torch.arange(start, start + S, device=device)[None].expand(B, S)
 
 
 def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:

@@ -91,12 +91,12 @@ def _layers(params: Transformer, cfg: ModelConfig):
 @torch.no_grad()
 def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
                    dense_moe: bool = False):
-    """Final-normed hidden states (B, S, D) and the aux loss (0 for the
-    dense FFN)."""
+    """Final-normed hidden states (B, S, D) and the aux loss, summed over the
+    MoE layers (0 without one); ``dense_moe`` takes MoE's dropless loop."""
     x = embed_tokens(params.embed.tok, tokens)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, block in _layers(params, cfg):
-        x, a = blk.block_train(block, spec, cfg, x)
+        x, a = blk.block_train(block, spec, cfg, x, dense_moe=dense_moe)
         aux = aux + a
     return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
 
@@ -123,7 +123,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
     x = embed_tokens(params.embed.tok, tokens)
     caches = []
     for spec, block in _layers(params, cfg):
-        x, _, c = blk.block_prefill(block, spec, cfg, x, cache_len)
+        x, c = blk.block_prefill(block, spec, cfg, x, cache_len, dense_moe=dense_moe)
         caches.append(c)
     h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
     return lm_logits(params.embed, h, cfg), {"layers": caches, "length": S}
@@ -138,7 +138,8 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
     length = cache["length"]
     layers = cache["layers"]
     for i, (spec, block) in enumerate(_layers(params, cfg)):
-        x, layers[i] = blk.block_decode(block, spec, cfg, x, layers[i], length)
+        x, layers[i] = blk.block_decode(block, spec, cfg, x, layers[i], length,
+                                        dense_moe=dense_moe)
     h = rmsnorm(params.final_norm, x, cfg.norm_eps)
     cache["length"] = length + 1
     return lm_logits(params.embed, h, cfg), cache

@@ -10,7 +10,10 @@ tokens are drawn with numpy. Tolerances:
   flash attention against the naive one (both sides fp32, different
   summation orders and ``exp`` implementations);
 * fp32 logits: 1e-5 of the largest |logit| (three layers of fp32 products
-  summed in other orders, and other ``rsqrt``/``cos``/``sin`` ulps);
+  summed in other orders, and other ``rsqrt``/``cos``/``sin`` ulps); the
+  MoE aux loss likewise;
+* MLA's projections, latent cache and outputs (fp32): 1e-5 of the largest
+  entry (the attention bound above, one product deeper);
 * bf16 logits: 3e-2 of the largest |logit| — both sides round every
   activation to bf16 (2^-8 relative), at different places (XLA fuses, the
   port rounds after each op), through three layers.
@@ -27,13 +30,16 @@ import torch
 from repro import configs as rconfigs
 from repro import models as rmodels
 from repro.models import attention as rattn
+from repro.models import mla as rmla
 from repro_torch import configs as pconfigs
 from repro_torch import convert
 from repro_torch import models as pmodels
 from repro_torch.models import attention as pattn
+from repro_torch.models import mla as pmla
 
 LOGIT_ARCHS = ["llama3.2-1b", "phi4-mini-3.8b", "mistral-nemo-12b", "musicgen-large",
-               "gemma3-12b"]
+               "gemma3-12b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
+MOE_ARCHS = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
 B, S, N_DECODE = 2, 40, 3
 
 
@@ -139,19 +145,73 @@ def test_decode_attention_matches_reference(window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+def _mla_pair(seed=0):
+    cfg_r = rconfigs.get_arch("deepseek-v2-lite-16b").smoke_config()
+    cfg_p = pconfigs.get_arch("deepseek-v2-lite-16b").smoke_config()
+    params = jax.tree.map(np.asarray, rmla.init_mla(jax.random.key(seed), cfg_r))
+    mod = pmla.MLA(torch.Generator(), cfg_p, torch.device("meta"))
+    mod.load_state_dict({k: _t(v) for k, v in params.items()}, assign=True)
+    return cfg_r, cfg_p, params, mod
+
+
+def test_mla_projections_match_reference():
+    """``_project`` (RoPE on q's rope part, one shared roped key per token)
+    and ``_decompress`` (per-head K of nope + the broadcast rope key, V)."""
+    cfg_r, cfg_p, params, mod = _mla_pair(1)
+    x = np.random.default_rng(1).standard_normal((2, 12, cfg_r.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(5, 17)[None], (2, 12))
+    want = rmla._project(params, jnp.asarray(x), jnp.asarray(pos), cfg_r)
+    got = pmla._project(mod, _t(x), _t(pos), cfg_p)
+    assert got[0].shape == (2, 12, cfg_p.n_heads, cfg_p.nope_head_dim + cfg_p.rope_head_dim)
+    assert got[2].shape == (2, 12, 1, cfg_p.rope_head_dim)
+    for name, g, w in zip(("q", "c_kv", "k_rope"), got, want):
+        _close(g, w, 1e-5, name)
+    want_kv = rmla._decompress(params, want[1], want[2], cfg_r)
+    got_kv = pmla._decompress(mod, got[1], got[2], cfg_p)
+    assert got_kv[1].shape[-1] == cfg_p.v_head_dim
+    for name, g, w in zip(("k", "v"), got_kv, want_kv):
+        _close(g, w, 1e-5, name)
+
+
+def test_mla_prefill_and_decode_match_reference():
+    """Prefill's output and its latent cache (r + rope wide, zeros past the
+    prompt), then four decode steps each writing its entry at ``length``."""
+    cfg_r, cfg_p, params, mod = _mla_pair(2)
+    rng = np.random.default_rng(2)
+    S, n_dec, cache_len = 10, 4, 16
+    x = rng.standard_normal((2, S, cfg_r.d_model)).astype(np.float32)
+    o_r, cache_r = rmla.mla_prefill(params, jnp.asarray(x), cfg_r, cache_len)
+    o_p, cache_p = pmla.mla_prefill(mod, _t(x), cfg_p, cache_len)
+    assert cache_p.shape == (2, cache_len, cfg_p.kv_lora_rank + cfg_p.rope_head_dim)
+    _close(o_p, o_r, 1e-5, "prefill output")
+    _close(cache_p, cache_r, 1e-5, "latent cache")
+    assert not cache_p[:, S:].any()
+    _close(pmla.mla_train(mod, _t(x), cfg_p), o_r, 1e-5, "train forward")
+    for t in range(n_dec):
+        xd = rng.standard_normal((2, 1, cfg_r.d_model)).astype(np.float32)
+        o_r, cache_r = rmla.mla_decode(params, jnp.asarray(xd), cfg_r, cache_r,
+                                       jnp.asarray(S + t, jnp.int32))
+        o_p, cache_p = pmla.mla_decode(mod, _t(xd), cfg_p, cache_p, S + t)
+        _close(o_p, o_r, 1e-5, f"decode step {t}")
+    _close(cache_p, cache_r, 1e-5, "latent cache after decode")
+
+
 # ---------------------------------------------------------------------------
 # logits with converted weights
 # ---------------------------------------------------------------------------
 
 
-def _reference_run(cfg, seed: int = 0):
-    """The reference's weights (numpy leaves), its train_logits, prefill and
-    three greedy decode steps, jitted; the tokens each step was fed."""
+def _reference_run(cfg, seed: int = 0, dense_moe: bool = False):
+    """The reference's weights (numpy leaves), its train_logits and aux loss,
+    prefill and three greedy decode steps, jitted; the tokens each step was
+    fed."""
     params = jax.jit(lambda k: rmodels.init_params(k, cfg))(jax.random.key(seed))
     toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    logits, _ = jax.jit(lambda p, t: rmodels.train_logits(p, cfg, t))(params, toks)
-    lg, cache = jax.jit(lambda p, t: rmodels.prefill(p, cfg, t, S + N_DECODE + 1))(params, toks)
-    step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg, c, t))
+    logits, aux = jax.jit(lambda p, t: rmodels.train_logits(p, cfg, t, dense_moe=dense_moe))(
+        params, toks)
+    lg, cache = jax.jit(lambda p, t: rmodels.prefill(p, cfg, t, S + N_DECODE + 1,
+                                                     dense_moe=dense_moe))(params, toks)
+    step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg, c, t, dense_moe=dense_moe))
     fed, steps = [], []
     prefill_cache = jax.tree.map(np.asarray, cache)
     tok = jnp.argmax(lg, -1).astype(jnp.int32)
@@ -161,32 +221,37 @@ def _reference_run(cfg, seed: int = 0):
         steps.append(np.asarray(lg_t))
         tok = jnp.argmax(lg_t, -1).astype(jnp.int32)
     return dict(params=jax.tree.map(np.asarray, params), toks=toks, logits=np.asarray(logits),
-                prefill=np.asarray(lg), cache=prefill_cache, fed=fed, steps=steps)
+                aux=float(aux), prefill=np.asarray(lg), cache=prefill_cache, fed=fed,
+                steps=steps)
 
 
-def _port_logits(cfg, ref, tol):
+def _port_logits(cfg, ref, tol, dense_moe: bool = False):
     model = convert.model_params(ref["params"], cfg, device="cpu")
     toks = _t(ref["toks"])
-    logits, aux = pmodels.train_logits(model, cfg, toks)
-    assert float(aux) == 0.0
+    logits, aux = pmodels.train_logits(model, cfg, toks, dense_moe=dense_moe)
+    _close(aux, ref["aux"], tol, "aux loss")
     _close(logits, ref["logits"], tol, "train_logits")
-    lg, cache = pmodels.prefill(model, cfg, toks, S + N_DECODE + 1)
+    lg, cache = pmodels.prefill(model, cfg, toks, S + N_DECODE + 1, dense_moe=dense_moe)
     assert cache["length"] == S
     _close(lg, ref["prefill"], tol, "prefill")
     for t, (tok, want) in enumerate(zip(ref["fed"], ref["steps"])):
-        lg, cache = pmodels.decode_step(model, cfg, cache, _t(tok))
+        lg, cache = pmodels.decode_step(model, cfg, cache, _t(tok), dense_moe=dense_moe)
         _close(lg, want, tol, f"decode step {t}")
     assert cache["length"] == S + N_DECODE
     return model
 
 
-@pytest.mark.parametrize("arch_id", LOGIT_ARCHS)
-def test_smoke_logits_match_reference(arch_id):
+@pytest.mark.parametrize("arch_id,dense_moe",
+                         [pytest.param(a, False, id=a) for a in LOGIT_ARCHS]
+                         + [pytest.param(a, True, id=f"{a}-dense_moe") for a in MOE_ARCHS])
+def test_smoke_logits_match_reference(arch_id, dense_moe):
     cfg_r = rconfigs.get_arch(arch_id).smoke_config()
     cfg_p = pconfigs.get_arch(arch_id).smoke_config()
-    ref = _reference_run(cfg_r)
-    model = _port_logits(cfg_p, ref, 1e-5)
+    ref = _reference_run(cfg_r, dense_moe=dense_moe)
+    model = _port_logits(cfg_p, ref, 1e-5, dense_moe=dense_moe)
     assert pmodels.param_count(model) == rmodels.param_count(ref["params"])
+    if arch_id in MOE_ARCHS:
+        assert ref["aux"] > 0
 
 
 def test_bf16_smoke_logits_and_leaves_match_reference():
@@ -242,10 +307,74 @@ def test_entry_points_raise_without_cuda_and_unported_blocks_name_their_item():
             pmodels.init_params(g, cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             pmodels.init_cache(cfg, 1, 8)
-    for arch_id in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-1.3b", "zamba2-1.2b",
-                    "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 5\.[123]"):
+    for arch_id in MOE_ARCHS:  # MLA and MoE build since item 5.1
+        smoke = pconfigs.get_arch(arch_id).smoke_config()
+        model = pmodels.init_params(g, smoke, device="cpu")
+        assert len(model.blocks) == smoke.n_layers
+    for arch_id, item in (("mamba2-1.3b", "2"), ("zamba2-1.2b", "2"),
+                          ("llama-3.2-vision-90b", "3")):
+        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 item 5\.{item}"):
             pmodels.init_params(g, pconfigs.get_arch(arch_id).smoke_config(), device="cpu")
+
+
+# the published widths: deepseek-v2-lite whole, kimi-k2 cut to its first two
+# layers (one dense, one MoE); parameter totals from the reference's eval_shape
+FULL_WIDTH = {"deepseek-v2-lite-16b": (None, 15_706_470_400),
+              "kimi-k2-1t-a32b": (2, 19_967_675_392)}
+
+
+def _full_width(arch_id, mod):
+    depth, _ = FULL_WIDTH[arch_id]
+    cfg = mod.get_arch(arch_id).full_config()
+    if depth:
+        cfg = dataclasses.replace(cfg, n_layers=depth, pattern=cfg.pattern[:depth])
+    return cfg
+
+
+@pytest.mark.parametrize("arch_id", list(FULL_WIDTH))
+def test_full_width_parameter_shapes_match_reference(arch_id):
+    """Every parameter's name, shape and dtype at the published widths, the
+    reference's ``jax.eval_shape(init_params)`` (through
+    ``convert.model_state``, on zero-stride stand-ins) against the port's
+    model built on the ``meta`` device; no weight is drawn."""
+    cfg_r, cfg_p = _full_width(arch_id, rconfigs), _full_width(arch_id, pconfigs)
+    shapes = jax.eval_shape(lambda k: rmodels.init_params(k, cfg_r), jax.random.key(0))
+    stand_in = jax.tree.map(lambda l: np.broadcast_to(np.zeros((), l.dtype), l.shape), shapes)
+    want = {k: (tuple(v.shape), str(v.dtype)) for k, v in
+            convert.model_state(stand_in, cfg_p).items()}
+    model = pmodels.Transformer(torch.Generator(), cfg_p, torch.device("meta"))
+    got = {k: (tuple(v.shape), str(v.dtype).split(".")[-1]) for k, v in model.state_dict().items()}
+    assert got == want
+    total = FULL_WIDTH[arch_id][1]
+    assert pmodels.param_count(model) == rmodels.param_count(shapes) == total
+    assert all(v.dtype == torch.float32 for k, v in model.state_dict().items()
+               if k.endswith("ffn.router"))
+
+
+def test_model_params_keeps_moe_and_mla_leaves_bitwise():
+    """bf16 deepseek: the nested shared-expert FFN, the expert stacks of the
+    scanned MoE segment (unstacked by layer), the fp32 router and the MLA
+    weights cross with their bits."""
+    cfg_r = dataclasses.replace(rconfigs.get_arch("deepseek-v2-lite-16b").smoke_config(),
+                                dtype="bfloat16")
+    cfg_p = dataclasses.replace(pconfigs.get_arch("deepseek-v2-lite-16b").smoke_config(),
+                                dtype="bfloat16")
+    params = jax.tree.map(np.asarray, jax.jit(lambda k: rmodels.init_params(k, cfg_r))(
+        jax.random.key(4)))
+    model = convert.model_params(params, cfg_p, device="cpu")
+    moe_seg = params["segments"][1][0]  # layers 1-2, stacked on the repeat axis
+    for rep, layer in enumerate((1, 2)):
+        blk = model.blocks[layer]
+        for name, got, want in (("shared.w_gate", blk.ffn.shared.w_gate,
+                                 moe_seg["ffn"]["shared"]["w_gate"][rep]),
+                                ("w_down", blk.ffn.w_down, moe_seg["ffn"]["w_down"][rep]),
+                                ("mixer.w_uk", blk.mixer.w_uk, moe_seg["mixer"]["w_uk"][rep])):
+            assert got.dtype == torch.bfloat16, name
+            assert np.array_equal(got.view(torch.int16).numpy(), want.view(np.int16)), name
+        assert blk.ffn.router.dtype == torch.float32
+        assert np.array_equal(blk.ffn.router.numpy(), moe_seg["ffn"]["router"][rep])
+    assert np.array_equal(model.blocks[0].ffn.w_up.view(torch.int16).numpy(),
+                          params["segments"][0][0]["ffn"]["w_up"].view(np.int16))
 
 
 def test_port_init_draws_the_reference_distribution():

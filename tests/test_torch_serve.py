@@ -447,3 +447,78 @@ def test_launch_serve_runs_on_the_cpu_and_takes_only_a_1x1_mesh(capsys):
     assert "compressed kv @ rank 4" in capsys.readouterr().out
     with pytest.raises(ValueError, match="1x1"):
         launch.main(["--device", "cpu", "--mesh", "4x2"])
+
+
+# ---------------------------------------------------------------------------
+# MoE and MLA serving (deepseek-v2-lite, smoke config)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def deepseek():
+    cfg_r = rconfigs.get_arch("deepseek-v2-lite-16b").smoke_config()
+    cfg_p = pconfigs.get_arch("deepseek-v2-lite-16b").smoke_config()
+    params = jax.jit(lambda k: rmodels.init_params(k, cfg_r))(jax.random.key(2))
+    prompt = np.random.default_rng(2).integers(0, cfg_r.vocab_size, (2, 24)).astype(np.int32)
+    model = convert.model_params(jax.tree.map(np.asarray, params), cfg_p, device="cpu")
+    return cfg_r, cfg_p, params, model, prompt
+
+
+def test_generate_deepseek_matches_reference(deepseek):
+    """Greedy tokens through MLA's latent cache and the capacity dispatch
+    (``generate``'s default), then with ``kv_compress``: MLA latents are not
+    converted, so the tokens stay the reference's."""
+    cfg_r, cfg_p, params, model, prompt = deepseek
+    want = np.asarray(rserve.generate(params, cfg_r, jnp.asarray(prompt), N_TOKENS))
+    got = pserve.generate(model, cfg_p, _t(prompt), N_TOKENS)
+    assert np.array_equal(got.numpy(), want)
+    kc_r, kc_p = rkc.KVCompressionConfig(**GEN_KC), pkc.KVCompressionConfig(**GEN_KC)
+    want_c = np.asarray(rserve.generate(params, cfg_r, jnp.asarray(prompt), N_TOKENS,
+                                        kv_compress=kc_r))
+    got_c = pserve.generate(model, cfg_p, _t(prompt), N_TOKENS, kv_compress=kc_p)
+    assert np.array_equal(want_c, want) and np.array_equal(got_c.numpy(), want)
+
+
+def test_compress_prefill_cache_passes_mla_latents_through(deepseek):
+    """No layer converts; every latent is the same tensor, bit for bit the
+    reference's; ``cache_nbytes`` counts the latents."""
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    cfg_r, cfg_p, params, model, prompt = deepseek
+    n_max = 24 + N_TOKENS
+    _, ref_cache = jax.jit(lambda p, t: rmodels.prefill(p, cfg_r, t, n_max))(params, prompt)
+    ref_out = rkv.compress_prefill_cache(jax.random.key(0), cfg_r, ref_cache,
+                                         rkc.KVCompressionConfig(**GEN_KC))
+    _, cache = pmodels.prefill(model, cfg_p, _t(prompt), n_max)
+    reg = MetricsRegistry()
+    out = pserve.compress_prefill_cache(torch.Generator(), cfg_p, cache,
+                                        pkc.KVCompressionConfig(**GEN_KC), registry=reg)
+    assert reg.counters["serve/kv_layers_converted"] == 0
+    want = convert.dense_cache(jax.tree.map(np.asarray, ref_out), cfg_p, device="cpu")
+    width = cfg_p.kv_lora_rank + cfg_p.rope_head_dim
+    for got, before, ref in zip(out["layers"], cache["layers"], want["layers"]):
+        assert set(got) == {"latent"} and got["latent"] is before["latent"]
+        assert got["latent"].shape == (2, n_max, width)
+        np.testing.assert_allclose(got["latent"].numpy(), ref["latent"].numpy(), atol=1e-5)
+    assert pserve.cache_nbytes(out) == cfg_p.n_layers * 2 * n_max * width * 4
+    assert reg.gauges["serve/kv_cache_bytes"] == pserve.cache_nbytes(out)
+    assert pserve.cache_nbytes(pmodels.init_cache(cfg_p, 2, n_max, device="cpu")) == \
+        pserve.cache_nbytes(out)
+
+
+def test_launch_serve_passes_dense_moe_for_deepseek(monkeypatch, capsys):
+    """``--arch deepseek-v2-lite-16b`` serves its smoke config through the
+    dropless MoE path, as the reference CLI."""
+    from repro_torch.launch import serve as launch
+
+    seen = {}
+
+    def spy(*a, **kw):
+        seen.update(kw)
+        return pserve.generate(*a, **kw)
+
+    monkeypatch.setattr(launch, "generate", spy)
+    out = launch.main(["--device", "cpu", "--arch", "deepseek-v2-lite-16b", "--batch", "2",
+                       "--prompt-len", "12", "--gen", "6"])
+    assert out.shape == (2, 6) and seen["dense_moe"] is True
+    assert "deepseek-v2-lite-16b-smoke" in capsys.readouterr().out

@@ -110,8 +110,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    a per-head loop of the plain versions on 4 heads (1e-5).
    The kernels phase holds kernel 1's stacked launch (gather, transposed,
    fold, view; fp32 and bf16) against its plain version at (s)'s shapes:
-   the conversion's 1024 heads and a fold's 64, and at (u)'s: 64 heads of
-   head_dim 128, the conversion's and a fold's;
+   the conversion's 1024 heads and a fold's 64, at (u)'s: 64 heads of
+   head_dim 128, the conversion's and a fold's, and at (x)'s conversion:
+   128 heads of head_dim 128;
 13. (t) MoE and MLA serving — deepseek-v2-lite's full config, nothing cut
    (27 layers, d_model 2048, MLA with kv_lora 512 and rope 64, 64 experts
    top-6 plus 2 shared, bf16; 15,706,470,400 parameters), (r)'s 8 requests
@@ -134,7 +135,31 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    of 2048 seeded tokens, 32 greedy tokens, with the dense KV cache and
    with (s)'s compressed one: prefill, conversion and decode ms, kernel
    1's stacked launches (head_dim 128), ``cache_nbytes`` against the dense
-   cache, each head's error over its optimum (never below it).
+   cache, each head's error over its optimum (never below it);
+15. (v) mamba2-1.3b's full config, nothing cut (48 Mamba-2 layers,
+   d_model 2048, 64 heads of 64, state 128, chunk 256; 1,446,714,368
+   parameters), (r)'s 8 requests of 2048 seeded tokens, 64 greedy tokens:
+   prefill and decode ms, the decode state's bytes (constant in length);
+   gates: (1) one full-width layer in fp32, the chunked scan against the
+   token-by-token recurrence over 2048 tokens, y and the final state
+   within 1e-4; (2) decode after a 2048-token prefill against the last
+   logits of a 2049-token prefill, within 48 x 2^-8 (the previous
+   position's logits must fail it); ``torch.profiler`` over a prefill and
+   8 decode steps, as for (w) and (x);
+16. (w) zamba2-1.2b's full config, nothing cut (38 layers, one shared GQA
+   at six positions; 1,268,633,600 parameters), dense and with (s)'s
+   compressed cache: no layer converted (the reference converts only
+   ``ATTN``), kernel 1 never launched, the tokens identical; the shared
+   K/V and Mamba-2 state bytes;
+17. (x) llama-3.2-vision-90b at full width, depth cut to 10 (two [4 self
+   + 1 cross] units, one scanned segment of 2 repeats; 10,668,384,258
+   parameters, 19.9 GiB), 2048 synthetic patches of width 1280 a request,
+   the cross gates set to 0.5 (0 at init adds nothing), 32 greedy tokens,
+   dense and compressed: prefill, conversion and decode ms, kernel 1's
+   stacked launches (4 stacks of 128 heads of head_dim 128), cache bytes;
+   gates: (1) the first cross layer at gate 1 through SDPA against the
+   plain einsum path (tiled kv heads must fail it; SDPA's chosen
+   backend), (2) each head's error over its optimum (never below it).
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -199,6 +224,31 @@ DEEPSEEK_ARCH, DEEPSEEK_PARAMS = "deepseek-v2-lite-16b", 15_706_470_400
 DEEPSEEK_LATENT_BYTES = 27 * SERVE_B * (SERVE_S + SERVE_T) * (512 + 64) * 2
 DEEPSEEK_LOGIT_TOL = 27 * 2.0 ** -8
 KIMI_ARCH, KIMI_DEPTH, KIMI_PARAMS, KIMI_T = "kimi-k2-1t-a32b", 2, 19_967_675_392, 32
+# (v): mamba2-1.3b's full config; its decode state, constant in length: 48
+# layers x 8 requests x (64 x 128 x 64 fp32 SSM state + 3 x (4096 + 256)
+# bf16 conv windows). (w): zamba2-1.2b's full config; 6 shared-attention
+# K/V caches of 8 x 2112 x 32 x 64 bf16, and 32 Mamba-2 states of 8 x (64 x
+# 64 x 64 fp32 + 3 x (4096 + 128) bf16). (x): llama-3.2-vision-90b at full
+# width, depth cut to 10 (two [4 self + 1 cross] units), 2048 patches of
+# 1280 a request, 32 greedy tokens
+MAMBA_ARCH, MAMBA_PARAMS = "mamba2-1.3b", 1_446_714_368
+MAMBA_STATE_BYTES = 48 * SERVE_B * (64 * 128 * 64 * 4 + 3 * (4096 + 256) * 2)
+ZAMBA_ARCH, ZAMBA_PARAMS = "zamba2-1.2b", 1_268_633_600
+ZAMBA_KV_BYTES = 6 * 2 * SERVE_B * (SERVE_S + SERVE_T) * 32 * 64 * 2
+ZAMBA_SSM_BYTES = 32 * SERVE_B * (64 * 64 * 64 * 4 + 3 * (4096 + 128) * 2)
+VISION_ARCH, VISION_DEPTH, VISION_PARAMS, VISION_T = "llama-3.2-vision-90b", 10, 10_668_384_258, 32
+# (v) gate (1): the chunked scan against the token-by-token recurrence, fp32,
+# one full-width layer over 2048 tokens: exp of within-chunk cumulative sums
+# against products of per-step decays, relative to the largest entry (the
+# same layer on the CPU at one request differs by 2.4e-6 in y, 4.5e-6 in
+# the state). Gate (2): decode after a 2048-token prefill against the
+# 2049-token prefill's last logits, bf16: each of the 48 layers rounds its
+# output to bf16 at other places, (r)'s bound scaled to 48 layers
+SCAN_TOL = 1e-4
+MAMBA_LOGIT_TOL = 48 * 2.0 ** -8
+# (x) gate (1): one cross layer (gate 1) through SDPA against the reference's
+# einsums: both round p and the output to bf16, at other places
+CROSS_TOL = 4 * 2.0 ** -8
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -530,8 +580,10 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
     heads (16 layers x 8 requests x 8 kv-heads, one of K and V) at head_dim
     64 and panel 32, and a decode fold's N = 64 (one layer) at panel 8;
     (u)'s conversion and decode folds, N = 64 heads (8 requests x 8
-    kv-heads of one layer) at head_dim 128, panel 32 and 8; the folds'
-    windows from the prompt's end; OSNAP p = 4, s_c = s_r = 96, c0 = 64. Each held against
+    kv-heads of one layer) at head_dim 128, panel 32 and 8; (x)'s
+    conversion, N = 128 heads (2 repeats x 8 requests x 8 kv-heads of one
+    segment position) at head_dim 128, panel 32; the folds' windows from
+    the prompt's end; OSNAP p = 4, s_c = s_r = 96, c0 = 64. Each held against
     its plain version (``force_plain``) with fp32 and bf16 operands: S_C on
     a panel window (gather), the Ω window on the panel's transpose
     (transposed output), the S_R fold into M, and, for the conversions, S_R
@@ -539,7 +591,7 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
     Times at each conversion's S_C panel shape: the kernel, the plain
     version and one ``index_add_`` over the flattened ``item·s + hash``
     buckets of pre-signed rows (the kernels line carries (s)'s; (u)'s goes
-    to its own line)."""
+    to its own line, (x)'s to another)."""
     from repro_torch.core.sketching import StackedOSNAPSketch
 
     n_max, p, s, c0, r = SERVE_S + SERVE_T, 4, 96, 64, 32
@@ -547,7 +599,8 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
     for name, N, L, hd in (("conversion", 1024, SERVE_KC["panel"], 64),
                            ("decode_fold", 64, SERVE_KC["decode_panel"], 64),
                            ("conversion_hd128", SERVE_B * 8, SERVE_KC["panel"], 128),
-                           ("decode_fold_hd128", SERVE_B * 8, SERVE_KC["decode_panel"], 128)):
+                           ("decode_fold_hd128", SERVE_B * 8, SERVE_KC["decode_panel"], 128),
+                           ("conversion_h128_hd128", 2 * SERVE_B * 8, SERVE_KC["panel"], 128)):
         base = 0 if name.startswith("conversion") else SERVE_S
         S_C = StackedOSNAPSketch.draw(g, N, s, hd, p=p)
         S_R = StackedOSNAPSketch.draw(g, N, s, n_max, p=p).index_windows(L, base)
@@ -599,7 +652,7 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
         nbytes = 4 * (N * hd * L + K * hd + K * (s + 1) + K * hd + N * s * L)
         b, by = bound_ms(nbytes, K * hd * L, peaks)
         out[name] = dict(ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
-        line = "kernel/countsketch_batched" + ("" if name == "conversion" else "_hd128")
+        line = "kernel/countsketch_batched" + name[len("conversion"):]
         emit(line, shape=shapes[name], ms=k_ms, plain_ms=p_ms,
              library_ms=lib_ms, timing="device ms per call (torch.profiler)", events_ms=k_ev,
              plain_events_ms=p_ev, library_events_ms=lib_ev,
@@ -2561,11 +2614,14 @@ def phase_mesh(torch, A, K, ci_ri, ci_i, dev) -> list:
 def serve_errors(torch, cfg, dense: dict, comp: dict) -> tuple:
     """Every converted head's relative error against its own prompt history,
     and the optimal error at the head's rank (``torch.linalg.svdvals``):
-    ``(errors, optima)``, each (layers · 2 · B · KV,)."""
-    from repro_torch.serve import LowRankKV, compression_error
+    ``(errors, optima)``, each (converted layers · 2 · B · KV,); layers that
+    pass through (cross, Mamba-2) are skipped."""
+    from repro_torch.serve import CompressedKV, LowRankKV, compression_error
 
     errs, opts = [], []
     for layer, cache in zip(dense["layers"], comp["layers"]):
+        if not isinstance(cache, CompressedKV):
+            continue
         for name, fac in (("k", cache.k_fac), ("v", cache.v_fac)):
             check(all(bool(torch.isfinite(t).all()) for t in (fac.v_s, fac.sigma, fac.u)),
                   f"non-finite {name} factors")
@@ -2592,6 +2648,16 @@ def serve_profile(torch, model, cfg, cache, toks) -> dict:
     return dict(wall_ms_per_step=wall / 8, device_busy_ms_per_step=busy / 8,
                 device_idle_share=1 - busy / wall, device_ops_per_step=n_ops / 8,
                 top_device_ms=top)
+
+
+def prefill_profile(torch, model, cfg, prompt, n_max: int, **kw) -> dict:
+    """``torch.profiler`` over one ``prefill`` of ``prompt``: wall and
+    device-busy ms, the idle share, device ops, the top kernels."""
+    from repro_torch.models import prefill
+
+    wall, busy, n_ops, top = device_profile(torch, lambda: prefill(model, cfg, prompt, n_max, **kw))
+    return dict(wall_ms=wall, device_busy_ms=busy, device_idle_share=1 - busy / wall,
+                device_ops=n_ops, top_device_ms=top)
 
 
 def serve_convert_parts(torch, dense: dict, kc) -> dict:
@@ -3202,6 +3268,312 @@ def phase_kimi(torch, ops, dev) -> list:
     return launched
 
 
+def serve_run(torch, ops, model, cfg, prompt, n_tokens: int, **kw) -> dict:
+    """One ``generate`` over ``prompt``, its launch counts reset just before
+    and read just after: the tokens, the CUDA-event phase times, the
+    launches and the peak memory above what was resident."""
+    from repro_torch.serve import generate
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    t = {}
+    toks = generate(model, cfg, prompt, n_tokens, timings=t, **kw)
+    launched = dict(ops.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    check(toks.shape == (prompt.shape[0], n_tokens) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"{cfg.name}: tokens out of range")
+    return dict(tokens=toks, launches=launched, prefill_ms=t["prefill"], convert_ms=t["convert"],
+                decode_ms_per_token=t["decode"] / (n_tokens - 1),
+                tokens_per_s=prompt.shape[0] * (n_tokens - 1) / t["decode"] * 1e3,
+                peak_mem_over_resident_gib=peak)
+
+
+def scan_gate(torch, cfg, dev) -> dict:
+    """(v) gate (1): one full-width Mamba-2 layer in fp32, its chunked
+    ``mamba2_forward`` over 8 requests of 2048 tokens against
+    ``mamba2_decode`` stepped token by token from ``init_mamba2_state`` over
+    the same inputs (two forms of one recurrence): y and the final state."""
+    from repro_torch.models.ssm import Mamba2, init_mamba2_state, mamba2_decode, mamba2_forward
+
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    g = gen(torch, dev, SEED + 92)
+    layer = Mamba2(g, f32, dev)
+    x = torch.randn((SERVE_B, SERVE_S, cfg.d_model), generator=g, device=dev)
+    y, (_, _, st) = mamba2_forward(layer, x, f32)
+    state = init_mamba2_state(f32, SERVE_B, dev)
+    ys = torch.empty_like(y)
+    for t in range(SERVE_S):
+        ys[:, t : t + 1], state = mamba2_decode(layer, x[:, t : t + 1], f32, *state)
+    check(bool(torch.isfinite(y).all() and torch.isfinite(st).all()), "(v): non-finite scan")
+    e_y, e_s = err(ys, y), err(state[2], st)
+    check(e_y[1] <= SCAN_TOL and e_s[1] <= SCAN_TOL,
+          f"(v) gate (1): chunked against stepped, y rel {e_y[1]}, state rel {e_s[1]}")
+    return dict(requests=SERVE_B, tokens=SERVE_S, chunk=cfg.ssm_chunk, dtype="float32",
+                y=dict(max_abs_err=e_y[0], rel_err=e_y[1]),
+                state=dict(max_abs_err=e_s[0], rel_err=e_s[1]), tol=SCAN_TOL)
+
+
+def phase_mamba(torch, ops, dev) -> list:
+    """(v) mamba2-1.3b at its full config, nothing cut: ``generate`` over 8
+    requests of 2048 seeded tokens, 64 greedy tokens; the decode state's
+    bytes; gates (1) the chunked scan against the recurrence, (2) decode
+    after prefill against a longer prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, init_cache, init_params, param_count, prefill
+    from repro_torch.serve import cache_nbytes, generate
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident_before = torch.cuda.memory_allocated()
+    cfg = get_arch(MAMBA_ARCH).full_config()
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 93), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == MAMBA_PARAMS, f"(v): {n_params} parameters, want {MAMBA_PARAMS}")
+    g = gen(torch, dev, SEED + 94)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S + 1), generator=g, device=dev)
+    n_max = SERVE_S + SERVE_T
+    generate(model, cfg, prompt[:2, :256], 9)  # module loads, handles, plans
+    _, cache = prefill(model, cfg, prompt[:, :SERVE_S], n_max)
+    del cache
+
+    run = serve_run(torch, ops, model, cfg, prompt[:, :SERVE_S], SERVE_T)
+    toks = run.pop("tokens")
+    # the state is O(1) in length: the prefilled cache, the zeroed one
+    _, cache = prefill(model, cfg, prompt[:, :SERVE_S], n_max)
+    state_bytes = cache_nbytes(cache)
+    check(state_bytes == MAMBA_STATE_BYTES == cache_nbytes(init_cache(cfg, SERVE_B, 1, device=dev)),
+          f"(v): state {state_bytes} B, want {MAMBA_STATE_BYTES}")
+    emit("profile/v_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks))
+    del cache
+    emit("profile/v_prefill", **prefill_profile(torch, model, cfg, prompt[:, :SERVE_S], n_max))
+
+    # gate (2): decode after S tokens against the last logits of S + 1
+    lg_s, cache = prefill(model, cfg, prompt[:, :SERVE_S], SERVE_S + 1)
+    lg_d, _ = decode_step(model, cfg, cache, prompt[:, SERVE_S:])
+    lg_l, _ = prefill(model, cfg, prompt, SERVE_S + 1)
+    check(bool(torch.isfinite(lg_d).all() and torch.isfinite(lg_l).all()), "(v): non-finite logits")
+    e_abs, e_rel = err(lg_d, lg_l)
+    check(e_rel <= MAMBA_LOGIT_TOL, f"(v) gate (2): decode against prefill rel err {e_rel}")
+    c_rel = err(lg_s, lg_l)[1]  # the gate's power: the position before must fail it
+    check(c_rel > MAMBA_LOGIT_TOL, f"(v) gate (2): the previous position passes, {c_rel}")
+    del cache, lg_s, lg_d, lg_l
+    scan = scan_gate(torch, cfg, dev)
+    emit("serve/v_mamba2", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
+         batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, chunk=cfg.ssm_chunk,
+         timing="CUDA events around prefill and the decode loop", **run,
+         state_nbytes=state_bytes, resident_from_earlier_phases_gib=resident_before / 2**30,
+         scan_vs_recurrence=scan,
+         decode_vs_longer_prefill=dict(max_abs_err=e_abs, rel_err=e_rel, tol=MAMBA_LOGIT_TOL,
+                                       previous_position_rel_err=c_rel))
+    del model
+    torch.cuda.empty_cache()
+    return [run["launches"]]
+
+
+def phase_zamba(torch, ops, dev) -> list:
+    """(w) zamba2-1.2b at its full config, nothing cut (Mamba-2 with one
+    shared GQA at six positions): ``generate`` over (v)'s requests, dense
+    and with (s)'s compressed cache, which converts no layer (the reference
+    converts only ``ATTN``): zero conversions, zero kernel-1 launches,
+    identical tokens; the cache's bytes by kind."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, layer_specs, param_count, prefill
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = get_arch(ZAMBA_ARCH).full_config()
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 95), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == ZAMBA_PARAMS, f"(w): {n_params} parameters, want {ZAMBA_PARAMS}")
+    names = [n for n, _ in model.named_parameters()]
+    shared_idx = [i for i, s in enumerate(layer_specs(cfg)) if s.mixer == "shared_attn"]
+    check(sum(n.startswith("shared.") for n in names) == 4 and not any(
+        n.startswith(f"blocks.{i}.mixer.") for i in shared_idx for n in names),
+        "(w): the shared GQA is not held once")
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S),
+                           generator=gen(torch, dev, SEED + 96), device=dev)
+    n_max = SERVE_S + SERVE_T
+    kc = KVCompressionConfig(**SERVE_KC)
+    serve_run(torch, ops, model, cfg, prompt[:2, :256], 9, kv_compress=kc)  # warm-up
+    _, cache = prefill(model, cfg, prompt, n_max)
+    kv_bytes = sum(cache_nbytes(c) for s, c in zip(layer_specs(cfg), cache["layers"])
+                   if s.mixer == "shared_attn")
+    ssm_bytes = sum(cache_nbytes(c) for s, c in zip(layer_specs(cfg), cache["layers"])
+                    if s.mixer == "mamba2")
+    check(kv_bytes == ZAMBA_KV_BYTES and ssm_bytes == ZAMBA_SSM_BYTES,
+          f"(w): cache {kv_bytes} B shared K/V, {ssm_bytes} B Mamba-2 state")
+    del cache
+
+    dense = serve_run(torch, ops, model, cfg, prompt, SERVE_T)
+    reg = MetricsRegistry()
+    comp = serve_run(torch, ops, model, cfg, prompt, SERVE_T, kv_compress=kc, registry=reg)
+    toks_d, toks_c = dense.pop("tokens"), comp.pop("tokens")
+    converted = reg.counters.get("serve/kv_layers_converted", 0)
+    check(converted == 0 and comp["launches"]["countsketch_batched"] == 0,
+          f"(w): {converted} layers converted, kernel 1 launched "
+          f"{comp['launches']['countsketch_batched']} times")
+    check(torch.equal(toks_c, toks_d), "(w): compressed tokens differ from the dense run's")
+    _, cache = prefill(model, cfg, prompt, n_max)
+    emit("profile/w_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks_d))
+    del cache
+    emit("profile/w_prefill", **prefill_profile(torch, model, cfg, prompt, n_max))
+    emit("serve/w_zamba2", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
+         batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, shared_positions=shared_idx,
+         timing="CUDA events around prefill and the decode loop", dense=dense,
+         compressed=dict(comp, kc=SERVE_KC, layers_converted=converted,
+                         tokens_identical_to_dense=True,
+                         cache_nbytes_gauge=reg.gauges.get("serve/kv_cache_bytes")),
+         shared_kv_nbytes=kv_bytes, mamba2_state_nbytes=ssm_bytes)
+    del model
+    torch.cuda.empty_cache()
+    return [dense["launches"], comp["launches"]]
+
+
+def cross_gate(torch, model, cfg, vision, dev) -> dict:
+    """(x) gate (1): the first cross layer with ``gate = 1`` on one request
+    (a seeded bf16 hidden state of 2048 tokens against the projected patch
+    embeddings): SDPA against the plain einsum path, and the plain path
+    with the kv heads tiled (query head h reading kv head h % KV, not
+    h // (H/KV)), which must fail it; the backend SDPA's dispatcher picks
+    for these shapes."""
+    from torch.nn.attention import SDPBackend
+
+    from repro_torch.models.attention import plain_attention
+    from repro_torch.models.blocks import _cross_attend, _cross_kv
+
+    i = next(i for i, s in enumerate(cfg.pattern) if s.mixer == "cross")
+    mix = model.blocks[i].mixer
+    saved = mix.gate.clone()
+    mix.gate.fill_(1.0)
+    x = torch.randn((1, SERVE_S, cfg.d_model), generator=gen(torch, dev, SEED + 97), device=dev,
+                    dtype=cfg.param_dtype)
+    vis = vision[:1].to(cfg.param_dtype) @ model.vision_proj
+    k, v = _cross_kv(mix, vis, cfg)
+    got = _cross_attend(mix, cfg, x, k, v)
+    G = cfg.n_heads // cfg.n_kv_heads
+    with plain_attention():
+        want = _cross_attend(mix, cfg, x, k, v)
+        tiled = _cross_attend(mix, cfg, x, k.repeat(1, 1, G, 1), v.repeat(1, 1, G, 1))
+    mix.gate.copy_(saved)
+    check(bool(torch.isfinite(got).all()), "(x): non-finite cross-attention")
+    e_abs, e_rel = err(got, want)
+    check(e_rel <= CROSS_TOL, f"(x) gate (1): SDPA cross layer rel err {e_rel} > {CROSS_TOL}")
+    c_rel = err(tiled, got)[1]
+    check(c_rel > CROSS_TOL, f"(x) gate (1): tiled kv heads pass it, rel err {c_rel}")
+    q = (x @ mix.w_q).reshape(1, SERVE_S, cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    chosen = SDPBackend(torch._fused_sdp_choice(q, k.transpose(1, 2), v.transpose(1, 2),
+                                                enable_gqa=True)).name
+    return dict(layer=i, gate=1.0, request=0, max_abs_err=e_abs, rel_err=e_rel, tol=CROSS_TOL,
+                tiled_heads_control_rel_err=c_rel, sdpa_backend=chosen)
+
+
+def phase_vision(torch, ops, dev) -> list:
+    """(x) llama-3.2-vision-90b at full width, depth cut to 10 (two [4 self
+    + 1 cross] units, one scanned segment of 2 repeats): ``generate`` over
+    (v)'s requests with 2048 synthetic patches of width 1280 each, 32
+    greedy tokens, dense and with (s)'s compressed cache (kernel 1's
+    stacked launch at 128 heads of head_dim 128); the cross gates set to
+    0.5 (at init 0 a cross layer adds nothing); gates (1) a cross layer
+    against its plain path, (2) each head's error over its optimum."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, init_params, param_count, prefill, segments
+    from repro_torch.models.modality import synth_patch_embeddings
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    full = get_arch(VISION_ARCH).full_config()
+    cfg = dataclasses.replace(full, n_layers=VISION_DEPTH, pattern=full.pattern[:VISION_DEPTH])
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 98), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == VISION_PARAMS, f"(x): {n_params} parameters, want {VISION_PARAMS}")
+    cross = [b.mixer for b, s in zip(model.blocks, cfg.pattern) if s.mixer == "cross"]
+    check(len(cross) == 2 and all(float(m.gate) == 0.0 for m in cross), "(x): cross gates at init")
+    for m in cross:
+        m.gate.fill_(0.5)
+    g = gen(torch, dev, SEED + 99)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), generator=g, device=dev)
+    vision = synth_patch_embeddings(g, cfg, SERVE_B, dev)
+    n_max = SERVE_S + VISION_T
+    kc = KVCompressionConfig(**SERVE_KC)
+    serve_run(torch, ops, model, cfg, prompt[:2, :256], 9, vision=vision[:2], kv_compress=kc)
+    _, cache = prefill(model, cfg, prompt, n_max, vision)
+    del cache
+
+    runs = {}
+    for mode in ("dense", "compressed"):
+        runs[mode] = serve_run(torch, ops, model, cfg, prompt, VISION_T, vision=vision,
+                               gen=gen(torch, dev, SEED + 100),
+                               kv_compress=kc if mode == "compressed" else None)
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern)
+    n_pos = sum(s.mixer == "attn" for s in segments(cfg)[0].unit)
+    dp = SERVE_KC["decode_panel"]
+    n_folds = (VISION_T - 1) // dp
+    n_refresh = n_folds * dp // SERVE_KC["refresh_every"]
+    per_stack = 2 * (SERVE_S // SERVE_KC["panel"] * 4 + 2)  # K and V of one segment position
+    per_conv = n_pos * per_stack
+    want = per_conv + n_attn * (n_folds * 2 * 4 + n_refresh * 2 * 2)
+    total = runs["compressed"]["launches"]["countsketch_batched"]
+    check(runs["dense"]["launches"]["countsketch_batched"] == 0, "(x) dense: kernel 1 launched")
+    check(total == want, f"(x): kernel 1 launched {total} times, want {want}")
+
+    # the conversion alone: its launches, the cross caches passed through, gate (2)
+    _, dense = prefill(model, cfg, prompt, n_max, vision)
+    reg = MetricsRegistry()
+    ops.reset_launches()
+    comp = compress_prefill_cache(gen(torch, dev, SEED + 101), cfg, dense, kc, registry=reg)
+    conv_n = ops.LAUNCHES["countsketch_batched"]
+    check(conv_n == per_conv and reg.counters["serve/kv_layers_converted"] == n_attn,
+          f"(x): conversion launched kernel 1 {conv_n} times")
+    check(all(c is d for s, c, d in zip(cfg.pattern, comp["layers"], dense["layers"])
+              if s.mixer == "cross"), "(x): a cross cache was converted")
+    errs, opts = serve_errors(torch, cfg, dense, comp)
+    ratio = errs / opts
+    check(bool((errs >= opts * (1 - OPT_SLACK)).all()), "(x) gate (2): a head beats its optimum")
+    comp_bytes = cache_nbytes(comp)
+    dense_bytes = cache_nbytes(init_cache(cfg, SERVE_B, n_max, device=dev))
+    del comp
+    emit("profile/x_decode_8_steps", **serve_profile(torch, model, cfg, dense,
+                                                      runs["dense"]["tokens"]))
+    del dense
+    emit("profile/x_prefill", **prefill_profile(torch, model, cfg, prompt, n_max, vision=vision))
+    gate1 = cross_gate(torch, model, cfg, vision, dev)
+    toks_d, toks_c = runs["dense"].pop("tokens"), runs["compressed"].pop("tokens")
+    emit("serve/x_vision", arch=cfg.name, depth=VISION_DEPTH, full_depth=full.n_layers,
+         params=n_params, dtype=cfg.dtype, init_s=init_s, batch=SERVE_B, prompt_len=SERVE_S,
+         patches=cfg.n_patches, d_vision=cfg.d_vision, new_tokens=VISION_T, kc=SERVE_KC,
+         cross_gates=0.5, heads_per_stack=2 * SERVE_B * cfg.n_kv_heads,
+         timing="CUDA events", runs=runs,
+         kernel1_launches=dict(generate=total, per_conversion=conv_n, per_stack=per_stack,
+                               stacks=n_pos, per_layer_fold=2 * 4, folds_per_layer=n_folds,
+                               refreshes_per_layer=n_refresh),
+         cache_nbytes=comp_bytes, dense_cache_nbytes=dense_bytes,
+         compressed_over_dense=comp_bytes / dense_bytes, heads=int(errs.numel()),
+         kv_rel_err=dict(min=float(errs.min()), median=float(errs.median()),
+                         max=float(errs.max())),
+         error_over_optimal=dict(min=float(ratio.min()), median=float(ratio.median()),
+                                 max=float(ratio.max())),
+         tokens_agree_with_dense=float((toks_c == toks_d).float().mean()),
+         cross_layer_vs_plain=gate1)
+    del model, errs, opts
+    torch.cuda.empty_cache()
+    return [runs["dense"]["launches"], runs["compressed"]["launches"]]
+
+
 def main() -> int:
     import torch
 
@@ -3297,6 +3669,12 @@ def main() -> int:
     mark("t: deepseek")
     runs_launches += phase_kimi(torch, ops, dev)
     mark("u: kimi")
+    runs_launches += phase_mamba(torch, ops, dev)
+    mark("v: mamba2")
+    runs_launches += phase_zamba(torch, ops, dev)
+    mark("w: zamba2")
+    runs_launches += phase_vision(torch, ops, dev)
+    mark("x: vision")
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

@@ -9,9 +9,12 @@ bits viewed as ``uint16`` on the way (never rounded through another type).
 
 The serving slice adds the model and its caches: :func:`model_params`
 (a reference parameter pytree → the port's :class:`~repro_torch.models.Transformer`,
-laid out by :func:`model_state`),
-:func:`dense_cache` (a reference prefill cache → the port's per-layer
-cache) and :func:`compressed_kv_sketches` (a reference ``CompressedKV``'s
+laid out by :func:`model_state`: every block's leaves, MoE's nested
+experts, Mamba-2's fp32 ``dt_bias``/``a_log``/``d_skip`` beside its bf16
+matrices, the cross gate, and the model-level ``shared`` GQA and
+``vision_proj``), :func:`dense_cache` (a reference prefill cache → the
+port's per-layer cache: K/V, MLA latents, Mamba-2 conv windows and fp32
+state, cross K/V) and :func:`compressed_kv_sketches` (a reference ``CompressedKV``'s
 engine sketches → the port's stacked sketches).
 """
 
@@ -180,12 +183,17 @@ def model_state(np_params, cfg) -> dict:
     zero-stride ``np.broadcast_to`` views stand in for shapes alone): scanned
     segments' leaves unstacked along their leading repeat axis, in
     ``segments(cfg)`` order, into one block per layer; nested dicts (MoE's
-    ``shared`` experts) flattened into dotted names."""
+    ``shared`` experts, the model's ``shared`` GQA) flattened into dotted
+    names; a ``SHARED_ATTN`` block's empty mixer holds no leaf."""
     from .models.transformer import segments
 
     state = {"embed.tok": np_params["embed"]["tok"], "final_norm": np_params["final_norm"]["scale"]}
     if "lm_head" in np_params["embed"]:
         state["embed.lm_head"] = np_params["embed"]["lm_head"]
+    if "shared" in np_params:
+        _flatten("shared", np_params["shared"], state)
+    if "vision_proj" in np_params:
+        state["vision_proj"] = np_params["vision_proj"]
     layer = 0
     for seg, seg_params in zip(segments(cfg), np_params["segments"]):
         per_pos = [_unstack(p, seg.n_repeat) for p in seg_params]
@@ -219,7 +227,8 @@ def dense_cache(ref_cache, cfg, device: DeviceLike = None) -> dict:
     """The port's ``{"layers": [...], "length": int}`` from a reference
     prefill cache (``{"segments": ..., "length"}``, leaves as numpy),
     unstacking scanned segments into one cache per layer (K/V dicts, MLA's
-    ``{"latent": ...}``)."""
+    ``{"latent": ...}``, Mamba-2's ``{"conv_x", "conv_bc", "ssm"}``), every
+    leaf in its own dtype."""
     from .models.transformer import segments
 
     layers = []

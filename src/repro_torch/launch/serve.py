@@ -7,6 +7,8 @@
 Runs on the card (``--device cpu`` runs on the CPU). MoE archs
 (``--arch deepseek-v2-lite-16b``, ``kimi-k2-1t-a32b``) serve through the
 dropless MoE path (``dense_moe=True``), as the reference CLI does.
+A vision arch (``--arch llama-3.2-vision-90b``) gets synthetic patch
+embeddings from the modality stub, passed to ``generate`` as ``vision``.
 ``--mesh`` takes only ``1x1``: the port serves on one card. ``--smoke`` is
 the reference's flag as it is: ``store_true`` with ``default=True``, so the
 command line always serves the arch's ``smoke_config()`` (``ROADMAP.md``
@@ -23,6 +25,7 @@ import torch
 from ..configs import get_arch
 from ..device import generator, resolve_device
 from ..models import init_params, param_count
+from ..models.modality import synth_patch_embeddings
 from ..serve import KVCompressionConfig, generate
 
 
@@ -62,10 +65,11 @@ def main(argv=None):
     gen = generator(args.seed + 1, dev)
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len), generator=gen,
                            device=dev)
+    vision = synth_patch_embeddings(gen, cfg, args.batch, dev) if cfg.d_vision else None
     timings = {}
     t0 = time.perf_counter()
     out = generate(params, cfg, prompt, args.gen, gen=gen, temperature=args.temperature,
-                   dense_moe=True, kv_compress=kc, timings=timings)
+                   vision=vision, dense_moe=True, kv_compress=kc, timings=timings)
     dt = time.perf_counter() - t0
     n_tok = args.batch * args.gen
     mode = (f"compressed kv @ rank {kc.rank}" + (" adaptive" if kc.adaptive else "")

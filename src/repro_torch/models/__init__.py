@@ -1,7 +1,7 @@
-"""Decoder stack of the port (counterpart of ``repro/models``): GQA and MLA
-mixers, dense and MoE FFNs, on a plain loop over layers. Mamba-2,
-cross-attention and shared attention raise ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports them."""
+"""Decoder stack of the port (counterpart of ``repro/models``): GQA (also
+shared across blocks), MLA, Mamba-2 SSD and cross-attention mixers, dense
+and MoE FFNs, on a plain loop over layers; the modality stubs in
+:mod:`repro_torch.models.modality`."""
 
 from .config import (
     ATTN,
@@ -20,6 +20,7 @@ from .config import (
 )
 from .mla import MLA, mla_decode, mla_prefill, mla_train
 from .moe import MoE, Routing, moe_capacity, moe_ffn, moe_ffn_dense
+from .ssm import Mamba2, init_mamba2_state, mamba2_decode, mamba2_forward, ssd_chunked
 from .transformer import (
     Transformer,
     decode_step,
@@ -38,6 +39,7 @@ __all__ = [
     "BlockSpec", "ModelConfig", "Segment", "compile_pattern",
     "MLA", "mla_decode", "mla_prefill", "mla_train",
     "MoE", "Routing", "moe_capacity", "moe_ffn", "moe_ffn_dense",
+    "Mamba2", "init_mamba2_state", "mamba2_decode", "mamba2_forward", "ssd_chunked",
     "Transformer", "decode_step", "forward_hidden", "init_cache", "init_params",
     "layer_specs", "param_count", "prefill", "segments", "train_logits",
 ]

@@ -10,6 +10,10 @@ sliding-window (counterpart of ``repro/models/attention.py``).
   reference and ``chip_smoke.py`` holds SDPA against on the card.
 * :func:`decode_attention` — one query against a cache with a length mask,
   fp32 softmax, as the reference.
+* :func:`cross_attention` — queries against modality K/V, no mask (the
+  reference's ``_cross_attend`` core): SDPA on a CUDA tensor,
+  :func:`cross_attention_plain`, the reference's einsums, on the CPU or
+  inside :func:`plain_attention`.
 
 The flash backward (the reference's ``_flash_bwd_impl``) waits for the
 training slice (``ROADMAP.md`` §1).
@@ -30,7 +34,8 @@ _PLAIN = False
 
 @contextlib.contextmanager
 def plain_attention():
-    """Within the block, CUDA tensors take :func:`flash_attention_plain` too."""
+    """Within the block, CUDA tensors take the plain paths too
+    (:func:`flash_attention_plain`, :func:`cross_attention_plain`)."""
     global _PLAIN
     prev, _PLAIN = _PLAIN, True
     try:
@@ -150,5 +155,31 @@ def decode_attention(q, k_cache, v_cache, length: int, *, window: Optional[int] 
     return o.reshape(B, 1, H, Dv)
 
 
-__all__ = ["NEG_INF", "decode_attention", "flash_attention", "flash_attention_plain",
-           "plain_attention"]
+def cross_attention_plain(q, k, v):
+    """The reference's cross-attention core: q (B, S, H, D) against k, v
+    (B, P, KV, D), query head h reading kv head h // (H/KV); fp32 scores
+    and softmax, ``p`` cast to v's dtype for the value product. Returns
+    (B, S, H, D) in v's dtype."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, D)
+    s = torch.einsum("bqkgd,bpkd->bkgqp", qg, k).float() / math.sqrt(D)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqp,bpkd->bqkgd", p.to(v.dtype), v).reshape(B, S, H, D)
+
+
+def cross_attention(q, k, v):
+    """Unmasked attention of q (B, S, H, D) over k, v (B, P, KV, D): SDPA
+    on a CUDA tensor (GQA through ``enable_gqa``, the same head grouping),
+    :func:`cross_attention_plain` on the CPU or inside
+    :func:`plain_attention`."""
+    if q.is_cuda and not _PLAIN:
+        o = torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=q.shape[2] != k.shape[2])
+        return o.transpose(1, 2)
+    return cross_attention_plain(q, k, v)
+
+
+__all__ = ["NEG_INF", "cross_attention", "cross_attention_plain", "decode_attention",
+           "flash_attention", "flash_attention_plain", "plain_attention"]

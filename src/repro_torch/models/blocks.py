@@ -1,8 +1,11 @@
 """Residual blocks (counterpart of ``repro/models/blocks.py``): pre-norm
 mixer plus pre-norm FFN, with per-kind caches.
 
-The port has the GQA mixer for ``ATTN`` and ``ATTN_LOCAL``, the MLA mixer,
-the dense FFN and the MoE FFN. Every block kind exposes, as the reference:
+Mixers: GQA for ``ATTN`` and ``ATTN_LOCAL``; ``SHARED_ATTN``, GQA through
+the model-level shared weights (``extras["shared"]``: the block holds its
+norms and FFN, no mixer); MLA; Mamba-2 SSD; ``CROSS``, tanh-gated
+attention over the projected modality embeddings (``extras["vision"]``).
+FFNs: dense and MoE. Every block kind exposes, as the reference:
 
   init_block(gen, spec, cfg, device)                          → Block
   block_train(block, spec, cfg, x, extras, dense_moe)         → (x, aux_loss)
@@ -15,11 +18,14 @@ the mixer half alone). Only ``block_train`` forms MoE's aux loss; the
 reference's ``block_prefill`` also returns it, and its compiler drops the
 unused sum.
 
-Cache layouts: ``attn`` K/V (B, cache_len, KV, hd), the full history;
-``attn_local`` K/V (B, window, KV, hd), a ring; ``mla`` the latent
-(B, cache_len, r + rope). Decode writes the new token into the cache in
-place (the reference returns an updated copy); ``length`` is a host int.
-A cache that is not a dict is a pluggable backend
+Cache layouts: ``attn`` and ``shared_attn`` K/V (B, cache_len, KV, hd),
+the full history; ``attn_local`` K/V (B, window, KV, hd), a ring; ``mla``
+the latent (B, cache_len, r + rope); ``mamba2`` the conv windows
+(B, K − 1, C) and the fp32 state (B, H, N, P), O(1) in length (prefill
+ignores ``cache_len``); ``cross`` K/V (B, n_patches, KV, hd), static after
+prefill. Decode writes a new attention token into its cache in place (the
+reference returns an updated copy); ``length`` is a host int. A cache that
+is not a dict is a pluggable backend
 (:class:`repro_torch.serve.kv_cache.CompressedKV`) that owns its append and
 attention through ``append_attend``. ``dense_moe`` picks the MoE FFN's
 dropless loop over its capacity-bounded dispatch.
@@ -32,23 +38,11 @@ from torch import nn
 
 from . import mla as mla_mod
 from . import moe as moe_mod
-from .attention import decode_attention, flash_attention
+from . import ssm as ssm_mod
+from .attention import cross_attention, decode_attention, flash_attention
 from .config import (ATTN, ATTN_LOCAL, CROSS, DENSE, MAMBA2, MLA, MOE, NONE, SHARED_ATTN,
                      BlockSpec, ModelConfig)
 from .layers import FFN, apply_rope, ffn, init_scale, param, positions, rmsnorm
-
-# mixers the port does not have yet, and the ROADMAP.md §1 item that ports them
-UNPORTED = {
-    MAMBA2: "5.2 (Mamba-2 SSD and shared attention)",
-    SHARED_ATTN: "5.2 (Mamba-2 SSD and shared attention)",
-    CROSS: "5.3 (cross-attention and the modality stubs)",
-}
-
-
-def _unported(kind: str):
-    return NotImplementedError(
-        f"{kind!r} blocks are not ported yet: ROADMAP.md §1 item {UNPORTED[kind]}")
-
 
 def _ones(d, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.ones((d,), dtype=dtype, device=device), requires_grad=False)
@@ -66,20 +60,36 @@ class GQA(nn.Module):
         self.w_o = param(gen, (H * hd, D), dt, device, init_scale(H * hd))
 
 
+class Cross(GQA):
+    """Cross-attention: :class:`GQA`'s projections and the fp32 scalar
+    ``gate`` of its tanh-gated residual, 0 at init (the layer adds nothing
+    until trained), as the reference's ``_init_cross``."""
+
+    def __init__(self, gen, cfg: ModelConfig, device):
+        super().__init__(gen, cfg, device)
+        self.gate = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device),
+                                 requires_grad=False)
+
+
 class Block(nn.Module):
-    """One residual layer's parameters: ``norm1``, ``mixer`` (:class:`GQA` or
-    :class:`~repro_torch.models.mla.MLA`), ``norm2``, ``ffn`` (:class:`FFN` or
-    :class:`~repro_torch.models.moe.MoE`)."""
+    """One residual layer's parameters: ``norm1``, ``mixer`` (:class:`GQA`,
+    :class:`Cross`, :class:`~repro_torch.models.mla.MLA` or
+    :class:`~repro_torch.models.ssm.Mamba2`; none for ``SHARED_ATTN``),
+    ``norm2``, ``ffn`` (:class:`FFN` or :class:`~repro_torch.models.moe.MoE`)."""
 
     def __init__(self, gen, spec: BlockSpec, cfg: ModelConfig, device):
         super().__init__()
-        if spec.mixer not in (ATTN, ATTN_LOCAL, MLA):
-            raise _unported(spec.mixer)
         self.norm1 = _ones(cfg.d_model, cfg.param_dtype, device)
-        if spec.mixer == MLA:
-            self.mixer = mla_mod.MLA(gen, cfg, device)
-        else:
+        if spec.mixer in (ATTN, ATTN_LOCAL):
             self.mixer = GQA(gen, cfg, device)
+        elif spec.mixer == MLA:
+            self.mixer = mla_mod.MLA(gen, cfg, device)
+        elif spec.mixer == MAMBA2:
+            self.mixer = ssm_mod.Mamba2(gen, cfg, device)
+        elif spec.mixer == CROSS:
+            self.mixer = Cross(gen, cfg, device)
+        elif spec.mixer != SHARED_ATTN:  # its weights are the model's ``shared``
+            raise ValueError(spec.mixer)
         if spec.ffn == NONE:
             return
         self.norm2 = _ones(cfg.d_model, cfg.param_dtype, device)
@@ -164,6 +174,26 @@ def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: int):
 
 
 # ---------------------------------------------------------------------------
+# Cross-attention mixer (VLM)
+# ---------------------------------------------------------------------------
+
+
+def _cross_kv(p: Cross, vis, cfg: ModelConfig):
+    B, P, _ = vis.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return (vis @ p.w_k).reshape(B, P, KV, hd), (vis @ p.w_v).reshape(B, P, KV, hd)
+
+
+def _cross_attend(p: Cross, cfg: ModelConfig, x, k, v):
+    # no mask, no RoPE; the gate's fp32 tanh promotes the product, as the
+    # reference's 0-d fp32 array does, before the cast back to x's dtype
+    B, S, _ = x.shape
+    q = (x @ p.w_q).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    o = cross_attention(q, k, v).reshape(B, S, -1)
+    return (torch.tanh(p.gate) * (o @ p.w_o).float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Block-level dispatch
 # ---------------------------------------------------------------------------
 
@@ -180,13 +210,23 @@ def apply_ffn(block: Block, spec: BlockSpec, cfg: ModelConfig, x, dense_moe: boo
     return x + ffn(block.ffn, h, cfg.activation), None
 
 
+def _gqa_params(block: Block, mixer: str, extras):
+    return extras["shared"] if mixer == SHARED_ATTN else block.mixer
+
+
 def block_train(block: Block, spec: BlockSpec, cfg: ModelConfig, x, extras=None, *,
                 dense_moe: bool = False):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    if spec.mixer == MLA:
+    mixer = spec.mixer
+    if mixer in (ATTN, ATTN_LOCAL, SHARED_ATTN):
+        x = x + _gqa_train(_gqa_params(block, mixer, extras), mixer, cfg, h)
+    elif mixer == MLA:
         x = x + mla_mod.mla_train(block.mixer, h, cfg)
-    else:
-        x = x + _gqa_train(block.mixer, spec.mixer, cfg, h)
+    elif mixer == MAMBA2:
+        x = x + ssm_mod.mamba2_forward(block.mixer, h, cfg)[0]
+    elif mixer == CROSS:
+        k, v = _cross_kv(block.mixer, extras["vision"], cfg)
+        x = x + _cross_attend(block.mixer, cfg, h, k, v)
     x, r = apply_ffn(block, spec, cfg, x, dense_moe)
     aux = r.aux_loss() if r is not None else torch.zeros((), dtype=torch.float32,
                                                            device=x.device)
@@ -196,11 +236,19 @@ def block_train(block: Block, spec: BlockSpec, cfg: ModelConfig, x, extras=None,
 def block_prefill(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache_len: int,
                   extras=None, *, dense_moe: bool = False):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    if spec.mixer == MLA:
+    mixer = spec.mixer
+    if mixer in (ATTN, ATTN_LOCAL, SHARED_ATTN):
+        y, cache = _gqa_prefill(_gqa_params(block, mixer, extras), mixer, cfg, h, cache_len)
+    elif mixer == MLA:
         y, latent = mla_mod.mla_prefill(block.mixer, h, cfg, cache_len)
         cache = {"latent": latent}
-    else:
-        y, cache = _gqa_prefill(block.mixer, spec.mixer, cfg, h, cache_len)
+    elif mixer == MAMBA2:
+        y, (conv_x, conv_bc, state) = ssm_mod.mamba2_forward(block.mixer, h, cfg)
+        cache = {"conv_x": conv_x, "conv_bc": conv_bc, "ssm": state}
+    elif mixer == CROSS:
+        k, v = _cross_kv(block.mixer, extras["vision"], cfg)
+        cache = {"k": k, "v": v}
+        y = _cross_attend(block.mixer, cfg, h, k, v)
     x, _ = apply_ffn(block, spec, cfg, x + y, dense_moe)
     return x, cache
 
@@ -208,25 +256,38 @@ def block_prefill(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache_len:
 def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, length: int,
                  extras=None, *, dense_moe: bool = False):
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
-    if spec.mixer == MLA:
+    mixer = spec.mixer
+    if mixer in (ATTN, ATTN_LOCAL, SHARED_ATTN):
+        y, cache = _gqa_decode(_gqa_params(block, mixer, extras), mixer, cfg, h, cache, length)
+    elif mixer == MLA:
         y, latent = mla_mod.mla_decode(block.mixer, h, cfg, cache["latent"], length)
         cache = {"latent": latent}
-    else:
-        y, cache = _gqa_decode(block.mixer, spec.mixer, cfg, h, cache, length)
+    elif mixer == MAMBA2:
+        y, (conv_x, conv_bc, state) = ssm_mod.mamba2_decode(
+            block.mixer, h, cfg, cache["conv_x"], cache["conv_bc"], cache["ssm"])
+        cache = {"conv_x": conv_x, "conv_bc": conv_bc, "ssm": state}
+    elif mixer == CROSS:
+        y = _cross_attend(block.mixer, cfg, h, cache["k"], cache["v"])
     x, _ = apply_ffn(block, spec, cfg, x + y, dense_moe)
     return x, cache
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
     KV, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.param_dtype
-    if spec.mixer == MLA:
+    mixer = spec.mixer
+    if mixer == MLA:
         return {"latent": torch.zeros((batch, cache_len, cfg.kv_lora_rank + cfg.rope_head_dim),
                                       dtype=dt, device=device)}
-    if spec.mixer == ATTN_LOCAL:
+    if mixer == MAMBA2:
+        conv_x, conv_bc, state = ssm_mod.init_mamba2_state(cfg, batch, device)
+        return {"conv_x": conv_x, "conv_bc": conv_bc, "ssm": state}
+    if mixer == ATTN_LOCAL:
         shape = (batch, cfg.window, KV, hd)
-    elif spec.mixer == ATTN:
+    elif mixer in (ATTN, SHARED_ATTN):
         shape = (batch, cache_len, KV, hd)
+    elif mixer == CROSS:
+        shape = (batch, cfg.n_patches, KV, hd)
     else:
-        raise _unported(spec.mixer)
+        raise ValueError(mixer)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}

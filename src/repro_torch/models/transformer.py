@@ -4,7 +4,13 @@ The reference scans stacked per-repeat parameters over each segment; the
 port holds one :class:`~repro_torch.models.blocks.Block` module per layer
 in a :class:`Transformer` and runs a plain loop over the layers, in the
 reference's execution order (segment by segment, each repeat's unit in
-turn). Forward passes only: training waits for its slice.
+turn). Forward passes only: training waits for its slice. Model-level
+weights beside the blocks: ``shared``, the one GQA every ``SHARED_ATTN``
+block attends through (zamba2), and ``vision_proj`` (d_vision, d_model),
+which lifts the modality stub's patch embeddings for the ``CROSS`` blocks
+(llama-3.2-vision); ``forward_hidden`` and ``prefill`` take them as
+``vision`` (B, n_patches, d_vision) and raise without it for such a
+config, ``decode_step`` reads the cross K/V from the cache.
 
 Entry points:
   init_params    — a :class:`Transformer` drawn from a ``torch.Generator``
@@ -27,8 +33,8 @@ from torch import nn
 
 from ..device import DeviceLike, resolve_device
 from . import blocks as blk
-from .config import BlockSpec, ModelConfig, Segment, compile_pattern
-from .layers import embed_tokens, init_scale, lm_logits, rmsnorm, truncated_normal_
+from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
+from .layers import embed_tokens, init_scale, lm_logits, param, rmsnorm, truncated_normal_
 
 __all__ = ["Transformer", "segments", "layer_specs", "init_params", "forward_hidden",
            "train_logits", "init_cache", "prefill", "decode_step", "param_count"]
@@ -59,8 +65,15 @@ class Embedding(nn.Module):
                 init_scale(cfg.d_model)), requires_grad=False)
 
 
+def _has_shared(cfg: ModelConfig) -> bool:
+    return any(s.mixer == SHARED_ATTN for s in cfg.pattern)
+
+
 class Transformer(nn.Module):
-    """The model's parameters: ``embed``, one block per layer, ``final_norm``."""
+    """The model's parameters: ``embed``, one block per layer, ``shared``
+    (a :class:`~repro_torch.models.blocks.GQA`, with a ``SHARED_ATTN``
+    block in the pattern), ``vision_proj`` (with ``d_vision > 0``),
+    ``final_norm``."""
 
     def __init__(self, gen: torch.Generator, cfg: ModelConfig, device):
         super().__init__()
@@ -68,6 +81,11 @@ class Transformer(nn.Module):
         self.embed = Embedding(gen, cfg, device)
         self.blocks = nn.ModuleList(blk.init_block(gen, spec, cfg, device)
                                     for spec in layer_specs(cfg))
+        if _has_shared(cfg):
+            self.shared = blk.GQA(gen, cfg, device)
+        if cfg.d_vision > 0:
+            self.vision_proj = param(gen, (cfg.d_vision, cfg.d_model), cfg.param_dtype, device,
+                                     init_scale(cfg.d_vision))
         self.final_norm = nn.Parameter(torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
                                                   device=device), requires_grad=False)
 
@@ -88,15 +106,29 @@ def _layers(params: Transformer, cfg: ModelConfig):
     return zip(layer_specs(cfg), params.blocks)
 
 
+def _extras(params: Transformer, cfg: ModelConfig, vision) -> dict:
+    # the shared GQA and the projected vision embeddings (cast to the
+    # parameter dtype before the product), as the reference's _extras
+    ex = {}
+    if _has_shared(cfg):
+        ex["shared"] = params.shared
+    if cfg.d_vision > 0:
+        if vision is None:
+            raise ValueError(f"{cfg.name} requires `vision` embeddings (modality stub output)")
+        ex["vision"] = vision.to(cfg.param_dtype) @ params.vision_proj
+    return ex
+
+
 @torch.no_grad()
 def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
                    dense_moe: bool = False):
     """Final-normed hidden states (B, S, D) and the aux loss, summed over the
     MoE layers (0 without one); ``dense_moe`` takes MoE's dropless loop."""
     x = embed_tokens(params.embed.tok, tokens)
+    ex = _extras(params, cfg, vision)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for spec, block in _layers(params, cfg):
-        x, a = blk.block_train(block, spec, cfg, x, dense_moe=dense_moe)
+        x, a = blk.block_train(block, spec, cfg, x, ex, dense_moe=dense_moe)
         aux = aux + a
     return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
 
@@ -121,9 +153,10 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
     and a cache of ``cache_len`` positions holding it."""
     B, S = tokens.shape
     x = embed_tokens(params.embed.tok, tokens)
+    ex = _extras(params, cfg, vision)
     caches = []
     for spec, block in _layers(params, cfg):
-        x, c = blk.block_prefill(block, spec, cfg, x, cache_len, dense_moe=dense_moe)
+        x, c = blk.block_prefill(block, spec, cfg, x, cache_len, ex, dense_moe=dense_moe)
         caches.append(c)
     h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
     return lm_logits(params.embed, h, cfg), {"layers": caches, "length": S}
@@ -135,10 +168,11 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
     """token: (B, 1) ints. Returns (logits (B, 1, V), cache); the cache is
     updated in place and its ``length`` advanced."""
     x = embed_tokens(params.embed.tok, token)
+    ex = {"shared": params.shared} if _has_shared(cfg) else {}  # cross K/V live in the cache
     length = cache["length"]
     layers = cache["layers"]
     for i, (spec, block) in enumerate(_layers(params, cfg)):
-        x, layers[i] = blk.block_decode(block, spec, cfg, x, layers[i], length,
+        x, layers[i] = blk.block_decode(block, spec, cfg, x, layers[i], length, ex,
                                         dense_moe=dense_moe)
     h = rmsnorm(params.final_norm, x, cfg.norm_eps)
     cache["length"] = length + 1

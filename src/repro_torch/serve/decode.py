@@ -67,7 +67,8 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
              registry=None, kv_sketches: Optional[dict] = None,
              timings: Optional[dict] = None) -> torch.Tensor:
     """Greedy or temperature generation; prompt (B, S) on the model's
-    device. Returns (B, n_tokens) int32.
+    device. Returns (B, n_tokens) int32. ``vision``: a vlm config's patch
+    embeddings (B, n_patches, d_vision), read once, at prefill.
 
     ``gen`` draws the sampled tokens and, with ``kv_compress``, the
     compressed caches' sketches (``kv_sketches`` hands pre-drawn ones to

@@ -223,7 +223,10 @@ def compress_prefill_cache(gen: Optional[torch.Generator], cfg: ModelConfig, cac
                            registry: Optional[MetricsRegistry] = None,
                            sketches: Optional[dict] = None) -> dict:
     """Convert every global-attention (``ATTN``) layer cache of a prefilled
-    cache to :class:`CompressedKV`; other mixers' caches pass through.
+    cache to :class:`CompressedKV`; other mixers' caches pass through, the
+    same objects, as the reference's: local rings, MLA latents, Mamba-2
+    states, cross K/V and ``SHARED_ATTN`` K/V (zamba2 and mamba2 convert no
+    layer).
 
     The layers of one segment position (a scanned segment's ``n_repeat``
     layers) convert as one stack of heads; stacks go in segment order,

@@ -17,6 +17,11 @@ tokens are drawn with numpy. Tolerances:
 * bf16 logits: 3e-2 of the largest |logit| — both sides round every
   activation to bf16 (2^-8 relative), at different places (XLA fuses, the
   port rounds after each op), through three layers.
+
+The vision arch's cross layers start with ``gate = 0`` (``tanh(0) = 0``:
+the layer adds nothing), so its runs set every reference ``gate`` to 0.5
+before converting, and both packages take the same numpy patch
+embeddings.
 """
 
 import dataclasses
@@ -38,7 +43,8 @@ from repro_torch.models import attention as pattn
 from repro_torch.models import mla as pmla
 
 LOGIT_ARCHS = ["llama3.2-1b", "phi4-mini-3.8b", "mistral-nemo-12b", "musicgen-large",
-               "gemma3-12b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
+               "gemma3-12b", "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-1.3b",
+               "zamba2-1.2b", "llama-3.2-vision-90b"]
 MOE_ARCHS = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
 B, S, N_DECODE = 2, 40, 3
 
@@ -201,16 +207,28 @@ def test_mla_prefill_and_decode_match_reference():
 # ---------------------------------------------------------------------------
 
 
+def open_gates(params, value: float = 0.5):
+    """The reference pytree with every cross layer's ``gate`` set to ``value``."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, leaf: jnp.full_like(leaf, value)
+        if getattr(path[-1], "key", None) == "gate" else leaf, params)
+
+
 def _reference_run(cfg, seed: int = 0, dense_moe: bool = False):
-    """The reference's weights (numpy leaves), its train_logits and aux loss,
-    prefill and three greedy decode steps, jitted; the tokens each step was
-    fed."""
-    params = jax.jit(lambda k: rmodels.init_params(k, cfg))(jax.random.key(seed))
-    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    logits, aux = jax.jit(lambda p, t: rmodels.train_logits(p, cfg, t, dense_moe=dense_moe))(
-        params, toks)
-    lg, cache = jax.jit(lambda p, t: rmodels.prefill(p, cfg, t, S + N_DECODE + 1,
-                                                     dense_moe=dense_moe))(params, toks)
+    """The reference's weights (numpy leaves; cross gates at 0.5), its
+    train_logits and aux loss, prefill and three greedy decode steps,
+    jitted; the tokens each step was fed; the patch embeddings (numpy, or
+    ``None`` without a vision tower)."""
+    params = open_gates(jax.jit(lambda k: rmodels.init_params(k, cfg))(jax.random.key(seed)))
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    vision = (rng.standard_normal((B, cfg.n_patches, cfg.d_vision)).astype(np.float32)
+              if cfg.d_vision else None)
+    logits, aux = jax.jit(lambda p, t, v: rmodels.train_logits(p, cfg, t, v,
+                                                               dense_moe=dense_moe))(
+        params, toks, vision)
+    lg, cache = jax.jit(lambda p, t, v: rmodels.prefill(p, cfg, t, S + N_DECODE + 1, vision=v,
+                                                        dense_moe=dense_moe))(params, toks, vision)
     step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg, c, t, dense_moe=dense_moe))
     fed, steps = [], []
     prefill_cache = jax.tree.map(np.asarray, cache)
@@ -222,16 +240,17 @@ def _reference_run(cfg, seed: int = 0, dense_moe: bool = False):
         tok = jnp.argmax(lg_t, -1).astype(jnp.int32)
     return dict(params=jax.tree.map(np.asarray, params), toks=toks, logits=np.asarray(logits),
                 aux=float(aux), prefill=np.asarray(lg), cache=prefill_cache, fed=fed,
-                steps=steps)
+                steps=steps, vision=vision)
 
 
 def _port_logits(cfg, ref, tol, dense_moe: bool = False):
     model = convert.model_params(ref["params"], cfg, device="cpu")
     toks = _t(ref["toks"])
-    logits, aux = pmodels.train_logits(model, cfg, toks, dense_moe=dense_moe)
+    vision = None if ref["vision"] is None else _t(ref["vision"])
+    logits, aux = pmodels.train_logits(model, cfg, toks, vision, dense_moe=dense_moe)
     _close(aux, ref["aux"], tol, "aux loss")
     _close(logits, ref["logits"], tol, "train_logits")
-    lg, cache = pmodels.prefill(model, cfg, toks, S + N_DECODE + 1, dense_moe=dense_moe)
+    lg, cache = pmodels.prefill(model, cfg, toks, S + N_DECODE + 1, vision, dense_moe=dense_moe)
     assert cache["length"] == S
     _close(lg, ref["prefill"], tol, "prefill")
     for t, (tok, want) in enumerate(zip(ref["fed"], ref["steps"])):
@@ -252,6 +271,9 @@ def test_smoke_logits_match_reference(arch_id, dense_moe):
     assert pmodels.param_count(model) == rmodels.param_count(ref["params"])
     if arch_id in MOE_ARCHS:
         assert ref["aux"] > 0
+    if cfg_p.d_vision:  # the gates crossed open: the cross layers take part
+        gates = [b.mixer.gate for b in model.blocks if hasattr(b.mixer, "gate")]
+        assert gates and all(float(g) == 0.5 and g.dtype == torch.float32 for g in gates)
 
 
 def test_bf16_smoke_logits_and_leaves_match_reference():
@@ -299,28 +321,35 @@ def test_scanned_segments_unstack_in_layer_order():
         assert np.array_equal(block.norm1.numpy(), seg["norm1"]["scale"][layer])
 
 
-def test_entry_points_raise_without_cuda_and_unported_blocks_name_their_item():
-    cfg = pconfigs.get_arch("llama3.2-1b").smoke_config()
+@pytest.mark.parametrize("arch_id", list(pconfigs.ARCH_IDS))
+def test_entry_points_raise_without_cuda_and_every_arch_builds_on_the_cpu(arch_id):
+    """Every arch in ``configs/`` builds, its cache too, on the CPU when asked
+    (no block kind is left unported); without a card the entry points raise
+    rather than fall back."""
+    cfg = pconfigs.get_arch(arch_id).smoke_config()
     g = torch.Generator()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pmodels.init_params(g, cfg)
         with pytest.raises(RuntimeError, match="CUDA"):
             pmodels.init_cache(cfg, 1, 8)
-    for arch_id in MOE_ARCHS:  # MLA and MoE build since item 5.1
-        smoke = pconfigs.get_arch(arch_id).smoke_config()
-        model = pmodels.init_params(g, smoke, device="cpu")
-        assert len(model.blocks) == smoke.n_layers
-    for arch_id, item in (("mamba2-1.3b", "2"), ("zamba2-1.2b", "2"),
-                          ("llama-3.2-vision-90b", "3")):
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP\.md §1 item 5\.{item}"):
-            pmodels.init_params(g, pconfigs.get_arch(arch_id).smoke_config(), device="cpu")
+    model = pmodels.init_params(g, cfg, device="cpu")
+    assert len(model.blocks) == cfg.n_layers
+    assert len(pmodels.init_cache(cfg, 1, 8, device="cpu")["layers"]) == cfg.n_layers
+    shapes = jax.eval_shape(lambda k: rmodels.init_params(
+        k, rconfigs.get_arch(arch_id).smoke_config()), jax.random.key(0))
+    assert pmodels.param_count(model) == rmodels.param_count(shapes)
 
 
-# the published widths: deepseek-v2-lite whole, kimi-k2 cut to its first two
-# layers (one dense, one MoE); parameter totals from the reference's eval_shape
+# the published widths: deepseek-v2-lite, mamba2-1.3b and zamba2-1.2b whole,
+# kimi-k2 cut to its first two layers (one dense, one MoE), the vision model
+# to its first ten (two [4 self + 1 cross] units); parameter totals from the
+# reference's eval_shape
 FULL_WIDTH = {"deepseek-v2-lite-16b": (None, 15_706_470_400),
-              "kimi-k2-1t-a32b": (2, 19_967_675_392)}
+              "kimi-k2-1t-a32b": (2, 19_967_675_392),
+              "mamba2-1.3b": (None, 1_446_714_368),
+              "zamba2-1.2b": (None, 1_268_633_600),
+              "llama-3.2-vision-90b": (10, 10_668_384_258)}
 
 
 def _full_width(arch_id, mod):
@@ -347,8 +376,13 @@ def test_full_width_parameter_shapes_match_reference(arch_id):
     assert got == want
     total = FULL_WIDTH[arch_id][1]
     assert pmodels.param_count(model) == rmodels.param_count(shapes) == total
+    fp32 = ("ffn.router", "mixer.dt_bias", "mixer.a_log", "mixer.d_skip", "mixer.gate")
     assert all(v.dtype == torch.float32 for k, v in model.state_dict().items()
-               if k.endswith("ffn.router"))
+               if k.endswith(fp32))
+    if arch_id == "zamba2-1.2b":  # one shared GQA, counted once; its blocks hold no mixer
+        assert sum(k.startswith("shared.") for k in got) == 4
+        assert not any(".mixer." in k for k in got
+                       if k.startswith(tuple(f"blocks.{i}." for i in (7, 13, 19, 25, 31, 37))))
 
 
 def test_model_params_keeps_moe_and_mla_leaves_bitwise():

@@ -522,3 +522,129 @@ def test_launch_serve_passes_dense_moe_for_deepseek(monkeypatch, capsys):
                        "--prompt-len", "12", "--gen", "6"])
     assert out.shape == (2, 6) and seen["dense_moe"] is True
     assert "deepseek-v2-lite-16b-smoke" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2, shared attention and cross-attention serving (smoke configs)
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["mamba2-1.3b", "zamba2-1.2b"]
+VISION_ARCH = "llama-3.2-vision-90b"
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS + [VISION_ARCH])
+def hybrid(request):
+    """A reference model (the vision arch's cross gates set to 0.5, as its
+    init's 0 makes a cross layer add nothing), the port's copy, a prompt
+    and, for the vision arch, numpy patch embeddings."""
+    arch = request.param
+    cfg_r = rconfigs.get_arch(arch).smoke_config()
+    cfg_p = pconfigs.get_arch(arch).smoke_config()
+    params = jax.jit(lambda k: rmodels.init_params(k, cfg_r))(jax.random.key(5))
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: jnp.full_like(leaf, 0.5)
+        if getattr(path[-1], "key", None) == "gate" else leaf, params)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg_r.vocab_size, (2, 24)).astype(np.int32)
+    vision = (rng.standard_normal((2, cfg_r.n_patches, cfg_r.d_vision)).astype(np.float32)
+              if cfg_r.d_vision else None)
+    model = convert.model_params(jax.tree.map(np.asarray, params), cfg_p, device="cpu")
+    return arch, cfg_r, cfg_p, params, model, prompt, vision
+
+
+def _vis(vision):
+    return None if vision is None else _t(vision)
+
+
+def test_generate_ssm_shared_and_cross_match_reference(hybrid):
+    """Greedy tokens through Mamba-2's O(1) state, zamba2's shared-attention
+    caches and the vision arch's static cross K/V equal the reference's."""
+    arch, cfg_r, cfg_p, params, model, prompt, vision = hybrid
+    want = rserve.generate(params, cfg_r, jnp.asarray(prompt), N_TOKENS, vision=vision)
+    got = pserve.generate(model, cfg_p, _t(prompt), N_TOKENS, vision=_vis(vision))
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_kv_compress_converts_only_attn_layers(hybrid):
+    """The reference converts only ``ATTN`` layers: zamba2's shared-attention
+    caches, every Mamba-2 state and the cross K/V pass through, the same
+    tensors. Both packages count the ``ATTN`` layers
+    (``serve/kv_layers_converted``): none for mamba2 and zamba2, whose
+    compressed runs launch kernel 1 never and give the dense run's tokens."""
+    from repro.obs.metrics import MetricsRegistry as RRegistry
+    from repro_torch.obs.metrics import MetricsRegistry
+
+    arch, cfg_r, cfg_p, params, model, prompt, vision = hybrid
+    kc_r, kc_p = rkc.KVCompressionConfig(**GEN_KC), pkc.KVCompressionConfig(**GEN_KC)
+    n_attn = sum(spec.mixer == pmodels.ATTN for spec in cfg_p.pattern)
+    assert n_attn == (4 if arch == VISION_ARCH else 0)
+    n_max = 24 + N_TOKENS
+    _, ref_cache = jax.jit(lambda p, t, v: rmodels.prefill(p, cfg_r, t, n_max, vision=v))(
+        params, prompt, vision)
+    reg_r, reg_p = RRegistry(), MetricsRegistry()
+    rkv.compress_prefill_cache(jax.random.key(0), cfg_r, ref_cache, kc_r, registry=reg_r)
+    _, cache = pmodels.prefill(model, cfg_p, _t(prompt), n_max, _vis(vision))
+    ops.reset_launches()
+    out = pserve.compress_prefill_cache(torch.Generator(), cfg_p, cache, kc_p, registry=reg_p)
+    assert reg_r.counters["serve/kv_layers_converted"] == n_attn
+    assert reg_p.counters["serve/kv_layers_converted"] == n_attn
+    for spec, got, before in zip(pmodels.layer_specs(cfg_p), out["layers"], cache["layers"]):
+        if spec.mixer != pmodels.ATTN:
+            assert got is before
+    if n_attn:
+        return
+    assert ops.LAUNCHES["countsketch_batched"] == 0
+    dense = np.asarray(rserve.generate(params, cfg_r, jnp.asarray(prompt), N_TOKENS))
+    want = np.asarray(rserve.generate(params, cfg_r, jnp.asarray(prompt), N_TOKENS,
+                                      kv_compress=kc_r))
+    got = pserve.generate(model, cfg_p, _t(prompt), N_TOKENS, kv_compress=kc_p)
+    assert np.array_equal(want, dense) and np.array_equal(got.numpy(), dense)
+
+
+def test_dense_cache_of_ssm_and_cross_continues_the_reference_decode(hybrid):
+    """A reference prefill cache (Mamba-2 conv windows and fp32 state,
+    zamba2's shared K/V, cross K/V) converted to the port's per-layer cache
+    decodes three steps as the reference does from it."""
+    arch, cfg_r, cfg_p, params, model, prompt, vision = hybrid
+    n_max = 24 + 4
+    lg, cache = jax.jit(lambda p, t, v: rmodels.prefill(p, cfg_r, t, n_max, vision=v))(
+        params, prompt, vision)
+    pcache = convert.dense_cache(jax.tree.map(np.asarray, cache), cfg_p, device="cpu")
+    kinds = {s.mixer for s in cfg_p.pattern}
+    for spec, layer in zip(pmodels.layer_specs(cfg_p), pcache["layers"]):
+        if spec.mixer == pmodels.MAMBA2:
+            assert layer["ssm"].dtype == torch.float32 and layer["conv_x"].dtype == cfg_p.param_dtype
+        if spec.mixer == pmodels.CROSS:
+            assert layer["k"].shape == (2, cfg_p.n_patches, cfg_p.n_kv_heads, cfg_p.head_dim)
+    assert pmodels.MAMBA2 in kinds or pmodels.CROSS in kinds
+    step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg_r, c, t))
+    tok = jnp.argmax(lg, -1).astype(jnp.int32)
+    for t in range(3):
+        lg, cache = step(params, cache, tok)
+        plg, pcache = pmodels.decode_step(model, cfg_p, pcache, _t(tok))
+        _close(plg, lg, what=f"decode step {t}")
+        tok = jnp.argmax(lg, -1).astype(jnp.int32)
+
+
+def test_launch_serve_passes_vision_for_the_vlm(monkeypatch, capsys):
+    """``--arch llama-3.2-vision-90b`` draws patch embeddings from the
+    modality stub and passes them to ``generate`` as ``vision``, as the
+    reference CLI; a text arch passes none."""
+    from repro_torch.launch import serve as launch
+
+    seen = {}
+
+    def spy(*a, **kw):
+        seen.update(kw)
+        return pserve.generate(*a, **kw)
+
+    monkeypatch.setattr(launch, "generate", spy)
+    cfg = pconfigs.get_arch(VISION_ARCH).smoke_config()
+    out = launch.main(["--device", "cpu", "--arch", VISION_ARCH, "--batch", "2",
+                       "--prompt-len", "12", "--gen", "4"])
+    assert out.shape == (2, 4)
+    assert seen["vision"].shape == (2, cfg.n_patches, cfg.d_vision)
+    assert seen["vision"].dtype == cfg.param_dtype and "vision-90b-smoke" in capsys.readouterr().out
+    launch.main(["--device", "cpu", "--arch", "mamba2-1.3b", "--batch", "2", "--prompt-len", "12",
+                 "--gen", "4"])
+    assert seen["vision"] is None

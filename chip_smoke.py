@@ -17,7 +17,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    an empty admission, an exhausted budget, tied scores, bf16 inputs, the
    fp32-sketch/bf16-panel pair of a bf16 Gaussian stream (kernel 3 also
    with bf16 C and M, after that pair, fp32 or bf16 sketch and panel),
-   kernel 4's example and ragged shapes, and second
+   kernel 4's example and ragged shapes and the compressed train step's two
+   largest launches ((y)'s embedding, 128256 x 2048, and w_up's stack, 16 x
+   2048 x 8192, at s = 128, with their stream-K plans), and second
    launches of kernels 2-4 compared bitwise; CUDA-event times of the
    kernel, the plain version and one library call, beside the card's bound;
    the launch plans of kernels 2-4 against the resident slots, and every
@@ -159,7 +161,25 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    stacked launches (4 stacks of 128 heads of head_dim 128), cache bytes;
    gates: (1) the first cross layer at gate 1 through SDPA against the
    plain einsum path (tiled kv heads must fail it; SDPA's chosen
-   backend), (2) each head's error over its optimum (never below it).
+   backend), (2) each head's error over its optimum (never below it);
+18. (y) training — llama3.2-1b's full config (1,235,814,400 parameters,
+   bf16) from a seeded ``init_params``, 8 steps of ``make_train_step``
+   (``remat="dots"``, the reference CLI's AdamW for 8 steps) on
+   ``SyntheticLM`` batches of 4 x 2048 tokens, then from the same initial
+   state 8 steps of ``make_compressed_train_step`` (rank 32, factor 4,
+   min_dim 512) in an NCCL group of one rank: step ms (CUDA events, the
+   median of steps 2-8), tokens/s, peak GiB, every step's loss and
+   grad_norm, ``comp/*`` (the ratio must be the reference's 43.160360...),
+   kernel 4's launches (8 a step: 64), ``torch.profiler`` over one plain and
+   one compressed step (the compression's device ms, the idle share);
+   gates: (1) at depth 2, the loss and every gradient through SDPA against
+   the plain attention path (a wrong softmax scale must fail it), (2)
+   ``remat`` None / dots / full agree (another batch's gradients must
+   not), (3) every loss, grad_norm and ``comp/*`` finite, (4) a rank-8
+   stacked gradient of w_up's shape reconstructs within the reference's
+   0.03 (a full-rank one must not), (5) ``python -m
+   repro_torch.launch.train`` at depth 2, compressed, a crash at step 3:
+   one restart, 6 steps. The serving phases (r)-(x) run under ``no_grad``.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -249,6 +269,27 @@ MAMBA_LOGIT_TOL = 48 * 2.0 ** -8
 # (x) gate (1): one cross layer (gate 1) through SDPA against the reference's
 # einsums: both round p and the output to bf16, at other places
 CROSS_TOL = 4 * 2.0 ** -8
+# (y): llama3.2-1b's full config trained for 8 steps on SyntheticLM batches of
+# 4 x 2048 tokens, plain and with GMR gradient compression at the reference
+# CLI's rank 32, factor 4, min_dim 512 (src/repro/launch/train.py:117-119),
+# the CLI's OptimizerConfig for 8 steps (warmup min(20, 8 // 10 + 1) = 1);
+# the reference's compression_ratio of this tree (jax.eval_shape); its 8
+# compressible leaves take one kernel-4 launch each per step
+TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_LR = "llama3.2-1b", 4, 2048, 8, 3e-3
+TRAIN_PARAMS, TRAIN_LEAVES, TRAIN_RATIO = 1_235_814_400, 8, 43.160360489235394
+TRAIN_CCFG = dict(rank=32, sketch_factor=4, min_dim=512)
+TRAIN_GATE_DEPTH = 2
+# (y) gate (1): the loss and each gradient (relative Frobenius error), SDPA
+# against the plain attention path, bf16: each of the 2 layers rounds its
+# attention output (forward) and its q, k, v gradients (backward) to bf16
+# (2^-8) at other places, at most 2 x 2 x 2^-8 if the roundings added up.
+# Gate (2): remat None / "dots" / "full" rerun the same kernels on the same
+# inputs; FlashAttention's backward sums dq in any order (float atomics), one
+# bf16 rounding apart. Gate (4): the reference's reconstruction bound on a
+# rank-8 stacked gradient (tests/test_train.py:162-171)
+TRAIN_SDPA_TOL = 2 * TRAIN_GATE_DEPTH * 2.0 ** -8
+TRAIN_REMAT_TOL = 2.0 ** -8
+TRAIN_RECON_TOL = 0.03
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -570,6 +611,7 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     out["countsketch"]["max_abs_err"] = max(out["countsketch"]["max_abs_err"],
                                             countsketch_sp_svd(torch, ops, dev, g, peaks)[0])
     out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
+    kernel_twoside_compress(torch, ops, peaks, dev, g)
     out["countsketch_batched"] = kernel_batched(torch, ops, dev, g, peaks)
     return out
 
@@ -1014,6 +1056,47 @@ def kernel_twoside(torch, ops, peaks, dev, g) -> dict:
     return dict(max_abs_err=max(e[0] for e in errs.values()),
                 max_rel_err=max(e[1] for e in errs.values()),
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
+
+
+def kernel_twoside_compress(torch, ops, peaks, dev, g) -> None:
+    """Kernel 4 at the compressed train step's two largest launches (fp32,
+    s = 128): the embedding's gradient, one item of 128256 x 2048, and
+    w_up's stack, 16 items of 2048 x 8192; its stream-K plans there (few
+    output tiles, deep k) against the card's slots and their scratch."""
+    ps = importlib.import_module("repro_torch.kernels.panel_score")
+    tw = importlib.import_module("repro_torch.kernels.twoside_sketch")
+    n_sm = ps.sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    bps = [ps.blocks_per_sm("twoside_sketch", stage, 0) for stage in (0, 1)]
+    s = TRAIN_CCFG["rank"] * TRAIN_CCFG["sketch_factor"]
+    for name, B, m, n in (("embed.tok", 1, 128256, 2048), ("ffn.w_up", 16, 2048, 8192)):
+        sc = torch.randn((s, m), generator=g, device=dev) / math.sqrt(s)
+        a = torch.randn((B, m, n), generator=g, device=dev).squeeze(0)  # 2-D when B = 1
+        srt = (torch.randn((s, n), generator=g, device=dev) / math.sqrt(s)).T
+        got = ops.twoside_sketch(sc, a, srt)
+        with ops.force_plain():
+            want = ops.twoside_sketch(sc, a, srt)
+        e_abs, e_rel = err(got, want)
+        check(e_rel <= TOL, f"twoside_sketch at {name}: rel err {e_rel} > {TOL}")
+        k_ms = timed(torch, lambda: ops.twoside_sketch(sc, a, srt))
+        with ops.force_plain():
+            p_ms = timed(torch, lambda: ops.twoside_sketch(sc, a, srt))
+        lib_ms = timed(torch, lambda: torch.matmul(torch.matmul(sc, a), srt))
+        flops = 2 * B * s * m * n + 2 * B * s * n * s
+        b, by = bound_ms(4 * (B * m * n + s * m + n * s + B * s * s), flops, peaks)
+        plans = {}
+        for stage, plan in zip(("S_C A", "T S_R^T"), tw.twoside_plans(B, s, m, n, s, n_sm, bps)):
+            plans[stage] = dict(blocks=plan.nblocks, tiles=plan.tiles, whole_tiles=plan.whole,
+                                k_slabs_per_tile=plan.slabs, units=plan.units,
+                                partial_slots=plan.partial_slots,
+                                scratch_mib=plan.partial_slots * ps.BM * ps.PANEL_BN * 4 / 2**20)
+            check(plan.nblocks <= n_sm * bps[0 if stage == "S_C A" else 1],
+                  f"twoside_sketch at {name}: {plan.nblocks} blocks over the slots")
+        emit("kernel/twoside_sketch_compress", leaf=name, shape=[B, s, m, n, s],
+             max_abs_err=e_abs, rel_err=e_rel, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+             library="torch.matmul(torch.matmul(S_C, G), S_R^T), fp32 highest", bound_ms=b,
+             bound_by=by, tflops=flops / k_ms / 1e9, sms=n_sm, plans=plans)
+        del sc, a, srt, got, want
+    torch.cuda.empty_cache()
 
 
 def check_indices(torch, idx, hi: int, name: str) -> int:
@@ -3574,6 +3657,310 @@ def phase_vision(torch, ops, dev) -> list:
     return [runs["dense"]["launches"], runs["compressed"]["launches"]]
 
 
+def train_grads(torch, model, cfg, batch, remat=None) -> tuple:
+    """``(loss, {name: gradient})`` of one step's loss (``make_loss_fn``)."""
+    from repro_torch.train import make_loss_fn
+
+    params = dict(model.named_parameters())
+    loss, _ = make_loss_fn(cfg, remat=remat)(model, batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def grads_rel_err(torch, got: tuple, want: tuple) -> float:
+    """The larger of the loss's relative error and the largest relative
+    Frobenius error of a gradient, ``got`` against ``want`` (loss, grads)."""
+    worst = abs(got[0] - want[0]) / abs(want[0])
+    for k, w in want[1].items():
+        d = torch.linalg.vector_norm((got[1][k].float() - w.float()).ravel())
+        worst = max(worst, float(d / torch.linalg.vector_norm(w.float().ravel()).clamp(min=1e-30)))
+    return worst
+
+
+def sdpa_train_backends(torch, cfg, dev) -> dict:
+    """Which SDPA backends take the training attention's shapes (4 requests
+    of 2048 tokens, GQA 32/8 of 64, bf16) forward and backward, causal and
+    with a windowed boolean mask, both with ``enable_gqa``, and the one its
+    dispatcher picks."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = gen(torch, dev, SEED + 111)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mk = lambda h: torch.randn((TRAIN_B, h, TRAIN_S, hd), generator=g, device=dev,  # noqa: E731
+                               dtype=torch.bfloat16).requires_grad_()
+    q, k, v = mk(H), mk(KV), mk(KV)
+    pos = torch.arange(TRAIN_S, device=dev)
+    window = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < 512)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for case, kw in (("causal", dict(is_causal=True)), ("window_mask", dict(attn_mask=window))):
+        acc = {}
+        for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+            if not hasattr(SDPBackend, name):
+                continue
+            try:
+                with sdpa_kernel(getattr(SDPBackend, name)):
+                    o = sdpa(q, k, v, enable_gqa=True, **kw)
+                    torch.autograd.grad(o.float().sum(), (q, k, v))
+                acc[name] = True
+            except RuntimeError as e:
+                acc[name] = str(e).splitlines()[0][:120]
+        try:
+            chosen = SDPBackend(torch._fused_sdp_choice(q, k, v, enable_gqa=True, **kw)).name
+        except (RuntimeError, TypeError) as e:
+            chosen = f"not reported: {str(e).splitlines()[0][:80]}"
+        out[case] = dict(accepts=acc, default=chosen)
+    torch.cuda.synchronize()
+    return out
+
+
+def train_gates(torch, cfg_full, dev, batch, other) -> dict:
+    """(y)'s gates (1) and (2) at full width, depth 2: one step's loss and
+    gradients through SDPA against the plain attention path (its control: a
+    wrong softmax scale) and under each remat policy (its control: the
+    gradients of another batch)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import plain_attention
+
+    cfg = dataclasses.replace(cfg_full, n_layers=TRAIN_GATE_DEPTH,
+                              pattern=cfg_full.pattern[:TRAIN_GATE_DEPTH])
+    model = init_params(gen(torch, dev, SEED + 110), cfg, device=dev)
+    sdpa = train_grads(torch, model, cfg, batch)
+    with plain_attention():
+        plain = train_grads(torch, model, cfg, batch)
+    e_sdpa = grads_rel_err(torch, sdpa, plain)
+    check(e_sdpa <= TRAIN_SDPA_TOL, f"(y) gate 1: SDPA's gradients rel err {e_sdpa} > "
+          f"{TRAIN_SDPA_TOL}")
+    # the control: q scaled by sqrt(2) in every layer, SDPA's scale 1/sqrt(32)
+    # for 1/sqrt(64) (RoPE is linear)
+    with torch.no_grad():
+        saved = [b.mixer.w_q.clone() for b in model.blocks]
+        for b in model.blocks:
+            b.mixer.w_q.mul_(math.sqrt(2.0))
+    ctl = train_grads(torch, model, cfg, batch)
+    with torch.no_grad():
+        for b, w in zip(model.blocks, saved):
+            b.mixer.w_q.copy_(w)
+    e_ctl = grads_rel_err(torch, ctl, plain)
+    check(e_ctl > TRAIN_SDPA_TOL, f"(y) gate 1: a wrong softmax scale passes: {e_ctl}")
+    del plain, ctl, saved
+    remat = {}
+    for policy in ("dots", "full"):
+        remat[policy] = grads_rel_err(torch, train_grads(torch, model, cfg, batch, policy), sdpa)
+        check(remat[policy] <= TRAIN_REMAT_TOL,
+              f"(y) gate 2: remat={policy} rel err {remat[policy]} > {TRAIN_REMAT_TOL}")
+    e_other = grads_rel_err(torch, train_grads(torch, model, cfg, other), sdpa)
+    check(e_other > TRAIN_REMAT_TOL, f"(y) gate 2: another batch's gradients pass: {e_other}")
+    out = dict(depth=TRAIN_GATE_DEPTH, sdpa_vs_plain_rel_err=e_sdpa, sdpa_tol=TRAIN_SDPA_TOL,
+               wrong_scale_control_rel_err=e_ctl, remat_rel_err=remat, remat_tol=TRAIN_REMAT_TOL,
+               other_batch_control_rel_err=e_other, loss=sdpa[0],
+               sdpa_backends=sdpa_train_backends(torch, cfg, dev))
+    del model, sdpa
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_run(torch, ops, step_fn, state, batches, resident: int) -> tuple:
+    """Drive ``step_fn`` over the batches with the launch counts reset just
+    before; ``(state, record, launches)``: each step's CUDA-event ms, loss,
+    grad_norm and ``comp/*`` metrics, the median ms of steps 2.., tokens/s
+    and the peak memory over ``resident`` (bytes held by earlier phases)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    steps = []
+    ops.reset_launches()
+    for i, batch in enumerate(batches):
+        ev[0].record()
+        state, metrics = step_fn(state, batch, i)
+        ev[1].record()
+        torch.cuda.synchronize()
+        steps.append(dict(ms=ev[0].elapsed_time(ev[1]),
+                          **{k: float(v) for k, v in metrics.items()}))
+    launches = dict(ops.LAUNCHES)
+    ms = median([x["ms"] for x in steps[1:]])
+    rec = dict(step_ms_median=ms, tokens_per_s=TRAIN_B * TRAIN_S / ms * 1e3,
+               peak_gib=(torch.cuda.max_memory_allocated() - resident) / 2**30,
+               losses=[x["loss"] for x in steps], grad_norms=[x["grad_norm"] for x in steps],
+               step_ms=[x["ms"] for x in steps], loss_fell=steps[-1]["loss"] < steps[0]["loss"])
+    comp = sorted({k for k in steps[0] if k.startswith("comp/")})
+    rec.update({k: [x[k] for x in steps] for k in comp})
+    vals = rec["losses"] + rec["grad_norms"] + [v for k in comp for v in rec[k]]
+    check(all(math.isfinite(v) for v in vals), f"(y) gate 3: non-finite metrics {rec}")
+    return state, rec, launches
+
+
+def compressed_step_profile(torch, cstep, state, batch, seed: int) -> dict:
+    """``torch.profiler`` over one compressed step: device busy ms and ops,
+    the idle share, and the device ms of the kernels that
+    ``compressed_mean_grads`` launches (sketch draws, kernel 4, the outer
+    products, ``fast_gmr_core``, the reconstruction, the EF update)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tsmod = importlib.import_module("repro_torch.train.train_step")
+    real, tag = tsmod.compressed_mean_grads, "chip_smoke/compression"
+
+    def wrapped(*args, **kwargs):
+        with record_function(tag):
+            return real(*args, **kwargs)
+
+    tsmod.compressed_mean_grads = wrapped
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = cstep(state, batch, seed)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+    finally:
+        tsmod.compressed_mean_grads = real
+    dev_us = [(e.key, getattr(e, "self_device_time_total", 0.0), e.count)
+              for e in prof.key_averages()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and not e.key.startswith("stream/") and e.key != tag]
+    dev_us = [x for x in dev_us if x[1] > 0]
+    busy = sum(x[1] for x in dev_us) / 1e3
+    # the device-side span of the tag and the device entries inside it
+    on_dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    span = [e for e in on_dev if e.name == tag]
+    comp_ms = span_ms = None
+    if span:
+        lo, hi = span[0].time_range.start, span[0].time_range.end
+        span_ms = (hi - lo) / 1e3
+        comp_ms = sum(e.time_range.end - e.time_range.start for e in on_dev
+                      if e.name != tag and not e.name.startswith("stream/")
+                      and lo <= e.time_range.start and e.time_range.end <= hi) / 1e3
+    top = sorted(dev_us, key=lambda x: -x[1])[:10]
+    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                device_ops=sum(x[2] for x in dev_us), compression_device_ms=comp_ms,
+                compression_device_span_ms=span_ms,
+                compression_share_of_busy=None if comp_ms is None else comp_ms / busy,
+                top=[[k[:60], us / 1e3, n] for k, us, n in top]), state
+
+
+def train_cli(torch) -> dict:
+    """(y) gate (5): the training CLI at depth 2, compressed, a crash
+    injected at step 3; a checkpoint every 3 steps under ``build/``."""
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--layers",
+           str(TRAIN_GATE_DEPTH), "--dtype", "bfloat16", "--batch", str(TRAIN_B), "--seq",
+           str(TRAIN_S), "--steps", "6", "--grad-compress", "--fail-at-step", "3",
+           "--ckpt-every", "3", "--ckpt-dir", str(ckpt)]
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[train]")]
+    check(out.returncode == 0, f"(y) gate 5: the CLI exited {out.returncode}: "
+          f"{out.stderr[-2000:]}")
+    done = lines[-1] if lines else ""
+    check("done: 6 steps" in done and "restarts=1" in done, f"(y) gate 5: {lines}")
+    return dict(cmd=" ".join(cmd[1:]), wall_s=wall, lines=lines)
+
+
+def phase_train(torch, ops, dev) -> list:
+    """(y): llama3.2-1b's full config trained 8 steps, plain and compressed
+    (an NCCL group of one rank), from one seeded initial state; gates (1)-(5)
+    and kernel 4's launches (8 a compressed step)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.device import fold_in
+    from repro_torch.models import init_params, param_count
+    from repro_torch.train import (CompressionConfig, OptimizerConfig, compress, compression_ratio,
+                                   decompress, init_opt_state, make_compressed_train_step,
+                                   make_train_step)
+
+    cfg = get_arch(TRAIN_ARCH).full_config()
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S,
+                                  seed=SEED), device=dev)
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    gates = train_gates(torch, cfg, dev, batches[0], batches[1])
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()  # what earlier phases still hold
+
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, SEED + 100), cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    check(n_params == TRAIN_PARAMS, f"(y): {n_params} parameters")
+    oc = OptimizerConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 10 + 1),
+                         total_steps=TRAIN_STEPS)
+    ccfg = CompressionConfig(**TRAIN_CCFG)
+    ratio = compression_ratio(model, ccfg)
+    check(ratio == TRAIN_RATIO, f"(y): compression_ratio {ratio} != the reference's {TRAIN_RATIO}")
+    init = {k: v.detach().cpu() for k, v in model.named_parameters()}  # off the card
+
+    step = make_train_step(cfg, oc, remat="dots")
+    state = {"params": model, "opt": init_opt_state(model, oc)}
+    state, plain, launch_plain = train_run(torch, ops, lambda s, b, i: step(s, b), state, batches,
+                                           resident)
+    check(not any(launch_plain.values()), f"(y): the plain step launched {launch_plain}")
+    # where a plain step's time goes: one more step under torch.profiler
+    held = [state]
+    wall, busy, n_ops, top = device_profile(torch, lambda: held.append(step(held.pop(), batches[0])[0]))
+    plain["step_profile"] = dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                                 device_ops=n_ops, top=top)
+    del state, held
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(init[k])
+    del init
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        dist.all_reduce(torch.zeros(1, device=dev))  # creates the communicator
+        cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, dist.group.WORLD,
+                                                     remat="dots")
+        state = {"params": model, "opt": init_opt_state(model, oc), "err": init_err(model)}
+        state, comp, launched = train_run(
+            torch, ops, lambda s, b, i: cstep(s, b, fold_in(9, i)), state, batches, resident)
+        profile, state = compressed_step_profile(torch, cstep, state, batches[0],
+                                                 fold_in(9, TRAIN_STEPS))
+    finally:
+        dist.destroy_process_group()
+    check(launched["twoside_sketch"] == TRAIN_LEAVES * TRAIN_STEPS,
+          f"(y): kernel 4 launched {launched['twoside_sketch']} times, not "
+          f"{TRAIN_LEAVES * TRAIN_STEPS}")
+    check(all(abs(r / TRAIN_RATIO - 1) <= 1e-6 for r in comp["comp/ratio"]),
+          f"(y): comp/ratio {comp['comp/ratio']} != {TRAIN_RATIO}")
+    del state, model
+    torch.cuda.empty_cache()
+
+    # gate (4): a rank-8 stacked gradient of w_up's shape reconstructs within
+    # the reference's bound; a full-rank Gaussian one (the control) does not
+    g = gen(torch, dev, SEED + 112)
+    L, m, n = cfg.n_layers, cfg.d_model, cfg.d_ff
+    recon = {}
+    for name, G in (("rank_8", torch.matmul(torch.randn((L, m, 8), generator=g, device=dev),
+                                           torch.randn((L, 8, n), generator=g, device=dev))),
+                    ("full_rank_control", torch.randn((L, m, n), generator=g, device=dev))):
+        Ghat = decompress(5, compress(5, G, ccfg), G.shape, ccfg)
+        recon[name] = float(torch.linalg.vector_norm(G - Ghat) / torch.linalg.vector_norm(G))
+        del G, Ghat
+    check(recon["rank_8"] < TRAIN_RECON_TOL, f"(y) gate 4: rank-8 rel err {recon['rank_8']}")
+    check(recon["full_rank_control"] > TRAIN_RECON_TOL,
+          f"(y) gate 4: the full-rank control passes: {recon['full_rank_control']}")
+    torch.cuda.empty_cache()
+    cli = train_cli(torch)
+    emit("train/y_llama_train", arch=TRAIN_ARCH, params=n_params, init_s=init_s,
+         resident_from_earlier_phases_gib=resident / 2**30,
+         batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, remat="dots", optimizer=dataclasses.asdict(oc),
+         plain=plain, compressed=dict(config=TRAIN_CCFG, compression_ratio=ratio, **comp),
+         kernel4_launches=launched["twoside_sketch"], launches=launched,
+         compressed_step_profile=profile, gates=dict(**gates, reconstruction=recon,
+                                                     reconstruction_tol=TRAIN_RECON_TOL,
+                                                     cli=cli))
+    return [launched]
+
+
 def main() -> int:
     import torch
 
@@ -3663,18 +4050,21 @@ def main() -> int:
     mark("f, g, h item")
     runs_launches += run_spsd(torch, dev)
     mark("i-k, m: i, j, n: i")
-    runs_launches += phase_serve(torch, ops, dev)
-    mark("r, s: serve")
-    runs_launches += phase_deepseek(torch, ops, dev)
-    mark("t: deepseek")
-    runs_launches += phase_kimi(torch, ops, dev)
-    mark("u: kimi")
-    runs_launches += phase_mamba(torch, ops, dev)
-    mark("v: mamba2")
-    runs_launches += phase_zamba(torch, ops, dev)
-    mark("w: zamba2")
-    runs_launches += phase_vision(torch, ops, dev)
-    mark("x: vision")
+    with torch.no_grad():  # serving builds no autograd graph (its weights are trainable)
+        runs_launches += phase_serve(torch, ops, dev)
+        mark("r, s: serve")
+        runs_launches += phase_deepseek(torch, ops, dev)
+        mark("t: deepseek")
+        runs_launches += phase_kimi(torch, ops, dev)
+        mark("u: kimi")
+        runs_launches += phase_mamba(torch, ops, dev)
+        mark("v: mamba2")
+        runs_launches += phase_zamba(torch, ops, dev)
+        mark("w: zamba2")
+        runs_launches += phase_vision(torch, ops, dev)
+        mark("x: vision")
+    runs_launches += phase_train(torch, ops, dev)
+    mark("y: train")
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

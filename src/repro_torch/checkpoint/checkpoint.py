@@ -16,7 +16,12 @@ Leaves are named by the reference's ``jax.tree_util.keystr`` paths
 (``.C``, ``.ctx.S_C.hashes``, ``['params']['w']``): :func:`_walk` turns a
 tree — dicts (keys in sorted order), lists, tuples and dataclasses, such as
 a :class:`~repro_torch.stream.engine.PanelState` — into ``(key, leaf)``
-pairs and back. Tensor fields are leaves, ``None`` fields are skipped as
+pairs and back. An ``nn.Module`` (a train state's model) is walked as the
+dict of its ``named_parameters()`` (``['params']['blocks.0.ffn.w_up']``),
+and a restore copies the loaded values into those parameters in place,
+returning the template's module. A train checkpoint's layout is therefore
+the port's per-layer one, not the reference's scan stacks: it restores in
+the port only. Tensor fields are leaves, ``None`` fields are skipped as
 the reference skips them, and the host scalars that are 0-dim leaves in the
 reference (``PanelState.offset``, the adaptive contexts' ``slot_lo``,
 ``min_gain``, ``swap_gain``, ``seen_lo``; :data:`_SCALAR_LEAVES`) are
@@ -33,7 +38,7 @@ removes older steps of both layouts.
 
 Restore places each tensor on its template leaf's device, in the template
 leaf's dtype (the reference's ``shardings=`` becomes placement by
-template), into fresh storage. Read-only parts — sketches (frozen
+template), into fresh storage (a module's parameters: in place). Read-only parts — sketches (frozen
 dataclasses) and fields a class lists in ``FRESH_SHARED`` (Ω_test, the
 dense ``S_R`` of adaptive rows) — come back as the template's own objects
 when the saved values equal them, as :func:`~repro_torch.stream.engine.fresh_state`
@@ -102,6 +107,8 @@ def _walk(node, key: str, fn: Callable, scalar: Optional[str] = None):
         return {k: out[k] for k in node}
     if isinstance(node, (list, tuple)):
         return type(node)(_walk(v, f"{key}[{i}]", fn) for i, v in enumerate(node))
+    if isinstance(node, torch.nn.Module):
+        return _walk_module(node, key, fn)
     if dataclasses.is_dataclass(node) and not isinstance(node, type):
         return _walk_dataclass(node, key, fn)
     raise TypeError(f"{key or 'root'}: cannot checkpoint a leaf of type {type(node).__name__}")
@@ -130,6 +137,19 @@ def _walk_dataclass(node, key: str, fn: Callable):
         changes.update({f.name: f.default_factory() for f in fields if f.name.startswith("_")
                         and f.default_factory is not dataclasses.MISSING})
     return dataclasses.replace(node, **changes)
+
+
+def _walk_module(node: torch.nn.Module, key: str, fn: Callable):
+    """A module's parameters, walked as the dict ``named_parameters()``; a
+    restored value is copied into its parameter in place, and the module
+    itself is returned."""
+    params = dict(node.named_parameters())
+    out = _walk(params, key, fn)
+    with torch.no_grad():
+        for name, t in out.items():
+            if t is not params[name]:
+                params[name].copy_(t)
+    return node
 
 
 def _same_values(a, b) -> bool:

@@ -16,6 +16,12 @@ matrices, the cross gate, and the model-level ``shared`` GQA and
 port's per-layer cache: K/V, MLA latents, Mamba-2 conv windows and fp32
 state, cross K/V) and :func:`compressed_kv_sketches` (a reference ``CompressedKV``'s
 engine sketches → the port's stacked sketches).
+
+The training slice adds :func:`stacked_leaves` (the port's per-layer
+parameters grouped into the reference's scan stacks, in its flattening
+order: gradient compression sketches each group as one leaf),
+:func:`train_state` (a reference train state → the port's) and
+:func:`error_state` (one worker's EF residuals).
 """
 
 from __future__ import annotations
@@ -37,7 +43,8 @@ from .device import DeviceLike, resolve_device
 
 __all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays", "sketch_pair",
            "spsvd_sketches", "telemetry_frame", "stream_init_inputs", "model_state", "model_params",
-           "dense_cache", "stacked_spsvd_sketches", "compressed_kv_sketches"]
+           "dense_cache", "stacked_spsvd_sketches", "compressed_kv_sketches", "stacked_leaves",
+           "train_state", "error_state"]
 
 # family name of a reference sketch class -> (kind, fields to carry)
 _FIELDS = {
@@ -263,3 +270,70 @@ def compressed_kv_sketches(ckv, device: DeviceLike = None) -> tuple:
     reference ``CompressedKV``'s K and V engines (leading axes (B, KV), or
     (n_repeat, B, KV) for a scanned segment)."""
     return tuple(stacked_spsvd_sketches(eng.ctx, device) for eng in (ckv.k_eng, ckv.v_eng))
+
+
+def _ref_path(name: str) -> tuple:
+    """A port parameter name (model-level or block-relative) as the
+    reference's key path: the norms' leaves are ``{"scale"}`` dicts there."""
+    parts = tuple(name.split("."))
+    return parts + ("scale",) if parts[-1] in ("norm1", "norm2", "final_norm") else parts
+
+
+def stacked_leaves(model, cfg) -> list:
+    """``[(path, names)]``: each leaf of the reference's parameter pytree, in
+    its ``jax.tree.flatten`` order (dict keys sorted, segments and unit
+    positions in order), as a dotted path (``"segments.0.0.ffn.w_up"``)
+    and the port parameter names it holds: one name for an unscanned
+    leaf, a scanned segment's ``n_repeat`` layers (the stack's order)
+    otherwise."""
+    from .models.transformer import segments
+
+    names = [n for n, _ in model.named_parameters()]
+    top = sorted((n for n in names if not n.startswith("blocks.")), key=_ref_path)
+    out = [(".".join(_ref_path(n)), [n]) for n in top if _ref_path(n)[0] < "segments"]
+    layer = 0
+    for si, seg in enumerate(segments(cfg)):
+        U = len(seg.unit)
+        for pos in range(U):
+            layers = [layer + r * U + pos for r in range(seg.n_repeat)]
+            first = f"blocks.{layers[0]}."
+            rel = sorted((n[len(first):] for n in names if n.startswith(first)), key=_ref_path)
+            out += [(f"segments.{si}.{pos}." + ".".join(_ref_path(r)),
+                     [f"blocks.{i}.{r}" for i in layers]) for r in rel]
+        layer += seg.n_repeat * U
+    out += [(".".join(_ref_path(n)), [n]) for n in top if _ref_path(n)[0] > "segments"]
+    return out
+
+
+def train_state(np_state, cfg, device: DeviceLike = None) -> dict:
+    """The port's train state ``{"params": Transformer, "opt": {"m", "v":
+    {name: tensor}, "step"[, "master"]}}`` from the reference's (leaves as
+    numpy arrays): the parameters by :func:`model_params`, each moment tree
+    unstacked by :func:`model_state` the same way."""
+    dev = resolve_device(device)
+    opt = np_state["opt"]
+    out = {k: {n: to_tensor(v, dev) for n, v in model_state(opt[k], cfg).items()}
+           for k in ("m", "v", "master") if k in opt}
+    out["step"] = to_tensor(np.asarray(opt["step"]), dev, torch.int32)
+    return {"params": model_params(np_state["params"], cfg, dev), "opt": out}
+
+
+def error_state(np_err, cfg, rank: int, device: DeviceLike = None) -> dict:
+    """Worker ``rank``'s EF residuals ``{path: fp32 tensor}`` (the port's
+    per-rank state) from the reference's ``err`` tree, whose leaves carry a
+    leading worker dimension; the reference's placeholders of the leaves it
+    does not compress ((workers, 1)) are left out."""
+    from .models.transformer import Transformer
+
+    meta = Transformer(torch.Generator(), cfg, torch.device("meta"))
+    named = dict(meta.named_parameters())
+    out = {}
+    for path, names in stacked_leaves(meta, cfg):
+        leaf = np_err
+        for part in path.split("."):
+            leaf = leaf[int(part) if part.isdigit() else part]
+        shape = (len(names), *named[names[0]].shape) if len(names) > 1 else tuple(named[names[0]].shape)
+        arr = np.asarray(leaf)[rank]
+        if arr.shape == tuple(shape):
+            out[path] = to_tensor(arr, device, torch.float32)
+    return out

@@ -1,6 +1,8 @@
 """Synthetic data of the port (counterpart of ``repro.data``)."""
 
 from .synthetic import (
+    DataConfig,
+    SyntheticLM,
     drifting_spectrum_matrix,
     late_spike_matrix,
     lowrank_plus_noise,
@@ -11,6 +13,8 @@ from .synthetic import (
 )
 
 __all__ = [
+    "DataConfig",
+    "SyntheticLM",
     "drifting_spectrum_matrix",
     "late_spike_matrix",
     "lowrank_plus_noise",

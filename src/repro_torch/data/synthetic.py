@@ -1,22 +1,32 @@
-"""Synthetic test matrices (counterpart of ``repro/data/synthetic.py``).
+"""Synthetic test matrices and the restartable token stream (counterpart of
+``repro/data/synthetic.py``).
 
 Each generator draws from a ``torch.Generator`` seeded with ``seed`` on
 ``device`` (``None`` means CUDA, and raises without it), so a large matrix
 is made on the card where it is used. The draws differ from the reference's
 ``jax.random`` ones; parity tests hand the reference's matrices across
 instead.
+
+:class:`SyntheticLM` keeps the reference's contracts, not its bits: batch
+``step`` is a pure function of ``(seed, step)`` (a generator seeded by
+:func:`~repro_torch.device.fold_in`), so a restart at step k replays the
+stream; tokens are Zipf(``zipf_a``) unigrams, each replaced with p = 0.5 by
+the first token of its ``motif_len``-run (learnable bigram structure).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, generator, resolve_device
+from ..device import DeviceLike, fold_in, generator, resolve_device
 
 __all__ = [
+    "DataConfig",
+    "SyntheticLM",
     "powerlaw_matrix",
     "sparse_matrix",
     "lowrank_plus_noise",
@@ -130,3 +140,41 @@ def drifting_spectrum_matrix(seed: int, m: int, n: int, n_blocks: int = 4, rank:
         Rf = torch.randn((rank, hi - lo), generator=g, device=dev, dtype=dtype)
         B[:, lo:hi].addmm_(L, Rf, alpha=(ramp ** b) / math.sqrt(rank))
     return B, torch.as_tensor(bounds, dtype=torch.int32, device=dev)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+    zipf_a: float = 1.2
+    motif_len: int = 8
+
+
+class SyntheticLM:
+    """Deterministic, restartable synthetic LM batches on ``device``
+    (``None`` means CUDA): ``batch_at(step)`` → ``{"tokens": (batch,
+    seq_len) int32}``."""
+
+    def __init__(self, dc: DataConfig, device: DeviceLike = None):
+        self.dc = dc
+        self.device = resolve_device(device)
+        probs = 1.0 / np.arange(1, dc.vocab_size + 1) ** dc.zipf_a
+        cdf = np.cumsum(probs / probs.sum())
+        self._cdf = torch.as_tensor(cdf, dtype=torch.float32, device=self.device)
+
+    def batch_at(self, step: int) -> dict:
+        dc = self.dc
+        g = generator(fold_in(dc.seed, step), self.device)
+        u = torch.rand((dc.batch, dc.seq_len), generator=g, device=self.device)
+        # inverse CDF of the Zipf unigram; the clamp catches u above the
+        # last fp32 cumulative sum
+        toks = torch.searchsorted(self._cdf, u, right=True).clamp_(max=dc.vocab_size - 1)
+        rep = toks[:, :: dc.motif_len].repeat_interleave(dc.motif_len, dim=1)[:, : dc.seq_len]
+        gate = torch.rand((dc.batch, dc.seq_len), generator=g, device=self.device) < 0.5
+        return {"tokens": torch.where(gate, rep, toks).to(torch.int32)}
+
+    def state(self, step: int) -> dict:
+        """Checkpointable iterator state (the step and the seed)."""
+        return {"step": int(step), "seed": self.dc.seed}

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[str, torch.device, None]
@@ -33,3 +34,10 @@ def generator(seed: int, device: Optional[torch.device]) -> torch.Generator:
     g = torch.Generator(device=device)
     g.manual_seed(int(seed))
     return g
+
+
+def fold_in(seed: int, *data: int) -> int:
+    """A seed derived from ``seed`` and the integers ``data`` (the port's
+    ``jax.random.fold_in``): numpy's ``SeedSequence`` hash, so distinct
+    tuples give independent streams and equal ones the same stream."""
+    return int(np.random.SeedSequence([int(seed), *map(int, data)]).generate_state(1, np.uint64)[0])

@@ -39,13 +39,13 @@ from torch import nn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .attention import cross_attention, decode_attention, flash_attention
+from .attention import attention_train, cross_attention, decode_attention, flash_attention
 from .config import (ATTN, ATTN_LOCAL, CROSS, DENSE, MAMBA2, MLA, MOE, NONE, SHARED_ATTN,
                      BlockSpec, ModelConfig)
 from .layers import FFN, apply_rope, ffn, init_scale, param, positions, rmsnorm
 
 def _ones(d, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones((d,), dtype=dtype, device=device), requires_grad=False)
+    return nn.Parameter(torch.ones((d,), dtype=dtype, device=device))
 
 
 class GQA(nn.Module):
@@ -67,8 +67,7 @@ class Cross(GQA):
 
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__(gen, cfg, device)
-        self.gate = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device),
-                                 requires_grad=False)
+        self.gate = nn.Parameter(torch.zeros((), dtype=torch.float32, device=device))
 
 
 class Block(nn.Module):
@@ -129,7 +128,7 @@ def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
     B, S, _ = x.shape
     q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
-    o = flash_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
+    o = attention_train(q, k, v, window=window, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
     return o.reshape(B, S, -1) @ p.w_o
 
 

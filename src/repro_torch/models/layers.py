@@ -58,9 +58,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def param(gen, shape, dtype, device, scale: float) -> nn.Parameter:
-    """A frozen parameter of ``shape`` drawn by :func:`truncated_normal_`."""
+    """A trainable parameter of ``shape`` drawn by :func:`truncated_normal_`."""
     t = torch.empty(shape, dtype=dtype, device=device)
-    return nn.Parameter(truncated_normal_(t, gen, scale), requires_grad=False)
+    return nn.Parameter(truncated_normal_(t, gen, scale))
 
 
 class FFN(nn.Module):

@@ -19,7 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import decode_attention, flash_attention
+from .attention import attention_train, decode_attention, flash_attention
 from .config import ModelConfig
 from .layers import apply_rope, init_scale, param, positions
 
@@ -64,11 +64,11 @@ def _decompress(p: MLA, c_kv, k_rope, cfg: ModelConfig):
 
 
 def mla_train(p: MLA, x, cfg: ModelConfig):
-    """The training forward (the flash backward waits for its slice)."""
+    """The training forward, through :func:`~repro_torch.models.attention.attention_train`."""
     B, S, _ = x.shape
     q, c_kv, k_rope = _project(p, x, positions(B, S, x.device), cfg)
     k, v = _decompress(p, c_kv, k_rope, cfg)
-    o = flash_attention(q, k, v, chunk=cfg.attn_chunk)
+    o = attention_train(q, k, v, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
     return o.reshape(B, S, -1) @ p.w_o
 
 

@@ -17,13 +17,17 @@ reference's ``jnp.repeat``, which is ``repeat_interleave``).
 The reference materialises the (B, nc, Q, Q, H) decay matrix, its
 exponential, the head-repeated ``CB`` and their product; at mamba2-1.3b's
 full width (B = 8, S = 2048, Q = 256) each is 1 GiB in fp32. The port
-holds one such tensor, laid out (B, nc, H, Q, Q) for a batched product:
-the decay masked to −inf above the diagonal and exponentiated in place
-(exp(−inf) = 0, where the reference takes the exp first and then drops the
-entries, some of them inf), then multiplied in place by ``CB`` broadcast
-over each group's heads. The products are the reference's, dtype
-promotions included: ``CB`` in the parameter dtype, everything after it in
-fp32, ``y`` cast back to ``x``'s dtype before the gated RMSNorm.
+holds one such tensor, laid out contiguous (B, nc, H, Q, Q) for a batched
+product (which then needs no copy of it): the decay masked to −inf above
+the diagonal and exponentiated in place (exp(−inf) = 0, where the
+reference takes the exp first and then drops the entries, some of them
+inf), then multiplied in place by ``CB`` broadcast over each group's
+heads. Under autograd (grad enabled and an input that requires grad) the
+exp and the product are taken out of place, since the exp's backward
+reads its output: two such tensors, saved for the backward. The products
+are the reference's, dtype promotions included: ``CB`` in the parameter
+dtype, everything after it in fp32, ``y`` cast back to ``x``'s dtype
+before the gated RMSNorm.
 
 ``torch.nn.functional.softplus`` returns x itself above x = 20 where
 ``jax.nn.softplus`` returns log(1 + eˣ); the two differ there by
@@ -52,10 +56,6 @@ def _dims(cfg: ModelConfig):
     return d_in, H, P, cfg.ssm_groups, cfg.ssm_state
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Mamba2(nn.Module):
     """One Mamba-2 mixer's parameters under the reference's names: the
     matrices and conv leaves in the parameter dtype, ``dt_bias``, ``a_log``
@@ -76,13 +76,13 @@ class Mamba2(nn.Module):
         self.w_bc = param(gen, (D, 2 * G * N), dt, device, init_scale(D))
         self.w_dt = param(gen, (D, H), dt, device, init_scale(D))
         self.conv_x_w = param(gen, (K, d_in), dt, device, 0.3)
-        self.conv_x_b = _frozen(torch.zeros((d_in,), dtype=dt, device=device))
+        self.conv_x_b = nn.Parameter(torch.zeros((d_in,), dtype=dt, device=device))
         self.conv_bc_w = param(gen, (K, 2 * G * N), dt, device, 0.3)
-        self.conv_bc_b = _frozen(torch.zeros((2 * G * N,), dtype=dt, device=device))
-        self.dt_bias = _frozen(step + torch.log(-torch.expm1(-step)))
-        self.a_log = _frozen(torch.log(torch.linspace(1.0, 16.0, H, **f32)))
-        self.d_skip = _frozen(torch.ones((H,), **f32))
-        self.norm_scale = _frozen(torch.ones((d_in,), dtype=dt, device=device))
+        self.conv_bc_b = nn.Parameter(torch.zeros((2 * G * N,), dtype=dt, device=device))
+        self.dt_bias = nn.Parameter(step + torch.log(-torch.expm1(-step)))
+        self.a_log = nn.Parameter(torch.log(torch.linspace(1.0, 16.0, H, **f32)))
+        self.d_skip = nn.Parameter(torch.ones((H,), **f32))
+        self.norm_scale = nn.Parameter(torch.ones((d_in,), dtype=dt, device=device))
         self.w_out = param(gen, (d_in, D), dt, device, init_scale(d_in))
 
 
@@ -130,12 +130,18 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
     xdt = xh.float() * dt[..., None]  # (B, nc, Q, H, P)
 
     # -- intra-chunk (quadratic): L[i, j] = exp(cum_i − cum_j), i ≥ j --
-    cum_h = cum.permute(0, 1, 3, 2)  # (B, nc, H, Q)
+    cum_h = cum.permute(0, 1, 3, 2).contiguous()  # (B, nc, H, Q): L comes out contiguous
     L = cum_h[..., :, None] - cum_h[..., None, :]  # (B, nc, H, Q, Q)
     upper = torch.ones((Q, Q), dtype=torch.bool, device=L.device).triu_(1)
-    L.masked_fill_(upper, float("-inf")).exp_()
     CB = torch.matmul(Cm.permute(0, 1, 3, 2, 4), Bm.permute(0, 1, 3, 4, 2))  # (B, nc, G, Q, Q)
-    L.view(Bsz, nc, G, rep, Q, Q).mul_(CB[:, :, :, None])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xh, dt, A, Bm, Cm)):
+        # autograd saves the exp's output for its backward: no in-place product on it
+        E = L.masked_fill_(upper, float("-inf")).exp()
+        L = (E.view(Bsz, nc, G, rep, Q, Q) * CB[:, :, :, None]).view(Bsz, nc, H, Q, Q)
+        del E
+    else:
+        L.masked_fill_(upper, float("-inf")).exp_()
+        L.view(Bsz, nc, G, rep, Q, Q).mul_(CB[:, :, :, None])
     del CB
     y = torch.matmul(L, xdt.permute(0, 1, 3, 2, 4))  # (B, nc, H, Q, P)
     del L

@@ -4,7 +4,9 @@ The reference scans stacked per-repeat parameters over each segment; the
 port holds one :class:`~repro_torch.models.blocks.Block` module per layer
 in a :class:`Transformer` and runs a plain loop over the layers, in the
 reference's execution order (segment by segment, each repeat's unit in
-turn). Forward passes only: training waits for its slice. Model-level
+turn). Parameters are trainable; ``train_logits`` builds the autograd
+graph (with ``remat``, each repeat's unit under ``torch.utils.checkpoint``),
+while ``prefill`` and ``decode_step`` run under ``no_grad``. Model-level
 weights beside the blocks: ``shared``, the one GQA every ``SHARED_ATTN``
 block attends through (zamba2), and ``vision_proj`` (d_vision, d_model),
 which lifts the modality stub's patch embeddings for the ``CROSS`` blocks
@@ -26,18 +28,21 @@ device value back.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..device import DeviceLike, resolve_device
 from . import blocks as blk
 from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
 from .layers import embed_tokens, init_scale, lm_logits, param, rmsnorm, truncated_normal_
 
-__all__ = ["Transformer", "segments", "layer_specs", "init_params", "forward_hidden",
-           "train_logits", "init_cache", "prefill", "decode_step", "param_count"]
+__all__ = ["REMAT_POLICIES", "Transformer", "segments", "layer_specs", "init_params",
+           "forward_hidden", "train_logits", "init_cache", "prefill", "decode_step",
+           "param_count"]
 
 
 def segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
@@ -57,12 +62,11 @@ class Embedding(nn.Module):
         super().__init__()
         dt = cfg.param_dtype
         self.tok = nn.Parameter(truncated_normal_(
-            torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=device), gen, 0.02),
-            requires_grad=False)
+            torch.empty((cfg.vocab_size, cfg.d_model), dtype=dt, device=device), gen, 0.02))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(truncated_normal_(
                 torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt, device=device), gen,
-                init_scale(cfg.d_model)), requires_grad=False)
+                init_scale(cfg.d_model)))
 
 
 def _has_shared(cfg: ModelConfig) -> bool:
@@ -87,7 +91,7 @@ class Transformer(nn.Module):
             self.vision_proj = param(gen, (cfg.d_vision, cfg.d_model), cfg.param_dtype, device,
                                      init_scale(cfg.d_vision))
         self.final_norm = nn.Parameter(torch.ones((cfg.d_model,), dtype=cfg.param_dtype,
-                                                  device=device), requires_grad=False)
+                                                  device=device))
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
@@ -119,23 +123,67 @@ def _extras(params: Transformer, cfg: ModelConfig, vision) -> dict:
     return ex
 
 
-@torch.no_grad()
+def _save_dots(ctx, op, *args, **kwargs):
+    # the 2-D weight products' outputs are kept; everything else, batched
+    # products (bmm, SDPA) included, is recomputed in the backward
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+# remat policy name -> the selective-checkpoint policy (None: save nothing)
+REMAT_POLICIES = {
+    "full": None,
+    "dots": _save_dots,  # the reference's dots_with_no_batch_dims_saveable
+}
+
+
+def _maybe_remat(fn, remat: Optional[str]):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) by the
+    :data:`REMAT_POLICIES` entry ``remat``; ``None`` runs ``fn`` as it is."""
+    if remat is None:
+        return fn
+    policy = REMAT_POLICIES[remat]
+    kw = {} if policy is None else {
+        "context_fn": functools.partial(create_selective_checkpoint_contexts, policy)}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _units(params: Transformer, cfg: ModelConfig):
+    """Each repeat's unit of each segment: ``[(spec, block), ...]``, in
+    execution order (the reference's remat granule)."""
+    blocks = iter(params.blocks)
+    for seg in segments(cfg):
+        for _ in range(seg.n_repeat):
+            yield [(spec, next(blocks)) for spec in seg.unit]
+
+
 def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
-                   dense_moe: bool = False):
+                   dense_moe: bool = False, remat: Optional[str] = None):
     """Final-normed hidden states (B, S, D) and the aux loss, summed over the
-    MoE layers (0 without one); ``dense_moe`` takes MoE's dropless loop."""
+    MoE layers (0 without one); ``dense_moe`` takes MoE's dropless loop.
+    Builds the autograd graph when grad is enabled; ``remat`` (``None``,
+    ``"full"``, ``"dots"``) checkpoints each repeat's unit, as the
+    reference remats each scan step's body."""
     x = embed_tokens(params.embed.tok, tokens)
     ex = _extras(params, cfg, vision)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for spec, block in _layers(params, cfg):
-        x, a = blk.block_train(block, spec, cfg, x, ex, dense_moe=dense_moe)
-        aux = aux + a
+
+    def unit_fn(x, aux, unit):
+        for spec, block in unit:
+            x, a = blk.block_train(block, spec, cfg, x, ex, dense_moe=dense_moe)
+            aux = aux + a
+        return x, aux
+
+    run = _maybe_remat(unit_fn, remat)
+    for unit in _units(params, cfg):
+        x, aux = run(x, aux, unit)
     return rmsnorm(params.final_norm, x, cfg.norm_eps), aux
 
 
 def train_logits(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
-                 dense_moe: bool = False):
-    h, aux = forward_hidden(params, cfg, tokens, vision, dense_moe=dense_moe)
+                 dense_moe: bool = False, remat: Optional[str] = None):
+    h, aux = forward_hidden(params, cfg, tokens, vision, dense_moe=dense_moe, remat=remat)
     return lm_logits(params.embed, h, cfg), aux
 
 

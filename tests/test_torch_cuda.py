@@ -826,3 +826,59 @@ def test_cuda_generate_matches_cpu(cuda, compressed):
     got = generate(model.to(cuda), cfg, prompt.to(cuda), 12, **kw)
     assert torch.equal(got.cpu(), want)
     assert (ops.LAUNCHES["countsketch_batched"] > 0) == compressed
+
+
+@pytest.mark.parametrize("shape", [(128256, 2048), (16, 2048, 8192)], ids=["embed", "w_up"])
+def test_cuda_twoside_sketch_at_compression_shapes(cuda, shape):
+    """Kernel 4 at the compressed llama3.2-1b step's two largest launches (s =
+    128, fp32) against its plain version: 1e-4 of the largest entry, since
+    the embedding's sums run over 128256 terms (``chip_smoke.py``'s bound)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    s, (m, n) = 128, shape[-2:]
+    sc = torch.randn((s, m), generator=g, device=cuda) / s ** 0.5
+    a = torch.randn(shape, generator=g, device=cuda)
+    srt = (torch.randn((s, n), generator=g, device=cuda) / s ** 0.5).T
+    ops.reset_launches()
+    got = ops.twoside_sketch(sc, a, srt)
+    assert ops.LAUNCHES["twoside_sketch"] == 1
+    with ops.force_plain():
+        want = ops.twoside_sketch(sc, a, srt)
+    _close(got, want, tol=1e-4)
+
+
+def test_cuda_sdpa_train_step_matches_plain_and_compresses_through_kernel_4(cuda):
+    """One fp32 llama smoke step on the card: the loss and every gradient
+    through SDPA's backward against the plain attention path (1e-4 of each
+    gradient's largest entry: fp32 both, other summation orders); the
+    compressed mean of those gradients takes one kernel-4 launch per
+    compressible leaf and gives the CPU's (the same sketches, 1e-4)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.convert import stacked_leaves
+    from repro_torch.models import init_params
+    from repro_torch.models.attention import plain_attention
+    from repro_torch.train import CompressionConfig, compressed_mean_grads, is_compressible
+    from repro_torch.train.grad_compress import _sketches_for, group_leaves
+    from repro_torch.train.train_step import _value_and_grad, make_loss_fn
+
+    cfg = get_arch("llama3.2-1b").smoke_config()
+    model = init_params(torch.Generator().manual_seed(0), cfg, device="cpu").to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks.to(cuda)}
+    loss, _, grads = _value_and_grad(make_loss_fn(cfg), model, batch)
+    with plain_attention():
+        loss_p, _, grads_p = _value_and_grad(make_loss_fn(cfg), model, batch)
+    _close(loss, loss_p, tol=1e-4)
+    for k in grads:
+        _close(grads[k], grads_p[k], tol=1e-4)
+    ccfg = CompressionConfig(rank=8, sketch_factor=2, min_dim=32)
+    tree = group_leaves(grads, stacked_leaves(model, cfg))
+    sk = {i: _sketches_for(100 + i, g.shape[-2:], ccfg, torch.device("cpu"))
+          for i, g in enumerate(tree.values()) if is_compressible(g, ccfg)}
+    ops.reset_launches()
+    out, _ = compressed_mean_grads(tree, {}, 0, ccfg, sketches={
+        i: tuple(type(x)(x.mat.to(cuda)) for x in v) for i, v in sk.items()})
+    assert ops.LAUNCHES["twoside_sketch"] == len(sk) > 0
+    want, _ = compressed_mean_grads({k: v.cpu() for k, v in tree.items()}, {}, 0, ccfg,
+                                    sketches=sk)
+    for k in want:
+        _close(out[k].cpu(), want[k], tol=1e-4)

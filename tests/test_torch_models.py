@@ -55,6 +55,7 @@ def _t(x, dtype=None):
 
 
 def _close(got, want, tol, what=""):
+    got, want = (t.detach() if torch.is_tensor(t) else t for t in (got, want))  # trainable
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     scale = max(1.0, float(np.abs(want).max()))
     err = float(np.abs(got - want).max())
@@ -317,8 +318,8 @@ def test_scanned_segments_unstack_in_layer_order():
     model = convert.model_params(params, cfg_p, device="cpu")
     seg = params["segments"][0][0]
     for layer, block in enumerate(model.blocks):
-        assert np.array_equal(block.ffn.w_down.numpy(), seg["ffn"]["w_down"][layer])
-        assert np.array_equal(block.norm1.numpy(), seg["norm1"]["scale"][layer])
+        assert np.array_equal(block.ffn.w_down.detach().numpy(), seg["ffn"]["w_down"][layer])
+        assert np.array_equal(block.norm1.detach().numpy(), seg["norm1"]["scale"][layer])
 
 
 @pytest.mark.parametrize("arch_id", list(pconfigs.ARCH_IDS))
@@ -406,7 +407,7 @@ def test_model_params_keeps_moe_and_mla_leaves_bitwise():
             assert got.dtype == torch.bfloat16, name
             assert np.array_equal(got.view(torch.int16).numpy(), want.view(np.int16)), name
         assert blk.ffn.router.dtype == torch.float32
-        assert np.array_equal(blk.ffn.router.numpy(), moe_seg["ffn"]["router"][rep])
+        assert np.array_equal(blk.ffn.router.detach().numpy(), moe_seg["ffn"]["router"][rep])
     assert np.array_equal(model.blocks[0].ffn.w_up.view(torch.int16).numpy(),
                           params["segments"][0][0]["ffn"]["w_up"].view(np.int16))
 

@@ -50,6 +50,7 @@ def _moe(cfg_r, cfg_p, seed=0):
 
 
 def _close(got, want, tol, what=""):
+    got, want = (t.detach() if torch.is_tensor(t) else t for t in (got, want))  # trainable
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     scale = max(1e-30, float(np.abs(want).max()))
     err = float(np.abs(got - want).max())

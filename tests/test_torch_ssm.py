@@ -40,7 +40,7 @@ TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
 def _close(got, want, tol, what=""):
-    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got, np.float64)
+    got = got.detach().float().numpy() if torch.is_tensor(got) else np.asarray(got, np.float64)
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, f"{what}: shape {got.shape} != {want.shape}"
     scale = max(1.0, float(np.abs(want).max()))

@@ -400,8 +400,10 @@ def _banned_imports(path: Path):
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     covered = {f.relative_to(ROOT / "src" / "repro_torch").parts[0] for f in files}
-    assert {"models", "configs", "serve", "launch"} <= covered  # the serving slice's packages
-    assert ROOT / "src" / "repro_torch" / "launch" / "serve.py" in files
+    # the serving and training slices' packages
+    assert {"models", "configs", "serve", "launch", "train", "data"} <= covered
+    for entry in ("serve.py", "train.py"):
+        assert ROOT / "src" / "repro_torch" / "launch" / entry in files
     files.append(ROOT / "chip_smoke.py")
     assert all(f.exists() for f in files)
     bad = [b for f in files for b in _banned_imports(f)]

@@ -98,8 +98,10 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 11. (r) dense serving — llama3.2-1b at full width (16 layers, d_model 2048,
    GQA 32/8 heads of 64, d_ff 8192, vocab 128256, tied, bf16), weights
    from ``init_params`` with a seeded generator, ``generate`` over 8
-   requests of 2048 seeded tokens, 64 greedy tokens: parameters, prefill
-   and decode ms (CUDA events), tokens/s, peak GiB, ``cache_nbytes``; one
+   requests of 2048 seeded tokens, 64 greedy tokens (every serving phase's
+   ``generate`` replays its CUDA graphs of the decode step): parameters,
+   prefill, capture and decode ms (CUDA events), tokens/s, peak GiB,
+   ``cache_nbytes``; one
    request's prefill logits through SDPA against the plain attention path;
 12. (s) compressed serving — (r) with the reference CLI's
    ``KVCompressionConfig(rank=16, oversample=2, panel=32, decode_panel=8,
@@ -172,6 +174,18 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    grad_norm, ``comp/*`` (the ratio must be the reference's 43.160360...),
    kernel 4's launches (8 a step: 64), ``torch.profiler`` over one plain and
    one compressed step (the compression's device ms, the idle share);
+   (z) the decode graphs — on (r), (s) uniform, (t), (u) compressed, (v),
+   (w) and (x) compressed, at their sizes, ``generate`` replaying CUDA
+   graphs against ``eager_route()`` from one seed: greedy tokens equal,
+   every step's logits equal (or within ``SERVE_LOGIT_TOL``, the
+   difference printed), launches equal (kernel 1's fold counted through
+   the replays), two graph runs at temperature 0.8 equal (equality with
+   eager printed); decode ms a token on both routes, capture ms, eager
+   refresh steps, graphs and pool bytes, one profiled step of each route
+   (device busy ms, idle share, host launch calls); every graph's warm-up
+   step runs under ``set_sync_debug_mode("error")``; on (r) a graph whose
+   replays leave the length where it was must fail the token check
+   (``serve/z_decode_graph``, emitted inside each serving phase);
    gates: (1) at depth 2, the loss and every gradient through SDPA against
    the plain attention path (a wrong softmax scale must fail it), (2)
    ``remat`` None / dots / full agree (another batch's gradients must
@@ -257,6 +271,10 @@ ZAMBA_ARCH, ZAMBA_PARAMS = "zamba2-1.2b", 1_268_633_600
 ZAMBA_KV_BYTES = 6 * 2 * SERVE_B * (SERVE_S + SERVE_T) * 32 * 64 * 2
 ZAMBA_SSM_BYTES = 32 * SERVE_B * (64 * 64 * 64 * 4 + 3 * (4096 + 128) * 2)
 VISION_ARCH, VISION_DEPTH, VISION_PARAMS, VISION_T = "llama-3.2-vision-90b", 10, 10_668_384_258, 32
+# (z): the decode loop's CUDA graphs against the eager route on (r)-(x): the
+# sampled runs' temperature, and the decode step a one-step profile reads (a
+# plain replay: the plain graph is warmed up and captured at step 0)
+Z_TEMPERATURE, Z_PROFILE_STEP = 0.8, 2
 # (v) gate (1): the chunked scan against the token-by-token recurrence, fp32,
 # one full-width layer over 2048 tokens: exp of within-chunk cumulative sums
 # against products of per-step decays, relative to the largest entry (the
@@ -2718,19 +2736,161 @@ def serve_errors(torch, cfg, dense: dict, comp: dict) -> tuple:
     return torch.cat(errs), torch.cat(opts)
 
 
-def serve_profile(torch, model, cfg, cache, toks) -> dict:
-    """``torch.profiler`` over 8 decode steps from ``cache`` (fed ``toks``):
+def serve_profile(torch, model, cfg, cache, toks, kc=None) -> dict:
+    """``torch.profiler`` over 8 eager decode steps from ``cache`` (fed
+    ``toks``; with a compressed cache's ``kc``, at its schedule's phases):
     wall and device-busy ms per step, the idle share, the top kernels."""
     from repro_torch.models import decode_step
+    from repro_torch.serve import decode_schedule
 
     def steps():
-        for t in range(8):
-            decode_step(model, cfg, cache, toks[:, t : t + 1])
+        for t, (phase, _) in enumerate(decode_schedule(kc, 8)):
+            decode_step(model, cfg, cache, toks[:, t : t + 1], phase=phase)
 
     wall, busy, n_ops, top = device_profile(torch, steps)
     return dict(wall_ms_per_step=wall / 8, device_busy_ms_per_step=busy / 8,
                 device_idle_share=1 - busy / wall, device_ops_per_step=n_ops / 8,
                 top_device_ms=top)
+
+
+def decode_rate(t: dict, st: dict, batch: int) -> dict:
+    """ms a token and tokens/s of one ``generate``'s decode loop, from its
+    CUDA-event ``timings`` and its ``stats``: the steps timed under
+    ``decode`` and ``refresh`` (on the graph route each graph's warm-up
+    step counts under ``capture``, with the capture itself), and apart the
+    plain and fold steps and the compressed cache's eager refresh steps."""
+    steps, refresh = st["replays"] + st["eager_steps"], st["refresh_steps"]
+    total = t["decode"] + t["refresh"]
+    return dict(decode_ms_per_token=total / steps, tokens_per_s=batch * steps / total * 1e3,
+                decode_steps=steps, plain_fold_ms_per_token=t["decode"] / (steps - refresh),
+                refresh_ms_per_step=t["refresh"] / refresh if refresh else None,
+                capture_ms=t["capture"], route=st["route"], graphs=st["graphs"],
+                replays=st["replays"], eager_refresh_steps=refresh, pool_bytes=st["pool_bytes"])
+
+
+def step_profile(torch, run, step: int) -> dict:
+    """``torch.profiler`` over decode step ``step`` of ``run(on_step)`` alone:
+    started by ``on_step`` after step ``step − 1`` and stopped after
+    ``step``, each after a synchronize. Wall and device-busy ms, the idle
+    share, device ops and the host's launch calls (kernels and graphs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    box = {}
+
+    def hook(i, _logits):
+        if i == step - 1:
+            torch.cuda.synchronize()
+            prof.start()
+            box["t0"] = time.perf_counter()
+        elif i == step:
+            torch.cuda.synchronize()
+            box["wall_ms"] = 1e3 * (time.perf_counter() - box["t0"])
+            prof.stop()
+
+    run(hook)
+    events = prof.key_averages()
+    on_dev = lambda e: str(getattr(e, "device_type", "")).endswith("CUDA")  # noqa: E731
+    dev = [e for e in events if on_dev(e) and not e.key.startswith("stream/")
+           and getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    calls = {e.key: e.count for e in events if not on_dev(e) and "Launch" in e.key}
+    wall = box["wall_ms"]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    return dict(step=step, wall_ms=wall, device_busy_ms=busy if busy else "not measured",
+                device_idle_share=1 - busy / wall if busy else "not measured",
+                device_ops=sum(e.count for e in dev), host_launches=sum(calls.values()),
+                host_launch_calls=calls,
+                top_device_ms=[[e.key[:60], e.self_device_time_total / 1e3, e.count] for e in top])
+
+
+def graph_gate(torch, ops, model, cfg, prompt, n_tokens: int, run: str, control: bool = False,
+               **kw) -> dict:
+    """(z) on one served run: ``generate`` replaying its CUDA graphs against
+    ``eager_route()`` on the same inputs and seed. Gates: greedy tokens
+    equal; every decode step's logits equal, or within (r)'s bf16 bound
+    ``SERVE_LOGIT_TOL`` (the difference recorded); the kernel launches
+    equal (kernel 1's counted through the replays); at temperature 0.8 two
+    graph runs draw the same tokens (equality with the eager route
+    recorded). Each route's decode ms a token, the capture ms, one profiled
+    step of each. With ``control``, a graph whose replays leave the cache's
+    length where it was must fail the token gate."""
+    import contextlib
+
+    import repro_torch.serve.decode as decode_mod
+    from repro_torch.serve import generate
+
+    dev, B = prompt.device, prompt.shape[0]
+
+    def go(eager=False, temperature=0.0, on_step=None, n=n_tokens):
+        logits, t, st = [], {}, {}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with ops.eager_route() if eager else contextlib.nullcontext():
+            toks = generate(model, cfg, prompt, n, gen=gen(torch, dev, SEED + 110),
+                            temperature=temperature, timings=t, stats=st,
+                            on_step=on_step or (lambda i, lg: logits.append(lg.clone())), **kw)
+        return dict(tokens=toks, logits=logits, timings=t, stats=st, launches=dict(ops.LAUNCHES))
+
+    g, e = go(), go(eager=True)
+    check(g["stats"]["route"] == "graph" and e["stats"]["route"] == "eager"
+          and g["stats"]["eager_steps"] == g["stats"]["refresh_steps"],
+          f"(z) {run}: routes {g['stats']}, {e['stats']}")
+    check(torch.equal(g["tokens"], e["tokens"]), f"(z) {run}: graph tokens differ from eager")
+    bitwise = all(torch.equal(a, b) for a, b in zip(g["logits"], e["logits"]))
+    diffs = [err(a, b) for a, b in zip(g["logits"], e["logits"])]
+    worst_abs, worst_rel = max(d[0] for d in diffs), max(d[1] for d in diffs)
+    check(bitwise or worst_rel <= SERVE_LOGIT_TOL,
+          f"(z) {run}: graph logits rel err {worst_rel} > {SERVE_LOGIT_TOL}")
+    check(g["launches"] == e["launches"],
+          f"(z) {run}: launches {g['launches']} on the graphs, {e['launches']} eager")
+    del g["logits"], e["logits"]
+    s1, s2 = go(temperature=Z_TEMPERATURE), go(temperature=Z_TEMPERATURE)
+    se = go(eager=True, temperature=Z_TEMPERATURE)
+    check(torch.equal(s1["tokens"], s2["tokens"]),
+          f"(z) {run}: two graph runs at temperature {Z_TEMPERATURE} differ")
+    profiles = {name: step_profile(torch, lambda hook, eager=eager: go(
+        eager=eager, on_step=hook, n=Z_PROFILE_STEP + 2), Z_PROFILE_STEP)
+        for name, eager in (("graph", False), ("eager", True))}
+    # the replayed step's idle share against the CUDA-event ms a plain or
+    # fold step (the profiled step's own wall holds the profiler's start and
+    # stop)
+    busy = profiles["graph"]["device_busy_ms"]
+    g_ms = decode_rate(g["timings"], g["stats"], B)["plain_fold_ms_per_token"]
+    profiles["graph"]["idle_share_of_event_ms"] = (1 - busy / g_ms if isinstance(busy, float)
+                                                   else "not measured")
+    out = dict(run=run, arch=cfg.name, batch=B, prompt_len=prompt.shape[1], new_tokens=n_tokens,
+               kv_compress=kw.get("kv_compress") is not None, timing="CUDA events",
+               graph=decode_rate(g["timings"], g["stats"], B),
+               eager=decode_rate(e["timings"], e["stats"], B),
+               warmup_sync_debug_mode="error", tokens_equal=True,
+               logits=dict(steps=len(diffs), bitwise_equal=bitwise, max_abs_err=worst_abs,
+                           max_rel_err=worst_rel, tol=SERVE_LOGIT_TOL),
+               launches_equal=True, launches=g["launches"],
+               sampled=dict(temperature=Z_TEMPERATURE, graph_runs_equal=True,
+                            equal_to_eager=torch.equal(s1["tokens"], se["tokens"]),
+                            share_equal_to_eager=float((s1["tokens"] == se["tokens"])
+                                                       .float().mean())),
+               step_profile=profiles)
+    if control:  # the graphs' replays of a step that undoes its length's advance
+        real = decode_mod.decode_step
+
+        def frozen(params, cfg_, cache, token, **kw_):
+            res = real(params, cfg_, cache, token, **kw_)
+            cache["length"].sub_(1)
+            return res
+
+        decode_mod.decode_step = frozen
+        try:
+            c = go()
+        finally:
+            decode_mod.decode_step = real
+        same = torch.equal(c["tokens"], e["tokens"])
+        check(not same, f"(z) {run}: a replay that never advances the length passes the gate")
+        out["control_length_not_advanced"] = dict(
+            tokens_equal=same, share_equal=float((c["tokens"] == e["tokens"]).float().mean()))
+    emit("serve/z_decode_graph", **out)
+    return out
 
 
 def prefill_profile(torch, model, cfg, prompt, n_max: int, **kw) -> dict:
@@ -2840,8 +3000,8 @@ def phase_serve(torch, ops, dev) -> list:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()  # the weights and what earlier phases hold
     ops.reset_launches()
-    t_r = {}
-    toks_r = generate(model, cfg, prompt, SERVE_T, timings=t_r)
+    t_r, st_r = {}, {}
+    toks_r = generate(model, cfg, prompt, SERVE_T, timings=t_r, stats=st_r)
     launched.append(dict(ops.LAUNCHES))
     peak_r = (torch.cuda.max_memory_allocated() - resident) / 2**30
     check(toks_r.shape == (SERVE_B, SERVE_T) and int(toks_r.min()) >= 0
@@ -2853,11 +3013,11 @@ def phase_serve(torch, ops, dev) -> list:
     check(bool(torch.isfinite(lg_sdpa).all()), "(r): non-finite logits")
     e_abs, e_rel = err(lg_sdpa, lg_plain)
     check(e_rel <= SERVE_LOGIT_TOL, f"(r): SDPA prefill logits rel err {e_rel} > {SERVE_LOGIT_TOL}")
-    decode_ms = t_r["decode"] / (SERVE_T - 1)
+    rate_r = decode_rate(t_r, st_r, SERVE_B)
+    decode_ms = rate_r["decode_ms_per_token"]
     emit("serve/r_dense", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
          batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, prefill_ms=t_r["prefill"],
-         decode_ms_per_token=decode_ms, tokens_per_s=SERVE_B * (SERVE_T - 1) / t_r["decode"] * 1e3,
-         timing="CUDA events around prefill and the decode loop",
+         **rate_r, timing="CUDA events around prefill and the decode loop",
          peak_mem_over_resident_gib=peak_r, resident_gib=resident / 2**30,
          cache_nbytes=dense_bytes, launches=launched[-1],
          prefill_logits_vs_plain_attention=dict(max_abs_err=e_abs, rel_err=e_rel,
@@ -2866,6 +3026,7 @@ def phase_serve(torch, ops, dev) -> list:
     _, cache = prefill(model, cfg, prompt, n_max)
     emit("profile/r_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks_r))
     del cache
+    graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "r", control=True)
 
     dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
     n_folds = (SERVE_T - 1) // dp  # per layer, over the decode steps
@@ -2879,9 +3040,9 @@ def phase_serve(torch, ops, dev) -> list:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         ops.reset_launches()
-        t_s = {}
+        t_s, st_s = {}, {}
         toks = generate(model, cfg, prompt, SERVE_T, gen=gen(torch, dev, SEED + 62),
-                        kv_compress=kc, timings=t_s)
+                        kv_compress=kc, timings=t_s, stats=st_s)
         launched.append(dict(ops.LAUNCHES))
         peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
         total = launched[-1]["countsketch_batched"]
@@ -2909,12 +3070,10 @@ def phase_serve(torch, ops, dev) -> list:
         comp_bytes = cache_nbytes(comp)
         if not adaptive:  # where the time goes: the conversion, and 8 steps with one fold
             emit("profile/s_convert", **serve_convert_parts(torch, dense, kc))
-            emit("profile/s_decode_8_steps", **serve_profile(torch, model, cfg, comp, toks))
+            emit("profile/s_decode_8_steps", **serve_profile(torch, model, cfg, comp, toks, kc))
         emit(f"serve/s_compressed_{mode}", kc=dict(SERVE_KC, adaptive=adaptive),
              heads=int(errs.numel()), convert_ms=t_s["convert"], prefill_ms=t_s["prefill"],
-             decode_ms_per_token=t_s["decode"] / (SERVE_T - 1),
-             dense_decode_ms_per_token=decode_ms,
-             tokens_per_s=SERVE_B * (SERVE_T - 1) / t_s["decode"] * 1e3,
+             **decode_rate(t_s, st_s, SERVE_B), dense_decode_ms_per_token=decode_ms,
              folds_per_layer=n_folds, refreshes_per_layer=n_refresh,
              kernel1_launches=dict(generate=total, per_conversion=conv_n,
                                    per_conversion_one_request=conv_1,
@@ -2929,6 +3088,8 @@ def phase_serve(torch, ops, dev) -> list:
              peak_mem_over_resident_gib=peak, launches=launched[-1])
         del comp, dense, errs, opts
         torch.cuda.empty_cache()
+        if not adaptive:
+            graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "s", kv_compress=kc)
     emit("serve/s_synthetic", **serve_synthetic(torch, ops, dev))
     del model
     torch.cuda.empty_cache()
@@ -2972,16 +3133,18 @@ def walk_stack(torch, blocks, specs, cfg, x, mix) -> tuple:
     return x, recs
 
 
-def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None) -> tuple:
+def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None, kc=None) -> tuple:
     """``generate``'s greedy run again, block by block through
-    :func:`walk_stack`: the prompt, then a decode step on each of ``toks``
-    but the last (``convert`` turns the prefilled cache into the decode
-    cache, as ``kv_compress`` does). Returns the routing records of the
-    prefill and of the decode steps, and the share of steps whose argmax is
-    ``generate``'s next token (1 when the walk is the same computation)."""
+    :func:`walk_stack`, eagerly: the prompt, then a decode step on each of
+    ``toks`` but the last (``convert`` turns the prefilled cache into the
+    decode cache, as ``kv_compress=kc`` does; its steps take ``kc``'s
+    phases). Returns the routing records of the prefill and of the decode
+    steps, and the share of steps whose argmax is ``generate``'s next token
+    (1 when the walk is the same computation)."""
     from repro_torch.models import layer_specs
     from repro_torch.models import blocks as blk
     from repro_torch.models.layers import embed_tokens, lm_logits, rmsnorm
+    from repro_torch.serve import decode_schedule
 
     S, specs = prompt.shape[1], layer_specs(cfg)
     caches = [None] * len(specs)
@@ -2997,16 +3160,18 @@ def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None) -> 
     x, pre_recs = walk_stack(torch, model.blocks, specs, cfg,
                              embed_tokens(model.embed.tok, prompt), pre)
     agree = [torch.equal(next_token(x), toks[:, :1])]
+    length = torch.full((), S, dtype=torch.int32, device=prompt.device)
     if convert is not None:
-        caches[:] = convert({"layers": caches, "length": S})["layers"]
+        caches[:] = convert({"layers": caches, "length": length})["layers"]
     dec_recs = []
-    for j in range(toks.shape[1] - 1):
-        def dec(i, spec, block, x, length=S + j):
-            x, caches[i] = blk.block_decode(block, spec, cfg, x, caches[i], length)
-            return x
+    phases = decode_schedule(kc if convert is not None else None, toks.shape[1] - 1)
+    for j, (phase, _) in enumerate(phases):
+        def dec(i, spec, block, x, phase=phase):
+            return blk.block_decode(block, spec, cfg, x, caches[i], length, phase=phase)
 
         x, recs = walk_stack(torch, model.blocks, specs, cfg,
                              embed_tokens(model.embed.tok, toks[:, j : j + 1]), dec)
+        length.add_(1)
         dec_recs += recs
         agree.append(torch.equal(next_token(x), toks[:, j + 1 : j + 2]))
     return pre_recs, dec_recs, sum(agree) / len(agree)
@@ -3147,8 +3312,8 @@ def phase_deepseek(torch, ops, dev) -> list:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     ops.reset_launches()
-    t_t = {}
-    toks = generate(model, cfg, prompt, SERVE_T, timings=t_t)
+    t_t, st_t = {}, {}
+    toks = generate(model, cfg, prompt, SERVE_T, timings=t_t, stats=st_t)
     launched = dict(ops.LAUNCHES)
     peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
     check(toks.shape == (SERVE_B, SERVE_T) and int(toks.min()) >= 0
@@ -3216,7 +3381,7 @@ def phase_deepseek(torch, ops, dev) -> list:
 
     # gate (4): the compressed-cache conversion leaves MLA latents as they are
     _, cache = prefill(model, cfg, prompt, n_max)
-    latent_bytes = cache_nbytes(cache)
+    latent_bytes = cache_nbytes(cache["layers"])  # the latents, not the length counter
     check(latent_bytes == DEEPSEEK_LATENT_BYTES,
           f"(t): latent cache {latent_bytes} B, want {DEEPSEEK_LATENT_BYTES}")
     reg = MetricsRegistry()
@@ -3228,11 +3393,9 @@ def phase_deepseek(torch, ops, dev) -> list:
     check(all(c["latent"] is d["latent"] and torch.equal(c["latent"], d["latent"])
               for c, d in zip(comp["layers"], cache["layers"])), "(t): latents changed")
     del comp, cache
-    decode_ms = t_t["decode"] / (SERVE_T - 1)
     emit("serve/t_deepseek", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
          batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, dense_moe=False,
-         prefill_ms=t_t["prefill"], decode_ms_per_token=decode_ms,
-         tokens_per_s=SERVE_B * (SERVE_T - 1) / t_t["decode"] * 1e3,
+         prefill_ms=t_t["prefill"], **decode_rate(t_t, st_t, SERVE_B),
          timing="CUDA events around prefill and the decode loop",
          latent_cache_nbytes=latent_bytes, peak_mem_over_resident_gib=peak,
          resident_gib=resident / 2**30, resident_from_earlier_phases_gib=resident_before / 2**30,
@@ -3246,7 +3409,9 @@ def phase_deepseek(torch, ops, dev) -> list:
          mla_sdpa=backends, latents_pass_through=True)
     _, cache = prefill(model, cfg, prompt, n_max)
     emit("profile/t_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks))
-    del cache, model
+    del cache
+    graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "t")
+    del model
     torch.cuda.empty_cache()
     return [launched]
 
@@ -3285,21 +3450,21 @@ def phase_kimi(torch, ops, dev) -> list:
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
         ops.reset_launches()
-        t_u = {}
+        t_u, st_u = {}, {}
         toks = generate(model, cfg, prompt, KIMI_T, gen=gen(torch, dev, SEED + 86),
-                        kv_compress=kc if mode == "compressed" else None, timings=t_u)
+                        kv_compress=kc if mode == "compressed" else None, timings=t_u,
+                        stats=st_u)
         launched.append(dict(ops.LAUNCHES))
         check(toks.shape == (SERVE_B, KIMI_T) and int(toks.min()) >= 0
               and int(toks.max()) < cfg.vocab_size, f"(u) {mode}: tokens out of range")
         conv = None if mode == "dense" else (  # generate's conversion, from the same seed
             lambda c: compress_prefill_cache(gen(torch, dev, SEED + 86), cfg, c, kc))
         pre_recs, dec_recs, walk_agree = walk_generate(torch, model, cfg, prompt, toks, n_max,
-                                                       convert=conv)
+                                                       convert=conv, kc=kc)
         check(walk_agree == 1.0,
               f"(u) {mode}: the layer walk agrees with generate on {walk_agree} of steps")
         runs[mode] = dict(prefill_ms=t_u["prefill"], convert_ms=t_u["convert"],
-                          decode_ms_per_token=t_u["decode"] / (KIMI_T - 1),
-                          tokens_per_s=SERVE_B * (KIMI_T - 1) / t_u["decode"] * 1e3,
+                          **decode_rate(t_u, st_u, SERVE_B),
                           peak_mem_over_resident_gib=(torch.cuda.max_memory_allocated()
                                                       - resident) / 2**30,
                           prefill_dispatch=route_stats(torch, pre_recs),
@@ -3345,7 +3510,9 @@ def phase_kimi(torch, ops, dev) -> list:
                                  max=float(ratio.max())),
          tokens_agree_with_dense=float((toks_c == toks_d).float().mean()),
          resident_gib=resident_before / 2**30)
-    del comp, dense, errs, opts, model
+    del comp, dense, errs, opts
+    graph_gate(torch, ops, model, cfg, prompt, KIMI_T, "u", kv_compress=kc)
+    del model
     torch.cuda.empty_cache()
     emit("serve/u_synthetic", **serve_synthetic(torch, ops, dev, hd=cfg.head_dim))
     return launched
@@ -3361,16 +3528,14 @@ def serve_run(torch, ops, model, cfg, prompt, n_tokens: int, **kw) -> dict:
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     ops.reset_launches()
-    t = {}
-    toks = generate(model, cfg, prompt, n_tokens, timings=t, **kw)
+    t, st = {}, {}
+    toks = generate(model, cfg, prompt, n_tokens, timings=t, stats=st, **kw)
     launched = dict(ops.LAUNCHES)
     peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
     check(toks.shape == (prompt.shape[0], n_tokens) and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab_size, f"{cfg.name}: tokens out of range")
     return dict(tokens=toks, launches=launched, prefill_ms=t["prefill"], convert_ms=t["convert"],
-                decode_ms_per_token=t["decode"] / (n_tokens - 1),
-                tokens_per_s=prompt.shape[0] * (n_tokens - 1) / t["decode"] * 1e3,
-                peak_mem_over_resident_gib=peak)
+                **decode_rate(t, st, prompt.shape[0]), peak_mem_over_resident_gib=peak)
 
 
 def scan_gate(torch, cfg, dev) -> dict:
@@ -3428,8 +3593,9 @@ def phase_mamba(torch, ops, dev) -> list:
     toks = run.pop("tokens")
     # the state is O(1) in length: the prefilled cache, the zeroed one
     _, cache = prefill(model, cfg, prompt[:, :SERVE_S], n_max)
-    state_bytes = cache_nbytes(cache)
-    check(state_bytes == MAMBA_STATE_BYTES == cache_nbytes(init_cache(cfg, SERVE_B, 1, device=dev)),
+    state_bytes = cache_nbytes(cache["layers"])  # the states, not the length counter
+    check(state_bytes == MAMBA_STATE_BYTES
+          == cache_nbytes(init_cache(cfg, SERVE_B, 1, device=dev)["layers"]),
           f"(v): state {state_bytes} B, want {MAMBA_STATE_BYTES}")
     emit("profile/v_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks))
     del cache
@@ -3445,6 +3611,7 @@ def phase_mamba(torch, ops, dev) -> list:
     c_rel = err(lg_s, lg_l)[1]  # the gate's power: the position before must fail it
     check(c_rel > MAMBA_LOGIT_TOL, f"(v) gate (2): the previous position passes, {c_rel}")
     del cache, lg_s, lg_d, lg_l
+    graph_gate(torch, ops, model, cfg, prompt[:, :SERVE_S], SERVE_T, "v")
     scan = scan_gate(torch, cfg, dev)
     emit("serve/v_mamba2", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
          batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, chunk=cfg.ssm_chunk,
@@ -3509,6 +3676,7 @@ def phase_zamba(torch, ops, dev) -> list:
     _, cache = prefill(model, cfg, prompt, n_max)
     emit("profile/w_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks_d))
     del cache
+    graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "w")
     emit("profile/w_prefill", **prefill_profile(torch, model, cfg, prompt, n_max))
     emit("serve/w_zamba2", arch=cfg.name, params=n_params, dtype=cfg.dtype, init_s=init_s,
          batch=SERVE_B, prompt_len=SERVE_S, new_tokens=SERVE_T, shared_positions=shared_idx,
@@ -3635,6 +3803,7 @@ def phase_vision(torch, ops, dev) -> list:
     del dense
     emit("profile/x_prefill", **prefill_profile(torch, model, cfg, prompt, n_max, vision=vision))
     gate1 = cross_gate(torch, model, cfg, vision, dev)
+    graph_gate(torch, ops, model, cfg, prompt, VISION_T, "x", vision=vision, kv_compress=kc)
     toks_d, toks_c = runs["dense"].pop("tokens"), runs["compressed"].pop("tokens")
     emit("serve/x_vision", arch=cfg.name, depth=VISION_DEPTH, full_depth=full.n_layers,
          params=n_params, dtype=cfg.dtype, init_s=init_s, batch=SERVE_B, prompt_len=SERVE_S,

@@ -231,20 +231,22 @@ def model_params(np_params, cfg, device: DeviceLike = None):
 
 
 def dense_cache(ref_cache, cfg, device: DeviceLike = None) -> dict:
-    """The port's ``{"layers": [...], "length": int}`` from a reference
+    """The port's ``{"layers": [...], "length": 0-d int32}`` from a reference
     prefill cache (``{"segments": ..., "length"}``, leaves as numpy),
     unstacking scanned segments into one cache per layer (K/V dicts, MLA's
     ``{"latent": ...}``, Mamba-2's ``{"conv_x", "conv_bc", "ssm"}``), every
     leaf in its own dtype."""
     from .models.transformer import segments
 
+    dev = resolve_device(device)
     layers = []
     for seg, seg_cache in zip(segments(cfg), ref_cache["segments"]):
         per_pos = [_unstack(c, seg.n_repeat) for c in seg_cache]
         for rep in range(seg.n_repeat):
             for pos in range(len(seg.unit)):
-                layers.append({k: to_tensor(v, device) for k, v in per_pos[pos][rep].items()})
-    return {"layers": layers, "length": int(np.asarray(ref_cache["length"]))}
+                layers.append({k: to_tensor(v, dev) for k, v in per_pos[pos][rep].items()})
+    return {"layers": layers, "length": torch.full((), int(np.asarray(ref_cache["length"])),
+                                                    dtype=torch.int32, device=dev)}
 
 
 def stacked_spsvd_sketches(sk, device: DeviceLike = None):

@@ -457,6 +457,21 @@ class StackedOSNAPSketch:
                                         start[:, offset // V : -(-(offset + size) // V)])
         return win
 
+    def window_at(self, offset: torch.Tensor, size: int, base: int) -> "StackedOSNAPSketch":
+        """The window ``S[:, offset:offset+size]`` of every head at a device
+        offset (a 0-d int; ``offset − base`` a multiple of ``size``) on the
+        grid :meth:`index_windows` (``size``, ``base``) indexed: its hashes,
+        signs and order gathered on the device, so nothing is read back and a
+        step captured in a CUDA graph folds the window its offset names."""
+        perm, start = self._windows[(size, base)]
+        cols = offset + torch.arange(size, device=offset.device)
+        rel = cols - base
+        win = StackedOSNAPSketch(hashes=self.hashes.index_select(2, cols),
+                                 signs=self.signs.index_select(2, cols), s=self.s)
+        win._order.append((perm.index_select(1, rel),
+                           start.index_select(1, rel[:1] // size).squeeze(1)))
+        return win
+
     def pad_cols(self, total: int) -> "StackedOSNAPSketch":
         if total <= self.m:
             return self

@@ -63,6 +63,7 @@ __all__ = [
     "StackedSPSVDState",
     "spsvd_stacked_init",
     "spsvd_stacked_update",
+    "spsvd_stacked_fold",
     "spsvd_stacked_scan",
     "spsvd_stacked_finalize",
 ]
@@ -287,8 +288,10 @@ class StackedSPSVDSketches:
 @dataclasses.dataclass
 class StackedSPSVDState:
     """Algorithm 3's accumulators for N heads, updated in place; ``offset``
-    (a host int) counts the columns each head has consumed, ``n`` is the
-    true column count."""
+    (a host int) counts the columns each head has consumed through
+    :func:`spsvd_stacked_update` (:func:`spsvd_stacked_fold` takes its
+    offset on the device and leaves this one), ``n`` is the true column
+    count."""
 
     C: torch.Tensor  # (N, m, c)
     R: torch.Tensor  # (N, r, n_pad)
@@ -339,18 +342,43 @@ def spsvd_stacked_init(gen: Optional[torch.Generator], N: int, m: int, n: int, *
         offset=0, n=n, sk=sk)
 
 
+def _stacked_panel(state: StackedSPSVDState, A_L: torch.Tensor, s_r, omega) -> torch.Tensor:
+    # one panel's M and C folds through the S_R and Ω windows, in the
+    # per-head panel_update's order; returns R's new columns G_R (Ψ A_L)
+    sk = state.sk
+    sc_a = sk.s_c.apply(A_L)  # (N, s_c, L)
+    s_r.fold_t(sc_a, state.M)
+    a_omega = omega.apply_t(A_L)  # (N, m, c0)
+    state.C.add_(torch.bmm(a_omega, sk.g_c.transpose(1, 2)).to(state.C.dtype))
+    return torch.bmm(sk.g_r, sk.psi.apply(A_L)).to(state.R.dtype)
+
+
 def spsvd_stacked_update(state: StackedSPSVDState, A_L: torch.Tensor) -> StackedSPSVDState:
     """Consume one panel ``A_L`` (N, m, L) of every head at ``state.offset``
     (the per-head :func:`~repro_torch.stream.engine.panel_update`'s steps, in
     its order): ``M += (S_C A_L)·S_R[:, cols]ᵀ``, ``C += (A_L Ω[:, cols]ᵀ)
     G_Cᵀ``, ``R[:, cols] = G_R (Ψ A_L)``."""
     sk, off, L = state.sk, state.offset, A_L.shape[2]
-    sc_a = sk.s_c.apply(A_L)  # (N, s_c, L)
-    sk.s_r.cols(off, L).fold_t(sc_a, state.M)
-    a_omega = sk.omega.cols(off, L).apply_t(A_L)  # (N, m, c0)
-    state.C.add_(torch.bmm(a_omega, sk.g_c.transpose(1, 2)).to(state.C.dtype))
-    state.R[:, :, off : off + L] = torch.bmm(sk.g_r, sk.psi.apply(A_L)).to(state.R.dtype)
+    state.R[:, :, off : off + L] = _stacked_panel(state, A_L, sk.s_r.cols(off, L),
+                                                  sk.omega.cols(off, L))
     state.offset = off + L
+    return state
+
+
+def spsvd_stacked_fold(state: StackedSPSVDState, A_L: torch.Tensor, offset: torch.Tensor,
+                       base: int) -> StackedSPSVDState:
+    """:func:`spsvd_stacked_update` at a device column offset ``offset`` (a
+    0-d int, on the grid of ``L``-wide windows from ``base`` that
+    :meth:`~repro_torch.core.sketching.StackedOSNAPSketch.index_windows`
+    built for Ω and S_R): the windows are gathered and R's columns written on
+    the device (:meth:`~repro_torch.core.sketching.StackedOSNAPSketch.window_at`),
+    so no host value is read and one captured CUDA graph folds at every
+    offset. ``state.offset`` is not read or advanced: the caller keeps the
+    offset (the compressed KV cache's ``eng_len``)."""
+    sk, L = state.sk, A_L.shape[2]
+    cols = offset + torch.arange(L, device=A_L.device)
+    state.R.index_copy_(2, cols, _stacked_panel(state, A_L, sk.s_r.window_at(offset, L, base),
+                                                sk.omega.window_at(offset, L, base)))
     return state
 
 

@@ -6,14 +6,20 @@ Dispatch rule, the same for every wrapper:
 * a tensor on a CUDA device launches the hand-written kernel, or raises when
   the arguments are outside what the kernel takes. There is no fallback.
 
-``LAUNCHES`` counts, per kernel, the calls that launched it (a plain
-integer each; kernel 1's stacked launches, one for a whole head batch,
-under ``countsketch_batched``); :func:`reset_launches` sets them to 0. Two test hooks:
-``_FORCE_KERNEL_ROUTE`` makes :func:`kernel_route_enabled` true on the CPU,
-so the engine's kernel route (Route B) runs there with the plain versions;
-:func:`force_plain` makes CUDA tensors take the plain versions, so a run on
-the card can be compared with the kernels. Only tests and ``chip_smoke.py``
-use them. Counterpart of ``repro/kernels/ops.py``.
+``LAUNCHES`` counts, per kernel, the launches made (a plain integer each;
+kernel 1's stacked launches, one for a whole head batch, under
+``countsketch_batched``); :func:`reset_launches` sets them to 0. A wrapper
+called while a CUDA graph captures launches nothing: inside
+:func:`captured_launches` its count is recorded instead, and
+:func:`add_launches` adds the record at each replay of the graph. Three
+test hooks: ``_FORCE_KERNEL_ROUTE`` makes :func:`kernel_route_enabled` true
+on the CPU, so the engine's kernel route (Route B) runs there with the
+plain versions; :func:`force_plain` makes CUDA tensors take the plain
+versions, so a run on the card can be compared with the kernels;
+:func:`eager_route` makes :func:`repro_torch.serve.generate` run its decode
+loop eagerly on the card, so the CUDA graphs can be compared with it. Only
+tests and ``chip_smoke.py`` use them. Counterpart of
+``repro/kernels/ops.py``.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ LAUNCHES = {"countsketch": 0, "countsketch_batched": 0, "panel_score": 0, "panel
 # Test hook: take the kernel route on the CPU (plain versions run there).
 _FORCE_KERNEL_ROUTE = False
 _PLAIN = False
+_EAGER = False
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _F32, _BF16 = torch.float32, torch.bfloat16
@@ -61,6 +68,39 @@ def force_plain():
         yield
     finally:
         _PLAIN = prev
+
+
+@contextlib.contextmanager
+def eager_route():
+    """Within the block, ``generate`` decodes on the card step by step,
+    eagerly, with no CUDA graph: the route its graphs are held against."""
+    global _EAGER
+    prev, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = prev
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Within the block (a CUDA graph's capture), the wrappers' launches are
+    recorded, not counted: yields a dict that holds, on exit, the launches
+    of each kernel the graph holds, and ``LAUNCHES`` is as it was before."""
+    before = dict(LAUNCHES)
+    record = {}
+    try:
+        yield record
+    finally:
+        for k in LAUNCHES:
+            record[k] = LAUNCHES[k] - before[k]
+            LAUNCHES[k] = before[k]
+
+
+def add_launches(record: dict) -> None:
+    """Count the launches of one replay of a graph (its :func:`captured_launches` record)."""
+    for k, n in record.items():
+        LAUNCHES[k] += n
 
 
 def kernel_route_enabled(t: torch.Tensor) -> bool:
@@ -437,6 +477,9 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "force_plain",
+    "eager_route",
+    "captured_launches",
+    "add_launches",
     "kernel_route_enabled",
     "bucket_order",
     "window_orders",

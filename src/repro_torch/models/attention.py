@@ -264,11 +264,13 @@ def attention_train(q, k, v, *, window: Optional[int] = None, chunk: int = 512,
     return flash_attention_plain(q, k, v, window=window, chunk=chunk)
 
 
-def decode_attention(q, k_cache, v_cache, length: int, *, window: Optional[int] = None):
+def decode_attention(q, k_cache, v_cache, length, *, window: Optional[int] = None):
     """One-token attention against a cache.
 
     q: (B, 1, H, D); caches: (B, Smax, KV, D); ``length`` tokens valid (a
-    host int). fp32 softmax; the value product in the cache's dtype.
+    0-d int on the device, or a number): the mask is formed on the device,
+    so nothing is read back. fp32 softmax; the value product in the cache's
+    dtype.
     """
     B, _, H, D = q.shape
     KV, Dv, Smax = k_cache.shape[2], v_cache.shape[3], k_cache.shape[1]

@@ -10,7 +10,7 @@ FFNs: dense and MoE. Every block kind exposes, as the reference:
   init_block(gen, spec, cfg, device)                          → Block
   block_train(block, spec, cfg, x, extras, dense_moe)         → (x, aux_loss)
   block_prefill(block, spec, cfg, x, cache_len, extras, dense_moe) → (x, cache)
-  block_decode(block, spec, cfg, x, cache, length, extras, dense_moe) → (x, cache)
+  block_decode(block, spec, cfg, x, cache, length, extras, dense_moe, phase) → x
   init_block_cache(spec, cfg, batch, cache_len, device)       → cache
 
 and :func:`apply_ffn`, the FFN half alone (a spec with ``ffn=NONE`` runs
@@ -23,12 +23,16 @@ the full history; ``attn_local`` K/V (B, window, KV, hd), a ring; ``mla``
 the latent (B, cache_len, r + rope); ``mamba2`` the conv windows
 (B, K − 1, C) and the fp32 state (B, H, N, P), O(1) in length (prefill
 ignores ``cache_len``); ``cross`` K/V (B, n_patches, KV, hd), static after
-prefill. Decode writes a new attention token into its cache in place (the
-reference returns an updated copy); ``length`` is a host int. A cache that
-is not a dict is a pluggable backend
-(:class:`repro_torch.serve.kv_cache.CompressedKV`) that owns its append and
-attention through ``append_attend``. ``dense_moe`` picks the MoE FFN's
-dropless loop over its capacity-bounded dispatch.
+prefill. Decode updates every cache in place (the reference returns an
+updated copy): a new attention token is written at ``length``, a 0-d int
+on the device that every index and mask reads there, and the Mamba-2
+states are copied into their tensors, so no buffer is rebound and a
+captured CUDA graph of the step stays valid. A cache that is not a dict is
+a pluggable backend (:class:`repro_torch.serve.kv_cache.CompressedKV`)
+that owns its append and attention through ``append_attend``, told the
+step's ``phase`` (:data:`PLAIN`, :data:`FOLD` or :data:`REFRESH`, a
+schedule the host knows); dense caches have one phase. ``dense_moe`` picks
+the MoE FFN's dropless loop over its capacity-bounded dispatch.
 """
 
 from __future__ import annotations
@@ -39,10 +43,16 @@ from torch import nn
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .attention import attention_train, cross_attention, decode_attention, flash_attention
+from .attention import (attention_train, cross_attention, cross_attention_plain, decode_attention,
+                        flash_attention)
 from .config import (ATTN, ATTN_LOCAL, CROSS, DENSE, MAMBA2, MLA, MOE, NONE, SHARED_ATTN,
                      BlockSpec, ModelConfig)
-from .layers import FFN, apply_rope, ffn, init_scale, param, positions, rmsnorm
+from .layers import FFN, apply_rope, decode_positions, ffn, init_scale, param, positions, rmsnorm
+
+# the phases of a decode step for a cache backend: a plain append, a fold of
+# the pending tokens, a fold followed by the refactorization
+PLAIN, FOLD, REFRESH = "plain", "fold", "refresh"
+
 
 def _ones(d, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.ones((d,), dtype=dtype, device=device))
@@ -151,25 +161,29 @@ def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
     return o.reshape(B, S, -1) @ p.w_o, cache
 
 
-def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: int):
+def _write_slot(cache: dict, slot: torch.Tensor, k, v) -> None:
+    # the token's K/V into slot ``slot`` (a 0-d int on the device) in place
+    idx = slot.reshape(1).long()
+    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+
+
+def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Tensor,
+                phase: str):
     B = x.shape[0]
-    q, k, v = _gqa_qkv(p, x, positions(B, 1, x.device, length), cfg,
-                       _theta_for(spec_mixer, cfg))
+    q, k, v = _gqa_qkv(p, x, decode_positions(B, length), cfg, _theta_for(spec_mixer, cfg))
     if not isinstance(cache, dict):
         # pluggable cache backend: owns its append and attention
-        o, cache = cache.append_attend(q, k, v, length)
-        return o.reshape(B, 1, -1) @ p.w_o, cache
-    if spec_mixer == ATTN_LOCAL:
+        o = cache.append_attend(q, k, v, length, phase)
+    elif spec_mixer == ATTN_LOCAL:
         # ring: slots below min(length + 1, window) are valid, all within the window
         w = cfg.window
-        cache["k"][:, length % w] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, length % w] = v[:, 0].to(cache["v"].dtype)
-        o = decode_attention(q, cache["k"], cache["v"], min(length + 1, w))
+        _write_slot(cache, length % w, k, v)
+        o = decode_attention(q, cache["k"], cache["v"], torch.clamp(length + 1, max=w))
     else:
-        cache["k"][:, length] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, length] = v[:, 0].to(cache["v"].dtype)
+        _write_slot(cache, length, k, v)
         o = decode_attention(q, cache["k"], cache["v"], length + 1)
-    return o.reshape(B, 1, -1) @ p.w_o, cache
+    return o.reshape(B, 1, -1) @ p.w_o
 
 
 # ---------------------------------------------------------------------------
@@ -183,12 +197,12 @@ def _cross_kv(p: Cross, vis, cfg: ModelConfig):
     return (vis @ p.w_k).reshape(B, P, KV, hd), (vis @ p.w_v).reshape(B, P, KV, hd)
 
 
-def _cross_attend(p: Cross, cfg: ModelConfig, x, k, v):
+def _cross_attend(p: Cross, cfg: ModelConfig, x, k, v, core=cross_attention):
     # no mask, no RoPE; the gate's fp32 tanh promotes the product, as the
     # reference's 0-d fp32 array does, before the cast back to x's dtype
     B, S, _ = x.shape
     q = (x @ p.w_q).reshape(B, S, cfg.n_heads, cfg.head_dim)
-    o = cross_attention(q, k, v).reshape(B, S, -1)
+    o = core(q, k, v).reshape(B, S, -1)
     return (torch.tanh(p.gate) * (o @ p.w_o).float()).to(x.dtype)
 
 
@@ -252,23 +266,27 @@ def block_prefill(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache_len:
     return x, cache
 
 
-def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, length: int,
-                 extras=None, *, dense_moe: bool = False):
+def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, length: torch.Tensor,
+                 extras=None, *, dense_moe: bool = False, phase: str = PLAIN):
+    """One token through the block; ``cache`` is updated in place."""
     h = rmsnorm(block.norm1, x, cfg.norm_eps)
     mixer = spec.mixer
     if mixer in (ATTN, ATTN_LOCAL, SHARED_ATTN):
-        y, cache = _gqa_decode(_gqa_params(block, mixer, extras), mixer, cfg, h, cache, length)
+        y = _gqa_decode(_gqa_params(block, mixer, extras), mixer, cfg, h, cache, length, phase)
     elif mixer == MLA:
-        y, latent = mla_mod.mla_decode(block.mixer, h, cfg, cache["latent"], length)
-        cache = {"latent": latent}
+        y = mla_mod.mla_decode(block.mixer, h, cfg, cache["latent"], length)
     elif mixer == MAMBA2:
-        y, (conv_x, conv_bc, state) = ssm_mod.mamba2_decode(
-            block.mixer, h, cfg, cache["conv_x"], cache["conv_bc"], cache["ssm"])
-        cache = {"conv_x": conv_x, "conv_bc": conv_bc, "ssm": state}
+        y, states = ssm_mod.mamba2_decode(block.mixer, h, cfg, cache["conv_x"], cache["conv_bc"],
+                                          cache["ssm"])
+        for name, new in zip(("conv_x", "conv_bc", "ssm"), states):
+            cache[name].copy_(new)
     elif mixer == CROSS:
-        y = _cross_attend(block.mixer, cfg, h, cache["k"], cache["v"])
+        # one query: the einsums on the card too, as self-attention's decode
+        # (cuDNN's SDPA kernel for it is not bitwise reproducible from run
+        # to run inside the model)
+        y = _cross_attend(block.mixer, cfg, h, cache["k"], cache["v"], cross_attention_plain)
     x, _ = apply_ffn(block, spec, cfg, x + y, dense_moe)
-    return x, cache
+    return x
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):

@@ -8,6 +8,7 @@ the port leaves them out.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -43,13 +44,20 @@ def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:
     return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_frequencies_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    # one copy per (width, theta, device), made at the first call: a decode
+    # step captured in a CUDA graph may copy nothing from the host
+    return torch.from_numpy(rope_frequencies(head_dim, theta)).to(device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotate pairs (non-interleaved / llama layout), angles in fp32.
 
     x: (..., S, H, D); positions: broadcastable to (..., S).
     """
     d = x.shape[-1]
-    freqs = torch.from_numpy(rope_frequencies(d, theta)).to(x.device)  # (d/2,)
+    freqs = _rope_frequencies_on(d, theta, x.device)  # (d/2,)
     angles = positions[..., :, None].float() * freqs  # (..., S, d/2)
     cos = torch.cos(angles)[..., :, None, :]  # (..., S, 1, d/2)
     sin = torch.sin(angles)[..., :, None, :]
@@ -76,9 +84,15 @@ class FFN(nn.Module):
         self.w_down = param(gen, (d_ff, d_model), dtype, device, init_scale(d_ff))
 
 
-def positions(B: int, S: int, device, start: int = 0) -> torch.Tensor:
-    """Token positions ``start .. start + S − 1`` for each of B rows (B, S)."""
-    return torch.arange(start, start + S, device=device)[None].expand(B, S)
+def positions(B: int, S: int, device) -> torch.Tensor:
+    """Token positions ``0 .. S − 1`` for each of B rows (B, S)."""
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def decode_positions(B: int, length: torch.Tensor) -> torch.Tensor:
+    """The decoded token's position, the cache's ``length`` (a 0-d int on the
+    device), for each of B rows (B, 1): read on the device, never the host."""
+    return length.reshape(1, 1).expand(B, 1)
 
 
 def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:

@@ -11,7 +11,7 @@ absorbed-matmul form is a later performance lever). Q and K are
 ``1/√(nope + rope)``, the reference's and SDPA's default alike.
 
 Decode writes the new latent entry into the cache in place at ``length``
-(a host int), as the GQA decode does.
+(a 0-d int on the device, read there), as the GQA decode does.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from torch import nn
 
 from .attention import attention_train, decode_attention, flash_attention
 from .config import ModelConfig
-from .layers import apply_rope, init_scale, param, positions
+from .layers import apply_rope, decode_positions, init_scale, param, positions
 
 __all__ = ["MLA", "mla_decode", "mla_prefill", "mla_train"]
 
@@ -86,14 +86,15 @@ def mla_prefill(p: MLA, x, cfg: ModelConfig, cache_len: int):
     return o.reshape(B, S, -1) @ p.w_o, cache
 
 
-def mla_decode(p: MLA, x, cfg: ModelConfig, cache: torch.Tensor, length: int):
-    """x (B, 1, D); cache (B, Smax, r + rope), written at ``length`` in place;
-    attends over the decompressed cache. Returns (out, cache)."""
+def mla_decode(p: MLA, x, cfg: ModelConfig, cache: torch.Tensor, length: torch.Tensor):
+    """x (B, 1, D); cache (B, Smax, r + rope), its entry at ``length`` (a 0-d
+    int on the device) written in place; attends over the decompressed
+    cache. Returns the output."""
     B = x.shape[0]
-    q, c_kv, k_rope = _project(p, x, positions(B, 1, x.device, length), cfg)
+    q, c_kv, k_rope = _project(p, x, decode_positions(B, length), cfg)
     r = cfg.kv_lora_rank
-    cache[:, length, :r] = c_kv[:, 0].to(cache.dtype)
-    cache[:, length, r:] = k_rope[:, 0, 0].to(cache.dtype)
+    entry = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1).to(cache.dtype)  # (B, 1, r + rope)
+    cache.index_copy_(1, length.reshape(1).long(), entry)
     k, v = _decompress(p, cache[..., :r], cache[..., None, r:], cfg)
     o = decode_attention(q, k, v, length + 1)
-    return o.reshape(B, 1, -1) @ p.w_o, cache
+    return o.reshape(B, 1, -1) @ p.w_o

@@ -21,9 +21,13 @@ Entry points:
   decode_step    — one token + cache → logits + cache (updated in place)
   init_cache     — zeroed cache for a batch and cache length
 
-A cache is ``{"layers": [per-layer cache, ...], "length": int}``, the
-layers in execution order; ``length`` is a host int, so no step reads a
-device value back.
+A cache is ``{"layers": [per-layer cache, ...], "length": tensor}``, the
+layers in execution order; ``length`` is a 0-d int32 on the cache's device,
+as the reference's, which a decode step reads there and advances in place.
+A step reads nothing back and rebinds no buffer, so
+:func:`repro_torch.serve.generate` captures it, with the sampling, in CUDA
+graphs replayed once per token on the card (the reference's one compiled
+program per token); on the CPU it runs eagerly.
 """
 
 from __future__ import annotations
@@ -191,7 +195,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> dict:
     dev = resolve_device(device)
     return {"layers": [blk.init_block_cache(spec, cfg, batch, cache_len, dev)
-                       for spec in layer_specs(cfg)], "length": 0}
+                       for spec in layer_specs(cfg)],
+            "length": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
 @torch.no_grad()
@@ -207,23 +212,26 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
         x, c = blk.block_prefill(block, spec, cfg, x, cache_len, ex, dense_moe=dense_moe)
         caches.append(c)
     h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
-    return lm_logits(params.embed, h, cfg), {"layers": caches, "length": S}
+    length = torch.full((), S, dtype=torch.int32, device=x.device)
+    return lm_logits(params.embed, h, cfg), {"layers": caches, "length": length}
 
 
 @torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
-                dense_moe: bool = False):
+                dense_moe: bool = False, phase: str = blk.PLAIN):
     """token: (B, 1) ints. Returns (logits (B, 1, V), cache); the cache is
-    updated in place and its ``length`` advanced."""
+    updated in place and its ``length`` advanced in place. ``phase`` is the
+    step's place in a compressed cache's schedule
+    (:func:`repro_torch.serve.kv_cache.decode_schedule`); dense caches take
+    every step alike."""
     x = embed_tokens(params.embed.tok, token)
     ex = {"shared": params.shared} if _has_shared(cfg) else {}  # cross K/V live in the cache
     length = cache["length"]
-    layers = cache["layers"]
-    for i, (spec, block) in enumerate(_layers(params, cfg)):
-        x, layers[i] = blk.block_decode(block, spec, cfg, x, layers[i], length, ex,
-                                        dense_moe=dense_moe)
+    for (spec, block), layer in zip(_layers(params, cfg), cache["layers"]):
+        x = blk.block_decode(block, spec, cfg, x, layer, length, ex, dense_moe=dense_moe,
+                             phase=phase)
     h = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    cache["length"] = length + 1
+    length.add_(1)
     return lm_logits(params.embed, h, cfg), cache
 
 

@@ -6,7 +6,8 @@ compression live during decode, :mod:`~repro_torch.serve.decode` drives
 prefill and decode."""
 
 from .decode import generate, sample_token
-from .kv_cache import CompressedKV, cache_nbytes, compress_prefill_cache, init_compressed_kv
+from .kv_cache import (CompressedKV, cache_nbytes, compress_prefill_cache, decode_schedule,
+                       init_compressed_kv)
 from .kv_compress import (
     KVCompressionConfig,
     LowRankKV,
@@ -19,6 +20,6 @@ from .kv_compress import (
 __all__ = [
     "CompressedKV", "KVCompressionConfig", "LowRankKV",
     "cache_nbytes", "compress_head_batch", "compress_history",
-    "compress_prefill_cache", "compression_error", "generate",
+    "compress_prefill_cache", "compression_error", "decode_schedule", "generate",
     "init_compressed_kv", "lowrank_decode_attention", "sample_token",
 ]

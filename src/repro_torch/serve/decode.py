@@ -1,24 +1,38 @@
 """Serving driver: batched generation over prefill + decode_step
 (counterpart of ``repro/serve/decode.py``).
 
-The reference runs one fused compiled program per token; the port runs an
-eager loop of :func:`~repro_torch.models.decode_step` (a CUDA graph of the
-step is later work, ``ROADMAP.md`` §1). With ``kv_compress=`` the prefilled
-global-attention caches become decode-native compressed caches
-(:mod:`repro_torch.serve.kv_cache`) before the loop, and every decode step
-folds the generated tokens into the streaming factorization.
+The reference runs one fused compiled program per token
+(``_fused_decode_step``: the decode step, the RNG fold and the sampling,
+the cache donated). The port's counterpart is the same body,
+:func:`_fused_decode_step`, captured in CUDA graphs on the card and
+replayed once per token: the embedding of the token buffer, the decode
+step, the sampling, the new token's write into the output at a device
+index, the token buffer's update and the cache length's advance. Every
+buffer stays at its address and nothing is read back, so the loop waits
+for nothing until :func:`generate` returns.
+
+With ``kv_compress=`` the prefilled global-attention caches become
+decode-native compressed caches (:mod:`repro_torch.serve.kv_cache`) before
+the loop. Their fold and refresh points depend only on the step index
+(:func:`~repro_torch.serve.kv_cache.decode_schedule`), so the host picks
+the graph: one for plain steps, one for folds (every fold offset: the
+window is indexed on the device). A refresh step runs eagerly, on the card:
+its SVD finalize waits for the host. A CPU tensor runs every step eagerly,
+and so does the card inside :func:`~repro_torch.kernels.ops.eager_route`.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
+from ..kernels import ops
 from ..models import decode_step, prefill
+from ..models.blocks import PLAIN, REFRESH
 from ..models.config import ModelConfig
-from .kv_cache import compress_prefill_cache
+from .kv_cache import CompressedKV, compress_prefill_cache, decode_schedule
 from .kv_compress import KVCompressionConfig
 
 __all__ = ["generate", "sample_token"]
@@ -28,16 +42,85 @@ def sample_token(gen: Optional[torch.Generator], logits: torch.Tensor,
                  temperature: float = 0.0) -> torch.Tensor:
     """logits (B, 1, V) → (B, 1) int32: the argmax at temperature 0 (ties
     to the lower index, as the reference's), else a draw from
-    ``softmax(logits / temperature)`` with ``gen``."""
+    ``softmax(logits / temperature)`` with ``gen``: ``torch.multinomial``'s
+    one-sample draw (the argmax of ``p / q``, ``q`` exponential), bit for
+    bit, without its check that reads the probabilities back."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits[:, 0].float() / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=gen).to(torch.int32)
+    q = torch.empty_like(probs).exponential_(1, generator=gen)
+    return torch.argmax(probs / q, dim=-1, keepdim=True).to(torch.int32)
+
+
+def _fused_decode_step(params, cfg: ModelConfig, cache: dict, tok: torch.Tensor,
+                       gen: Optional[torch.Generator], step_i: torch.Tensor, temperature: float,
+                       dense_moe: bool, *, out: torch.Tensor, phase: str = PLAIN) -> torch.Tensor:
+    """One token, in place: :func:`~repro_torch.models.decode_step` on the
+    token buffer ``tok`` (B, 1) (it embeds the token and advances the
+    cache's length), the sampling with ``gen``, the sampled token written
+    into ``out`` (B, n_tokens) at the device index ``step_i`` (a 0-d int),
+    ``tok`` set to it and ``step_i`` advanced. The body the graphs capture;
+    returns the step's logits (B, 1, V)."""
+    logits, _ = decode_step(params, cfg, cache, tok, dense_moe=dense_moe, phase=phase)
+    nxt = sample_token(gen, logits, temperature)
+    out.index_copy_(1, step_i.reshape(1).long(), nxt)
+    tok.copy_(nxt)
+    step_i.add_(1)
+    return logits
+
+
+class _DecodeGraphs:
+    """The CUDA graphs of one :func:`generate` call, one per phase, in one
+    memory pool. A phase's first step is its warm-up: it runs eagerly on a
+    side stream (lazy initialisation, workspaces) under
+    ``set_sync_debug_mode("error")``, so a step that reads a value back
+    raises; then the phase's graph is captured, and every later step of the
+    phase replays it, counting the kernel launches it holds. A failed
+    capture raises."""
+
+    def __init__(self, body: Callable[[str], torch.Tensor], gen: Optional[torch.Generator]):
+        self.body, self.gen = body, gen  # gen: registered with each graph when sampling draws
+        self.pool = torch.cuda.graph_pool_handle()
+        self.graphs = {}  # phase -> (graph, its logits, its launches)
+        self.pool_bytes = 0
+        self.replays = 0
+
+    def capture(self, phase: str) -> torch.Tensor:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        mode = torch.cuda.get_sync_debug_mode()
+        with torch.cuda.stream(side):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                logits = self.body(phase)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream().wait_stream(side)
+        # what torch.cuda.graph does on entry, first here: the pool's growth
+        # then reads from the reserved bytes alone
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        if self.gen is not None:
+            graph.register_generator_state(self.gen)
+        with ops.captured_launches() as launches, torch.cuda.graph(graph, pool=self.pool):
+            static = self.body(phase)
+        self.pool_bytes += torch.cuda.memory_reserved() - reserved
+        self.graphs[phase] = (graph, static, launches)
+        return logits
+
+    def replay(self, phase: str) -> torch.Tensor:
+        graph, logits, launches = self.graphs[phase]
+        graph.replay()
+        ops.add_launches(launches)
+        self.replays += 1
+        return logits
 
 
 class _Clock:
-    """Phase times of one :func:`generate` call in ms: CUDA events on the
-    card (read once, at the end), the host clock on the CPU."""
+    """Phase times of one :func:`generate` call in ms, summed by name: CUDA
+    events on the card (read once, at the end), the host clock on the CPU."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -56,7 +139,8 @@ class _Clock:
             torch.cuda.synchronize()
         out = {}
         for (_, t0), (name, t1) in zip(self.marks, self.marks[1:]):
-            out[name] = t0.elapsed_time(t1) if self.cuda else (t1 - t0) * 1e3
+            dt = t0.elapsed_time(t1) if self.cuda else (t1 - t0) * 1e3
+            out[name] = out.get(name, 0.0) + dt
         return out
 
 
@@ -65,23 +149,37 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
              gen: Optional[torch.Generator] = None, temperature: float = 0.0, vision=None,
              dense_moe: bool = False, kv_compress: Optional[KVCompressionConfig] = None,
              registry=None, kv_sketches: Optional[dict] = None,
-             timings: Optional[dict] = None) -> torch.Tensor:
+             timings: Optional[dict] = None, stats: Optional[dict] = None,
+             on_step: Optional[Callable[[int, torch.Tensor], None]] = None) -> torch.Tensor:
     """Greedy or temperature generation; prompt (B, S) on the model's
     device. Returns (B, n_tokens) int32. ``vision``: a vlm config's patch
     embeddings (B, n_patches, d_vision), read once, at prefill.
+
+    On the card the decode loop replays CUDA graphs of
+    :func:`_fused_decode_step` (module docstring); on the CPU, or inside
+    :func:`~repro_torch.kernels.ops.eager_route`, it runs the same body
+    eagerly.
 
     ``gen`` draws the sampled tokens and, with ``kv_compress``, the
     compressed caches' sketches (``kv_sketches`` hands pre-drawn ones to
     :func:`~repro_torch.serve.kv_cache.compress_prefill_cache`); ``None``
     seeds 0 on the prompt's device. ``registry`` forwards a metrics
     registry to the conversion. ``timings``, when given, receives the ms
-    of ``prefill``, ``convert`` and ``decode`` (all ``n_tokens − 1``
-    steps).
+    of ``prefill``, ``convert``, ``capture`` (the graphs' warm-up steps
+    and captures; 0 on the eager route), ``refresh`` (a compressed cache's
+    refresh steps) and ``decode`` (every other decode step). ``stats``
+    receives the loop's ``route`` ("graph" or "eager"),
+    ``graphs`` captured, ``replays``, ``eager_steps`` (warm-ups apart),
+    ``refresh_steps`` and the graphs' ``pool_bytes``. ``on_step(i,
+    logits)`` is called on the host after decode step ``i`` with its
+    logits (B, 1, V); on the graph route they are the graph's output,
+    overwritten by its next replay.
     """
+    dev = prompt.device
     if gen is None:
-        gen = torch.Generator(device=prompt.device)
+        gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-    clock = _Clock(prompt.device)
+    clock = _Clock(dev)
     clock.mark("start")
     logits, cache = prefill(params, cfg, prompt, prompt.shape[1] + n_tokens, vision=vision,
                             dense_moe=dense_moe)
@@ -90,11 +188,45 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
         cache = compress_prefill_cache(gen, cfg, cache, kv_compress, registry=registry,
                                        sketches=kv_sketches)
     clock.mark("convert")
-    toks = [sample_token(gen, logits, temperature)]
-    for _ in range(n_tokens - 1):
-        logits, cache = decode_step(params, cfg, cache, toks[-1], dense_moe=dense_moe)
-        toks.append(sample_token(gen, logits, temperature))
+    compressed = any(isinstance(c, CompressedKV) for c in cache["layers"])
+    schedule = decode_schedule(kv_compress if compressed else None, n_tokens - 1)
+    out = torch.empty((prompt.shape[0], n_tokens), dtype=torch.int32, device=dev)
+    tok = sample_token(gen, logits, temperature)
+    out[:, :1] = tok
+    step_i = torch.ones((), dtype=torch.int32, device=dev)
+
+    def body(phase: str) -> torch.Tensor:
+        return _fused_decode_step(params, cfg, cache, tok, gen, step_i, temperature, dense_moe,
+                                  out=out, phase=phase)
+
+    graphs = None
+    if dev.type == "cuda" and not ops._EAGER:
+        graphs = _DecodeGraphs(body, gen if temperature > 0.0 else None)
+    eager = refreshes = 0
+    for i, (phase, _) in enumerate(schedule):
+        if phase == REFRESH:
+            clock.mark("decode")
+            logits = body(phase)
+            clock.mark("refresh")
+            eager += 1
+            refreshes += 1
+        elif graphs is None:
+            logits = body(phase)
+            eager += 1
+        elif phase in graphs.graphs:
+            logits = graphs.replay(phase)
+        else:
+            clock.mark("decode")
+            logits = graphs.capture(phase)
+            clock.mark("capture")
+        if on_step is not None:
+            on_step(i, logits)
     clock.mark("decode")
     if timings is not None:
-        timings.update(clock.read())
-    return torch.cat(toks, dim=1)
+        timings.update({"capture": 0.0, "refresh": 0.0, **clock.read()})
+    if stats is not None:
+        stats.update(route="eager" if graphs is None else "graph", eager_steps=eager,
+                     refresh_steps=refreshes, graphs=0 if graphs is None else len(graphs.graphs),
+                     replays=0 if graphs is None else graphs.replays,
+                     pool_bytes=0 if graphs is None else graphs.pool_bytes)
+    return out

@@ -20,9 +20,18 @@ window reset. Attention is exact over the recent window and rank-r over
 the prefix, with one joint softmax across both score blocks.
 
 The reference gates the fold and the refresh with ``lax.cond`` on device
-ints inside its one compiled step; the port keeps ``length``, ``eng_len``
-and ``fac_len`` as host ints, so the policy branches on the host with no
-read-back per token. The engines update in place.
+ints inside its one compiled step. The port keeps ``length``, ``eng_len``
+and ``fac_len`` as 0-d int32 tensors on the device too: the recent slot,
+the fold's window (its start ``eng_len − fac_len`` in the recent window,
+its engine columns at ``eng_len``) and the attention masks are read there.
+Whether a step folds or refreshes depends only on how many tokens were
+decoded, so the host knows it in advance (:func:`decode_schedule`) and
+tells each step its phase; it reads no value back. Every tensor updates in
+place (the refreshed factors are written into the old ones), so a decode
+step captured in a CUDA graph stays valid: ``generate`` replays one graph
+for the plain steps and one for the folds (kernel 1's stacked launches
+inside it), and runs the refresh steps eagerly, on the card — the
+finalize's ``torch.linalg.svd`` waits for the host.
 
 A scanned segment's layers (the reference's ``n_repeat`` axis) convert
 together as one stack of ``n_repeat·B·KV`` heads; each layer's cache then
@@ -39,8 +48,9 @@ from typing import Optional
 
 import torch
 
-from ..core.svd import StackedSPSVDState, spsvd_stacked_finalize, spsvd_stacked_update
+from ..core.svd import StackedSPSVDState, spsvd_stacked_finalize, spsvd_stacked_fold
 from ..device import DeviceLike, resolve_device
+from ..models.blocks import FOLD, PLAIN, REFRESH
 from ..models.config import ATTN, ModelConfig
 from ..models.transformer import segments
 from ..obs.metrics import MetricsRegistry, default_registry
@@ -48,7 +58,8 @@ from ..obs.spans import span
 from .kv_compress import (KVCompressionConfig, LowRankKV, _allocate_ranks, _fac_width, _factors,
                           _stacked_init, _stream_stack)
 
-__all__ = ["CompressedKV", "cache_nbytes", "compress_prefill_cache", "init_compressed_kv"]
+__all__ = ["CompressedKV", "cache_nbytes", "compress_prefill_cache", "decode_schedule",
+           "init_compressed_kv"]
 
 
 @dataclasses.dataclass
@@ -60,7 +71,8 @@ class CompressedKV:
     sit densely in ``recent_*`` at slot ``pos - fac_len``; tokens
     ``[0, eng_len)`` have been folded into ``k_eng``/``v_eng``;
     ``eng_len - fac_len`` is a multiple of ``decode_panel`` below
-    ``refresh_every``.
+    ``refresh_every``. The engines' own ``offset`` stays where the
+    conversion left it: decode folds at ``eng_len``.
     """
 
     k_eng: StackedSPSVDState  # B·KV heads
@@ -69,51 +81,76 @@ class CompressedKV:
     v_fac: LowRankKV
     recent_k: torch.Tensor  # (B, refresh_every, KV, hd), model dtype
     recent_v: torch.Tensor
-    fac_len: int  # tokens covered by the factors
-    eng_len: int  # tokens folded into the engines
+    fac_len: torch.Tensor  # () int32 — tokens covered by the factors
+    eng_len: torch.Tensor  # () int32 — tokens folded into the engines
+    base: int  # the column where the folds' window grid starts (the prompt's end)
     kc: KVCompressionConfig
 
-    def append_attend(self, q, k, v, length: int):
+    def append_attend(self, q, k, v, length: torch.Tensor, phase: str = PLAIN):
         """Append one decoded token and attend against the full history.
 
         ``q``: (B, 1, H, hd) RoPE'd queries; ``k``/``v``: (B, 1, KV, hd)
-        the new token's projections; ``length``: tokens already cached.
-        Returns ``(o, self)`` with ``o`` (B, 1, H, hd), the contract of
+        the new token's projections; ``length``: tokens already cached (a
+        0-d int on the device); ``phase``: :data:`PLAIN`, :data:`FOLD`
+        (``decode_panel`` tokens are pending: fold them) or :data:`REFRESH`
+        (fold, then refactorize), from :func:`decode_schedule`. Returns
+        ``o`` (B, 1, H, hd), the contract of
         :func:`~repro_torch.models.attention.decode_attention`; the cache is
         updated in place.
         """
-        slot = length - self.fac_len
-        self.recent_k[:, slot] = k[:, 0].to(self.recent_k.dtype)
-        self.recent_v[:, slot] = v[:, 0].to(self.recent_v.dtype)
-        new_len = length + 1
-        if new_len - self.eng_len == self.kc.decode_panel:
-            self._fold()
-        return _attend(self, q, new_len), self
+        slot = (length - self.fac_len).reshape(1).long()
+        self.recent_k.index_copy_(1, slot, k.to(self.recent_k.dtype))
+        self.recent_v.index_copy_(1, slot, v.to(self.recent_v.dtype))
+        if phase != PLAIN:
+            self._fold(refresh=phase == REFRESH)
+        return _attend(self, q, length + 1)
 
-    def _fold(self) -> None:
+    def _fold(self, refresh: bool) -> None:
         # fold the decode_panel pending tokens [eng_len, eng_len + dp) into
-        # both engines, every head at once; refactorize once refresh_every
-        # tokens have accumulated past the factors
+        # both engines, every head at once; then, at a refresh step,
+        # refactorize (refresh_every tokens past the factors)
         dp = self.kc.decode_panel
         B, _, KV, hd = self.recent_k.shape
-        start = self.eng_len - self.fac_len
+        win = (self.eng_len - self.fac_len) + torch.arange(dp, device=self.recent_k.device)
         for recent, eng in ((self.recent_k, self.k_eng), (self.recent_v, self.v_eng)):
-            win = recent[:, start : start + dp]  # (B, dp, KV, hd)
-            spsvd_stacked_update(eng, win.permute(0, 2, 3, 1).reshape(B * KV, hd, dp).float())
-        self.eng_len += dp
-        if self.eng_len - self.fac_len == self.kc.refresh_every:
+            A_L = recent.index_select(1, win).permute(0, 2, 3, 1).reshape(B * KV, hd, dp)
+            spsvd_stacked_fold(eng, A_L.float(), self.eng_len, self.base)
+        self.eng_len.add_(dp)
+        if refresh:
             self._refresh()
 
     def _refresh(self) -> None:
-        # the new factors cover everything the engines have seen; the recent
-        # window restarts empty at the new fac_len
+        # the new factors, written over the old ones, cover everything the
+        # engines have seen; the recent window restarts empty at the new fac_len
         fw = self.k_fac.sigma.shape[-1]
         B, _, KV, _ = self.recent_k.shape
-        self.k_fac = _finalize_heads(self.k_eng, self.kc, fw, B, KV)
-        self.v_fac = _finalize_heads(self.v_eng, self.kc, fw, B, KV)
+        for eng, fac in ((self.k_eng, self.k_fac), (self.v_eng, self.v_fac)):
+            new = _finalize_heads(eng, self.kc, fw, B, KV)
+            for name in ("v_s", "sigma", "u"):
+                getattr(fac, name).copy_(getattr(new, name))
         self.recent_k.zero_()
         self.recent_v.zero_()
-        self.fac_len = self.eng_len
+        self.fac_len.copy_(self.eng_len)
+
+
+def decode_schedule(kc: Optional[KVCompressionConfig], n_steps: int) -> list:
+    """Each of ``n_steps`` decode steps from a freshly converted cache
+    (``fac_len = eng_len =`` the prompt's length) as ``(phase, window)``:
+    the reference's two ``lax.cond`` gates, decided on the host from the
+    step index alone. Step ``j`` appends the ``j+1``-th decoded token; it
+    folds when ``decode_panel`` tokens are pending, ``window`` then being
+    the fold's start ``eng_len − fac_len`` in the recent window, and
+    refreshes when the fold brings ``refresh_every`` tokens past the
+    factors. ``kc=None`` (no compressed layer): every step plain."""
+    out = []
+    for j in range(n_steps):
+        n = j + 1  # tokens appended after this step
+        if kc is None or n % kc.decode_panel:
+            out.append((PLAIN, None))
+            continue
+        window = (n - kc.decode_panel) % kc.refresh_every
+        out.append((REFRESH if n % kc.refresh_every == 0 else FOLD, window))
+    return out
 
 
 def _finalize_heads(eng: StackedSPSVDState, kc: KVCompressionConfig, fw: int, B: int,
@@ -126,7 +163,7 @@ def _finalize_heads(eng: StackedSPSVDState, kc: KVCompressionConfig, fw: int, B:
     return fac
 
 
-def _attend(cache: CompressedKV, q, new_len: int):
+def _attend(cache: CompressedKV, q, new_len: torch.Tensor):
     # one softmax over the rank-r factor scores (positions below fac_len)
     # and the exact recent scores (positions in [fac_len, new_len)), fp32,
     # cast back to the query's dtype
@@ -173,8 +210,10 @@ def init_compressed_kv(gen: Optional[torch.Generator], kc: KVCompressionConfig, 
         u=torch.zeros((batch, n_kv_heads, head_dim, fw), device=dev))
     recent = lambda: torch.zeros((batch, kc.refresh_every, n_kv_heads, head_dim),  # noqa: E731
                                  dtype=dtype, device=dev)
+    count = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
     return CompressedKV(k_eng=eng[0], v_eng=eng[1], k_fac=zero(), v_fac=zero(),
-                        recent_k=recent(), recent_v=recent(), fac_len=0, eng_len=0, kc=kc)
+                        recent_k=recent(), recent_v=recent(), fac_len=count(), eng_len=count(),
+                        base=0, kc=kc)
 
 
 def _convert_stack(gen, dense_layers: list, prompt_len: int, kc: KVCompressionConfig,
@@ -212,9 +251,10 @@ def _convert_stack(gen, dense_layers: list, prompt_len: int, kc: KVCompressionCo
                  for st, f in halves]
         recent = [torch.zeros((B, kc.refresh_every, KV, hd), dtype=dt, device=dev)
                   for _ in range(2)]
+        count = [torch.full((), prompt_len, dtype=torch.int32, device=dev) for _ in range(2)]
         out.append(CompressedKV(k_eng=views[0][0], v_eng=views[1][0], k_fac=views[0][1],
                                 v_fac=views[1][1], recent_k=recent[0], recent_v=recent[1],
-                                fac_len=prompt_len, eng_len=prompt_len, kc=kc))
+                                fac_len=count[0], eng_len=count[1], base=prompt_len, kc=kc))
     return out
 
 
@@ -237,7 +277,7 @@ def compress_prefill_cache(gen: Optional[torch.Generator], cfg: ModelConfig, cac
     converted layers are no longer referenced from it.
     """
     reg = registry if registry is not None else default_registry()
-    prompt_len = int(cache["length"])
+    prompt_len = int(cache["length"])  # read once, before decode: the engines' column grid
     layers = list(cache["layers"])
     n_conv = 0
     with span("serve/kv_cache/convert", reg):

@@ -828,6 +828,71 @@ def test_cuda_generate_matches_cpu(cuda, compressed):
     assert (ops.LAUNCHES["countsketch_batched"] > 0) == compressed
 
 
+GRAPH_ARCHS = ["phi4-mini-3.8b", "mistral-nemo-12b", "musicgen-large", "gemma3-12b",
+               "deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-1.3b", "zamba2-1.2b",
+               "llama-3.2-vision-90b"]
+
+
+@pytest.mark.parametrize("arch,compressed,dense_moe",
+                         [("llama3.2-1b", False, False), ("llama3.2-1b", True, False),
+                          ("deepseek-v2-lite-16b", False, True), ("llama-3.2-vision-90b", True, False)]
+                         + [(a, False, False) for a in GRAPH_ARCHS],
+                         ids=["dense", "compressed", "deepseek-dense_moe", "vision-compressed"]
+                         + GRAPH_ARCHS)
+def test_cuda_generate_graphs_match_eager_route(cuda, arch, compressed, dense_moe):
+    """On the card ``generate`` replays CUDA graphs of its decode step: a
+    smoke config's greedy tokens equal the eager route's
+    (``ops.eager_route()``), every step's logits within 1e-5, kernel 1's
+    launches counted through the replays equal the eager route's, and only
+    the compressed cache's refresh steps run eagerly; at temperature 0.8 two
+    graph runs from one seed draw the same tokens."""
+    import contextlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models.modality import synth_patch_embeddings
+    from repro_torch.serve import KVCompressionConfig, generate
+
+    cfg = get_arch(arch).smoke_config()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = init_params(g, cfg, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda, generator=g)
+    kw = dict(dense_moe=dense_moe)
+    if cfg.d_vision:
+        with torch.no_grad():  # the gates are trainable leaves, 0 at init (adding nothing)
+            for block in model.blocks:
+                if hasattr(block.mixer, "gate"):
+                    block.mixer.gate.fill_(0.5)
+        kw["vision"] = synth_patch_embeddings(g, cfg, 2, cuda)
+    if compressed:
+        kw["kv_compress"] = KVCompressionConfig(rank=4, oversample=2, panel=8, decode_panel=4,
+                                                refresh_every=8)
+    n = 20
+
+    def run(eager: bool, temperature: float = 0.0):
+        logits, stats = [], {}
+        ops.reset_launches()
+        with ops.eager_route() if eager else contextlib.nullcontext():
+            toks = generate(model, cfg, prompt, n, gen=torch.Generator(device=cuda).manual_seed(2),
+                            temperature=temperature, stats=stats,
+                            on_step=lambda i, lg: logits.append(lg.clone()), **kw)
+        return toks, logits, dict(ops.LAUNCHES), stats
+
+    tg, lg_g, launch_g, st_g = run(False)
+    te, lg_e, launch_e, st_e = run(True)
+    assert torch.equal(tg, te)
+    for a, b in zip(lg_g, lg_e):
+        _close(a, b)
+    assert launch_g == launch_e
+    assert (launch_g["countsketch_batched"] > 0) == compressed
+    assert st_e["route"] == "eager" and st_e["eager_steps"] == n - 1
+    assert st_g["route"] == "graph" and st_g["graphs"] == (2 if compressed else 1)
+    assert st_g["eager_steps"] == st_g["refresh_steps"] == (2 if compressed else 0)
+    assert st_g["replays"] + st_g["graphs"] + st_g["eager_steps"] == n - 1
+    assert st_g["pool_bytes"] > 0
+    assert torch.equal(run(False, 0.8)[0], run(False, 0.8)[0])
+
+
 @pytest.mark.parametrize("shape", [(128256, 2048), (16, 2048, 8192)], ids=["embed", "w_up"])
 def test_cuda_twoside_sketch_at_compression_shapes(cuda, shape):
     """Kernel 4 at the compressed llama3.2-1b step's two largest launches (s =

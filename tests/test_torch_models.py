@@ -182,7 +182,8 @@ def test_mla_projections_match_reference():
 
 def test_mla_prefill_and_decode_match_reference():
     """Prefill's output and its latent cache (r + rope wide, zeros past the
-    prompt), then four decode steps each writing its entry at ``length``."""
+    prompt), then four decode steps each writing its entry in place at
+    ``length`` (a 0-d int tensor)."""
     cfg_r, cfg_p, params, mod = _mla_pair(2)
     rng = np.random.default_rng(2)
     S, n_dec, cache_len = 10, 4, 16
@@ -198,7 +199,7 @@ def test_mla_prefill_and_decode_match_reference():
         xd = rng.standard_normal((2, 1, cfg_r.d_model)).astype(np.float32)
         o_r, cache_r = rmla.mla_decode(params, jnp.asarray(xd), cfg_r, cache_r,
                                        jnp.asarray(S + t, jnp.int32))
-        o_p, cache_p = pmla.mla_decode(mod, _t(xd), cfg_p, cache_p, S + t)
+        o_p = pmla.mla_decode(mod, _t(xd), cfg_p, cache_p, torch.tensor(S + t, dtype=torch.int32))
         _close(o_p, o_r, 1e-5, f"decode step {t}")
     _close(cache_p, cache_r, 1e-5, "latent cache after decode")
 
@@ -252,12 +253,12 @@ def _port_logits(cfg, ref, tol, dense_moe: bool = False):
     _close(aux, ref["aux"], tol, "aux loss")
     _close(logits, ref["logits"], tol, "train_logits")
     lg, cache = pmodels.prefill(model, cfg, toks, S + N_DECODE + 1, vision, dense_moe=dense_moe)
-    assert cache["length"] == S
+    assert cache["length"].dtype == torch.int32 and int(cache["length"]) == S
     _close(lg, ref["prefill"], tol, "prefill")
     for t, (tok, want) in enumerate(zip(ref["fed"], ref["steps"])):
         lg, cache = pmodels.decode_step(model, cfg, cache, _t(tok), dense_moe=dense_moe)
         _close(lg, want, tol, f"decode step {t}")
-    assert cache["length"] == S + N_DECODE
+    assert int(cache["length"]) == S + N_DECODE
     return model
 
 
@@ -301,7 +302,7 @@ def test_dense_cache_converter_continues_the_reference_decode():
     ref = _reference_run(cfg_r, seed=1)
     model = convert.model_params(ref["params"], cfg_p, device="cpu")
     cache = convert.dense_cache(ref["cache"], cfg_p, device="cpu")
-    assert cache["length"] == S and len(cache["layers"]) == cfg_p.n_layers
+    assert int(cache["length"]) == S and len(cache["layers"]) == cfg_p.n_layers
     assert cache["layers"][0]["k"].shape == (B, cfg_p.window, cfg_p.n_kv_heads, cfg_p.head_dim)
     lg, _ = pmodels.decode_step(model, cfg_p, cache, _t(ref["fed"][0]))
     _close(lg, ref["steps"][0], 1e-5, "decode from a converted cache")

@@ -337,14 +337,15 @@ def test_compressed_cache_append_attend_matches_reference():
     _close(_recon(got.v_fac), _recon(ref.v_fac), what="converted V factors")
     step = jax.jit(lambda c, q, k, v, ln: c.append_attend(q, k, v, ln))
     q_seq = rng.standard_normal((B, T, KV * G, hd)).astype(np.float32)
-    for t in range(T):
+    for t, (phase, _) in enumerate(pkv.decode_schedule(kc_p, T)):
         pos = prompt + t
         args = [q_seq[:, t : t + 1], k_dense[:, pos : pos + 1], v_dense[:, pos : pos + 1]]
         o_ref, ref = step(ref, *(jnp.asarray(a) for a in args), jnp.asarray(pos, jnp.int32))
-        o, got = got.append_attend(*(_t(a) for a in args), pos)
+        o = got.append_attend(*(_t(a) for a in args), torch.tensor(pos, dtype=torch.int32),
+                              phase)
         _close(o, o_ref, what=f"attention at step {t}")
-        assert (got.eng_len, got.fac_len) == (int(ref.eng_len), int(ref.fac_len))
-    assert (got.eng_len, got.fac_len) == (prompt + 8, prompt + 8)
+        assert (int(got.eng_len), int(got.fac_len)) == (int(ref.eng_len), int(ref.fac_len))
+    assert (int(got.eng_len), int(got.fac_len)) == (prompt + 8, prompt + 8)
     for name in ("C", "R", "M"):
         want = np.asarray(getattr(ref.k_eng, name)).reshape(getattr(got.k_eng, name).shape)
         np.testing.assert_allclose(getattr(got.k_eng, name).numpy(), want, atol=1e-4)
@@ -364,8 +365,9 @@ def test_init_compressed_kv_and_cache_nbytes_count_the_engine_state():
                + 2 * p * (2 * hd + 2 * n_max))  # hashes and signs of Ψ, S_C, Ω, S_R
     fac = N * (n_max * fw + fw + hd * fw)
     recent = B * kc.refresh_every * KV * hd
-    assert pserve.cache_nbytes(c) == 4 * (2 * eng + 2 * fac + 2 * recent)
-    assert (c.fac_len, c.eng_len) == (0, 0)
+    counters = 2  # fac_len, eng_len: 0-d int32
+    assert pserve.cache_nbytes(c) == 4 * (2 * eng + 2 * fac + 2 * recent + counters)
+    assert (int(c.fac_len), int(c.eng_len)) == (0, 0)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pserve.init_compressed_kv(g, kc, batch=B, n_kv_heads=KV, head_dim=hd, n_max=n_max)
@@ -419,13 +421,13 @@ def test_generate_compressed_matches_reference(llama):
     pcache = pserve.compress_prefill_cache(None, cfg_p, pcache, kc_p, sketches=sketches)
     assert all(isinstance(c, pserve.CompressedKV) for c in pcache["layers"])
     step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg_r, c, t))
-    for t in range(N_TOKENS - 1):
+    for t, (phase, _) in enumerate(pserve.decode_schedule(kc_p, N_TOKENS - 1)):
         tok = want[:, t : t + 1]
         lg, cache = step(params, cache, jnp.asarray(tok))
-        plg, pcache = pmodels.decode_step(model, cfg_p, pcache, _t(tok))
+        plg, pcache = pmodels.decode_step(model, cfg_p, pcache, _t(tok), phase=phase)
         _close(plg, lg, what=f"decode step {t}")
     layer = pcache["layers"][1]
-    assert (layer.eng_len, layer.fac_len) == (24 + 8, 24 + 8)  # two folds, one refresh
+    assert (int(layer.eng_len), int(layer.fac_len)) == (24 + 8, 24 + 8)  # two folds, one refresh
 
 
 def test_sample_token_ties_and_temperature():
@@ -500,7 +502,7 @@ def test_compress_prefill_cache_passes_mla_latents_through(deepseek):
         assert set(got) == {"latent"} and got["latent"] is before["latent"]
         assert got["latent"].shape == (2, n_max, width)
         np.testing.assert_allclose(got["latent"].numpy(), ref["latent"].numpy(), atol=1e-5)
-    assert pserve.cache_nbytes(out) == cfg_p.n_layers * 2 * n_max * width * 4
+    assert pserve.cache_nbytes(out["layers"]) == cfg_p.n_layers * 2 * n_max * width * 4
     assert reg.gauges["serve/kv_cache_bytes"] == pserve.cache_nbytes(out)
     assert pserve.cache_nbytes(pmodels.init_cache(cfg_p, 2, n_max, device="cpu")) == \
         pserve.cache_nbytes(out)

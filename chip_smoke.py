@@ -19,7 +19,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    with bf16 C and M, after that pair, fp32 or bf16 sketch and panel),
    kernel 4's example and ragged shapes and the compressed train step's two
    largest launches ((y)'s embedding, 128256 x 2048, and w_up's stack, 16 x
-   2048 x 8192, at s = 128, with their stream-K plans), and second
+   2048 x 8192, at s = 128, with their stream-K plans, and (tp)'s blocks
+   of the embedding, w_up and w_down at model axis 2), and second
    launches of kernels 2-4 compared bitwise; CUDA-event times of the
    kernel, the plain version and one library call, beside the card's bound;
    the launch plans of kernels 2-4 against the resident slots, and every
@@ -169,7 +170,7 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    (``remat="dots"``, the reference CLI's AdamW for 8 steps) on
    ``SyntheticLM`` batches of 4 x 2048 tokens, then from the same initial
    state 8 steps of ``make_compressed_train_step`` (rank 32, factor 4,
-   min_dim 512) in an NCCL group of one rank: step ms (CUDA events, the
+   min_dim 512) in a world of one rank: step ms (CUDA events, the
    median of steps 2-8), tokens/s, peak GiB, every step's loss and
    grad_norm, ``comp/*`` (the ratio must be the reference's 43.160360...),
    kernel 4's launches (8 a step: 64), ``torch.profiler`` over one plain and
@@ -193,7 +194,27 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    stacked gradient of w_up's shape reconstructs within the reference's
    0.03 (a full-rank one must not), (5) ``python -m
    repro_torch.launch.train`` at depth 2, compressed, a crash at step 3:
-   one restart, 6 steps. The serving phases (r)-(x) run under ``no_grad``.
+   one restart, 6 steps. The serving phases (r)-(x) run under ``no_grad``;
+19. (tp) tensor parallelism — (y)'s model (its seeded initial weights made
+   whole on each rank, then cut by ``shard_params``) and batches in gloo
+   ranks spawned on this one card (their collectives staged through the
+   host; NCCL cannot hold two ranks of a group on one GPU): 1x2 plain, 3
+   steps; two controls, one whose ``reduce_from_tp`` backward all-reduces
+   again, one whose ``cross_entropy`` leaves out the model axis's sum of
+   exponentials; 1x2 compressed, 3 steps; 2x2 plain and compressed, 2 steps
+   each; then the CLI (``launch.train.main``) at ``--mesh 2x2
+   --grad-compress``, (y)'s gate depth, a crash at step 3 (one restart, the
+   replayed step's loss equal). Gates against (y)'s run of the same kind
+   (plain or compressed): step 1's loss (``TP_LOSS0_TOL``), every step's
+   loss (``TP_LOSS_TOL``), every gradient leaf (relative Frobenius,
+   ``TP_GRAD_TOL``), grad_norm (``TP_GRAD_NORM_TOL``) and step 1's update
+   (``TP_UPDATE_TOL``); each control must fail them; kernel 4 8
+   times a compressed step on each rank, on its block; ``comp/ratio`` the
+   reference's; at 2x2 the compressed step's data-axis all-reduce bytes
+   below the plain step's. Each run prints step ms (CUDA events), tokens/s,
+   peak GiB a rank, all-reduce calls, bytes and ms a step by group, and the
+   collectives' share of the step. Kernel 4 is held against its plain
+   version at the blocks' shapes in the kernels phase.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -206,6 +227,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import importlib
+import itertools
 import json
 import math
 import os
@@ -308,6 +330,40 @@ TRAIN_GATE_DEPTH = 2
 TRAIN_SDPA_TOL = 2 * TRAIN_GATE_DEPTH * 2.0 ** -8
 TRAIN_REMAT_TOL = 2.0 ** -8
 TRAIN_RECON_TOL = 0.03
+# (tp): (y)'s model, initial state and batches in gloo ranks sharing this one
+# card: 1x2 plain, its control (reduce_from_tp's backward all-reducing again:
+# a doubled gradient upstream), 1x2 compressed; 2x2 plain and compressed; then
+# the CLI at --mesh 2x2 --grad-compress, (y)'s gate depth, a crash at step 3.
+# Limits, each set between the sound runs' largest reading and a control's
+# (H100 runs of this script, both in PERF.md). Step 1's loss: read 2.5e-6; the
+# cross-entropy control (each rank's softmax over its half of the vocab)
+# 5.8e-2; the limit is the reference's own sharded-equals-single bound
+# (tests/multidev_scenario.py:47-75). Every step's loss: read <= 4.6e-3 (the
+# bf16 differences of step 1's update carried on), the same control 5.8e-2.
+# The worst gradient leaf (relative Frobenius): read <= 0.064 (2x2's
+# embed.tok: the data-axis mean sums bf16 partial sums that cancel there),
+# the doubled backward 629. grad_norm: read <= 4.4e-3, the doubled backward
+# 305. Step 1's update (the parameters after it against (y)'s of the same
+# kind, over the norm of (y)'s update): read <= 0.037 plain, <= 0.095
+# compressed, the doubled backward 0.92. The cross-entropy control's
+# gradients stay near (y)'s (at init the one-hot term dominates the logit
+# gradient: 0.136, grad_norm 1.3e-3, update 0.110); only the loss limits
+# catch it
+TP_RUNS = {(1, 2): (("plain", 3), ("control", 1), ("control_ce", 1), ("compressed", 3)),
+           (2, 2): (("plain", 2), ("compressed", 2))}
+TP_LOSS0_TOL = 1e-4
+TP_LOSS_TOL = 2e-2
+TP_GRAD_TOL = 0.15
+TP_GRAD_NORM_TOL = 2e-2
+TP_UPDATE_TOL = 0.2
+# the CLI's 4 steps, a checkpoint after step 2, a crash at step 3: step 2 runs
+# again from the checkpoint, 5 steps in all, the replayed loss equal
+TP_CLI_STEPS = 4
+TP_REF = ROOT / "build" / "chip_smoke_tp_ref.pt"
+# a 2x2 rank's card memory: 16.0 GiB allocated at its compressed step's peak
+# (measured with the four ranks on one H100), the allocator's slack and a
+# CUDA context
+TP_RANK_GIB = 17.5
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -629,7 +685,10 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     out["countsketch"]["max_abs_err"] = max(out["countsketch"]["max_abs_err"],
                                             countsketch_sp_svd(torch, ops, dev, g, peaks)[0])
     out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
-    kernel_twoside_compress(torch, ops, peaks, dev, g)
+    out["twoside_sketch_tp"] = kernel_twoside_compress(torch, ops, peaks, dev, g)
+    out["twoside_sketch"]["max_abs_err"] = max(
+        [out["twoside_sketch"]["max_abs_err"]]
+        + [v["max_abs_err"] for v in out["twoside_sketch_tp"].values()])
     out["countsketch_batched"] = kernel_batched(torch, ops, dev, g, peaks)
     return out
 
@@ -1076,20 +1135,34 @@ def kernel_twoside(torch, ops, peaks, dev, g) -> dict:
                 ms=k_ms, plain_ms=p_ms, library_ms=lib_ms, bound_ms=b, bound_by=by)
 
 
-def kernel_twoside_compress(torch, ops, peaks, dev, g) -> None:
-    """Kernel 4 at the compressed train step's two largest launches (fp32,
-    s = 128): the embedding's gradient, one item of 128256 x 2048, and
-    w_up's stack, 16 items of 2048 x 8192; its stream-K plans there (few
-    output tiles, deep k) against the card's slots and their scratch."""
+# kernel 4's launches in the compressed train step: (y)'s two largest leaves,
+# and under (tp)'s model axis 2 each rank's block (the sketches drawn for the
+# whole leaf, their columns sliced as views): leaf, B, the block's m and n,
+# the whole leaf's m and n
+TWOSIDE_TRAIN_SHAPES = (("embed.tok", 1, 128256, 2048, 128256, 2048),
+                        ("ffn.w_up", 16, 2048, 8192, 2048, 8192),
+                        ("tp embed.tok vocab block", 1, 64128, 2048, 128256, 2048),
+                        ("tp ffn.w_up column block", 16, 2048, 4096, 2048, 8192),
+                        ("tp ffn.w_down row block", 16, 4096, 2048, 8192, 2048))
+
+
+def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
+    """Kernel 4 at the compressed train step's launches (fp32, s = 128,
+    ``TWOSIDE_TRAIN_SHAPES``): (y)'s embedding gradient, one item of 128256
+    x 2048, and w_up's stack, 16 items of 2048 x 8192; and (tp)'s blocks at
+    model axis 2, where S_C or S_R^T is a column slice of the whole leaf's
+    sketch; its stream-K plans there (few output tiles, deep k) against the
+    card's slots and their scratch. Returns the (tp) shapes' numbers."""
     ps = importlib.import_module("repro_torch.kernels.panel_score")
     tw = importlib.import_module("repro_torch.kernels.twoside_sketch")
     n_sm = ps.sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
     bps = [ps.blocks_per_sm("twoside_sketch", stage, 0) for stage in (0, 1)]
     s = TRAIN_CCFG["rank"] * TRAIN_CCFG["sketch_factor"]
-    for name, B, m, n in (("embed.tok", 1, 128256, 2048), ("ffn.w_up", 16, 2048, 8192)):
-        sc = torch.randn((s, m), generator=g, device=dev) / math.sqrt(s)
+    out = {}
+    for name, B, m, n, m_all, n_all in TWOSIDE_TRAIN_SHAPES:
+        sc = (torch.randn((s, m_all), generator=g, device=dev) / math.sqrt(s))[:, :m]
         a = torch.randn((B, m, n), generator=g, device=dev).squeeze(0)  # 2-D when B = 1
-        srt = (torch.randn((s, n), generator=g, device=dev) / math.sqrt(s)).T
+        srt = (torch.randn((s, n_all), generator=g, device=dev) / math.sqrt(s))[:, :n].T
         got = ops.twoside_sketch(sc, a, srt)
         with ops.force_plain():
             want = ops.twoside_sketch(sc, a, srt)
@@ -1110,11 +1183,16 @@ def kernel_twoside_compress(torch, ops, peaks, dev, g) -> None:
             check(plan.nblocks <= n_sm * bps[0 if stage == "S_C A" else 1],
                   f"twoside_sketch at {name}: {plan.nblocks} blocks over the slots")
         emit("kernel/twoside_sketch_compress", leaf=name, shape=[B, s, m, n, s],
-             max_abs_err=e_abs, rel_err=e_rel, ms=k_ms, plain_ms=p_ms, library_ms=lib_ms,
+             whole_leaf=[m_all, n_all], max_abs_err=e_abs, rel_err=e_rel, ms=k_ms,
+             plain_ms=p_ms, library_ms=lib_ms,
              library="torch.matmul(torch.matmul(S_C, G), S_R^T), fp32 highest", bound_ms=b,
              bound_by=by, tflops=flops / k_ms / 1e9, sms=n_sm, plans=plans)
+        if name.startswith("tp "):
+            out[name] = dict(max_abs_err=e_abs, rel_err=e_rel, ms=k_ms, plain_ms=p_ms,
+                             library_ms=lib_ms, bound_ms=b, bound_by=by)
         del sc, a, srt, got, want
     torch.cuda.empty_cache()
+    return out
 
 
 def check_indices(torch, idx, hi: int, name: str) -> int:
@@ -2533,7 +2611,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_rank(rank: int, world: int, port: int, jobs: dict, out_q) -> None:
+def mesh_rank(rank: int, world: int, init: str, jobs: dict, out_q) -> None:
     """One gloo rank of (q), in its own process on the card: each job's
     column block (a view of the parent's tensor, shared through CUDA IPC)
     through ``mesh_sharded_stream``, launches and ``all_reduce`` calls
@@ -2555,8 +2633,8 @@ def mesh_rank(rank: int, world: int, port: int, jobs: dict, out_q) -> None:
 
     if any(data.is_cuda for _, data in jobs.values()):
         build.build_all()  # loads the libraries the parent built
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-                            rank=rank, timeout=datetime.timedelta(seconds=300))
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
     real, calls, coll_ms = dist.all_reduce, [0], []
     real(torch.zeros(1, device="cuda" if torch.cuda.is_available() else "cpu"))  # connects
 
@@ -2611,17 +2689,28 @@ def mesh_rank(rank: int, world: int, port: int, jobs: dict, out_q) -> None:
     finally:
         dist.all_reduce = real
         dist.destroy_process_group()
+        # drop the parent's tensors before this process exits: an exit that
+        # still holds them never releases them to the parent (CUDA IPC), which
+        # then keeps A and K on the card for every later phase
+        jobs.clear()
+        torch.cuda.synchronize()
 
 
-def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0) -> dict:
-    """Run ``mesh_rank`` in ``world`` spawned processes and gather their
-    results; a failed rank fails the phase (the others are stopped)."""
+def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0, target=None) -> dict:
+    """Run ``target`` (``mesh_rank``) in ``world`` spawned processes and
+    gather their results; a failed rank fails the phase (the others are
+    stopped). The ranks meet at a file of their own (a ``file://`` store in
+    a fresh temporary directory), not a TCP port: ranks spawned at the same
+    time by another process can neither take it nor join their group."""
     import queue
+    import tempfile
 
     mp = torch.multiprocessing
     out_q = mp.get_context("spawn").Queue()
-    procs = mp.start_processes(mesh_rank, args=(world, free_port(), jobs, out_q), nprocs=world,
-                               join=False, start_method="spawn")
+    store = tempfile.mkdtemp()
+    procs = mp.start_processes(target or mesh_rank,
+                               args=(world, f"file://{store}/store", jobs, out_q),
+                               nprocs=world, join=False, start_method="spawn")
     results, deadline = {}, time.monotonic() + timeout
     try:
         while len(results) < world:
@@ -2637,6 +2726,7 @@ def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0) -> dict:
         for p in procs.processes:
             if p.is_alive():
                 p.terminate()
+        shutil.rmtree(store, ignore_errors=True)
     return results
 
 
@@ -4032,10 +4122,9 @@ def train_cli(torch) -> dict:
 
 def phase_train(torch, ops, dev) -> list:
     """(y): llama3.2-1b's full config trained 8 steps, plain and compressed
-    (an NCCL group of one rank), from one seeded initial state; gates (1)-(5)
-    and kernel 4's launches (8 a compressed step)."""
-    import torch.distributed as dist
-
+    (a world of one rank), from one seeded initial state; gates (1)-(5) and
+    kernel 4's launches (8 a compressed step). Step 1's loss and gradients
+    and each run's parameters after step 1 are (tp)'s references."""
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.device import fold_in
@@ -4064,11 +4153,20 @@ def phase_train(torch, ops, dev) -> list:
     ratio = compression_ratio(model, ccfg)
     check(ratio == TRAIN_RATIO, f"(y): compression_ratio {ratio} != the reference's {TRAIN_RATIO}")
     init = {k: v.detach().cpu() for k, v in model.named_parameters()}  # off the card
+    # (tp)'s references: step 1's loss and gradients, and the parameters after it
+    loss0, grads0 = train_grads(torch, model, cfg, batches[0], remat="dots")
+    grads0 = {k: v.cpu() for k, v in grads0.items()}
+    params1 = {}
+
+    def plain_step(s, b, i):
+        out = step(s, b)
+        if i == 0:
+            params1.update({k: v.detach().cpu() for k, v in model.named_parameters()})
+        return out
 
     step = make_train_step(cfg, oc, remat="dots")
     state = {"params": model, "opt": init_opt_state(model, oc)}
-    state, plain, launch_plain = train_run(torch, ops, lambda s, b, i: step(s, b), state, batches,
-                                           resident)
+    state, plain, launch_plain = train_run(torch, ops, plain_step, state, batches, resident)
     check(not any(launch_plain.values()), f"(y): the plain step launched {launch_plain}")
     # where a plain step's time goes: one more step under torch.profiler
     held = [state]
@@ -4079,22 +4177,27 @@ def phase_train(torch, ops, dev) -> list:
     with torch.no_grad():
         for k, p in model.named_parameters():
             p.copy_(init[k])
-    del init
+    update_sq = sum(float(torch.sum((params1[k].double() - init[k].double()) ** 2))
+                    for k in params1)  # |step 1's update|^2, (tp)'s yardstick
     torch.cuda.empty_cache()
 
-    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
-                            rank=0)
-    try:
-        dist.all_reduce(torch.zeros(1, device=dev))  # creates the communicator
-        cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, dist.group.WORLD,
-                                                     remat="dots")
-        state = {"params": model, "opt": init_opt_state(model, oc), "err": init_err(model)}
-        state, comp, launched = train_run(
-            torch, ops, lambda s, b, i: cstep(s, b, fold_in(9, i)), state, batches, resident)
-        profile, state = compressed_step_profile(torch, cstep, state, batches[0],
-                                                 fold_in(9, TRAIN_STEPS))
-    finally:
-        dist.destroy_process_group()
+    params1c = {}
+
+    def compressed_step(s, b, i):
+        out = cstep(s, b, fold_in(9, i))
+        if i == 0:
+            params1c.update({k: v.detach().cpu() for k, v in model.named_parameters()})
+        return out
+
+    cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, remat="dots")
+    state = {"params": model, "opt": init_opt_state(model, oc), "err": init_err(model)}
+    state, comp, launched = train_run(torch, ops, compressed_step, state, batches, resident)
+    profile, state = compressed_step_profile(torch, cstep, state, batches[0],
+                                             fold_in(9, TRAIN_STEPS))
+    # |step 1's compressed update|^2, the compressed (tp) runs' yardstick
+    update_sq_c = sum(float(torch.sum((params1c[k].double() - init[k].double()) ** 2))
+                      for k in params1c)
+    del init
     check(launched["twoside_sketch"] == TRAIN_LEAVES * TRAIN_STEPS,
           f"(y): kernel 4 launched {launched['twoside_sketch']} times, not "
           f"{TRAIN_LEAVES * TRAIN_STEPS}")
@@ -4127,7 +4230,336 @@ def phase_train(torch, ops, dev) -> list:
          compressed_step_profile=profile, gates=dict(**gates, reconstruction=recon,
                                                      reconstruction_tol=TRAIN_RECON_TOL,
                                                      cli=cli))
-    return [launched]
+    # (tp)'s ranks read their blocks of these from a file (memory-mapped): no
+    # copy of them stays on the card
+    TP_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"grads0": grads0, "params1": params1, "params1c": params1c}, TP_REF)
+    del grads0, params1, params1c
+    return [launched], dict(loss0=loss0, update_sq=update_sq, update_sq_c=update_sq_c,
+                            plain_losses=plain["losses"],
+                            plain_grad_norms=plain["grad_norms"],
+                            compressed_losses=comp["losses"],
+                            compressed_grad_norms=comp["grad_norms"])
+
+
+class CollectiveCounter:
+    """Wraps ``dist.all_reduce`` in a rank: calls, bytes and synchronised
+    host ms by group name (``model``, ``data``; others ``world``)."""
+
+    def __init__(self, torch, dist, groups: dict):
+        self.torch, self.dist, self.real = torch, dist, dist.all_reduce
+        self.names = {id(g): name for name, g in groups.items() if g is not None}
+        self.reset()
+
+    def reset(self) -> None:
+        self.rec = {}
+
+    def __call__(self, t, *args, group=None, **kwargs):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.real(t, *args, group=group, **kwargs)
+        self.torch.cuda.synchronize()
+        r = self.rec.setdefault(self.names.get(id(group), "world"), [0, 0, 0.0])
+        r[0] += 1
+        r[1] += t.numel() * t.element_size()
+        r[2] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    def read(self) -> dict:
+        return {k: dict(calls=c, bytes=b, ms=ms) for k, (c, b, ms) in self.rec.items()}
+
+
+def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter, dev) -> dict:
+    """One (tp) run on this rank: (y)'s initial model made whole, cut by
+    ``shard_params``; step 1's gradients and loss (``control``: with
+    ``reduce_from_tp``'s backward all-reducing again, in them and in the
+    step; ``control_ce``: with ``cross_entropy``'s sum of exponentials over
+    the model axis left out) against (y)'s, then ``steps`` steps of (y)'s
+    batches (this rank's data-parallel share); each step's CUDA-event ms,
+    metrics, collectives and kernel-4 launches, step 1's parameters against
+    (y)'s of the same kind."""
+    import torch.distributed as dist
+
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.device import fold_in
+    from repro_torch.models import init_params
+    from repro_torch.train import (CompressionConfig, OptimizerConfig, init_opt_state,
+                                   make_compressed_train_step, make_loss_fn, make_train_step)
+
+    rules = sh.ParallelismRules().with_mesh(mesh)
+    d, at = mesh.shape["data"], mesh.index("data")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S,
+                                  seed=SEED), device=dev)
+    share = TRAIN_B // d
+    batches = [{k: v[at * share:(at + 1) * share] for k, v in data.batch_at(i).items()}
+               for i in range(steps)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = init_params(gen(torch, dev, SEED + 100), cfg, device=dev)
+    sh.shard_params(model, rules, mesh)
+    torch.cuda.empty_cache()
+    blocks = sh.tp_names(model, rules, mesh)
+
+    @torch.no_grad()
+    def sq_err(got: dict, which: str) -> dict:
+        # |got - (y)'s block|^2 by leaf, (y)'s whole tensors read from the file
+        out = {}
+        for k, g in got.items():
+            w = ref[which][k]
+            w = sh.block(w, sh.tp_cut(sh.ref_path(k), w.shape, rules, mesh)).to(dev)
+            out[k] = (float(torch.sum((g.double() - w.double()) ** 2)),
+                      float(torch.sum(w.double() ** 2)))
+        return out
+
+    oc = OptimizerConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 10 + 1),
+                         total_steps=TRAIN_STEPS)
+    from repro_torch.train import train_step as ts
+
+    real_backward, real_reduce = sh._ReduceFromTP.backward, ts.reduce_from_tp
+    if kind == "control_ce":
+        # cross_entropy sums over the model axis twice, the exponentials
+        # first: leave that sum out, so each rank's softmax sees its block
+        calls = itertools.count()
+        ts.reduce_from_tp = lambda x: x if next(calls) % 2 == 0 else real_reduce(x)
+    if kind == "control":
+        def again(ctx, g):
+            g = g.clone()
+            dist.all_reduce(g, group=mesh.group("model"))
+            return g, None
+
+        sh._ReduceFromTP.backward = staticmethod(again)
+    try:
+        # step 1's loss and gradients (their data-parallel mean) against (y)'s
+        named = dict(model.named_parameters())
+        with sh.activation_sharding(mesh, rules):
+            loss, _ = make_loss_fn(cfg, remat="dots")(model, batches[0])
+            grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+        loss0 = float(loss.detach())
+        if d > 1:
+            for g in grads.values():
+                dist.all_reduce(g, group=mesh.group("data"))
+                g.div_(d)
+            lv = torch.tensor([loss0], device=dev)
+            dist.all_reduce(lv, group=mesh.group("data"))
+            loss0 = float(lv) / d
+        grad_sq = sq_err(grads, "grads0")
+        del grads, loss
+        torch.cuda.empty_cache()
+
+        state = {"params": model, "opt": init_opt_state(model, oc)}
+        if kind == "compressed":
+            cstep, init_err = make_compressed_train_step(cfg, oc, CompressionConfig(**TRAIN_CCFG),
+                                                         mesh=mesh, remat="dots")
+            state["err"] = init_err(model)
+            step_fn = lambda s, b, i: cstep(s, b, fold_in(9, i))  # noqa: E731
+        else:
+            step = make_train_step(cfg, oc, remat="dots", mesh=mesh)
+            step_fn = lambda s, b, i: step(s, b)  # noqa: E731
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        recs, update_sq = [], None
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            dist.barrier()
+            counter.reset()
+            ops.reset_launches()
+            ev[0].record()
+            state, metrics = step_fn(state, batch, i)
+            ev[1].record()
+            torch.cuda.synchronize()
+            recs.append(dict(ms=ev[0].elapsed_time(ev[1]), collectives=counter.read(),
+                             kernel4=ops.LAUNCHES["twoside_sketch"], launches=dict(ops.LAUNCHES),
+                             **{k: float(v) for k, v in metrics.items()}))
+            if i == 0:
+                update_sq = sq_err(named, "params1c" if kind == "compressed" else "params1")
+    finally:
+        sh._ReduceFromTP.backward, ts.reduce_from_tp = real_backward, real_reduce
+    out = dict(kind=kind, steps=recs, loss0=loss0, grad_sq=grad_sq, update_sq=update_sq,
+               blocks=sorted(blocks), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               tp_index=mesh.index("model"), dp_index=at)
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
+    """One gloo rank of (tp) on the card: the runs of ``TP_RUNS`` at its
+    mesh, then (``job["cli"]``) the training CLI in the same group."""
+    import datetime
+
+    # four ranks share the card: growable segments leave no reserved but
+    # unused blocks behind (1.7 GiB a rank with fixed ones, which 2x2 lacks)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    build.build_all()  # loads the libraries the parent built
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_host_mesh(*job["mesh"])
+        counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                                  "data": mesh.group("data")})
+        dist.all_reduce = counter
+        cfg = get_arch(TRAIN_ARCH).full_config()
+        ref = torch.load(TP_REF, mmap=True, map_location="cpu", weights_only=True)
+        results = {}
+        for kind, steps in TP_RUNS[job["mesh"]]:
+            results[kind] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref, counter, dev)
+        del ref
+        dist.all_reduce = counter.real
+        if job.get("cli"):
+            from repro_torch.launch.train import main as train_main
+
+            t0 = time.perf_counter()
+            rep = train_main(job["cli"])
+            results["cli"] = dict(steps_run=rep.steps_run, restarts=rep.restarts,
+                                  losses=[float(x) for x in rep.losses],
+                                  wall_s=time.perf_counter() - t0)
+        out_q.put((rank, results))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str) -> dict:
+    """(tp)'s gates over one run's ranks, against (y)'s run of the same kind:
+    step 1's loss, the largest relative gradient error, grad_norm, every
+    step's loss, step 1's update; a block counted once over the data axis, a
+    replicated leaf once. Returns the errors; a control must fail a gate,
+    any other run pass them all."""
+    first = per_rank[0]
+    grad_d, grad_w, upd_d = {}, {}, 0.0
+    for r in per_rank.values():
+        if r["dp_index"]:
+            continue
+        for k, (dd, ww) in r["grad_sq"].items():
+            if k in r["blocks"] or r["tp_index"] == 0:
+                grad_d[k] = grad_d.get(k, 0.0) + dd
+                grad_w[k] = grad_w.get(k, 0.0) + ww
+        for k, (dd, _) in r["update_sq"].items():
+            if k in r["blocks"] or r["tp_index"] == 0:
+                upd_d += dd
+    grad_err = max(math.sqrt(grad_d[k] / max(grad_w[k], 1e-300)) for k in grad_d)
+    worst_leaf = max(grad_d, key=lambda k: grad_d[k] / max(grad_w[k], 1e-300))
+    which = "compressed" if kind == "compressed" else "plain"
+    losses = [x["loss"] for x in first["steps"]]
+    errs = dict(loss0_rel_err=abs(first["loss0"] / ref["loss0"] - 1),
+                grad_rel_err=grad_err, worst_grad_leaf=worst_leaf,
+                grad_norm_rel_err=abs(first["steps"][0]["grad_norm"]
+                                      / ref[f"{which}_grad_norms"][0] - 1),
+                loss_rel_err=max(abs(a / b - 1) for a, b in zip(losses, ref[f"{which}_losses"])),
+                update_rel_err=math.sqrt(upd_d / ref["update_sq_c" if kind == "compressed"
+                                                     else "update_sq"]))
+    limits = dict(loss0_rel_err=TP_LOSS0_TOL, grad_rel_err=TP_GRAD_TOL,
+                  grad_norm_rel_err=TP_GRAD_NORM_TOL, loss_rel_err=TP_LOSS_TOL,
+                  update_rel_err=TP_UPDATE_TOL)
+    failed = [k for k, tol in limits.items() if not errs[k] <= tol]
+    errs["failed"] = failed
+    if kind.startswith("control"):
+        check(failed, f"(tp) {name}: the control passes the gates: {errs}")
+    else:
+        check(not failed, f"(tp) {name}: {errs} (limits {limits})")
+    if kind != "control_ce":  # there each rank's loss has its own softmax
+        same = {tuple(x["loss"] for x in r["steps"]) for r in per_rank.values()}
+        check(len(same) == 1, f"(tp) {name}: the ranks' losses differ: {same}")
+    return errs
+
+
+def phase_tp(torch, ops, dev, ref: dict, kernel4_tp: dict) -> list:
+    """(tp): tensor parallelism of (y)'s model, llama3.2-1b at full width, in
+    gloo ranks spawned on this one card (NCCL cannot put two ranks of a group
+    on one GPU; gloo stages the collectives through the host): 1x2 plain
+    against (y)'s plain steps and its two controls, 1x2 compressed against (y)'s
+    compressed steps (only the model axis's sums act), 2x2 plain and
+    compressed (the compressed step's data-axis bytes below the plain
+    step's), then the CLI at --mesh 2x2 --grad-compress through a crash.
+    (y)'s step-1 gradients and parameters reach the ranks through a file
+    (``TP_REF``), each rank reading its blocks. Returns the ranks' launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    emit("train/tp_memory", parent_allocated_gib=resident / 2**30, card_free_gib=free_gib)
+    check(free_gib >= 4 * TP_RANK_GIB,
+          f"(tp): {free_gib} GiB free on the card; 2x2 needs 4 x {TP_RANK_GIB}")
+    ckpt = ROOT / "build" / "chip_smoke_tp_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cli = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_GATE_DEPTH), "--dtype", "bfloat16",
+           "--batch", str(TRAIN_B), "--seq", str(TRAIN_S), "--steps", str(TP_CLI_STEPS),
+           "--mesh", "2x2", "--grad-compress", "--fail-at-step", "3", "--ckpt-every", "2",
+           "--ckpt-dir", str(ckpt)]
+    launched, gates = [], {}
+    try:
+        for shape, runs in TP_RUNS.items():
+            world = shape[0] * shape[1]
+            job = dict(mesh=shape, cli=cli if shape == (2, 2) else None)
+            results, wall = host_s(torch, lambda: spawn_ranks(torch, world, job, 900.0, tp_rank))
+            tag = f"{shape[0]}x{shape[1]}"
+            for kind, steps in runs:
+                per_rank = {r: results[r][kind] for r in range(world)}
+                name = f"{tag}_{kind}"
+                gates[name] = _tp_gates(name, per_rank, ref, kind)
+                recs = [r["steps"] for r in per_rank.values()]
+                k4 = [[x["kernel4"] for x in rs] for rs in recs]
+                if kind == "compressed":
+                    check(all(n == TRAIN_LEAVES for ks in k4 for n in ks),
+                          f"(tp) {name}: kernel 4 launched {k4} a step, not {TRAIN_LEAVES}")
+                    ratios = [x["comp/ratio"] for rs in recs for x in rs]
+                    check(all(abs(r / TRAIN_RATIO - 1) <= 1e-6 for r in ratios),
+                          f"(tp) {name}: comp/ratio {ratios} != {TRAIN_RATIO}")
+                else:
+                    check(not any(n for ks in k4 for n in ks), f"(tp) {name}: kernel 4 {k4}")
+                if not kind.startswith("control"):
+                    for rs in recs:
+                        totals = {}
+                        for x in rs:
+                            for k, v in x["launches"].items():
+                                totals[k] = totals.get(k, 0) + v
+                        launched.append(totals)
+                ms = [median([x["ms"] for x in rs[1:]] or [rs[0]["ms"]]) for rs in recs]
+                coll = [x["collectives"] for x in recs[0]]
+                coll_ms = [sum(v["ms"] for v in c.values()) for c in coll]
+                emit(f"train/tp_{name}", mesh=list(shape), backend="gloo on one card",
+                     steps=len(recs[0]), step_ms_median_per_rank=ms,
+                     tokens_per_s=TRAIN_B * TRAIN_S / max(ms) * 1e3,
+                     peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+                     losses=[x["loss"] for x in recs[0]],
+                     grad_norms=[x["grad_norm"] for x in recs[0]],
+                     comp={k: [x[k] for x in recs[0]] for k in recs[0][0] if k.startswith("comp/")},
+                     collectives_per_step_rank0=coll,
+                     collective_share_rank0=[c / x["ms"] for c, x in zip(coll_ms, recs[0])],
+                     kernel4_launches_per_step=k4, gates=gates[name],
+                     limits=dict(loss0=TP_LOSS0_TOL, loss=TP_LOSS_TOL, grad=TP_GRAD_TOL,
+                                 grad_norm=TP_GRAD_NORM_TOL, update=TP_UPDATE_TOL),
+                     step_ms_rank0=[x["ms"] for x in recs[0]],
+                     resident_parent_gib=resident / 2**30)
+            if shape == (2, 2):
+                dp = {kind: [x["collectives"].get("data", {}).get("bytes", 0)
+                             for x in results[0][kind]["steps"]] for kind, _ in runs}
+                check(0 < max(dp["compressed"]) < min(dp["plain"]),
+                      f"(tp) 2x2: compressed data-axis bytes {dp['compressed']} not below "
+                      f"plain {dp['plain']}")
+                clis = [results[r]["cli"] for r in range(world)]
+                check(all(c["restarts"] == 1 and c["steps_run"] == TP_CLI_STEPS + 1
+                          and c["losses"][2] == c["losses"][3] for c in clis), f"(tp) CLI: {clis}")
+                emit("train/tp_2x2_cli_and_wire", data_axis_bytes_per_step_rank0=dp,
+                     compressed_over_plain=max(dp["compressed"]) / min(dp["plain"]),
+                     cli=dict(argv=cli, per_rank=clis))
+            emit(f"train/tp_{tag}_spawn", spawn_to_exit_s=wall)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        TP_REF.unlink(missing_ok=True)
+    emit("train/tp_kernel4_blocks", **kernel4_tp)
+    return launched
 
 
 def main() -> int:
@@ -4200,6 +4632,7 @@ def main() -> int:
     finally:
         shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     del A, K, runs
+    torch.cuda.ipc_collect()  # (q)'s ranks held A and K through CUDA IPC
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -4232,8 +4665,12 @@ def main() -> int:
         mark("w: zamba2")
         runs_launches += phase_vision(torch, ops, dev)
         mark("x: vision")
-    runs_launches += phase_train(torch, ops, dev)
+    launched_y, tp_ref = phase_train(torch, ops, dev)
+    runs_launches += launched_y
     mark("y: train")
+    runs_launches += phase_tp(torch, ops, dev, tp_ref, kernels["twoside_sketch_tp"])
+    del tp_ref
+    mark("tp: tensor parallel")
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v

@@ -40,6 +40,7 @@ from .core.sketching import (
     SRHTSketch,
 )
 from .device import DeviceLike, resolve_device
+from .distributed.sharding import ref_path
 
 __all__ = ["to_tensor", "indices", "sketch_arrays", "sketch_from_arrays", "sketch_pair",
            "spsvd_sketches", "telemetry_frame", "stream_init_inputs", "model_state", "model_params",
@@ -216,16 +217,22 @@ def model_state(np_params, cfg) -> dict:
     return state
 
 
-def model_params(np_params, cfg, device: DeviceLike = None):
+def model_params(np_params, cfg, device: DeviceLike = None, *, mesh=None):
     """The port's :class:`~repro_torch.models.Transformer` holding a
     reference parameter pytree (leaves as numpy arrays, ``ml_dtypes``
     bfloat16 included), laid out by :func:`model_state`; every tensor keeps
-    its dtype and bits (MoE's fp32 router beside bf16 experts included)."""
+    its dtype and bits (MoE's fp32 router beside bf16 experts included).
+    With a ``mesh``, its rank's block of each leaf on the model axis
+    (:func:`~repro_torch.distributed.shard_params`)."""
+    from .distributed.sharding import ParallelismRules, shard_params
     from .models.transformer import Transformer
 
     dev = resolve_device(device)
     state = model_state(np_params, cfg)
     model = Transformer(torch.Generator(), cfg, torch.device("meta"))
+    if mesh is not None:
+        state = shard_params(state, ParallelismRules(), mesh)
+        shard_params(model, ParallelismRules(), mesh)
     model.load_state_dict({k: to_tensor(v, dev) for k, v in state.items()}, assign=True)
     return model
 
@@ -274,13 +281,6 @@ def compressed_kv_sketches(ckv, device: DeviceLike = None) -> tuple:
     return tuple(stacked_spsvd_sketches(eng.ctx, device) for eng in (ckv.k_eng, ckv.v_eng))
 
 
-def _ref_path(name: str) -> tuple:
-    """A port parameter name (model-level or block-relative) as the
-    reference's key path: the norms' leaves are ``{"scale"}`` dicts there."""
-    parts = tuple(name.split("."))
-    return parts + ("scale",) if parts[-1] in ("norm1", "norm2", "final_norm") else parts
-
-
 def stacked_leaves(model, cfg) -> list:
     """``[(path, names)]``: each leaf of the reference's parameter pytree, in
     its ``jax.tree.flatten`` order (dict keys sorted, segments and unit
@@ -291,42 +291,55 @@ def stacked_leaves(model, cfg) -> list:
     from .models.transformer import segments
 
     names = [n for n, _ in model.named_parameters()]
-    top = sorted((n for n in names if not n.startswith("blocks.")), key=_ref_path)
-    out = [(".".join(_ref_path(n)), [n]) for n in top if _ref_path(n)[0] < "segments"]
+    top = sorted((n for n in names if not n.startswith("blocks.")), key=ref_path)
+    out = [(".".join(ref_path(n)), [n]) for n in top if ref_path(n)[0] < "segments"]
     layer = 0
     for si, seg in enumerate(segments(cfg)):
         U = len(seg.unit)
         for pos in range(U):
             layers = [layer + r * U + pos for r in range(seg.n_repeat)]
             first = f"blocks.{layers[0]}."
-            rel = sorted((n[len(first):] for n in names if n.startswith(first)), key=_ref_path)
-            out += [(f"segments.{si}.{pos}." + ".".join(_ref_path(r)),
+            rel = sorted((n[len(first):] for n in names if n.startswith(first)), key=ref_path)
+            out += [(f"segments.{si}.{pos}." + ".".join(ref_path(r)),
                      [f"blocks.{i}.{r}" for i in layers]) for r in rel]
         layer += seg.n_repeat * U
-    out += [(".".join(_ref_path(n)), [n]) for n in top if _ref_path(n)[0] > "segments"]
+    out += [(".".join(ref_path(n)), [n]) for n in top if ref_path(n)[0] > "segments"]
     return out
 
 
-def train_state(np_state, cfg, device: DeviceLike = None) -> dict:
+def train_state(np_state, cfg, device: DeviceLike = None, *, mesh=None) -> dict:
     """The port's train state ``{"params": Transformer, "opt": {"m", "v":
     {name: tensor}, "step"[, "master"]}}`` from the reference's (leaves as
     numpy arrays): the parameters by :func:`model_params`, each moment tree
-    unstacked by :func:`model_state` the same way."""
+    unstacked by :func:`model_state` the same way; with a ``mesh``, each
+    leaf's block on the model axis."""
+    from .distributed.sharding import ParallelismRules, shard_params
+
     dev = resolve_device(device)
     opt = np_state["opt"]
-    out = {k: {n: to_tensor(v, dev) for n, v in model_state(opt[k], cfg).items()}
+    cut = ((lambda t: shard_params(t, ParallelismRules(), mesh)) if mesh is not None
+           else (lambda t: t))
+    out = {k: {n: to_tensor(v, dev) for n, v in cut(model_state(opt[k], cfg)).items()}
            for k in ("m", "v", "master") if k in opt}
     out["step"] = to_tensor(np.asarray(opt["step"]), dev, torch.int32)
-    return {"params": model_params(np_state["params"], cfg, dev), "opt": out}
+    return {"params": model_params(np_state["params"], cfg, dev, mesh=mesh), "opt": out}
 
 
-def error_state(np_err, cfg, rank: int, device: DeviceLike = None) -> dict:
+def error_state(np_err, cfg, rank: int = None, device: DeviceLike = None, *, mesh=None) -> dict:
     """Worker ``rank``'s EF residuals ``{path: fp32 tensor}`` (the port's
     per-rank state) from the reference's ``err`` tree, whose leaves carry a
-    leading worker dimension; the reference's placeholders of the leaves it
-    does not compress ((workers, 1)) are left out."""
+    leading worker dimension (the data axes'); the reference's placeholders
+    of the leaves it does not compress ((workers, 1)) are left out. With a
+    ``mesh``, the worker is its data-parallel index (unless ``rank`` is
+    given) and each residual its block on the model axis."""
+    from .distributed.sharding import ParallelismRules, block, tp_cut
     from .models.transformer import Transformer
 
+    if mesh is not None:
+        rules = ParallelismRules().with_mesh(mesh)
+        rank = mesh.index(rules.dp_axes) if rank is None else rank
+    if rank is None:
+        raise ValueError("error_state needs a worker rank or a mesh")
     meta = Transformer(torch.Generator(), cfg, torch.device("meta"))
     named = dict(meta.named_parameters())
     out = {}
@@ -337,5 +350,8 @@ def error_state(np_err, cfg, rank: int, device: DeviceLike = None) -> dict:
         shape = (len(names), *named[names[0]].shape) if len(names) > 1 else tuple(named[names[0]].shape)
         arr = np.asarray(leaf)[rank]
         if arr.shape == tuple(shape):
+            if mesh is not None:
+                arr = block(arr, tp_cut(ref_path(names[0]), shape, rules, mesh,
+                                        stack=int(len(names) > 1)))
             out[path] = to_tensor(arr, device, torch.float32)
     return out

@@ -9,14 +9,16 @@ the reference's flags and defaults, plus ``--device``).
 Runs on the card (``--device cpu`` runs on the CPU) through
 ``run_resilient_loop``, checkpointing every ``--ckpt-every`` steps into
 ``--ckpt-dir`` (default: ``repro_torch_ckpt_<arch>`` in the temporary
-directory). ``--mesh d x m``: ``d`` is the data-parallel world, which must
-be the process group's size: 1 in one process, or the ranks ``torchrun``
-starts for ``--grad-compress`` (the group is then made from its
-environment, NCCL on the card, gloo on the CPU; each rank trains on its
-share of the batch and keeps its own checkpoints). The default is that
-size by 1. ``m > 1`` (tensor parallelism) and ``d > 1`` without
-compression (the reference's partitioner-managed all-reduce) are not
-ported (``ROADMAP.md`` §1, item 4) and raise.
+directory). ``--mesh d x m`` lays the process group's ``d · m`` ranks out as
+the reference's (data, model) mesh (``launch/mesh.py``): 1x1 in one
+process, else the ranks ``torchrun`` starts (the group is then made from
+its environment: NCCL on the card, one rank a card; gloo on the CPU) or a
+default group the caller made (gloo ranks sharing one card). Each rank
+trains on its data-parallel share of the batch; ``m > 1`` is tensor
+parallelism (each rank holds its block of every weight, the dense archs
+only), ``d > 1`` data parallelism by the mean of the gradients, or by GMR
+compression with ``--grad-compress``. The default is the world by 1. Each
+rank keeps its own checkpoints.
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ from ..checkpoint import run_resilient_loop
 from ..configs import get_arch
 from ..data import DataConfig, SyntheticLM
 from ..device import fold_in, generator, resolve_device
+from ..distributed import ParallelismRules, shard_params
 from ..models import init_params, param_count
+from .mesh import make_host_mesh
 from ..train import (CompressionConfig, OptimizerConfig, compression_ratio, init_opt_state,
                      make_compressed_train_step, make_train_step)
 
@@ -106,56 +110,56 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    group, rank, world = _group(dev)
+    _, rank, world = _group(dev)
     d, m = (int(x) for x in (args.mesh or f"{world}x1").split("x"))
-    if m > 1:
-        raise ValueError(f"--mesh {args.mesh}: tensor parallelism (model axis {m}) is not "
-                         "ported; ROADMAP.md §1 item 4 (distributed/sharding.py)")
-    if d != world:
-        raise ValueError(f"--mesh {args.mesh}: data axis {d} != the process group's "
-                         f"{world} ranks")
-    if world > 1 and not args.grad_compress:
-        raise ValueError("data parallelism without --grad-compress (the reference's "
-                         "partitioner-managed all-reduce) is not ported; ROADMAP.md §1 item 4")
-    if args.batch % world:
-        raise ValueError(f"--batch {args.batch} does not split over {world} ranks")
+    if d * m != world:
+        raise ValueError(f"--mesh {args.mesh}: data axis {d} x model axis {m} != the process "
+                         f"group's {world} ranks")
+    if args.batch % d:
+        raise ValueError(f"--batch {args.batch} does not split over data axis {d}")
+    mesh = make_host_mesh(d, m)
     cfg = build_config(args)
 
     params = init_params(generator(args.seed, dev), cfg, device=dev)
+    n_params = param_count(params)
+    ratio = None
+    if args.grad_compress:
+        ccfg = CompressionConfig(rank=args.compress_rank, sketch_factor=args.compress_factor,
+                                 min_dim=min(512, cfg.d_model))
+        ratio = compression_ratio(params, ccfg)  # of the whole leaves
+    shard_params(params, ParallelismRules(), mesh)
     oc = OptimizerConfig(lr=args.lr, warmup_steps=min(20, args.steps // 10 + 1),
                          total_steps=args.steps)
     state = {"params": params, "opt": init_opt_state(params, oc)}
-    print(f"[train] {cfg.name}: {param_count(params)/1e6:.1f}M params, mesh {d}x{m}, "
+    print(f"[train] {cfg.name}: {n_params/1e6:.1f}M params, mesh {d}x{m}, "
           f"{args.steps} steps @ batch {args.batch}x{args.seq} on {dev}")
 
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=args.batch,
                                   seq_len=args.seq, seed=args.seed), device=dev)
-    share = args.batch // world
+    share, at = args.batch // d, mesh.index("data")
 
     def batch_fn(step):
-        return {k: v[rank * share:(rank + 1) * share] for k, v in data.batch_at(step).items()}
+        return {k: v[at * share:(at + 1) * share] for k, v in data.batch_at(step).items()}
 
     remat = None if args.remat == "none" else args.remat
 
     if args.grad_compress:
-        ccfg = CompressionConfig(rank=args.compress_rank, sketch_factor=args.compress_factor,
-                                 min_dim=min(512, cfg.d_model))
         print(f"[train] GMR gradient compression: rank={ccfg.rank} s={ccfg.s} "
-              f"DP volume ratio={compression_ratio(params, ccfg):.1f}x")
-        cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, group, remat=remat)
+              f"DP volume ratio={ratio:.1f}x")
+        cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, mesh=mesh, remat=remat)
         state["err"] = init_err(params)
 
         def step_fn(state, batch, step):
             return cstep(state, batch, fold_in(9, step))
     else:
-        base_step = make_train_step(cfg, oc, remat=remat, microbatch=args.microbatch)
+        base_step = make_train_step(cfg, oc, remat=remat, microbatch=args.microbatch, mesh=mesh)
 
         def step_fn(state, batch, step):
             return base_step(state, batch)
 
     ckpt_dir = args.ckpt_dir or os.path.join(tempfile.gettempdir(), f"repro_torch_ckpt_{cfg.name}")
     if world > 1:
-        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")  # each rank's err is its own
+        ckpt_dir = os.path.join(ckpt_dir, f"rank{rank}")  # each rank's blocks and err are its own
     t0 = time.time()
     report = run_resilient_loop(
         state=state,

@@ -33,6 +33,12 @@ that owns its append and attention through ``append_attend``, told the
 step's ``phase`` (:data:`PLAIN`, :data:`FOLD` or :data:`REFRESH`, a
 schedule the host knows); dense caches have one phase. ``dense_moe`` picks
 the MoE FFN's dropless loop over its capacity-bounded dispatch.
+
+Under tensor parallelism (:func:`repro_torch.distributed.activation_sharding`)
+the GQA mixer's training forward runs this rank's heads: ``w_q``, ``w_k``,
+``w_v`` hold their columns, ``w_o`` their rows, and the partial outputs are
+summed over the model axis (``ATTN`` and ``ATTN_LOCAL``; the run time
+raises for the other kinds).
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distributed.sharding import copy_to_tp, reduce_from_tp
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -126,20 +133,24 @@ def _theta_for(spec_mixer: str, cfg: ModelConfig) -> float:
 
 
 def _gqa_qkv(p: GQA, x, positions, cfg: ModelConfig, theta: float):
+    # the heads the projections hold: all of them, or under tensor parallelism
+    # this rank's contiguous block of H/m query and KV/m KV heads (each query
+    # head stays with its KV head)
     B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.w_q).reshape(B, S, H, hd)
-    k = (x @ p.w_k).reshape(B, S, KV, hd)
-    v = (x @ p.w_v).reshape(B, S, KV, hd)
+    hd = cfg.head_dim
+    q = (x @ p.w_q).reshape(B, S, -1, hd)
+    k = (x @ p.w_k).reshape(B, S, -1, hd)
+    v = (x @ p.w_v).reshape(B, S, -1, hd)
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
 def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
     B, S, _ = x.shape
+    x = copy_to_tp(x)
     q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
     o = attention_train(q, k, v, window=window, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    return o.reshape(B, S, -1) @ p.w_o
+    return reduce_from_tp(o.reshape(B, S, -1) @ p.w_o)
 
 
 def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):

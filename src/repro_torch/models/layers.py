@@ -1,9 +1,14 @@
 """Shared neural layers (counterpart of ``repro/models/layers.py``): RMSNorm,
 RoPE, FFN (SwiGLU/GELU), embeddings, the LM head.
 
-Norms compute in fp32 whatever the parameter dtype. The reference's
-``shard_act`` activation-sharding hints are the identity on one card, so
-the port leaves them out.
+Norms compute in fp32 whatever the parameter dtype. Where the reference
+asks its partitioner for a tensor-parallel layout (``shard_act``), the port
+marks the model axis's collectives itself
+(:mod:`repro_torch.distributed.sharding`): the FFN's column-sharded
+``w_gate``/``w_up`` and row-sharded ``w_down`` are bracketed by
+``copy_to_tp`` and ``reduce_from_tp``, the token table is looked up
+vocab-parallel, and the logits come out as this rank's vocab shard. Outside
+``activation_sharding`` (serving, a single rank) all of it is the identity.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import copy_to_tp, reduce_from_tp, tp_index
 from .config import ModelConfig
 
 
@@ -98,7 +104,10 @@ def decode_positions(B: int, length: torch.Tensor) -> torch.Tensor:
 def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     """SwiGLU (``silu``) or the non-gated GELU MLP (tanh GELU, as
     ``jax.nn.gelu``); ``p`` holds ``w_up``, ``w_down`` and, for SwiGLU,
-    ``w_gate``, each used as ``x @ w``."""
+    ``w_gate``, each used as ``x @ w``; under tensor parallelism the local
+    columns of ``w_gate``/``w_up`` and rows of ``w_down``, the partial
+    outputs summed over the model axis."""
+    x = copy_to_tp(x)
     up = x @ p.w_up
     if activation == "silu":
         h = F.silu(x @ p.w_gate) * up
@@ -106,18 +115,28 @@ def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(activation)
-    return h @ p.w_down
+    return reduce_from_tp(h @ p.w_down)
 
 
 def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return tok[tokens.long()]
+    """The rows of ``tok`` for ``tokens``. Under tensor parallelism ``tok`` is
+    this rank's vocab block: a token outside it looks up zeros, and the sum
+    over the model axis holds every token's row."""
+    index, parts = tp_index()
+    if parts == 1:
+        return tok[tokens.long()]
+    V = tok.shape[0]
+    local = tokens.long() - index * V
+    inside = (local >= 0) & (local < V)
+    return reduce_from_tp(torch.where(inside[..., None], tok[local.clamp(0, V - 1)], 0))
 
 
 def lm_logits(embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """fp32 logits through the tied head ``tokᵀ`` or ``lm_head``, with the
-    optional ``logit_softcap``."""
+    optional ``logit_softcap``; under tensor parallelism this rank's vocab
+    shard of them."""
     w = embed.tok.T if cfg.tie_embeddings else embed.lm_head
-    logits = (x @ w).float()
+    logits = (copy_to_tp(x) @ w).float()
     if cfg.logit_softcap:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)

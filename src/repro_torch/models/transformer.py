@@ -40,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import check_tp, tp_index
 from . import blocks as blk
 from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
 from .layers import embed_tokens, init_scale, lm_logits, param, rmsnorm, truncated_normal_
@@ -168,7 +169,11 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *
     MoE layers (0 without one); ``dense_moe`` takes MoE's dropless loop.
     Builds the autograd graph when grad is enabled; ``remat`` (``None``,
     ``"full"``, ``"dots"``) checkpoints each repeat's unit, as the
-    reference remats each scan step's body."""
+    reference remats each scan step's body. Under
+    :func:`~repro_torch.distributed.activation_sharding` at model axis
+    ``m > 1`` it runs this rank's shards of a dense stack (other archs
+    raise, as does a width that does not split into whole shards)."""
+    check_tp(cfg, tp_index()[1])
     x = embed_tokens(params.embed.tok, tokens)
     ex = _extras(params, cfg, vision)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -187,6 +192,8 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *
 
 def train_logits(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
                  dense_moe: bool = False, remat: Optional[str] = None):
+    """fp32 logits (B, S, V), or this rank's vocab shard of them under
+    tensor parallelism, and the aux loss."""
     h, aux = forward_hidden(params, cfg, tokens, vision, dense_moe=dense_moe, remat=remat)
     return lm_logits(params.embed, h, cfg), aux
 

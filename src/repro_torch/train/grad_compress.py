@@ -40,11 +40,26 @@ leaf, a stack its batch axis; other inner sketches keep the reference's
 there). The outer products ``GΩᵀ``, ``ΨG`` and the reconstruction are
 plain ``torch.matmul``, as the reference computes them outside any Pallas
 kernel.
+
+Under tensor parallelism each rank holds a block of a leaf's columns or
+rows (``cuts``, :func:`repro_torch.distributed.sharding.tp_cuts`) and
+compresses its block, exact by the same linearity. Every rank draws the
+logical leaf's sketches and keeps the columns of Ω and S_R (a column block
+``G = [G_0 | G_1]``) or of Ψ and S_C (a row block). For a column block,
+``C = Σ_k G_k Ω_kᵀ`` and ``M = Σ_k S_C G_k S_R,kᵀ`` (kernel 4 on the block)
+are summed over the model axis, ``R_k = Ψ G_k`` stays local, the
+reconstruction sums ``R S_Rᵀ = Σ_k R_k S_R,kᵀ`` and returns the block
+``Ĝ_k = C X R_k``; a row block is the mirror image. Over the data axes
+every triple takes the mean, as above. The EF residual is the rank's block;
+the compressibility, ``comp/wire_floats`` and ``comp/ratio`` read the
+logical shapes, and ``comp/ef_norm``, ``comp/rel_err`` sum their squares
+over the model axis. No leaf is gathered.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -57,7 +72,8 @@ from ..device import fold_in, generator
 from ..kernels import ops
 
 __all__ = ["CompressionConfig", "compress", "compressed_mean_grads", "compression_ratio",
-           "decompress", "group_leaves", "init_error_state", "is_compressible", "leaf_shapes"]
+           "decompress", "group_leaves", "init_error_state", "is_compressible", "leaf_shapes",
+           "logical_shape"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,13 +190,43 @@ def compress(key, G: torch.Tensor, ccfg: CompressionConfig) -> tuple:
     return C, R, M
 
 
-def decompress(key, triple, shape, ccfg: CompressionConfig) -> torch.Tensor:
+def decompress(key, triple, shape, ccfg: CompressionConfig, *, reduce=None) -> torch.Tensor:
     """Algorithm 1's reconstruction ``C (S_C C)† M (R S_Rᵀ)† R`` from the
-    (all-reduced) triple, per slice of a stack."""
+    (all-reduced) triple, per slice of a stack. ``reduce``, when given, maps
+    ``(S_C C, R S_Rᵀ)`` to their sums over the model axis (a block's)."""
     C, R, M = triple
     omega, psi, s_c, s_r = _resolve(key, shape, ccfg, C.device)
-    X = fast_gmr_core(_left(s_c, C), M, _right_t(s_r, R))
+    ScC, RSr = _left(s_c, C), _right_t(s_r, R)
+    if reduce is not None:
+        ScC, RSr = reduce(ScC, RSr)
+    X = fast_gmr_core(ScC, M, RSr)
     return torch.matmul(C, torch.matmul(X, R))
+
+
+def logical_shape(shape, cut) -> tuple:
+    """The whole leaf's shape from a block's and its cut ``(dim, parts, index)``."""
+    shape = list(shape)
+    if cut is not None:
+        shape[cut[0]] *= cut[1]
+    return tuple(shape)
+
+
+def _block_sketches(sketches: tuple, cut) -> tuple:
+    # a column block keeps its columns of Ω and S_R, a row block of Ψ and S_C
+    omega, psi, s_c, s_r = sketches
+    dim, parts, index = cut
+    if dim == -1:
+        n = omega.m // parts
+        return omega.cols(index * n, n), psi, s_c, s_r.cols(index * n, n)
+    m = psi.m // parts
+    return omega, psi.cols(index * m, m), s_c.cols(index * m, m), s_r
+
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the model axis's ``group`` in place (identity without one)."""
+    if group is not None:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return t
 
 
 def _mean(t: torch.Tensor, group, world: int) -> torch.Tensor:
@@ -193,7 +239,8 @@ def _mean(t: torch.Tensor, group, world: int) -> torch.Tensor:
 
 def compressed_mean_grads(grads: dict, err: dict, key: int, ccfg: CompressionConfig,
                           group=None, *, with_stats: bool = False,
-                          sketches: Optional[dict] = None):
+                          sketches: Optional[dict] = None, cuts: Optional[dict] = None,
+                          tp_group=None):
     """Replace the dense DP all-reduce: ``(mean grads, new err[, stats])``.
 
     ``grads``: the local gradients by path in the reference's flattening
@@ -206,34 +253,65 @@ def compressed_mean_grads(grads: dict, err: dict, key: int, ccfg: CompressionCon
     ``comp/dense_floats``, ``comp/ratio`` (config-static), ``comp/ef_norm``
     (``√Σ‖e‖²`` over compressible leaves) and ``comp/rel_err``
     (``‖(g+e) − ĝ‖ / ‖g+e‖``), as 0-d fp32 tensors.
+
+    Tensor parallelism: ``cuts[path]`` is the ``(dim, parts, index)`` of a
+    leaf's block on the model axis (``dim`` −1 for columns, −2 for rows),
+    ``tp_group`` that axis's group; ``sketches[i]`` are then the logical
+    leaf's, and ``err`` and the outputs are the blocks.
     """
     world = dist.get_world_size(group) if group is not None else 1
+    cuts = cuts or {}
     out, out_err = {}, {}
     wire = dense = 0
     dev = next(iter(grads.values())).device
-    ef_sq = local_sq = resid_sq = torch.zeros((), dtype=torch.float32, device=dev)
+    # squares of replicated leaves [0] and of blocks [1] (summed over the model axis)
+    ef_sq, local_sq, resid_sq = (torch.zeros(2, dtype=torch.float32, device=dev)
+                                 for _ in range(3))
     for i, (path, g) in enumerate(grads.items()):
-        dense += g.numel()
-        if is_compressible(g, ccfg):
-            k = sketches[i] if sketches is not None else fold_in(key, i)
-            local = g.float()
-            if ccfg.error_feedback and path in err:
-                local = local + err[path]
-            triple = tuple(_mean(t, group, world) for t in compress(k, local, ccfg))
-            ghat = decompress(k, triple, g.shape, ccfg)
-            resid = local - ghat
-            out[path] = ghat.to(g.dtype)
-            out_err[path] = resid if ccfg.error_feedback else torch.zeros_like(local)
-            if with_stats:
-                wire += sum(t.numel() for t in triple)
-                ef_sq = ef_sq + torch.sum(out_err[path] * out_err[path])
-                local_sq = local_sq + torch.sum(local * local)
-                resid_sq = resid_sq + torch.sum(resid * resid)
-        else:
+        cut = cuts.get(path)
+        shape = logical_shape(g.shape, cut)
+        dense += math.prod(shape)
+        if not is_compressible(shape, ccfg):
             out[path] = _mean(g.float(), group, world).to(g.dtype)
-            wire += g.numel()
+            wire += math.prod(shape)
+            continue
+        k = sketches[i] if sketches is not None else fold_in(key, i)
+        k = _resolve(k, shape, ccfg, dev)
+        reduce = None
+        if cut is not None:
+            k = _block_sketches(k, cut)
+            # the terms the block only holds a part of: (C, M) or (R, M)
+            col = cut[0] == -1
+
+            def reduce(ScC, RSr, col=col):
+                return (ScC, _sum(RSr, tp_group)) if col else (_sum(ScC, tp_group), RSr)
+
+        local = g.float()
+        if ccfg.error_feedback and path in err:
+            local = local + err[path]
+        C, R, M = compress(k, local, ccfg)
+        if cut is not None:
+            C, R = (_sum(C, tp_group), R) if col else (C, _sum(R, tp_group))
+            M = _sum(M, tp_group)
+        triple = tuple(_mean(t, group, world) for t in (C, R, M))
+        ghat = decompress(k, triple, g.shape, ccfg, reduce=reduce)
+        resid = local - ghat
+        out[path] = ghat.to(g.dtype)
+        out_err[path] = resid if ccfg.error_feedback else torch.zeros_like(local)
+        if with_stats:
+            L = shape[0] if len(shape) == 3 else 1
+            wire += L * ((shape[-2] + shape[-1]) * ccfg.rank + ccfg.s * ccfg.s)
+            j = int(cut is not None)
+            ef_sq[j] += torch.sum(out_err[path] * out_err[path])
+            local_sq[j] += torch.sum(local * local)
+            resid_sq[j] += torch.sum(resid * resid)
     if not with_stats:
         return out, out_err
+    sq = torch.stack([ef_sq, local_sq, resid_sq])
+    blocks = sq[:, 1].contiguous()
+    if cuts:
+        _sum(blocks, tp_group)
+    ef_sq, local_sq, resid_sq = sq[:, 0] + blocks
     f32 = dict(dtype=torch.float32, device=dev)
     stats = {
         "comp/wire_floats": torch.tensor(float(wire), **f32),
@@ -246,12 +324,15 @@ def compressed_mean_grads(grads: dict, err: dict, key: int, ccfg: CompressionCon
     return out, out_err, stats
 
 
-def init_error_state(params, ccfg: CompressionConfig) -> dict:
+def init_error_state(params, ccfg: CompressionConfig, cuts: Optional[dict] = None) -> dict:
     """This rank's EF residuals: fp32 zeros for each compressible leaf of
     :func:`leaf_shapes` (the reference's placeholders of the other leaves
-    hold nothing and are left out)."""
+    hold nothing and are left out); with ``cuts``, each leaf compressible
+    at its logical shape, as this rank's block."""
     from .optimizer import named_tensors
 
+    cuts = cuts or {}
     dev = next(iter(named_tensors(params).values())).device
     return {path: torch.zeros(shape, dtype=torch.float32, device=dev)
-            for path, shape in leaf_shapes(params).items() if is_compressible(shape, ccfg)}
+            for path, shape in leaf_shapes(params).items()
+            if is_compressible(logical_shape(shape, cuts.get(path)), ccfg)}

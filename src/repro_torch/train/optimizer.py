@@ -21,6 +21,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 __all__ = ["OptimizerConfig", "adamw_update", "global_norm", "init_opt_state", "lr_at",
@@ -75,18 +76,31 @@ def init_opt_state(params, oc: OptimizerConfig) -> dict:
     return st
 
 
-def global_norm(tree) -> torch.Tensor:
-    """``√Σ‖leaf‖²`` in fp32 over a dict of tensors."""
-    return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in named_tensors(tree).values()))
+def global_norm(tree, *, group=None, sharded=frozenset()) -> torch.Tensor:
+    """``√Σ‖leaf‖²`` in fp32 over a dict of tensors. With a tensor-parallel
+    ``group``, the leaves named in ``sharded`` are this rank's blocks: their
+    squares are summed over the group, the replicated leaves' counted once."""
+    tree = named_tensors(tree)
+    if group is None:
+        return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tree.values()))
+    dev = next(iter(tree.values())).device
+    part = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(2)]
+    for k, t in tree.items():
+        part[k in sharded] = part[k in sharded] + torch.sum(t.float() ** 2)
+    dist.all_reduce(part[1], group=group)
+    return torch.sqrt(part[0] + part[1])
 
 
 @torch.no_grad()
-def adamw_update(grads: dict, opt_state: dict, params, oc: OptimizerConfig):
+def adamw_update(grads: dict, opt_state: dict, params, oc: OptimizerConfig, *,
+                 norm_group=None, sharded=frozenset()):
     """One AdamW step: ``(params, opt_state, {"grad_norm", "lr"})``. The
     parameters (and the master copy) and the moments are updated in place
-    and returned; ``opt_state["step"]`` is a new tensor."""
+    and returned; ``opt_state["step"]`` is a new tensor. Under tensor
+    parallelism the clip reads the whole model's norm (:func:`global_norm`
+    over ``norm_group`` with the ``sharded`` leaves)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, group=norm_group, sharded=sharded)
     scale = None
     if oc.clip_norm is not None:
         # fp32 like the reference's (a bf16 gradient times an fp32 array promotes)

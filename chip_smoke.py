@@ -214,7 +214,32 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    below the plain step's. Each run prints step ms (CUDA events), tokens/s,
    peak GiB a rank, all-reduce calls, bytes and ms a step by group, and the
    collectives' share of the step. Kernel 4 is held against its plain
-   version at the blocks' shapes in the kernels phase.
+   version at the blocks' shapes in the kernels phase;
+20. (ts) serving under a mesh — run right after (s): (r)'s model (its
+   seeded weights drawn whole on each rank, then cut by ``shard_params``),
+   (r)'s 8 requests of 2048 seeded tokens and 64 new tokens, in gloo ranks
+   spawned on this one card: 2x1 dense (each rank its 4 requests, replaying
+   its own CUDA graphs), 1x2 dense, compressed uniform and adaptive ((s)'s
+   ``KVCompressionConfig``, kernel 1's stacked launch on each rank's 512
+   heads), sampled at (z)'s temperature, and two controls (``_gqa_decode``
+   without its ``reduce_from_tp``; the vocab's shards gathered in the
+   wrong order), 2x2 dense and compressed uniform (256 heads a rank), then
+   the serve CLI at ``--mesh 1x2 --kv-compress 16`` in the two ranks. Gates
+   against (r)'s and (s)'s one-rank runs (``TS_REF``): (1) prefill's last
+   logits and (2) each of (r)'s 63 tokens through ``decode_step``, within
+   ``TS_LOGIT_TOL`` of the largest logit; (3) greedy tokens equal up to
+   the first token whose one-rank logits had a top-2 margin below that;
+   (4) a model-axis group's ranks return the same tokens, sampled too;
+   (5) every head's error at least its optimum, each rank's adaptive
+   ranks its block of one allocation over the gathered sigma; (6) 2x1 on
+   the graph route, one host launch a replayed step as (r)'s graph; (7)
+   each control fails gate 1 or 2; kernel 1's launches in each compressed
+   ``generate`` those of (s). Each run prints prefill and decode ms a token
+   (CUDA events in the rank), the all-reduces' calls, bytes and ms by axis
+   (prefill and a decode step), their share, peak GiB a rank,
+   ``cache_nbytes`` a rank beside (r)'s and (s)'s, and the spawn-to-exit
+   seconds. The kernels phase holds kernel 1's stacked launch at the
+   ranks' head counts.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -364,6 +389,26 @@ TP_REF = ROOT / "build" / "chip_smoke_tp_ref.pt"
 # (measured with the four ranks on one H100), the allocator's slack and a
 # CUDA context
 TP_RANK_GIB = 17.5
+# (ts): (r)'s model served under a (data, model) mesh in gloo ranks sharing
+# this card, its weights drawn whole from (r)'s seed on every rank and cut;
+# (r)'s requests and tokens, (s)'s compression. The two-rank spawn runs 2x1
+# (each rank replays its own graphs) and then 1x2; the four-rank spawn 2x2.
+# The one-rank references reach the ranks through TS_REF, memory-mapped.
+TS_RUNS = {2: (((2, 1), ("dense",)),
+               ((1, 2), ("dense", "uniform", "adaptive", "sampled", "control_reduce",
+                         "control_gather"))),
+           4: (((2, 2), ("dense", "uniform")),)}
+TS_REF = ROOT / "build" / "chip_smoke_ts_ref.pt"
+TS_CLI = ["--mesh", "1x2", "--kv-compress", "16"]
+TS_CONTROL_STEPS = 4
+# gates 1 and 2: prefill's and each teacher-forced decode step's logits
+# against (r)'s, relative to the largest logit: (r)'s SDPA bound, each of the
+# 16 layers rounding its two partial sums to bf16 at other places than one
+# rank does. Set between the sound runs' largest reading and a control's
+# (H100 runs of this script, in PERF.md): prefill read 0.0151 (1x2, 2x2; 0
+# at 2x1), a decode step <= 0.0176 (2x2); the controls 1.15 (_gqa_decode
+# without its sum) and 1.36 (the vocab shards reversed)
+TS_LOGIT_TOL = SERVE_LOGIT_TOL
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -701,7 +746,9 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
     (u)'s conversion and decode folds, N = 64 heads (8 requests x 8
     kv-heads of one layer) at head_dim 128, panel 32 and 8; (x)'s
     conversion, N = 128 heads (2 repeats x 8 requests x 8 kv-heads of one
-    segment position) at head_dim 128, panel 32; the folds' windows from
+    segment position) at head_dim 128, panel 32; (ts)'s rank blocks of
+    (s)'s heads: the conversion's 512 heads at 1x2 and 256 at 2x2 (panel 32)
+    and a decode fold's 32 and 16 (one layer, panel 8); the folds' windows from
     the prompt's end; OSNAP p = 4, s_c = s_r = 96, c0 = 64. Each held against
     its plain version (``force_plain``) with fp32 and bf16 operands: S_C on
     a panel window (gather), the Ω window on the panel's transpose
@@ -719,7 +766,12 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
                            ("decode_fold", 64, SERVE_KC["decode_panel"], 64),
                            ("conversion_hd128", SERVE_B * 8, SERVE_KC["panel"], 128),
                            ("decode_fold_hd128", SERVE_B * 8, SERVE_KC["decode_panel"], 128),
-                           ("conversion_h128_hd128", 2 * SERVE_B * 8, SERVE_KC["panel"], 128)):
+                           ("conversion_h128_hd128", 2 * SERVE_B * 8, SERVE_KC["panel"], 128),
+                           ("conversion_ts_1x2", 512, SERVE_KC["panel"], 64),
+                           ("decode_fold_ts_1x2", SERVE_B * 8 // 2, SERVE_KC["decode_panel"], 64),
+                           ("conversion_ts_2x2", 256, SERVE_KC["panel"], 64),
+                           ("decode_fold_ts_2x2", SERVE_B * 8 // 4, SERVE_KC["decode_panel"],
+                            64)):
         base = 0 if name.startswith("conversion") else SERVE_S
         S_C = StackedOSNAPSketch.draw(g, N, s, hd, p=p)
         S_R = StackedOSNAPSketch.draw(g, N, s, n_max, p=p).index_windows(L, base)
@@ -3116,7 +3168,14 @@ def phase_serve(torch, ops, dev) -> list:
     _, cache = prefill(model, cfg, prompt, n_max)
     emit("profile/r_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks_r))
     del cache
-    graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "r", control=True)
+    z_r = graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "r", control=True)
+    # what (ts)'s ranks are held to: (r)'s and (s)'s one-rank runs
+    ts_ref = dict(prompt=prompt.cpu(), r=ts_reference(torch, model, cfg, prompt, True),
+                  r_cache_nbytes=dense_bytes, z_r=z_r["step_profile"]["graph"],
+                  sampled_tokens=generate(model, cfg, prompt, SERVE_T,
+                                          gen=gen(torch, dev, SEED + 110),
+                                          temperature=Z_TEMPERATURE).cpu())
+    check(torch.equal(ts_ref["r"]["tokens"], toks_r.cpu()), "(r): a second run's tokens differ")
 
     dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
     n_folds = (SERVE_T - 1) // dp  # per layer, over the decode steps
@@ -3178,12 +3237,50 @@ def phase_serve(torch, ops, dev) -> list:
              peak_mem_over_resident_gib=peak, launches=launched[-1])
         del comp, dense, errs, opts
         torch.cuda.empty_cache()
+        ts_ref[f"s_{mode}"] = dict(ts_reference(torch, model, cfg, prompt, False,
+                                                gen=gen(torch, dev, SEED + 62), kv_compress=kc),
+                                   cache_nbytes=comp_bytes)
+        check(torch.equal(ts_ref[f"s_{mode}"]["tokens"], toks.cpu()),
+              f"(s) {mode}: a second run's tokens differ")
         if not adaptive:
             graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "s", kv_compress=kc)
     emit("serve/s_synthetic", **serve_synthetic(torch, ops, dev))
     del model
     torch.cuda.empty_cache()
+    TS_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(ts_ref, TS_REF)
     return launched
+
+
+def ts_margin(logits):
+    """Each row's top-2 margin of ``logits`` (B, 1, V) over its largest |logit|, on the host."""
+    lg = logits[:, 0].float()
+    top = lg.topk(2, dim=-1).values
+    return ((top[:, 0] - top[:, 1]) / lg.abs().amax(-1)).cpu()
+
+
+def ts_reference(torch, model, cfg, prompt, keep_logits: bool, **kw) -> dict:
+    """A one-rank ``generate`` of (r) or (s) for (ts)'s gates: its tokens,
+    prefill's last logits, and for each token the top-2 margin of the
+    logits it was drawn from (prefill's, then each decode step's; (B, T));
+    with ``keep_logits`` each decode step's logits, on the host."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import generate
+
+    lg0, _ = prefill(model, cfg, prompt, SERVE_S + SERVE_T)
+    margins, steps = [ts_margin(lg0)], []
+
+    def hook(i, lg):
+        margins.append(ts_margin(lg))
+        if keep_logits:
+            steps.append(lg.float().cpu())
+
+    toks = generate(model, cfg, prompt, SERVE_T, on_step=hook, **kw)
+    out = dict(tokens=toks.cpu(), margins=torch.stack(margins, 1),
+               prefill_logits=lg0.float().cpu())
+    if keep_logits:
+        out["logits"] = torch.stack(steps)
+    return out
 
 
 # position buckets of a request for the router inputs' spread (prefill)
@@ -4562,6 +4659,370 @@ def phase_tp(torch, ops, dev, ref: dict, kernel4_tp: dict) -> list:
     return launched
 
 
+def ts_tokens_gate(toks, ref: dict, rows: slice) -> dict:
+    """Gate 3: greedy tokens equal to the one-rank run's for each request up
+    to the first token whose logits there had a top-2 margin below
+    ``TS_LOGIT_TOL`` of their largest logit (where the roundings of another
+    summation order may flip the argmax)."""
+    want, margins = ref["tokens"][rows], ref["margins"][rows]
+    got = toks.cpu()
+    small = margins < TS_LOGIT_TOL
+    first = [int(row.nonzero()[0]) if bool(row.any()) else SERVE_T for row in small]
+    equal_before = all(bool((got[b, :k] == want[b, :k]).all()) for b, k in enumerate(first))
+    return dict(first_small_margin_step=first, equal_before_it=equal_before,
+                tokens_equal=int((got == want).sum()), tokens=int(got.numel()))
+
+
+def ts_collectives(after: dict, before: dict, steps: int) -> dict:
+    """A counter's calls, bytes and ms by axis between two readings, over ``steps``."""
+    return {k: {f: (v[f] - before.get(k, {}).get(f, 0)) / steps for f in v}
+            for k, v in after.items()}
+
+
+def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev) -> dict:
+    """One (ts) run on this rank under ``activation_sharding``: ``dense``
+    (``generate``, then prefill's logits (gate 1) and (r)'s tokens through
+    ``decode_step``, each step's logits (gate 2)), ``uniform`` / ``adaptive``
+    (``generate`` with (s)'s compression from (s)'s seed, then a conversion
+    alone: each head's error over its optimum, ``cache_nbytes``, the
+    adaptive allocation), ``sampled`` (``generate`` at (z)'s temperature
+    from (z)'s seed), or a control (``control_reduce``: ``_gqa_decode``
+    without its ``reduce_from_tp``; ``control_gather``: the vocab's shards
+    gathered in the wrong order). Launch counts are reset just before and
+    read just after ``generate``."""
+    import torch.distributed as dist
+
+    from repro_torch.models import blocks, decode_step, prefill, transformer
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache, generate
+    from repro_torch.serve import kv_cache
+
+    d, di = mesh.shape["data"], mesh.index("data")
+    m, mi = mesh.shape["model"], mesh.index("model")
+    rows = slice(di * SERVE_B // d, (di + 1) * SERVE_B // d)
+    prompt = sh.shard_batch(ref["prompt"].to(dev), mesh)
+    n_max = SERVE_S + SERVE_T
+    out = dict(kind=kind, dp_index=di, tp_index=mi)
+
+    def forced(cache, n):  # (r)'s tokens through decode_step: each step's rel err, ms, collectives
+        errs, ms, coll = [], [], []
+        for t in range(n):
+            before = counter.read()
+            lg, t_s = host_s(torch, lambda: decode_step(  # noqa: B023
+                model, cfg, cache, ref["r"]["tokens"][rows, t:t + 1].to(dev))[0])
+            errs.append(err(lg, ref["r"]["logits"][t][rows].to(dev))[1])
+            ms.append(1e3 * t_s)
+            coll.append(ts_collectives(counter.read(), before, 1))
+        return errs, ms, coll
+
+    with sh.activation_sharding(mesh):
+        if kind.startswith("control"):
+            real_decode, real_gather = blocks._gqa_decode, transformer.gather_vocab
+
+            def unreduced(*a, **kw):
+                blocks.reduce_from_tp = lambda x: x
+                try:
+                    return real_decode(*a, **kw)
+                finally:
+                    blocks.reduce_from_tp = sh.reduce_from_tp
+
+            def reversed_shards(logits):
+                whole = real_gather(logits)
+                return torch.cat(torch.chunk(whole, m, dim=-1)[::-1], dim=-1)
+
+            if kind == "control_reduce":
+                blocks._gqa_decode = unreduced
+            else:
+                transformer.gather_vocab = reversed_shards
+            try:
+                lg0, cache = prefill(model, cfg, prompt, n_max)
+                out["prefill_rel_err"] = err(lg0, ref["r"]["prefill_logits"][rows].to(dev))[1]
+                if kind == "control_reduce":
+                    out["step_rel_err"] = forced(cache, TS_CONTROL_STEPS)[0]
+            finally:
+                blocks._gqa_decode, transformer.gather_vocab = real_decode, real_gather
+            return out
+
+        kc = (KVCompressionConfig(**SERVE_KC, adaptive=kind == "adaptive")
+              if kind in ("uniform", "adaptive") else None)
+        sampled = kind == "sampled"
+        seed = SEED + 62 if kc else SEED + 110
+        generate(model, cfg, prompt[:, :256], 9 if kc else 3, kv_compress=kc)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        counter.reset()
+        ops.reset_launches()
+        t, st = {}, {}
+        toks = generate(model, cfg, prompt, SERVE_T, gen=gen(torch, dev, seed),
+                        temperature=Z_TEMPERATURE if sampled else 0.0, kv_compress=kc,
+                        timings=t, stats=st)
+        torch.cuda.synchronize()
+        out.update(launches=dict(ops.LAUNCHES), tokens=toks.cpu(), timings=t, stats=st,
+                   rate=decode_rate(t, st, prompt.shape[0]), collectives=counter.read(),
+                   peak_gib=(torch.cuda.max_memory_allocated() - resident) / 2**30,
+                   resident_gib=resident / 2**30)
+        if sampled:
+            return out
+        if kc is None:
+            out["tokens_gate"] = ts_tokens_gate(toks, ref["r"], rows)
+            counter.reset()
+            (lg0, cache), pre_s = host_s(torch, lambda: prefill(model, cfg, prompt, n_max))
+            out.update(prefill_rel_err=err(lg0, ref["r"]["prefill_logits"][rows].to(dev))[1],
+                       prefill_host_ms=1e3 * pre_s, prefill_collectives=counter.read(),
+                       cache_nbytes=cache_nbytes(cache))
+            errs, ms, coll = forced(cache, SERVE_T - 1)
+            out.update(step_rel_err=errs, forced_step_host_ms=median(ms),
+                       forced_step_collectives=coll[len(coll) // 2],
+                       collective_share=median([sum(v["ms"] for v in c.values()) / x
+                                                for c, x in zip(coll, ms)]))
+            del cache
+            if d > 1 and m == 1:  # gate 6: one graph launch a replayed step, as (r)'s
+                out["step_profile"] = step_profile(torch, lambda hook: generate(
+                    model, cfg, prompt, Z_PROFILE_STEP + 2, on_step=hook), Z_PROFILE_STEP)
+            return out
+        out["tokens_gate"] = ts_tokens_gate(toks, ref[f"s_{kind}"], rows)
+        # the conversion alone: each head against its optimum, the bytes, the allocation
+        _, dense = prefill(model, cfg, prompt, n_max)
+        spy, real_alloc = [], kv_cache._allocate_ranks
+
+        def recorded(sigma, kc_):
+            masked, alloc = real_alloc(sigma, kc_)
+            spy.append((sigma.double().sum().item(), alloc.cpu(), masked))
+            return masked, alloc
+
+        kv_cache._allocate_ranks = recorded
+        try:
+            comp = compress_prefill_cache(gen(torch, dev, seed), cfg, dense, kc)
+        finally:
+            kv_cache._allocate_ranks = real_alloc
+        errs, opts = serve_errors(torch, cfg, dense, comp)
+        ratio = errs / opts
+        out.update(heads=int(errs.numel()), error_over_optimal_min=float(ratio.min()),
+                   error_over_optimal_max=float(ratio.max()),
+                   beats_optimum=bool((errs < opts * (1 - OPT_SLACK)).any()),
+                   cache_nbytes=cache_nbytes(comp))
+        if kind == "adaptive":
+            # each half's rank allocation (K, then V) over the gathered sigma:
+            # this rank's block of it is what its factors keep
+            out["allocation"] = []
+            for (total, alloc, masked), name in zip(spy, ("k_fac", "v_fac")):
+                sig = torch.cat([getattr(c, name).sigma for c in comp["layers"]])
+                kv = sig.shape[1]
+                mine = alloc[:, mi * kv:(mi + 1) * kv]
+                out["allocation"].append(dict(
+                    gathered_sum=total, alloc=alloc,
+                    block_equal=bool(torch.equal((sig > 0).sum(-1).cpu().to(mine.dtype), mine)),
+                    sigma_equal=bool(torch.equal(sig, masked[:, mi * kv:(mi + 1) * kv]))))
+        del dense, comp
+        torch.cuda.empty_cache()
+    return out
+
+
+def ts_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
+    """One gloo rank of (ts) on the card: (r)'s model drawn whole from its
+    seed, then each mesh of ``TS_RUNS[world]`` in turn (its weights cut by
+    ``shard_params``; a 2x1 mesh keeps them whole) and its runs, the model
+    axis's and the data axis's all-reduces counted; then (``job["cli"]``)
+    the serve CLI at ``TS_CLI`` in the same group."""
+    import datetime
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+
+    build.build_all()  # loads the libraries the parent built
+    dev = torch.device("cuda")
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=600))
+    real = dist.all_reduce
+    try:
+        ref = torch.load(TS_REF, mmap=True, map_location="cpu", weights_only=True)
+        cfg = get_arch(SERVE_ARCH).full_config()
+        results = {}
+        with torch.no_grad():
+            model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev)
+            for shape, kinds in TS_RUNS[world]:
+                mesh = make_host_mesh(*shape)
+                sh.shard_params(model, sh.ParallelismRules(), mesh)
+                torch.cuda.empty_cache()
+                counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                                          "data": mesh.group("data")})
+                dist.all_reduce = counter
+                for kind in kinds:
+                    results[(shape, kind)] = ts_run(torch, ops, sh, mesh, model, cfg, kind, ref,
+                                                    counter, dev)
+                dist.all_reduce = real
+            del model, ref
+            torch.cuda.empty_cache()
+            if job.get("cli"):
+                from repro_torch.launch.serve import main as serve_main
+
+                out, wall = host_s(torch, lambda: serve_main(TS_CLI))
+                results["cli"] = dict(tokens=out.cpu(), wall_s=wall)
+        out_q.put((rank, results))
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+
+
+def _ts_gates(name: str, per_rank: dict, ref: dict, kind: str, shape: tuple) -> dict:
+    """(ts)'s gates over one run's ranks; returns what it read. A control
+    must fail gate 1 (``control_gather``) or 2 (``control_reduce``)."""
+    m = shape[1]
+    groups = {}  # data index -> the model-axis group's tokens
+    for r in per_rank.values():
+        if "tokens" in r:
+            groups.setdefault(r["dp_index"], []).append(r["tokens"])
+    same = all(all(torch_equal(t, ts[0]) for t in ts) for ts in groups.values())
+    if kind.startswith("control"):
+        worst = max(max(r.get("step_rel_err", [0.0]) + [r["prefill_rel_err"] if kind ==
+                                                           "control_gather" else 0.0])
+                    for r in per_rank.values())
+        check(worst > TS_LOGIT_TOL, f"(ts) {name}: the control passes: {worst} <= {TS_LOGIT_TOL}")
+        return dict(control_rel_err=worst, limit=TS_LOGIT_TOL, failed=True)
+    check(same, f"(ts) {name}: ranks of a model-axis group returned different tokens")  # gate 4
+    out = dict(model_group_tokens_equal=same)
+    if kind == "sampled":
+        eq = [float((r["tokens"] == ref["sampled_tokens"][r["dp_index"] * len(r["tokens"]):(
+            r["dp_index"] + 1) * len(r["tokens"])]).float().mean()) for r in per_rank.values()]
+        out["share_equal_to_one_rank"] = eq
+        return out
+    gates = [r["tokens_gate"] for r in per_rank.values()]
+    check(all(g["equal_before_it"] for g in gates), f"(ts) {name}: tokens differ: {gates}")
+    out["tokens"] = gates
+    if kind == "dense":
+        pre = max(r["prefill_rel_err"] for r in per_rank.values())
+        step = max(max(r["step_rel_err"]) for r in per_rank.values())
+        check(pre <= TS_LOGIT_TOL and step <= TS_LOGIT_TOL,
+              f"(ts) {name}: prefill logits {pre}, decode steps {step} > {TS_LOGIT_TOL}")
+        out.update(prefill_rel_err=pre, step_rel_err=step, limit=TS_LOGIT_TOL)
+        return out
+    check(not any(r["beats_optimum"] for r in per_rank.values()),
+          f"(ts) {name}: a head beats its optimal error")
+    out["error_over_optimal"] = [min(r["error_over_optimal_min"] for r in per_rank.values()),
+                                 max(r["error_over_optimal_max"] for r in per_rank.values())]
+    if kind == "adaptive":
+        for half in range(2):
+            recs = [r["allocation"][half] for r in per_rank.values()]
+            check(all(x["block_equal"] and x["sigma_equal"] for x in recs),
+                  f"(ts) {name}: a rank's factors do not keep its block of the allocation")
+            for r in per_rank.values():  # the ranks of a model-axis group allocate alike
+                mates = [x for x in per_rank.values() if x["dp_index"] == r["dp_index"]]
+                check(all(torch_equal(x["allocation"][half]["alloc"], r["allocation"][half][
+                    "alloc"]) for x in mates), f"(ts) {name}: allocations differ in a group")
+        out["allocation_blocks_equal"] = True
+    return out
+
+
+def torch_equal(a, b) -> bool:
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def phase_ts(torch, ops, dev) -> list:
+    """(ts): (r)'s model served under ``--mesh d x m`` in gloo ranks spawned
+    on this one card (NCCL cannot put two ranks of a group on one GPU;
+    gloo stages the collectives through the host): 2x1 dense on each rank's
+    CUDA graphs, 1x2 dense, compressed uniform and adaptive, sampled and its
+    two controls, 2x2 dense and compressed uniform, then the serve CLI at
+    ``--mesh 1x2 --kv-compress 16`` in two ranks. (r)'s and (s)'s one-rank
+    runs reach the ranks through ``TS_REF``, removed after. Returns the
+    ranks' launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    emit("serve/ts_memory", parent_allocated_gib=resident / 2**30,
+         card_free_gib=torch.cuda.mem_get_info()[0] / 2**30)
+    from repro_torch.configs import get_arch
+
+    ref = torch.load(TS_REF, mmap=True, map_location="cpu", weights_only=True)
+    dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
+    n_folds = (SERVE_T - 1) // dp
+    per_conv = 2 * (SERVE_S // SERVE_KC["panel"] * 4 + 2)  # as (s): constant in heads
+    want_k1 = per_conv + get_arch(SERVE_ARCH).full_config().n_layers * (
+        n_folds * 2 * 4 + n_folds * dp // every * 2 * 2)
+    launched = []
+    try:
+        for world in (2, 4):
+            job = dict(cli=world == 2)
+            results, wall = host_s(torch, lambda: spawn_ranks(torch, world, job, 900.0, ts_rank))  # noqa: B023
+            for shape, kinds in TS_RUNS[world]:
+                tag = f"{shape[0]}x{shape[1]}"
+                for kind in kinds:
+                    per_rank = {r: results[r][(shape, kind)] for r in range(world)}
+                    name = f"{tag}_{kind}"
+                    gates = _ts_gates(name, per_rank, ref, kind, shape)
+                    if kind.startswith("control"):
+                        emit(f"serve/ts_{name}", mesh=list(shape), gates=gates)
+                        continue
+                    first = per_rank[0]
+                    routes = {r["stats"]["route"] for r in per_rank.values()}
+                    want_route = "graph" if shape[1] == 1 else "eager"
+                    check(routes == {want_route}, f"(ts) {name}: routes {routes}")
+                    k1 = [r["launches"]["countsketch_batched"] for r in per_rank.values()]
+                    check(all(n == (want_k1 if kind in ("uniform", "adaptive") else 0) for n in k1),
+                          f"(ts) {name}: kernel 1 launched {k1}, want "
+                          f"{want_k1 if kind in ('uniform', 'adaptive') else 0}")
+                    launched += [r["launches"] for r in per_rank.values()]
+                    fields = dict(
+                        mesh=list(shape), backend="gloo on one card", route=want_route,
+                        requests_per_rank=SERVE_B // shape[0], gates=gates,
+                        prefill_ms_per_rank=[r["timings"]["prefill"] for r in per_rank.values()],
+                        decode_ms_per_token_per_rank=[r["rate"]["decode_ms_per_token"]
+                                                      for r in per_rank.values()],
+                        tokens_per_s=SERVE_B / max(r["rate"]["decode_ms_per_token"]
+                                                   for r in per_rank.values()) * 1e3,
+                        convert_ms_rank0=first["timings"].get("convert"),
+                        generate_collectives_rank0=first["collectives"],
+                        peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+                        resident_gib_per_rank=[r["resident_gib"] for r in per_rank.values()],
+                        kernel1_launches_per_rank=k1, timing="CUDA events in each rank",
+                        rate_rank0=first["rate"])
+                    if kind == "dense":
+                        fields.update(
+                            prefill_collectives_rank0=first["prefill_collectives"],
+                            decode_step_collectives_rank0=first["forced_step_collectives"],
+                            decode_step_collective_share_rank0=first["collective_share"],
+                            forced_step_host_ms_rank0=first["forced_step_host_ms"],
+                            cache_nbytes_per_rank=first["cache_nbytes"],
+                            r_cache_nbytes=ref["r_cache_nbytes"])
+                        if "step_profile" in first:  # gate 6
+                            prof = first["step_profile"]
+                            check(prof["host_launches"] == ref["z_r"]["host_launches"],
+                                  f"(ts) {name}: {prof['host_launches']} host launches a "
+                                  f"replayed step, (r)'s graph {ref['z_r']['host_launches']}")
+                            fields.update(step_profile_rank0=prof,
+                                          r_graph_step=dict(host_launches=ref["z_r"][
+                                              "host_launches"], device_ops=ref["z_r"][
+                                              "device_ops"]))
+                    elif kind in ("uniform", "adaptive"):
+                        fields.update(cache_nbytes_per_rank=first["cache_nbytes"],
+                                      s_cache_nbytes=ref[f"s_{kind}"]["cache_nbytes"],
+                                      heads_per_rank=first["heads"])
+                    emit(f"serve/ts_{name}", **fields)
+            if job["cli"]:
+                clis = [results[r]["cli"] for r in range(world)]
+                check(all(torch_equal(c["tokens"], clis[0]["tokens"]) for c in clis),
+                      "(ts) CLI: the ranks' tokens differ")
+                emit("serve/ts_cli", argv=TS_CLI, shape=list(clis[0]["tokens"].shape),
+                     wall_s=[c["wall_s"] for c in clis])
+            emit(f"serve/ts_world{world}_spawn", spawn_to_exit_s=wall)
+    finally:
+        del ref
+        TS_REF.unlink(missing_ok=True)
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -4655,6 +5116,8 @@ def main() -> int:
     with torch.no_grad():  # serving builds no autograd graph (its weights are trainable)
         runs_launches += phase_serve(torch, ops, dev)
         mark("r, s: serve")
+        runs_launches += phase_ts(torch, ops, dev)
+        mark("ts: serve on a mesh")
         runs_launches += phase_deepseek(torch, ops, dev)
         mark("t: deepseek")
         runs_launches += phase_kimi(torch, ops, dev)

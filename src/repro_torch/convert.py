@@ -237,12 +237,14 @@ def model_params(np_params, cfg, device: DeviceLike = None, *, mesh=None):
     return model
 
 
-def dense_cache(ref_cache, cfg, device: DeviceLike = None) -> dict:
+def dense_cache(ref_cache, cfg, device: DeviceLike = None, *, mesh=None) -> dict:
     """The port's ``{"layers": [...], "length": 0-d int32}`` from a reference
     prefill cache (``{"segments": ..., "length"}``, leaves as numpy),
     unstacking scanned segments into one cache per layer (K/V dicts, MLA's
     ``{"latent": ...}``, Mamba-2's ``{"conv_x", "conv_bc", "ssm"}``), every
-    leaf in its own dtype."""
+    leaf in its own dtype. With a ``mesh``, its rank's block of every leaf
+    (:func:`~repro_torch.distributed.shard_cache`)."""
+    from .distributed.sharding import shard_cache
     from .models.transformer import segments
 
     dev = resolve_device(device)
@@ -251,9 +253,14 @@ def dense_cache(ref_cache, cfg, device: DeviceLike = None) -> dict:
         per_pos = [_unstack(c, seg.n_repeat) for c in seg_cache]
         for rep in range(seg.n_repeat):
             for pos in range(len(seg.unit)):
-                layers.append({k: to_tensor(v, dev) for k, v in per_pos[pos][rep].items()})
-    return {"layers": layers, "length": torch.full((), int(np.asarray(ref_cache["length"])),
-                                                    dtype=torch.int32, device=dev)}
+                layers.append({k: np.asarray(v) for k, v in per_pos[pos][rep].items()})
+    cache = {"layers": layers, "length": torch.full((), int(np.asarray(ref_cache["length"])),
+                                                     dtype=torch.int32, device=dev)}
+    if mesh is not None:
+        cache = shard_cache(cache, mesh)
+    cache["layers"] = [{k: to_tensor(v, dev) for k, v in layer.items()}
+                       for layer in cache["layers"]]
+    return cache
 
 
 def stacked_spsvd_sketches(sk, device: DeviceLike = None):

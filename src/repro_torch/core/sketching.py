@@ -418,6 +418,18 @@ class StackedOSNAPSketch:
                              for key, (perm, start) in self._windows.items()})
         return sub
 
+    def select(self, heads: torch.Tensor) -> "StackedOSNAPSketch":
+        """The heads ``heads`` (a 1-D index tensor), in its order, copied,
+        with their rows of the orders built so far."""
+        heads = heads.to(self.hashes.device)
+        p = self.p
+        rows = (heads[:, None] * p + torch.arange(p, device=heads.device)).reshape(-1)
+        sub = StackedOSNAPSketch(hashes=self.hashes[heads], signs=self.signs[heads], s=self.s)
+        sub._order.extend((perm[rows], start[rows]) for perm, start in self._order)
+        sub._windows.update({key: (perm[rows], start[rows])
+                             for key, (perm, start) in self._windows.items()})
+        return sub
+
     def order(self) -> tuple:
         """Every part's whole :func:`~repro_torch.kernels.ops.bucket_order`:
         (N·p, m) rows and (N·p, s+1) offsets."""

@@ -62,6 +62,7 @@ __all__ = [
     "StackedSPSVDSketches",
     "StackedSPSVDState",
     "spsvd_stacked_init",
+    "spsvd_stacked_sketches",
     "spsvd_stacked_update",
     "spsvd_stacked_fold",
     "spsvd_stacked_scan",
@@ -284,6 +285,14 @@ class StackedSPSVDSketches:
         return StackedSPSVDSketches(**{f: getattr(self, f).items(lo, hi) for f in OSNAP_FIELDS},
                                     g_r=self.g_r[lo:hi], g_c=self.g_c[lo:hi])
 
+    def select(self, heads: torch.Tensor) -> "StackedSPSVDSketches":
+        """The heads ``heads`` (a 1-D index tensor), in its order, copied:
+        their hashes, signs, Gaussian factors and window orders built so far
+        (a rank's block of a stack drawn whole)."""
+        return StackedSPSVDSketches(**{f: getattr(self, f).select(heads) for f in OSNAP_FIELDS},
+                                    g_r=self.g_r[heads.to(self.g_r.device)],
+                                    g_c=self.g_c[heads.to(self.g_c.device)])
+
 
 @dataclasses.dataclass
 class StackedSPSVDState:
@@ -312,27 +321,35 @@ class StackedSPSVDState:
                           ctx=self.sk.head(i), ops=SP_SVD_OPS, n=self.n)
 
 
+def spsvd_stacked_sketches(gen: torch.Generator, N: int, m: int, n: int, *, sizes: dict,
+                           dtype=torch.float32, osnap_p: int = 2) -> StackedSPSVDSketches:
+    """The stacked sketches of N heads drawn from ``gen`` (on its device) in
+    the order ψ, G_R, Ω, G_C, S_C, S_R, each for all N heads."""
+    if gen is None:
+        raise ValueError("pass a generator or pre-drawn `sketches`")
+    c, r, c0, r0, s_c, s_r = (sizes[x] for x in ("c", "r", "c0", "r0", "s_c", "s_r"))
+    gauss = lambda rows, cols: (torch.randn((N, rows, cols), generator=gen, device=gen.device,  # noqa: E731
+                                            dtype=dtype) * (1.0 / math.sqrt(rows)))
+    osnap = lambda s_, m_: StackedOSNAPSketch.draw(gen, N, s_, m_, p=osnap_p, dtype=dtype)  # noqa: E731
+    psi, g_r = osnap(r0, m), gauss(r, r0)
+    omega, g_c = osnap(c0, n), gauss(c, c0)
+    return StackedSPSVDSketches(psi=psi, g_r=g_r, omega=omega, g_c=g_c, s_c=osnap(s_c, m),
+                                s_r=osnap(s_r, n))
+
+
 def spsvd_stacked_init(gen: Optional[torch.Generator], N: int, m: int, n: int, *, sizes: dict,
                        dtype=torch.float32, osnap_p: int = 2, panel: Optional[int] = None,
                        sketches: Optional[StackedSPSVDSketches] = None,
                        device: DeviceLike = None) -> StackedSPSVDState:
     """:func:`spsvd_engine_init` for N heads at once: zero accumulators and
-    the stacked sketches (``sketches``, or drawn from ``gen`` in the order
-    ψ, G_R, Ω, G_C, S_C, S_R, each for all N heads). ``panel`` pads Ω, S_R
-    and R to whole panels. ``device=None`` means CUDA (raises without it)."""
+    the stacked sketches (``sketches``, or :func:`spsvd_stacked_sketches`
+    drawn from ``gen``). ``panel`` pads Ω, S_R and R to whole panels.
+    ``device=None`` means CUDA (raises without it)."""
     dev = resolve_device(device)
-    c, r, c0, r0, s_c, s_r = (sizes[x] for x in ("c", "r", "c0", "r0", "s_c", "s_r"))
+    c, r, s_c, s_r = (sizes[x] for x in ("c", "r", "s_c", "s_r"))
     n_pad = padded_n(n, panel) if panel else n
     if sketches is None:
-        if gen is None:
-            raise ValueError("pass a generator or pre-drawn `sketches`")
-        gauss = lambda rows, cols: (torch.randn((N, rows, cols), generator=gen, device=dev,  # noqa: E731
-                                                dtype=dtype) * (1.0 / math.sqrt(rows)))
-        osnap = lambda s_, m_: StackedOSNAPSketch.draw(gen, N, s_, m_, p=osnap_p, dtype=dtype)  # noqa: E731
-        psi, g_r = osnap(r0, m), gauss(r, r0)
-        omega, g_c = osnap(c0, n), gauss(c, c0)
-        sketches = StackedSPSVDSketches(psi=psi, g_r=g_r, omega=omega, g_c=g_c,
-                                        s_c=osnap(s_c, m), s_r=osnap(s_r, n))
+        sketches = spsvd_stacked_sketches(gen, N, m, n, sizes=sizes, dtype=dtype, osnap_p=osnap_p)
     sk = dataclasses.replace(sketches, omega=sketches.omega.pad_cols(n_pad),
                              s_r=sketches.s_r.pad_cols(n_pad))
     return StackedSPSVDState(

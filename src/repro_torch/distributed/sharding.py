@@ -37,6 +37,14 @@ outside :func:`activation_sharding` or at model axis 1.
 * The context is a module global, not a context variable: the autograd
   engine's device threads run the backward and ``torch.utils.checkpoint``'s
   recomputation, which must see it too.
+
+**Serving** runs under the same context. A data rank holds its rows of the
+batch (:func:`shard_batch`) and of every cache; a model rank holds its KV
+heads of every K/V cache (:func:`shard_cache`, the run-time cut of
+:func:`cache_pspec`). The logits' vocab shards are gathered in shard order
+before sampling (:func:`gather_tp`), and :func:`dp_index` tells the
+sampling and the compressed cache's sketch draws which rows of the whole
+batch are this rank's.
 """
 
 from __future__ import annotations
@@ -50,9 +58,10 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "ParallelismRules", "activation_sharding", "batch_pspec", "block",
-           "cache_pspec", "check_tp", "copy_to_tp", "explain", "leaf_pspec",
-           "param_pspecs", "reduce_from_tp", "ref_path", "shard_params", "spec_str", "tp_cut",
-           "tp_cuts", "tp_group", "tp_index", "tp_names"]
+           "cache_pspec", "check_tp", "copy_to_tp", "dp_index", "explain", "gather_tp",
+           "leaf_pspec", "param_pspecs", "reduce_from_tp", "ref_path", "shard_batch",
+           "shard_cache", "shard_params", "spec_block", "spec_str", "tp_cut", "tp_cuts",
+           "tp_group", "tp_index", "tp_names"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -448,6 +457,46 @@ def shard_params(params, rules: ParallelismRules, mesh):
             for name, v in params.items()}
 
 
+def spec_block(t, spec, mesh):
+    """This rank's block of a whole tensor (or numpy array) laid out by
+    ``spec`` (one entry a dim: ``None``, an axis name or a tuple of names)
+    on a :class:`Mesh`: each sharded dim cut into ``mesh.axis_size(axes)``
+    equal blocks, this rank's at ``mesh.index(axes)``. Raises where a block
+    would not be whole."""
+    for dim, axes in enumerate(spec):
+        if axes is None or mesh.axis_size(axes) == 1:
+            continue
+        parts = mesh.axis_size(axes)
+        if t.shape[dim] % parts:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split over {axes} ({parts})")
+        t = block(t, (dim - t.ndim, parts, mesh.index(axes)))
+    return t
+
+
+def shard_cache(cache: dict, mesh: Mesh, rules: Optional[ParallelismRules] = None) -> dict:
+    """This rank's block of a whole serving cache (``{"layers": [...],
+    "length"}``, each layer a dict of tensors): every leaf cut by its
+    :func:`cache_pspec` (K/V batch over the data axes, KV heads over
+    ``model``; MLA latents and Mamba-2 states by their rows and heads), the
+    run-time counterpart of the reference placing its cache by those specs.
+    ``length`` is shared."""
+    rules = (rules or ParallelismRules()).with_mesh(mesh)
+    layers = [{name: spec_block(t, cache_pspec(name, t.shape, rules, mesh, seq_shard=False), mesh)
+               for name, t in layer.items()} for layer in cache["layers"]]
+    return {"layers": layers, "length": cache["length"]}
+
+
+def shard_batch(x, mesh: Mesh, rules: Optional[ParallelismRules] = None):
+    """A data rank's rows of a whole batch (a prompt (B, S), vision
+    embeddings (B, P, d), ...): block ``mesh.index(dp_axes)`` of B over the
+    data axes (:func:`batch_pspec`'s first entry). ``None`` passes through;
+    a batch that does not split into whole blocks raises."""
+    if x is None:
+        return None
+    rules = (rules or ParallelismRules()).with_mesh(mesh)
+    return spec_block(x, (rules.dp_axes,), mesh)
+
+
 _ACT: list = []  # the active (mesh, rules), innermost last
 
 
@@ -482,6 +531,33 @@ def tp_index() -> Tuple[int, int]:
         return 0, 1
     mesh, rules = _ACT[-1]
     return mesh.index(rules.tp_axis), mesh.shape[rules.tp_axis]
+
+
+def dp_index() -> Tuple[int, int]:
+    """``(this rank's index, size)`` along the data-parallel axes under
+    :func:`activation_sharding` (``(0, 1)`` outside it)."""
+    if not _ACT:
+        return 0, 1
+    mesh, rules = _ACT[-1]
+    return mesh.index(rules.dp_axes), mesh.axis_size(rules.dp_axes)
+
+
+def gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model axis's blocks of ``x`` along ``dim`` joined in shard order
+    (rank ``i``'s block at ``i``): one all-reduce of each rank's block
+    placed into zeros, which is the concatenation bit for bit (the blocks
+    are disjoint; gloo carries all-reduces of CUDA tensors). ``x`` itself
+    outside :func:`activation_sharding` or at model axis 1."""
+    index, parts = tp_index()
+    if parts == 1:
+        return x
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * parts
+    out = x.new_zeros(shape)
+    out.narrow(dim, index * n, n).copy_(x)
+    dist.all_reduce(out, group=tp_group())
+    return out
 
 
 class _CopyToTP(torch.autograd.Function):

@@ -11,12 +11,14 @@ from __future__ import annotations
 
 import itertools
 import math
+import os
 
+import torch
 import torch.distributed as dist
 
 from ..distributed.sharding import Mesh
 
-__all__ = ["make_host_mesh", "make_production_mesh"]
+__all__ = ["cli_mesh", "make_host_mesh", "make_production_mesh"]
 
 
 def _world_mesh(shape: dict) -> Mesh:
@@ -60,3 +62,22 @@ def make_host_mesh(data: int = 4, model: int = 2) -> Mesh:
     """A (data, model) mesh over the world's ``data · model`` ranks: gloo on
     the CPU or for ranks that share one card, NCCL with one rank a card."""
     return _world_mesh({"data": data, "model": model})
+
+
+def cli_mesh(spec: str, dev: torch.device, batch: int) -> Mesh:
+    """The (data, model) mesh of a CLI's ``--mesh d x m`` (``""``: the world
+    by 1) over the default process group: one made from the environment
+    when ``torchrun`` started more than one rank (NCCL on the card, one rank
+    a card; gloo on the CPU), else the one the caller made (gloo ranks
+    sharing one card), else a world of one. Raises unless ``d · m`` is the
+    world and ``batch`` splits over the data axis."""
+    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    d, m = (int(x) for x in (spec or f"{world}x1").split("x"))
+    if d * m != world:
+        raise ValueError(f"--mesh {spec}: data axis {d} x model axis {m} != the process "
+                         f"group's {world} ranks (one process runs only 1x1)")
+    if batch % d:
+        raise ValueError(f"--batch {batch} does not split over data axis {d}")
+    return make_host_mesh(d, m)

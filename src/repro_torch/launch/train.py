@@ -29,16 +29,13 @@ import os
 import tempfile
 import time
 
-import torch
-import torch.distributed as dist
-
 from ..checkpoint import run_resilient_loop
 from ..configs import get_arch
 from ..data import DataConfig, SyntheticLM
 from ..device import fold_in, generator, resolve_device
 from ..distributed import ParallelismRules, shard_params
 from ..models import init_params, param_count
-from .mesh import make_host_mesh
+from .mesh import cli_mesh
 from ..train import (CompressionConfig, OptimizerConfig, compression_ratio, init_opt_state,
                      make_compressed_train_step, make_train_step)
 
@@ -67,17 +64,6 @@ def build_config(args):
     if over:
         cfg = dataclasses.replace(cfg, **over)
     return cfg
-
-
-def _group(dev: torch.device):
-    """``(group, rank, world)``: the default process group, made from the
-    environment when ``torchrun`` started more than one rank; ``None`` in a
-    world of one."""
-    if not dist.is_initialized() and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
-    if not dist.is_initialized():
-        return None, 0, 1
-    return dist.group.WORLD, dist.get_rank(), dist.get_world_size()
 
 
 def main(argv=None):
@@ -110,14 +96,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    _, rank, world = _group(dev)
-    d, m = (int(x) for x in (args.mesh or f"{world}x1").split("x"))
-    if d * m != world:
-        raise ValueError(f"--mesh {args.mesh}: data axis {d} x model axis {m} != the process "
-                         f"group's {world} ranks")
-    if args.batch % d:
-        raise ValueError(f"--batch {args.batch} does not split over data axis {d}")
-    mesh = make_host_mesh(d, m)
+    mesh = cli_mesh(args.mesh, dev, args.batch)
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    rank, world = mesh.rank, d * m
     cfg = build_config(args)
 
     params = init_params(generator(args.seed, dev), cfg, device=dev)

@@ -35,10 +35,12 @@ schedule the host knows); dense caches have one phase. ``dense_moe`` picks
 the MoE FFN's dropless loop over its capacity-bounded dispatch.
 
 Under tensor parallelism (:func:`repro_torch.distributed.activation_sharding`)
-the GQA mixer's training forward runs this rank's heads: ``w_q``, ``w_k``,
-``w_v`` hold their columns, ``w_o`` their rows, and the partial outputs are
-summed over the model axis (``ATTN`` and ``ATTN_LOCAL``; the run time
-raises for the other kinds).
+the GQA mixer runs this rank's heads in training, prefill and decode:
+``w_q``, ``w_k``, ``w_v`` hold their columns, ``w_o`` their rows, the
+partial outputs are summed over the model axis, and every K/V cache (the
+full one, the ``ATTN_LOCAL`` ring, a pluggable backend) holds the rank's
+``KV/m`` heads (``ATTN`` and ``ATTN_LOCAL``; the run time raises for the
+other kinds).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..distributed.sharding import copy_to_tp, reduce_from_tp
+from ..distributed.sharding import copy_to_tp, reduce_from_tp, tp_index
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -155,6 +157,7 @@ def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
 
 def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
     B, S, _ = x.shape
+    x = copy_to_tp(x)
     q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
     o = flash_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
@@ -169,7 +172,7 @@ def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
         cache = init_block_cache(BlockSpec(ATTN), cfg, B, cache_len, x.device)
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
-    return o.reshape(B, S, -1) @ p.w_o, cache
+    return reduce_from_tp(o.reshape(B, S, -1) @ p.w_o), cache
 
 
 def _write_slot(cache: dict, slot: torch.Tensor, k, v) -> None:
@@ -182,6 +185,7 @@ def _write_slot(cache: dict, slot: torch.Tensor, k, v) -> None:
 def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Tensor,
                 phase: str):
     B = x.shape[0]
+    x = copy_to_tp(x)
     q, k, v = _gqa_qkv(p, x, decode_positions(B, length), cfg, _theta_for(spec_mixer, cfg))
     if not isinstance(cache, dict):
         # pluggable cache backend: owns its append and attention
@@ -194,7 +198,7 @@ def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Te
     else:
         _write_slot(cache, length, k, v)
         o = decode_attention(q, cache["k"], cache["v"], length + 1)
-    return o.reshape(B, 1, -1) @ p.w_o
+    return reduce_from_tp(o.reshape(B, 1, -1) @ p.w_o)
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +305,9 @@ def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, leng
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
-    KV, hd, dt = cfg.n_kv_heads, cfg.head_dim, cfg.param_dtype
+    # K/V caches hold this rank's KV heads under tensor parallelism (the run
+    # time takes only the dense stack there: ATTN and ATTN_LOCAL)
+    KV, hd, dt = cfg.n_kv_heads // tp_index()[1], cfg.head_dim, cfg.param_dtype
     mixer = spec.mixer
     if mixer == MLA:
         return {"latent": torch.zeros((batch, cache_len, cfg.kv_lora_rank + cfg.rope_head_dim),

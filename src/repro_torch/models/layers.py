@@ -7,8 +7,9 @@ marks the model axis's collectives itself
 (:mod:`repro_torch.distributed.sharding`): the FFN's column-sharded
 ``w_gate``/``w_up`` and row-sharded ``w_down`` are bracketed by
 ``copy_to_tp`` and ``reduce_from_tp``, the token table is looked up
-vocab-parallel, and the logits come out as this rank's vocab shard. Outside
-``activation_sharding`` (serving, a single rank) all of it is the identity.
+vocab-parallel, and the logits come out as this rank's vocab shard, which
+serving gathers whole (:func:`gather_vocab`) before it samples. Outside
+``activation_sharding`` (a single rank) all of it is the identity.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import copy_to_tp, reduce_from_tp, tp_index
+from ..distributed.sharding import copy_to_tp, gather_tp, reduce_from_tp, tp_index
 from .config import ModelConfig
 
 
@@ -141,6 +142,14 @@ def lm_logits(embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """The whole vocab's logits from this rank's shard of them
+    (:func:`lm_logits` under tensor parallelism): the model axis's shards
+    joined in shard order, so an argmax over them ties to the lower index as
+    on one rank. The identity at model axis 1."""
+    return gather_tp(logits, -1)
 
 
 def init_scale(fan_in: int) -> float:

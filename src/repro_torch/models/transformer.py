@@ -28,6 +28,13 @@ A step reads nothing back and rebinds no buffer, so
 :func:`repro_torch.serve.generate` captures it, with the sampling, in CUDA
 graphs replayed once per token on the card (the reference's one compiled
 program per token); on the CPU it runs eagerly.
+
+Under :func:`~repro_torch.distributed.activation_sharding` every entry
+point runs this rank's part of a (data, model) mesh: its rows of the
+batch, and at model axis ``m > 1`` its shards of a dense stack (other
+archs raise ``NotImplementedError``, never running a block replicated as
+though it were split); ``prefill`` and ``decode_step`` return the whole
+vocab's logits, gathered over the model axis.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ from ..device import DeviceLike, resolve_device
 from ..distributed.sharding import check_tp, tp_index
 from . import blocks as blk
 from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
-from .layers import embed_tokens, init_scale, lm_logits, param, rmsnorm, truncated_normal_
+from .layers import (embed_tokens, gather_vocab, init_scale, lm_logits, param, rmsnorm,
+                     truncated_normal_)
 
 __all__ = ["REMAT_POLICIES", "Transformer", "segments", "layer_specs", "init_params",
            "forward_hidden", "train_logits", "init_cache", "prefill", "decode_step",
@@ -200,6 +208,10 @@ def train_logits(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> dict:
+    """A zeroed cache of ``batch`` rows (this rank's, under a mesh) and
+    ``cache_len`` positions; under tensor parallelism each K/V cache holds
+    the rank's KV heads."""
+    check_tp(cfg, tp_index()[1])
     dev = resolve_device(device)
     return {"layers": [blk.init_block_cache(spec, cfg, batch, cache_len, dev)
                        for spec in layer_specs(cfg)],
@@ -210,7 +222,13 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
 def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, vision=None, *,
             dense_moe: bool = False):
     """Run the prompt (B, S); returns the last position's logits (B, 1, V)
-    and a cache of ``cache_len`` positions holding it."""
+    and a cache of ``cache_len`` positions holding it. Under
+    :func:`~repro_torch.distributed.activation_sharding` the prompt is this
+    rank's rows, the cache its block (:func:`~repro_torch.distributed.shard_cache`)
+    and the logits the whole vocab's, gathered over the model axis; at model
+    axis ``m > 1`` only the dense stack runs (other archs raise
+    ``NotImplementedError``)."""
+    check_tp(cfg, tp_index()[1])
     B, S = tokens.shape
     x = embed_tokens(params.embed.tok, tokens)
     ex = _extras(params, cfg, vision)
@@ -220,7 +238,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
         caches.append(c)
     h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
     length = torch.full((), S, dtype=torch.int32, device=x.device)
-    return lm_logits(params.embed, h, cfg), {"layers": caches, "length": length}
+    return gather_vocab(lm_logits(params.embed, h, cfg)), {"layers": caches, "length": length}
 
 
 @torch.no_grad()
@@ -230,7 +248,9 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
     updated in place and its ``length`` advanced in place. ``phase`` is the
     step's place in a compressed cache's schedule
     (:func:`repro_torch.serve.kv_cache.decode_schedule`); dense caches take
-    every step alike."""
+    every step alike. Under a mesh, as :func:`prefill`: this rank's rows and
+    cache block, the whole vocab's logits."""
+    check_tp(cfg, tp_index()[1])
     x = embed_tokens(params.embed.tok, token)
     ex = {"shared": params.shared} if _has_shared(cfg) else {}  # cross K/V live in the cache
     length = cache["length"]
@@ -239,7 +259,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
                              phase=phase)
     h = rmsnorm(params.final_norm, x, cfg.norm_eps)
     length.add_(1)
-    return lm_logits(params.embed, h, cfg), cache
+    return gather_vocab(lm_logits(params.embed, h, cfg)), cache
 
 
 def param_count(params: nn.Module) -> int:

@@ -19,6 +19,16 @@ the graph: one for plain steps, one for folds (every fold offset: the
 window is indexed on the device). A refresh step runs eagerly, on the card:
 its SVD finalize waits for the host. A CPU tensor runs every step eagerly,
 and so does the card inside :func:`~repro_torch.kernels.ops.eager_route`.
+
+Under a mesh (:func:`~repro_torch.distributed.activation_sharding`) each
+rank generates its rows of the batch on its shards of the weights; the
+logits reach the sampling whole (gathered over the model axis), so every
+rank of a model-axis group samples the same tokens. The route is chosen by
+the configuration, before the loop: at model axis ``m > 1`` the decode loop
+runs the eager body (gloo stages a CUDA tensor's collective through the
+host, which no CUDA graph can capture, and NCCL cannot hold two ranks of a
+group on one card), and on a data-only mesh (``d × 1``) each rank captures
+and replays its own graphs, a step there having no collective.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..distributed.sharding import dp_index, tp_index
 from ..kernels import ops
 from ..models import decode_step, prefill
 from ..models.blocks import PLAIN, REFRESH
@@ -40,15 +51,26 @@ __all__ = ["generate", "sample_token"]
 
 def sample_token(gen: Optional[torch.Generator], logits: torch.Tensor,
                  temperature: float = 0.0) -> torch.Tensor:
-    """logits (B, 1, V) → (B, 1) int32: the argmax at temperature 0 (ties
-    to the lower index, as the reference's), else a draw from
-    ``softmax(logits / temperature)`` with ``gen``: ``torch.multinomial``'s
-    one-sample draw (the argmax of ``p / q``, ``q`` exponential), bit for
-    bit, without its check that reads the probabilities back."""
+    """logits (B, 1, V), the whole vocab's → (B, 1) int32: the argmax at
+    temperature 0 (ties to the lower index, as the reference's), else a draw
+    from ``softmax(logits / temperature)`` with ``gen``:
+    ``torch.multinomial``'s one-sample draw (the argmax of ``p / q``, ``q``
+    exponential), bit for bit, without its check that reads the
+    probabilities back.
+
+    Under a mesh with ``d`` data ranks, ``logits`` are this rank's ``B``
+    rows of the whole batch of ``B·d``: every rank draws the noise ``q`` of
+    the whole batch (every rank seeds the same generator) and keeps its
+    rows. The invariant: every rank's generator advances exactly as the
+    one-rank run's does, so each data rank's rows get the tokens that run
+    draws, and the ranks of a model-axis group draw the same ones."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(logits[:, 0].float() / temperature, dim=-1)
-    q = torch.empty_like(probs).exponential_(1, generator=gen)
+    di, d = dp_index()
+    B, V = probs.shape
+    q = torch.empty((B * d, V), dtype=probs.dtype, device=probs.device).exponential_(
+        1, generator=gen)[di * B:(di + 1) * B]
     return torch.argmax(probs / q, dim=-1, keepdim=True).to(torch.int32)
 
 
@@ -156,9 +178,11 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
     embeddings (B, n_patches, d_vision), read once, at prefill.
 
     On the card the decode loop replays CUDA graphs of
-    :func:`_fused_decode_step` (module docstring); on the CPU, or inside
-    :func:`~repro_torch.kernels.ops.eager_route`, it runs the same body
-    eagerly.
+    :func:`_fused_decode_step` (module docstring); on the CPU, inside
+    :func:`~repro_torch.kernels.ops.eager_route`, or at model axis ``m > 1``
+    (the step's collectives cannot be captured), it runs the same body
+    eagerly. Under a mesh ``prompt`` (and ``vision``) are this rank's rows
+    (:func:`~repro_torch.distributed.shard_batch`) and so is the result.
 
     ``gen`` draws the sampled tokens and, with ``kv_compress``, the
     compressed caches' sketches (``kv_sketches`` hands pre-drawn ones to
@@ -200,7 +224,7 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
                                   out=out, phase=phase)
 
     graphs = None
-    if dev.type == "cuda" and not ops._EAGER:
+    if dev.type == "cuda" and not ops._EAGER and tp_index()[1] == 1:
         graphs = _DecodeGraphs(body, gen if temperature > 0.0 else None)
     eager = refreshes = 0
     for i, (phase, _) in enumerate(schedule):

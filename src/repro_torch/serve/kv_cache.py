@@ -38,6 +38,18 @@ together as one stack of ``n_repeat·B·KV`` heads; each layer's cache then
 holds views of its heads (``StackedSPSVDState.items``), and the window
 orders of the decode folds are built once per cache, on the grid of
 ``decode_panel`` windows that starts at the prompt's length.
+
+Under a mesh (:func:`~repro_torch.distributed.activation_sharding`) a
+rank's cache holds its rows of the batch and its KV heads: ``B/d`` and
+``KV/m`` of them. Every rank draws the sketches of the whole stack of
+``R·B·KV`` heads (or takes them whole through ``sketches=``) and keeps its
+block, so its generator advances as the one-rank run's does and each of
+its heads gets that run's sketch; kernel 1's stacked launch then runs on
+the rank's ``R·(B/d)·(KV/m)`` heads. Adaptive rank spends each request's
+``KV·rank`` budget over all its KV heads: at model axis ``m > 1`` σ is
+gathered over the model axis, allocated whole, and each rank keeps its
+heads' ranks, at conversion and at every refresh. The data axis needs
+nothing: the budget is per request.
 """
 
 from __future__ import annotations
@@ -48,15 +60,17 @@ from typing import Optional
 
 import torch
 
-from ..core.svd import StackedSPSVDState, spsvd_stacked_finalize, spsvd_stacked_fold
+from ..core.svd import (StackedSPSVDSketches, StackedSPSVDState, spsvd_stacked_finalize,
+                        spsvd_stacked_fold)
 from ..device import DeviceLike, resolve_device
+from ..distributed.sharding import dp_index, gather_tp, tp_index
 from ..models.blocks import FOLD, PLAIN, REFRESH
 from ..models.config import ATTN, ModelConfig
 from ..models.transformer import segments
 from ..obs.metrics import MetricsRegistry, default_registry
 from ..obs.spans import span
 from .kv_compress import (KVCompressionConfig, LowRankKV, _allocate_ranks, _fac_width, _factors,
-                          _stacked_init, _stream_stack)
+                          _stacked_init, _stacked_sketches, _stream_stack)
 
 __all__ = ["CompressedKV", "cache_nbytes", "compress_prefill_cache", "decode_schedule",
            "init_compressed_kv"]
@@ -159,8 +173,39 @@ def _finalize_heads(eng: StackedSPSVDState, kc: KVCompressionConfig, fw: int, B:
     # V past eng_len are zero (QR of zero rows) and masked by fac_len anyway
     fac = _factors(*spsvd_stacked_finalize(eng, k=fw), B, KV)
     if kc.adaptive:
-        fac = LowRankKV(v_s=fac.v_s, sigma=_allocate_ranks(fac.sigma, kc)[0], u=fac.u)
+        fac = LowRankKV(v_s=fac.v_s, sigma=_allocate(fac.sigma, kc)[0], u=fac.u)
     return fac
+
+
+def _allocate(sigma: torch.Tensor, kc: KVCompressionConfig):
+    """:func:`~repro_torch.serve.kv_compress._allocate_ranks` of this rank's
+    heads' σ (rows, KV/m, fw) over each request's whole set of KV heads: σ
+    gathered over the model axis, the budget spent on all of it, this
+    rank's block of the masked σ and of the ranks kept."""
+    index, _ = tp_index()
+    KV = sigma.shape[1]
+    masked, alloc = _allocate_ranks(gather_tp(sigma, 1), kc)
+    return masked[:, index * KV:(index + 1) * KV], alloc[:, index * KV:(index + 1) * KV]
+
+
+def _rank_sketches(gen, R: int, B: int, KV: int, hd: int, n_max: int, kc: KVCompressionConfig,
+                   sketches: Optional[StackedSPSVDSketches]) -> Optional[StackedSPSVDSketches]:
+    """The sketches of this rank's ``R·B·KV`` heads (its ``B`` rows and
+    ``KV`` heads) of the whole stack of ``R·(B·d)·(KV·m)`` heads, row-major
+    over (repeat, batch, KV head): drawn whole from ``gen`` (or ``sketches``,
+    whole) and selected. Outside a mesh, ``sketches`` as given (``None``:
+    :func:`~repro_torch.serve.kv_compress._stacked_init` draws them)."""
+    di, d = dp_index()
+    mi, m = tp_index()
+    if d == 1 and m == 1:
+        return sketches
+    if sketches is None:
+        sketches = _stacked_sketches(gen, R * B * d * KV * m, hd, n_max, kc)
+    dev = sketches.g_r.device
+    r = torch.arange(R, device=dev)[:, None, None]
+    b = di * B + torch.arange(B, device=dev)[None, :, None]
+    k = mi * KV + torch.arange(KV, device=dev)[None, None, :]
+    return sketches.select(((r * (B * d) + b) * (KV * m) + k).reshape(-1))
 
 
 def _attend(cache: CompressedKV, q, new_len: torch.Tensor):
@@ -218,10 +263,11 @@ def init_compressed_kv(gen: Optional[torch.Generator], kc: KVCompressionConfig, 
 
 def _convert_stack(gen, dense_layers: list, prompt_len: int, kc: KVCompressionConfig,
                    sketches: Optional[tuple]) -> list:
-    """Dense ATTN caches of R layers (each K/V (B, n_max, KV, hd)) → one
-    :class:`CompressedKV` per layer, all R·B·KV heads streamed as one
-    stack: the first ``prompt_len`` tokens scanned and factorized, the
-    engines' column domain the whole ``n_max``, so decode keeps appending."""
+    """Dense ATTN caches of R layers (each K/V (B, n_max, KV, hd), this
+    rank's block under a mesh) → one :class:`CompressedKV` per layer, all
+    R·B·KV heads streamed as one stack: the first ``prompt_len`` tokens
+    scanned and factorized, the engines' column domain the whole ``n_max``,
+    so decode keeps appending."""
     R = len(dense_layers)
     B, n_max, KV, hd = dense_layers[0]["k"].shape
     H = B * KV
@@ -230,14 +276,15 @@ def _convert_stack(gen, dense_layers: list, prompt_len: int, kc: KVCompressionCo
     for half, name in enumerate(("k", "v")):
         hist = torch.stack([c[name] for c in dense_layers])  # (R, B, n_max, KV, hd)
         hist_T = hist.permute(0, 1, 3, 4, 2).reshape(R * H, hd, n_max).float()
-        state = _stacked_init(gen, R * H, hd, n_max, kc, device=hist.device,
-                              sketches=None if sketches is None else sketches[half])
+        sk = _rank_sketches(gen, R, B, KV, hd, n_max, kc,
+                            None if sketches is None else sketches[half])
+        state = _stacked_init(gen, R * H, hd, n_max, kc, device=hist.device, sketches=sk)
         _stream_stack(state, hist_T, prompt_len, kc)
         del hist, hist_T
         U, sig, V = spsvd_stacked_finalize(state, k=fw)
         fac = _factors(U, sig, V, R * B, KV)
         if kc.adaptive:
-            fac = LowRankKV(v_s=fac.v_s, sigma=_allocate_ranks(fac.sigma, kc)[0], u=fac.u)
+            fac = LowRankKV(v_s=fac.v_s, sigma=_allocate(fac.sigma, kc)[0], u=fac.u)
         # the decode folds' windows: one grid per cache, from the prompt's end
         state.sk.omega.index_windows(kc.decode_panel, prompt_len)
         state.sk.s_r.index_windows(kc.decode_panel, prompt_len)
@@ -272,9 +319,10 @@ def compress_prefill_cache(gen: Optional[torch.Generator], cfg: ModelConfig, cac
     layers) convert as one stack of heads; stacks go in segment order,
     positions in turn, each drawing its K then its V sketches from ``gen``,
     or taking ``sketches[i] = (k, v)`` (stacked over repeats, batch and
-    kv-heads, row-major), ``i`` the reference's flat position (one per
-    segment position). Returns a new cache dict; the old dense caches of
-    converted layers are no longer referenced from it.
+    kv-heads, row-major; the whole batch's and heads' under a mesh, of
+    which each rank keeps its block), ``i`` the reference's flat position
+    (one per segment position). Returns a new cache dict; the old dense
+    caches of converted layers are no longer referenced from it.
     """
     reg = registry if registry is not None else default_registry()
     prompt_len = int(cache["length"])  # read once, before decode: the engines' column grid

@@ -34,7 +34,7 @@ import torch
 
 from ..core.svd import (StackedSPSVDSketches, spsvd_engine_finalize, spsvd_engine_init,
                         spsvd_stacked_finalize, spsvd_stacked_init, spsvd_stacked_scan,
-                        spsvd_stacked_update)
+                        spsvd_stacked_sketches, spsvd_stacked_update)
 from ..device import DeviceLike
 from ..obs.metrics import MetricsRegistry, default_registry
 from ..obs.spans import span
@@ -117,6 +117,13 @@ def _stacked_init(gen, N: int, d: int, n_cols: int, kc: KVCompressionConfig, *,
                   sketches: Optional[StackedSPSVDSketches] = None, device: DeviceLike = None):
     return spsvd_stacked_init(gen, N, d, n_cols, sizes=_sizes(d, kc), dtype=torch.float32,
                               osnap_p=OSNAP_P, sketches=sketches, device=device)
+
+
+def _stacked_sketches(gen, N: int, d: int, n_cols: int,
+                      kc: KVCompressionConfig) -> StackedSPSVDSketches:
+    """The sketches :func:`_stacked_init` would draw for N heads, alone."""
+    return spsvd_stacked_sketches(gen, N, d, n_cols, sizes=_sizes(d, kc), dtype=torch.float32,
+                                  osnap_p=OSNAP_P)
 
 
 def _stream_stack(state, hist_T: torch.Tensor, length: int, kc: KVCompressionConfig):

@@ -947,3 +947,24 @@ def test_cuda_sdpa_train_step_matches_plain_and_compresses_through_kernel_4(cuda
                                     sketches=sk)
     for k in want:
         _close(out[k].cpu(), want[k], tol=1e-4)
+
+
+def test_cuda_generate_on_a_1x1_mesh_takes_the_graph_route(cuda):
+    """``generate`` under ``activation_sharding`` of a 1×1 mesh (a
+    data-only mesh's case for each rank: no collective in a step) replays
+    its CUDA graphs, and its tokens equal the graph route's with no mesh."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import Mesh, activation_sharding
+    from repro_torch.models import init_params
+    from repro_torch.serve import generate
+
+    cfg = get_arch("llama3.2-1b").smoke_config()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = init_params(g, cfg, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda, generator=g)
+    plain, meshed = {}, {}
+    want = generate(model, cfg, prompt, 12, stats=plain)
+    with activation_sharding(Mesh({"data": 1, "model": 1})):
+        got = generate(model, cfg, prompt, 12, stats=meshed)
+    assert plain["route"] == meshed["route"] == "graph" and meshed["replays"] == 12 - 2
+    assert torch.equal(got, want)

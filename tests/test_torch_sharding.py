@@ -18,6 +18,7 @@ import dataclasses
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -268,3 +269,62 @@ def test_run_time_raises_rather_than_replicate_or_split_a_head():
     cut = ps.shard_params({"embed.tok": np.arange(12.0).reshape(6, 2)}, ps.ParallelismRules(),
                           ps.Mesh({"data": 1, "model": 2}, rank=1))
     np.testing.assert_array_equal(cut["embed.tok"], np.arange(6.0, 12.0).reshape(3, 2))
+
+
+# the dense stack, the run time's archs at model axis > 1 (check_tp's)
+DENSE_ARCHS = ["llama3.2-1b", "phi4-mini-3.8b", "mistral-nemo-12b", "musicgen-large",
+               "gemma3-12b"]
+RUN_MESHES = {"1x2": (1, 2), "2x1": (2, 1), "2x2": (2, 2)}
+
+
+def _rule_block(t, spec, shape: dict, rank: int):
+    """Rank ``rank``'s block of ``t`` by a reference spec on a ``shape``
+    mesh (ranks row-major over its axes, the last fastest)."""
+    coords, r = {}, rank
+    for name in reversed(tuple(shape)):
+        coords[name], r = r % shape[name], r // shape[name]
+    for dim, axes in enumerate(spec):
+        if axes is None:
+            continue
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        parts, idx = 1, 0
+        for a in axes:
+            parts, idx = parts * shape[a], idx * shape[a] + coords[a]
+        n = t.shape[dim] // parts
+        t = t.narrow(dim, idx * n, n)
+    return t
+
+
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_run_time_cache_blocks_follow_the_reference_cache_pspec(arch):
+    """Every ``prefill`` cache leaf of a dense-stack arch at 1×2, 2×1 and
+    2×2: the run time's cut (``shard_cache``, what ``convert.dense_cache``
+    gives a rank) equals the block the reference's ``cache_pspec`` lays out
+    on a ``FakeMesh``, and ``init_cache`` under ``activation_sharding`` at
+    that rank has its shape (the K/V heads over ``model``, the batch over
+    ``data``)."""
+    cfg = pconfigs.get_arch(arch).smoke_config()
+    g = torch.Generator()
+    g.manual_seed(0)
+    model = pmodels.init_params(g, cfg, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=g)
+    _, whole = pmodels.prefill(model, cfg, tokens, 12)
+    for shape in RUN_MESHES.values():
+        fake = FakeMesh(dict(zip(("data", "model"), shape)))
+        rules = rs.ParallelismRules().with_mesh(fake)
+        for rank in range(shape[0] * shape[1]):
+            mesh = ps.Mesh(fake.shape, rank)
+            cut = ps.shard_cache(whole, mesh)
+            with ps.activation_sharding(mesh):
+                local = pmodels.init_cache(cfg, 4 // shape[0], 12, device="cpu")
+            assert cut["length"] is whole["length"]
+            for lw, lc, ll in zip(whole["layers"], cut["layers"], local["layers"]):
+                assert set(lw) == set(lc) == set(ll) == {"k", "v"}
+                for name, t in lw.items():
+                    spec = rs.cache_pspec((jax.tree_util.DictKey(name),),
+                                          jax.ShapeDtypeStruct(t.shape, jnp.float32), rules,
+                                          fake, seq_shard=False)
+                    assert tuple(spec) == ("data", None, "model", None)
+                    want = _rule_block(t, tuple(spec), fake.shape, rank)
+                    assert torch.equal(lc[name], want), (arch, shape, rank, name)
+                    assert ll[name].shape == want.shape, (arch, shape, rank, name)

@@ -104,13 +104,15 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    prefill, capture and decode ms (CUDA events), tokens/s, peak GiB,
    ``cache_nbytes``; one
    request's prefill logits through SDPA against the plain attention path;
+   a second run's tokens equal;
 12. (s) compressed serving — (r) with the reference CLI's
    ``KVCompressionConfig(rank=16, oversample=2, panel=32, decode_panel=8,
    refresh_every=32, min_rank=4)``, uniform then adaptive: conversion and
    decode ms, kernel 1's stacked launches per conversion (at 1024 heads and
    at 128: equal) and per fold, ``cache_nbytes`` against (r)'s, the
    ``serve/kv_rel_err`` histogram, each head's error over the optimal
-   error at its rank (never below it), the tokens against (r); a rank-8
+   error at its rank (never below it), the tokens against (r), a second
+   run's tokens equal; a rank-8
    head batch within the reference's 0.05, and the stacked engine against
    a per-head loop of the plain versions on 4 heads (1e-5).
    The kernels phase holds kernel 1's stacked launch (gather, transposed,
@@ -195,8 +197,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    0.03 (a full-rank one must not), (5) ``python -m
    repro_torch.launch.train`` at depth 2, compressed, a crash at step 3:
    one restart, 6 steps. The serving phases (r)-(x) run under ``no_grad``;
-19. (tp) tensor parallelism — (y)'s model (its seeded initial weights made
-   whole on each rank, then cut by ``shard_params``) and batches in gloo
+19. (tp) tensor parallelism — (y)'s model cut to its first ``TP_DEPTH`` = 4
+   of 16 layers (the script's time limit; each rank drawing its blocks of
+   the seeded initial weights leaf by leaf) and batches in gloo
    ranks spawned on this one card (their collectives staged through the
    host; NCCL cannot hold two ranks of a group on one GPU): 1x2 plain, 3
    steps; two controls, one whose ``reduce_from_tp`` backward all-reduces
@@ -204,8 +207,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    exponentials; 1x2 compressed, 3 steps; 2x2 plain and compressed, 2 steps
    each; then the CLI (``launch.train.main``) at ``--mesh 2x2
    --grad-compress``, (y)'s gate depth, a crash at step 3 (one restart, the
-   replayed step's loss equal). Gates against (y)'s run of the same kind
-   (plain or compressed): step 1's loss (``TP_LOSS0_TOL``), every step's
+   replayed step's loss equal). Gates against one rank's run of the same
+   depth and kind (plain or compressed, ``train_reference``, made first in
+   this process): step 1's loss (``TP_LOSS0_TOL``), every step's
    loss (``TP_LOSS_TOL``), every gradient leaf (relative Frobenius,
    ``TP_GRAD_TOL``), grad_norm (``TP_GRAD_NORM_TOL``) and step 1's update
    (``TP_UPDATE_TOL``); each control must fail them; kernel 4 8
@@ -215,7 +219,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    peak GiB a rank, all-reduce calls, bytes and ms a step by group, and the
    collectives' share of the step. Kernel 4 is held against its plain
    version at the blocks' shapes in the kernels phase;
-20. (ts) serving under a mesh — run right after (s): (r)'s model (its
+20. (ts) serving under a mesh — run right after (s): (r)'s model cut to
+   its first ``TS_DEPTH`` = 2 of 16 layers (the script's time limit; its
    seeded weights drawn whole on each rank, then cut by ``shard_params``),
    (r)'s 8 requests of 2048 seeded tokens and 64 new tokens, in gloo ranks
    spawned on this one card: 2x1 dense (each rank its 4 requests, replaying
@@ -225,7 +230,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    without its ``reduce_from_tp``; the vocab's shards gathered in the
    wrong order), 2x2 dense and compressed uniform (256 heads a rank), then
    the serve CLI at ``--mesh 1x2 --kv-compress 16`` in the two ranks. Gates
-   against (r)'s and (s)'s one-rank runs (``TS_REF``): (1) prefill's last
+   against one rank's dense, sampled and compressed runs of the same depth
+   (``ts_references``, after (s); ``TS_REF``): (1) prefill's last
    logits and (2) each of (r)'s 63 tokens through ``decode_step``, within
    ``TS_LOGIT_TOL`` of the largest logit; (3) greedy tokens equal up to
    the first token whose one-rank logits had a top-2 margin below that;
@@ -239,7 +245,37 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    (prefill and a decode step), their share, peak GiB a rank,
    ``cache_nbytes`` a rank beside (r)'s and (s)'s, and the spawn-to-exit
    seconds. The kernels phase holds kernel 1's stacked launch at the
-   ranks' head counts.
+   ranks' head counts;
+21. (ep) expert parallelism and MLA heads on the model axis — run right
+   after (t) and (u), in gloo ranks spawned on this one card, each rank
+   drawing its blocks leaf by leaf (``init_params(mesh=)``): deepseek-v2-lite's
+   full config served at 1x2 and 2x2 on (r)'s requests, 64 greedy tokens,
+   the capacity dispatch and the dense latent cache; kimi-k2 at (u)'s depth
+   2 at 1x2, dense and compressed ((s)'s settings, kernel 1's stacked
+   launch on each rank's 32 heads); deepseek cut to ``EP_TRAIN_DEPTH`` = 3
+   of 27 layers trained at 1x2 (plain 2 steps, compressed 2 with kernel 4
+   on every rank's blocks) and 2x2 (plain 2) against one rank's run of the
+   same depth. Gates: (1) deepseek's first MoE layer on (t)'s recorded
+   inputs — routing, slots and keep bitwise at 1x2; at 2x2 choices equal
+   bar near ties, slots and keep equal given (t)'s choices, the data
+   ranks' drops summing to (t)'s; the MoE and MLA outputs within their
+   bf16 bounds; (2) prefill's and each teacher-forced step's logits
+   within ``EP_LOGIT_TOL`` of the largest with (t)'s or (u)'s expert
+   choices replayed (``moe.forced_experts``: on random weights the ranks'
+   own choices flip 4-26 % of the assignments, which alone breaks it), the
+   ranks' own flips counted by layer and step; (3)
+   tokens equal up to each request's first small margin, a model group's
+   tokens equal; (4) kimi compressed: kernel 1's launches (u)'s, every
+   head's error at least its optimum, ``cache_nbytes`` a rank; (5)
+   training as (tp)'s gates, the ``router`` and ``w_dkv`` gradients
+   printed, kernel 4 18 times a compressed step a rank, ``comp/ratio`` the
+   reference's; (6) controls that must fail: at gate 1 the MoE combine
+   without its ``reduce_from_tp`` and MLA without its ``reduce_from_tp``
+   after ``w_o``; at gate 2 every rank on expert block 0 (deepseek, kimi)
+   and kimi's combine without its sum; at gate 5 the gates without
+   ``copy_to_tp`` (the router gradient). The kernels phase holds
+   kernel 4 at deepseek's MLA and shared-FFN rank blocks and kernel 1 at
+   kimi's rank heads.
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -355,27 +391,38 @@ TRAIN_GATE_DEPTH = 2
 TRAIN_SDPA_TOL = 2 * TRAIN_GATE_DEPTH * 2.0 ** -8
 TRAIN_REMAT_TOL = 2.0 ** -8
 TRAIN_RECON_TOL = 0.03
-# (tp): (y)'s model, initial state and batches in gloo ranks sharing this one
-# card: 1x2 plain, its control (reduce_from_tp's backward all-reducing again:
+# (tp): (y)'s model at TP_DEPTH, its initial state and (y)'s batches in gloo
+# ranks sharing this one card: 1x2 plain, its control (reduce_from_tp's backward all-reducing again:
 # a doubled gradient upstream), 1x2 compressed; 2x2 plain and compressed; then
 # the CLI at --mesh 2x2 --grad-compress, (y)'s gate depth, a crash at step 3.
 # Limits, each set between the sound runs' largest reading and a control's
-# (H100 runs of this script, both in PERF.md). Step 1's loss: read 2.5e-6; the
+# (H100 runs of this script at TP_DEPTH, NVIDIA H100 80GB HBM3 at 700 W, in
+# PERF.md; also (ep)'s training gates). Step 1's loss: read <= 7.7e-6; the
 # cross-entropy control (each rank's softmax over its half of the vocab)
 # 5.8e-2; the limit is the reference's own sharded-equals-single bound
-# (tests/multidev_scenario.py:47-75). Every step's loss: read <= 4.6e-3 (the
+# (tests/multidev_scenario.py:47-75). Every step's loss: read <= 2.3e-3 (the
 # bf16 differences of step 1's update carried on), the same control 5.8e-2.
-# The worst gradient leaf (relative Frobenius): read <= 0.064 (2x2's
+# The worst gradient leaf (relative Frobenius): read <= 0.092 (2x2's
 # embed.tok: the data-axis mean sums bf16 partial sums that cancel there),
-# the doubled backward 629. grad_norm: read <= 4.4e-3, the doubled backward
-# 305. Step 1's update (the parameters after it against (y)'s of the same
-# kind, over the norm of (y)'s update): read <= 0.037 plain, <= 0.095
-# compressed, the doubled backward 0.92. The cross-entropy control's
-# gradients stay near (y)'s (at init the one-hot term dominates the logit
-# gradient: 0.136, grad_norm 1.3e-3, update 0.110); only the loss limits
-# catch it
+# the doubled backward 75. grad_norm: read <= 8.5e-3, the doubled backward
+# 40. Step 1's update (the parameters after it against the one-rank run's
+# of the same kind, over the norm of that run's update): read <= 0.023
+# plain, <= 0.157 compressed (2x2), the doubled backward 0.70. AdamW's first
+# step moves each weight by about lr times its gradient's sign, so this
+# error counts sign flips, and it grows as the depth falls (0.095 at 16
+# layers, 0.157 at 4, 0.214 at 2 for 2x2 compressed): the tied embedding,
+# where 2x2's gradient differs most, holds a larger share of the weights
+# (update_by_leaf: at depth 4, embed.tok 85 % of that error at 0.213, 45 %
+# of the update, no block leaf above 0.093). The cross-entropy
+# control's gradients stay near the one-rank run's (at init the one-hot
+# term dominates the logit gradient: 0.130, grad_norm 1.4e-4, update
+# 0.105); only the loss limits catch it
 TP_RUNS = {(1, 2): (("plain", 3), ("control", 1), ("control_ce", 1), ("compressed", 3)),
            (2, 2): (("plain", 2), ("compressed", 2))}
+# (tp)'s depth: (y)'s model cut to its first 4 of 16 layers (the script's time
+# limit), held to one rank's run of the same depth (``train_reference``); the
+# reference's compression_ratio of that tree (jax.eval_shape)
+TP_DEPTH, TP_RATIO = 4, 49.12487572081925
 TP_LOSS0_TOL = 1e-4
 TP_LOSS_TOL = 2e-2
 TP_GRAD_TOL = 0.15
@@ -399,16 +446,60 @@ TS_RUNS = {2: (((2, 1), ("dense",)),
                          "control_gather"))),
            4: (((2, 2), ("dense", "uniform")),)}
 TS_REF = ROOT / "build" / "chip_smoke_ts_ref.pt"
+# (ts)'s depth: (r)'s model cut to its first 2 of 16 layers (the script's time
+# limit), held to one rank's runs of the same depth (``ts_references``)
+TS_DEPTH = 2
 TS_CLI = ["--mesh", "1x2", "--kv-compress", "16"]
 TS_CONTROL_STEPS = 4
 # gates 1 and 2: prefill's and each teacher-forced decode step's logits
-# against (r)'s, relative to the largest logit: (r)'s SDPA bound, each of the
-# 16 layers rounding its two partial sums to bf16 at other places than one
-# rank does. Set between the sound runs' largest reading and a control's
-# (H100 runs of this script, in PERF.md): prefill read 0.0151 (1x2, 2x2; 0
-# at 2x1), a decode step <= 0.0176 (2x2); the controls 1.15 (_gqa_decode
-# without its sum) and 1.36 (the vocab shards reversed)
+# against one rank's, relative to the largest logit: (r)'s SDPA bound, each
+# of the 16 layers rounding its two partial sums to bf16 at other places than
+# one rank does. Set between the sound runs' largest reading and a
+# control's (H100 runs of this script at TS_DEPTH, NVIDIA H100 80GB HBM3 at
+# 700 W, in PERF.md): prefill read 0.009 (1x2, 2x2; 0 at 2x1), a decode step
+# <= 0.0121; the controls 0.98 (_gqa_decode without its sum) and 1.48 (the
+# vocab shards reversed). At full depth these read 0.0151, 0.0176, 1.15, 1.36
 TS_LOGIT_TOL = SERVE_LOGIT_TOL
+# (ep): expert parallelism and MLA heads on the model axis in gloo ranks
+# sharing this card, right after (t) and (u), whose one-rank runs (tokens,
+# the layer walks' logits and expert choices, margins, gate 1's layer inputs
+# and outputs) reach the ranks through EP_REF, memory-mapped. The two-rank
+# spawn runs 1x2: deepseek-v2-lite's full config served (capacity dispatch,
+# dense cache) with its three controls, kimi-k2 at (u)'s depth 2 dense and
+# compressed, then deepseek trained at EP_TRAIN_DEPTH; the four-rank spawn
+# 2x2: deepseek served and trained. Each rank draws its blocks leaf by leaf
+# (init_params(mesh=)): deepseek whole is 31.4 GB, kimi at depth 2 39.9 GB;
+# a 2x2 rank holds 15.8 GB of deepseek's blocks, EP_RANK_GIB with its
+# prefill's working set and a CUDA context
+EP_REF = ROOT / "build" / "chip_smoke_ep_ref.pt"
+EP_TRAIN_REF = ROOT / "build" / "chip_smoke_ep_train_ref.pt"
+EP_RUNS = {2: ((1, 2), ("ds_serve", "kimi", "ds_train")), 4: ((2, 2), ("ds_serve", "ds_train"))}
+EP_RANK_GIB = 16.5
+# training: deepseek cut to its first 3 of 27 layers (one dense, two MoE: the
+# MoE layers' expert stacks (2, 64, 2048, 1408) are 4-D, which the reference
+# does not compress), (y)'s batches, optimizer and compression settings; the
+# reference's compression_ratio of this tree (jax.eval_shape) and its 18
+# compressible leaves (kernel 4's launches a compressed step a rank). One
+# rank's run of the same depth, in this process, is the reference
+EP_TRAIN_DEPTH, EP_TRAIN_PARAMS = 3, 1_670_133_760
+EP_TRAIN_LEAVES, EP_TRAIN_RATIO = 18, 1.4932004489699509
+EP_TRAIN_RUNS = {(1, 2): (("plain", 2), ("control_gates", 1), ("compressed", 2)),
+                 (2, 2): (("plain", 2),)}
+# gate 1, deepseek's first MoE layer (1) on (t)'s recorded inputs: its FFN
+# ((t)'s gate-2 bound, k weighted terms and their sum rounded to bf16 at other
+# places, plus the model axis's partial sums and their sum) and its MLA mixer
+# (each side rounds the heads' output and w_o's partial sums to bf16)
+EP_MLA_TOL = 4 * 2.0 ** -8
+# gates 2 and 3: TS_LOGIT_TOL's reasoning, each layer's two sums over the
+# model axis rounded to bf16 at other places than one rank's: 27 x 2^-8 for
+# deepseek; kimi at depth 2 takes (ts)'s 16 x 2^-8 as a floor, since its
+# readings with the one-rank expert choices replayed (0.009 prefill, 0.011 a
+# step; H100 runs of this script, in PERF.md) exceed the 2 x 2^-8 its depth
+# alone would give: the vocab-parallel head's bf16 products, rounded at other
+# places, and the embedding weigh as much as its two layers. Each limit lies
+# below its controls' readings (deepseek's 0.27-1.16)
+EP_LOGIT_TOL = {DEEPSEEK_ARCH: 27 * 2.0 ** -8, KIMI_ARCH: TS_LOGIT_TOL}
+EP_SAVE: dict = {}  # (t)'s and (u)'s one-rank records, written to EP_REF by (ep)
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -730,10 +821,11 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     out["countsketch"]["max_abs_err"] = max(out["countsketch"]["max_abs_err"],
                                             countsketch_sp_svd(torch, ops, dev, g, peaks)[0])
     out["twoside_sketch"] = kernel_twoside(torch, ops, peaks, dev, g)
-    out["twoside_sketch_tp"] = kernel_twoside_compress(torch, ops, peaks, dev, g)
+    blocks = kernel_twoside_compress(torch, ops, peaks, dev, g)
+    out["twoside_sketch_tp"] = {k: v for k, v in blocks.items() if k.startswith("tp ")}
+    out["twoside_sketch_ep"] = {k: v for k, v in blocks.items() if k.startswith("ep ")}
     out["twoside_sketch"]["max_abs_err"] = max(
-        [out["twoside_sketch"]["max_abs_err"]]
-        + [v["max_abs_err"] for v in out["twoside_sketch_tp"].values()])
+        [out["twoside_sketch"]["max_abs_err"]] + [v["max_abs_err"] for v in blocks.values()])
     out["countsketch_batched"] = kernel_batched(torch, ops, dev, g, peaks)
     return out
 
@@ -748,7 +840,9 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
     conversion, N = 128 heads (2 repeats x 8 requests x 8 kv-heads of one
     segment position) at head_dim 128, panel 32; (ts)'s rank blocks of
     (s)'s heads: the conversion's 512 heads at 1x2 and 256 at 2x2 (panel 32)
-    and a decode fold's 32 and 16 (one layer, panel 8); the folds' windows from
+    and a decode fold's 32 and 16 (one layer, panel 8); (ep)'s rank blocks of
+    (u)'s heads at 1x2, 32 (8 requests x 4 kv-heads of one layer) at head_dim
+    128, panel 32 and 8; the folds' windows from
     the prompt's end; OSNAP p = 4, s_c = s_r = 96, c0 = 64. Each held against
     its plain version (``force_plain``) with fp32 and bf16 operands: S_C on
     a panel window (gather), the Ω window on the panel's transpose
@@ -771,7 +865,10 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
                            ("decode_fold_ts_1x2", SERVE_B * 8 // 2, SERVE_KC["decode_panel"], 64),
                            ("conversion_ts_2x2", 256, SERVE_KC["panel"], 64),
                            ("decode_fold_ts_2x2", SERVE_B * 8 // 4, SERVE_KC["decode_panel"],
-                            64)):
+                            64),
+                           ("conversion_ep_kimi_1x2", SERVE_B * 8 // 2, SERVE_KC["panel"], 128),
+                           ("decode_fold_ep_kimi_1x2", SERVE_B * 8 // 2,
+                            SERVE_KC["decode_panel"], 128)):
         base = 0 if name.startswith("conversion") else SERVE_S
         S_C = StackedOSNAPSketch.draw(g, N, s, hd, p=p)
         S_R = StackedOSNAPSketch.draw(g, N, s, n_max, p=p).index_windows(L, base)
@@ -830,7 +927,7 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
              library="one index_add_ over item*s + hash buckets of pre-signed rows",
              bound_ms=b, bound_by=by, bytes=nbytes, rel_err={k: v[1] for k, v in errs.items()})
         del panels, signed, acc
-    out = out["conversion"]
+    out = dict(out["conversion"], ep={k: v for k, v in out.items() if "_ep_" in k})
     out["max_abs_err"] = max(e[0] for e in errs.values())
     out["max_rel_err"] = max(e[1] for e in errs.values())
     emit("kernel/countsketch_batched_cases", shape=shapes,
@@ -1195,7 +1292,11 @@ TWOSIDE_TRAIN_SHAPES = (("embed.tok", 1, 128256, 2048, 128256, 2048),
                         ("ffn.w_up", 16, 2048, 8192, 2048, 8192),
                         ("tp embed.tok vocab block", 1, 64128, 2048, 128256, 2048),
                         ("tp ffn.w_up column block", 16, 2048, 4096, 2048, 8192),
-                        ("tp ffn.w_down row block", 16, 4096, 2048, 8192, 2048))
+                        ("tp ffn.w_down row block", 16, 4096, 2048, 8192, 2048),
+                        ("ep mixer.w_q column block", 2, 2048, 1536, 2048, 3072),
+                        ("ep mixer.w_uk column block", 2, 512, 1024, 512, 2048),
+                        ("ep ffn.shared.w_up column block", 2, 2048, 1408, 2048, 2816),
+                        ("ep ffn.shared.w_down row block", 2, 1408, 2048, 2816, 2048))
 
 
 def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
@@ -1203,8 +1304,10 @@ def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
     ``TWOSIDE_TRAIN_SHAPES``): (y)'s embedding gradient, one item of 128256
     x 2048, and w_up's stack, 16 items of 2048 x 8192; and (tp)'s blocks at
     model axis 2, where S_C or S_R^T is a column slice of the whole leaf's
-    sketch; its stream-K plans there (few output tiles, deep k) against the
-    card's slots and their scratch. Returns the (tp) shapes' numbers."""
+    sketch, and (ep)'s: deepseek's MLA and shared-FFN stacks (its 2 MoE
+    layers at (ep)'s training depth) at model axis 2; its stream-K plans
+    there (few output tiles, deep k) against the card's slots and their
+    scratch. Returns the (tp) and (ep) shapes' numbers."""
     ps = importlib.import_module("repro_torch.kernels.panel_score")
     tw = importlib.import_module("repro_torch.kernels.twoside_sketch")
     n_sm = ps.sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
@@ -1239,7 +1342,7 @@ def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
              plain_ms=p_ms, library_ms=lib_ms,
              library="torch.matmul(torch.matmul(S_C, G), S_R^T), fp32 highest", bound_ms=b,
              bound_by=by, tflops=flops / k_ms / 1e9, sms=n_sm, plans=plans)
-        if name.startswith("tp "):
+        if name.startswith(("tp ", "ep ")):
             out[name] = dict(max_abs_err=e_abs, rel_err=e_rel, ms=k_ms, plain_ms=p_ms,
                              library_ms=lib_ms, bound_ms=b, bound_by=by)
         del sc, a, srt, got, want
@@ -2737,7 +2840,7 @@ def mesh_rank(rank: int, world: int, init: str, jobs: dict, out_q) -> None:
             results[name] = res
             del merged, state0
             torch.cuda.empty_cache()
-        out_q.put((rank, results))
+        out_q.put((rank, on_host(torch, results)))
     finally:
         dist.all_reduce = real
         dist.destroy_process_group()
@@ -2746,6 +2849,30 @@ def mesh_rank(rank: int, world: int, init: str, jobs: dict, out_q) -> None:
         # then keeps A and K on the card for every later phase
         jobs.clear()
         torch.cuda.synchronize()
+
+
+def on_host(torch, obj):
+    """``obj`` with every tensor in it as a numpy array: a rank's results
+    pickled by value, which reach the parent after the rank has exited (a
+    tensor would go by a file descriptor of the rank's, gone with it)."""
+    if torch.is_tensor(obj):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: on_host(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(on_host(torch, v) for v in obj)
+    return obj
+
+
+def from_host(torch, obj):
+    """:func:`on_host` undone: every numpy array in ``obj`` a tensor again."""
+    if type(obj).__name__ == "ndarray":
+        return torch.from_numpy(obj)
+    if isinstance(obj, dict):
+        return {k: from_host(torch, v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(from_host(torch, v) for v in obj)
+    return obj
 
 
 def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0, target=None) -> dict:
@@ -2768,7 +2895,7 @@ def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0, target=No
         while len(results) < world:
             try:
                 rank, out = out_q.get(timeout=1.0)
-                results[rank] = out
+                results[rank] = from_host(torch, out)  # the ranks send numpy (on_host)
             except queue.Empty:
                 procs.join(timeout=0)  # raises if a rank failed
                 check(time.monotonic() < deadline, f"mesh W={world}: ranks did not report")
@@ -3168,14 +3295,9 @@ def phase_serve(torch, ops, dev) -> list:
     _, cache = prefill(model, cfg, prompt, n_max)
     emit("profile/r_decode_8_steps", **serve_profile(torch, model, cfg, cache, toks_r))
     del cache
-    z_r = graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "r", control=True)
-    # what (ts)'s ranks are held to: (r)'s and (s)'s one-rank runs
-    ts_ref = dict(prompt=prompt.cpu(), r=ts_reference(torch, model, cfg, prompt, True),
-                  r_cache_nbytes=dense_bytes, z_r=z_r["step_profile"]["graph"],
-                  sampled_tokens=generate(model, cfg, prompt, SERVE_T,
-                                          gen=gen(torch, dev, SEED + 110),
-                                          temperature=Z_TEMPERATURE).cpu())
-    check(torch.equal(ts_ref["r"]["tokens"], toks_r.cpu()), "(r): a second run's tokens differ")
+    graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "r", control=True)
+    check(torch.equal(generate(model, cfg, prompt, SERVE_T), toks_r),
+          "(r): a second run's tokens differ")
 
     dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
     n_folds = (SERVE_T - 1) // dp  # per layer, over the decode steps
@@ -3237,19 +3359,60 @@ def phase_serve(torch, ops, dev) -> list:
              peak_mem_over_resident_gib=peak, launches=launched[-1])
         del comp, dense, errs, opts
         torch.cuda.empty_cache()
-        ts_ref[f"s_{mode}"] = dict(ts_reference(torch, model, cfg, prompt, False,
-                                                gen=gen(torch, dev, SEED + 62), kv_compress=kc),
-                                   cache_nbytes=comp_bytes)
-        check(torch.equal(ts_ref[f"s_{mode}"]["tokens"], toks.cpu()),
+        check(torch.equal(generate(model, cfg, prompt, SERVE_T, gen=gen(torch, dev, SEED + 62),
+                                   kv_compress=kc), toks),
               f"(s) {mode}: a second run's tokens differ")
         if not adaptive:
             graph_gate(torch, ops, model, cfg, prompt, SERVE_T, "s", kv_compress=kc)
     emit("serve/s_synthetic", **serve_synthetic(torch, ops, dev))
     del model
     torch.cuda.empty_cache()
+    ts_ref = ts_references(torch, dev)
     TS_REF.parent.mkdir(parents=True, exist_ok=True)
     torch.save(ts_ref, TS_REF)
     return launched
+
+
+def ts_references(torch, dev) -> dict:
+    """What (ts)'s ranks are held to: one rank's runs of (r)'s model cut to
+    its first ``TS_DEPTH`` layers (drawn from (r)'s seed: the embedding and
+    those layers are (r)'s) on (r)'s requests — dense (tokens, margins,
+    prefill's and each step's logits; run twice, the same tokens), sampled
+    at (z)'s temperature, (s)'s compression uniform and adaptive (tokens,
+    margins, the conversion's cache bytes), the dense cache's bytes and a
+    replayed decode graph step's profile."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache, generate
+
+    full = get_arch(SERVE_ARCH).full_config()
+    cfg = dataclasses.replace(full, n_layers=TS_DEPTH, pattern=full.pattern[:TS_DEPTH])
+    model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B, SERVE_S), generator=gen(torch, dev,
+                                                                               SEED + 61),
+                           device=dev)
+    n_max = SERVE_S + SERVE_T
+    ref = dict(prompt=prompt.cpu(), depth=TS_DEPTH,
+               r=ts_reference(torch, model, cfg, prompt, True),
+               r_cache_nbytes=cache_nbytes(init_cache(cfg, SERVE_B, n_max, device=dev)),
+               sampled_tokens=generate(model, cfg, prompt, SERVE_T,
+                                       gen=gen(torch, dev, SEED + 110),
+                                       temperature=Z_TEMPERATURE).cpu(),
+               z_r=step_profile(torch, lambda hook: generate(
+                   model, cfg, prompt, Z_PROFILE_STEP + 2, on_step=hook), Z_PROFILE_STEP))
+    check(torch.equal(generate(model, cfg, prompt, SERVE_T).cpu(), ref["r"]["tokens"]),
+          "(ts) one rank: a second run's tokens differ")
+    for adaptive in (False, True):
+        kc = KVCompressionConfig(**SERVE_KC, adaptive=adaptive)
+        _, dense = prefill(model, cfg, prompt, n_max)
+        comp = compress_prefill_cache(gen(torch, dev, SEED + 62), cfg, dense, kc)
+        ref[f"s_{'adaptive' if adaptive else 'uniform'}"] = dict(
+            ts_reference(torch, model, cfg, prompt, False, gen=gen(torch, dev, SEED + 62),
+                         kv_compress=kc), cache_nbytes=cache_nbytes(comp))
+        del dense, comp
+    del model
+    torch.cuda.empty_cache()
+    return ref
 
 
 def ts_margin(logits):
@@ -3320,14 +3483,17 @@ def walk_stack(torch, blocks, specs, cfg, x, mix) -> tuple:
     return x, recs
 
 
-def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None, kc=None) -> tuple:
+def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None, kc=None,
+                  logits_out=None) -> tuple:
     """``generate``'s greedy run again, block by block through
     :func:`walk_stack`, eagerly: the prompt, then a decode step on each of
     ``toks`` but the last (``convert`` turns the prefilled cache into the
     decode cache, as ``kv_compress=kc`` does; its steps take ``kc``'s
     phases). Returns the routing records of the prefill and of the decode
     steps, and the share of steps whose argmax is ``generate``'s next token
-    (1 when the walk is the same computation)."""
+    (1 when the walk is the same computation). ``logits_out``, a list,
+    receives the logits of prefill's last position and of each step (fp32,
+    on the host)."""
     from repro_torch.models import layer_specs
     from repro_torch.models import blocks as blk
     from repro_torch.models.layers import embed_tokens, lm_logits, rmsnorm
@@ -3342,7 +3508,10 @@ def walk_generate(torch, model, cfg, prompt, toks, n_max: int, convert=None, kc=
 
     def next_token(x):
         h = rmsnorm(model.final_norm, x[:, -1:], cfg.norm_eps)
-        return torch.argmax(lm_logits(model.embed, h, cfg), dim=-1).to(torch.int32)
+        logits = lm_logits(model.embed, h, cfg)
+        if logits_out is not None:
+            logits_out.append(logits.float().cpu())
+        return torch.argmax(logits, dim=-1).to(torch.int32)
 
     x, pre_recs = walk_stack(torch, model.blocks, specs, cfg,
                              embed_tokens(model.embed.tok, prompt), pre)
@@ -3507,8 +3676,13 @@ def phase_deepseek(torch, ops, dev) -> list:
           and int(toks.max()) < cfg.vocab_size, "(t): tokens out of range")
     # the dispatch statistics: generate's run again, block by block, each MoE
     # layer's routing taken on its input; the walk must give generate's tokens
-    pre_recs, dec_recs, walk_agree = walk_generate(torch, model, cfg, prompt, toks, n_max)
+    walk_logits = []
+    pre_recs, dec_recs, walk_agree = walk_generate(torch, model, cfg, prompt, toks, n_max,
+                                                   logits_out=walk_logits)
     check(walk_agree == 1.0, f"(t): the layer walk agrees with generate on {walk_agree} of steps")
+    EP_SAVE["t"] = ep_one_rank(torch, prompt, toks, walk_logits, pre_recs, dec_recs,
+                               layer=ep_layer_record(torch, model, cfg, prompt, n_max))
+    del walk_logits
     pre, dec = route_stats(torch, pre_recs), route_stats(torch, dec_recs)
     n_moe = sum(spec.ffn == "moe" for spec in cfg.pattern)
     check(pre["layers"] == n_moe and pre["groups"] == [16] and pre["capacity"] == [120],
@@ -3646,10 +3820,16 @@ def phase_kimi(torch, ops, dev) -> list:
               and int(toks.max()) < cfg.vocab_size, f"(u) {mode}: tokens out of range")
         conv = None if mode == "dense" else (  # generate's conversion, from the same seed
             lambda c: compress_prefill_cache(gen(torch, dev, SEED + 86), cfg, c, kc))
+        walk_logits = []
         pre_recs, dec_recs, walk_agree = walk_generate(torch, model, cfg, prompt, toks, n_max,
-                                                       convert=conv, kc=kc)
+                                                       convert=conv, kc=kc,
+                                                       logits_out=walk_logits)
         check(walk_agree == 1.0,
               f"(u) {mode}: the layer walk agrees with generate on {walk_agree} of steps")
+        EP_SAVE[f"u_{mode}"] = ep_one_rank(torch, prompt, toks, walk_logits, pre_recs, dec_recs,
+                                           keep_logits=mode == "dense",
+                                           kernel1=launched[-1]["countsketch_batched"])
+        del walk_logits
         runs[mode] = dict(prefill_ms=t_u["prefill"], convert_ms=t_u["convert"],
                           **decode_rate(t_u, st_u, SERVE_B),
                           peak_mem_over_resident_gib=(torch.cuda.max_memory_allocated()
@@ -3680,6 +3860,8 @@ def phase_kimi(torch, ops, dev) -> list:
     ratio = errs / opts
     check(bool((errs >= opts * (1 - OPT_SLACK)).all()), "(u): a head beats its optimal error")
     comp_bytes = cache_nbytes(comp)
+    EP_SAVE["u_compressed"]["cache_nbytes"] = comp_bytes
+    EP_SAVE["u_compressed"]["error_over_optimal"] = [float(ratio.min()), float(ratio.max())]
     dense_bytes = cache_nbytes(init_cache(cfg, SERVE_B, n_max, device=dev))
     toks_d, toks_c = runs["dense"].pop("tokens"), runs["compressed"].pop("tokens")
     emit("serve/u_kimi", arch=cfg.name, depth=KIMI_DEPTH, full_depth=full.n_layers,
@@ -4220,8 +4402,7 @@ def train_cli(torch) -> dict:
 def phase_train(torch, ops, dev) -> list:
     """(y): llama3.2-1b's full config trained 8 steps, plain and compressed
     (a world of one rank), from one seeded initial state; gates (1)-(5) and
-    kernel 4's launches (8 a compressed step). Step 1's loss and gradients
-    and each run's parameters after step 1 are (tp)'s references."""
+    kernel 4's launches (8 a compressed step)."""
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.device import fold_in
@@ -4250,16 +4431,9 @@ def phase_train(torch, ops, dev) -> list:
     ratio = compression_ratio(model, ccfg)
     check(ratio == TRAIN_RATIO, f"(y): compression_ratio {ratio} != the reference's {TRAIN_RATIO}")
     init = {k: v.detach().cpu() for k, v in model.named_parameters()}  # off the card
-    # (tp)'s references: step 1's loss and gradients, and the parameters after it
-    loss0, grads0 = train_grads(torch, model, cfg, batches[0], remat="dots")
-    grads0 = {k: v.cpu() for k, v in grads0.items()}
-    params1 = {}
 
     def plain_step(s, b, i):
-        out = step(s, b)
-        if i == 0:
-            params1.update({k: v.detach().cpu() for k, v in model.named_parameters()})
-        return out
+        return step(s, b)
 
     step = make_train_step(cfg, oc, remat="dots")
     state = {"params": model, "opt": init_opt_state(model, oc)}
@@ -4274,27 +4448,17 @@ def phase_train(torch, ops, dev) -> list:
     with torch.no_grad():
         for k, p in model.named_parameters():
             p.copy_(init[k])
-    update_sq = sum(float(torch.sum((params1[k].double() - init[k].double()) ** 2))
-                    for k in params1)  # |step 1's update|^2, (tp)'s yardstick
+    del init
     torch.cuda.empty_cache()
 
-    params1c = {}
-
     def compressed_step(s, b, i):
-        out = cstep(s, b, fold_in(9, i))
-        if i == 0:
-            params1c.update({k: v.detach().cpu() for k, v in model.named_parameters()})
-        return out
+        return cstep(s, b, fold_in(9, i))
 
     cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, remat="dots")
     state = {"params": model, "opt": init_opt_state(model, oc), "err": init_err(model)}
     state, comp, launched = train_run(torch, ops, compressed_step, state, batches, resident)
     profile, state = compressed_step_profile(torch, cstep, state, batches[0],
                                              fold_in(9, TRAIN_STEPS))
-    # |step 1's compressed update|^2, the compressed (tp) runs' yardstick
-    update_sq_c = sum(float(torch.sum((params1c[k].double() - init[k].double()) ** 2))
-                      for k in params1c)
-    del init
     check(launched["twoside_sketch"] == TRAIN_LEAVES * TRAIN_STEPS,
           f"(y): kernel 4 launched {launched['twoside_sketch']} times, not "
           f"{TRAIN_LEAVES * TRAIN_STEPS}")
@@ -4327,16 +4491,7 @@ def phase_train(torch, ops, dev) -> list:
          compressed_step_profile=profile, gates=dict(**gates, reconstruction=recon,
                                                      reconstruction_tol=TRAIN_RECON_TOL,
                                                      cli=cli))
-    # (tp)'s ranks read their blocks of these from a file (memory-mapped): no
-    # copy of them stays on the card
-    TP_REF.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({"grads0": grads0, "params1": params1, "params1c": params1c}, TP_REF)
-    del grads0, params1, params1c
-    return [launched], dict(loss0=loss0, update_sq=update_sq, update_sq_c=update_sq_c,
-                            plain_losses=plain["losses"],
-                            plain_grad_norms=plain["grad_norms"],
-                            compressed_losses=comp["losses"],
-                            compressed_grad_norms=comp["grad_norms"])
+    return [launched]
 
 
 class CollectiveCounter:
@@ -4366,15 +4521,18 @@ class CollectiveCounter:
         return {k: dict(calls=c, bytes=b, ms=ms) for k, (c, b, ms) in self.rec.items()}
 
 
-def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter, dev) -> dict:
-    """One (tp) run on this rank: (y)'s initial model made whole, cut by
-    ``shard_params``; step 1's gradients and loss (``control``: with
+def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter, dev,
+           seed: int = SEED + 100) -> dict:
+    """One (tp) or (ep) training run on this rank: the initial model of
+    ``seed`` ((y)'s, or (ep)'s one-rank run's), this rank's blocks drawn leaf
+    by leaf; step 1's gradients and loss (``control``: with
     ``reduce_from_tp``'s backward all-reducing again, in them and in the
     step; ``control_ce``: with ``cross_entropy``'s sum of exponentials over
-    the model axis left out) against (y)'s, then ``steps`` steps of (y)'s
-    batches (this rank's data-parallel share); each step's CUDA-event ms,
-    metrics, collectives and kernel-4 launches, step 1's parameters against
-    (y)'s of the same kind."""
+    the model axis left out; ``control_gates``: the MoE gates not passed
+    through ``copy_to_tp``) against the one-rank run's, then ``steps`` steps
+    of (y)'s batches (this rank's data-parallel share); each step's
+    CUDA-event ms, metrics, collectives and kernel-4 launches, step 1's
+    parameters against the one-rank run's of the same kind."""
     import torch.distributed as dist
 
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4392,8 +4550,7 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
                for i in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    model = init_params(gen(torch, dev, SEED + 100), cfg, device=dev)
-    sh.shard_params(model, rules, mesh)
+    model = init_params(gen(torch, dev, seed), cfg, device=dev, mesh=mesh)
     torch.cuda.empty_cache()
     blocks = sh.tp_names(model, rules, mesh)
 
@@ -4410,9 +4567,14 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
 
     oc = OptimizerConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 10 + 1),
                          total_steps=TRAIN_STEPS)
+    from repro_torch.models import moe as moe_mod
     from repro_torch.train import train_step as ts
 
     real_backward, real_reduce = sh._ReduceFromTP.backward, ts.reduce_from_tp
+    real_copy = moe_mod.copy_to_tp
+    if kind == "control_gates":
+        # the gates (T, k) skip copy_to_tp; the experts' input keeps it
+        moe_mod.copy_to_tp = lambda x: x if x.shape[-1] == cfg.moe_top_k else real_copy(x)
     if kind == "control_ce":
         # cross_entropy sums over the model axis twice, the exponentials
         # first: leave that sum out, so each rank's softmax sees its block
@@ -4470,6 +4632,7 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
                 update_sq = sq_err(named, "params1c" if kind == "compressed" else "params1")
     finally:
         sh._ReduceFromTP.backward, ts.reduce_from_tp = real_backward, real_reduce
+        moe_mod.copy_to_tp = real_copy
     out = dict(kind=kind, steps=recs, loss0=loss0, grad_sq=grad_sq, update_sq=update_sq,
                blocks=sorted(blocks), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                tp_index=mesh.index("model"), dp_index=at)
@@ -4505,7 +4668,8 @@ def tp_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
         counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
                                                   "data": mesh.group("data")})
         dist.all_reduce = counter
-        cfg = get_arch(TRAIN_ARCH).full_config()
+        full = get_arch(TRAIN_ARCH).full_config()
+        cfg = dataclasses.replace(full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH])
         ref = torch.load(TP_REF, mmap=True, map_location="cpu", weights_only=True)
         results = {}
         for kind, steps in TP_RUNS[job["mesh"]]:
@@ -4520,19 +4684,21 @@ def tp_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
             results["cli"] = dict(steps_run=rep.steps_run, restarts=rep.restarts,
                                   losses=[float(x) for x in rep.losses],
                                   wall_s=time.perf_counter() - t0)
-        out_q.put((rank, results))
+        out_q.put((rank, on_host(torch, results)))
     finally:
         dist.destroy_process_group()
 
 
-def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str) -> dict:
-    """(tp)'s gates over one run's ranks, against (y)'s run of the same kind:
-    step 1's loss, the largest relative gradient error, grad_norm, every
-    step's loss, step 1's update; a block counted once over the data axis, a
-    replicated leaf once. Returns the errors; a control must fail a gate,
-    any other run pass them all."""
+def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str, watch: tuple = ()) -> dict:
+    """(tp)'s gates over one run's ranks, against (y)'s run of the same kind
+    (or (ep)'s one-rank run): step 1's loss, the largest relative gradient
+    error, grad_norm, every step's loss, step 1's update; a block counted
+    once over the data axis, a replicated leaf once; the relative error of
+    each leaf whose name holds a ``watch`` string. Returns the errors; a
+    control must fail a gate (``control_gates`` the router gradient's), any
+    other run pass them all."""
     first = per_rank[0]
-    grad_d, grad_w, upd_d = {}, {}, 0.0
+    grad_d, grad_w, upd = {}, {}, {}
     for r in per_rank.values():
         if r["dp_index"]:
             continue
@@ -4542,24 +4708,39 @@ def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str) -> dict:
                 grad_w[k] = grad_w.get(k, 0.0) + ww
         for k, (dd, _) in r["update_sq"].items():
             if k in r["blocks"] or r["tp_index"] == 0:
-                upd_d += dd
-    grad_err = max(math.sqrt(grad_d[k] / max(grad_w[k], 1e-300)) for k in grad_d)
-    worst_leaf = max(grad_d, key=lambda k: grad_d[k] / max(grad_w[k], 1e-300))
+                upd[k] = upd.get(k, 0.0) + dd
+    leaf = {k: math.sqrt(grad_d[k] / max(grad_w[k], 1e-300)) for k in grad_d}
+    grad_err = max(leaf.values())
+    worst_leaf = max(leaf, key=leaf.get)
     which = "compressed" if kind == "compressed" else "plain"
+    upd_d, c = sum(upd.values()), "_c" if kind == "compressed" else ""
+    ref_upd, ref_upd_leaf = ref[f"update_sq{c}"], ref[f"update_sq{c}_leaf"]
     losses = [x["loss"] for x in first["steps"]]
     errs = dict(loss0_rel_err=abs(first["loss0"] / ref["loss0"] - 1),
                 grad_rel_err=grad_err, worst_grad_leaf=worst_leaf,
                 grad_norm_rel_err=abs(first["steps"][0]["grad_norm"]
                                       / ref[f"{which}_grad_norms"][0] - 1),
                 loss_rel_err=max(abs(a / b - 1) for a, b in zip(losses, ref[f"{which}_losses"])),
-                update_rel_err=math.sqrt(upd_d / ref["update_sq_c" if kind == "compressed"
-                                                     else "update_sq"]))
+                update_rel_err=math.sqrt(upd_d / ref_upd),
+                # where step 1's update error lies: the three leaves with the
+                # largest share of it, each with its own relative error and
+                # its share of the one-rank run's update
+                update_by_leaf={k: dict(rel_err=math.sqrt(upd[k] / max(ref_upd_leaf[k], 1e-300)),
+                                        share_of_error=upd[k] / max(upd_d, 1e-300),
+                                        share_of_update=ref_upd_leaf[k] / ref_upd)
+                                for k in sorted(upd, key=upd.get, reverse=True)[:3]})
     limits = dict(loss0_rel_err=TP_LOSS0_TOL, grad_rel_err=TP_GRAD_TOL,
                   grad_norm_rel_err=TP_GRAD_NORM_TOL, loss_rel_err=TP_LOSS_TOL,
                   update_rel_err=TP_UPDATE_TOL)
     failed = [k for k, tol in limits.items() if not errs[k] <= tol]
     errs["failed"] = failed
-    if kind.startswith("control"):
+    if watch:
+        errs["watched_grad_rel_err"] = {k: v for k, v in leaf.items() if any(w in k for w in watch)}
+    if kind == "control_gates":
+        router = max(v for k, v in leaf.items() if k.endswith("router"))
+        errs["router_grad_rel_err"] = router
+        check(router > TP_GRAD_TOL, f"(tp) {name}: the router gradient passes: {router}")
+    elif kind.startswith("control"):
         check(failed, f"(tp) {name}: the control passes the gates: {errs}")
     else:
         check(not failed, f"(tp) {name}: {errs} (limits {limits})")
@@ -4569,18 +4750,28 @@ def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str) -> dict:
     return errs
 
 
-def phase_tp(torch, ops, dev, ref: dict, kernel4_tp: dict) -> list:
-    """(tp): tensor parallelism of (y)'s model, llama3.2-1b at full width, in
-    gloo ranks spawned on this one card (NCCL cannot put two ranks of a group
-    on one GPU; gloo stages the collectives through the host): 1x2 plain
-    against (y)'s plain steps and its two controls, 1x2 compressed against (y)'s
-    compressed steps (only the model axis's sums act), 2x2 plain and
-    compressed (the compressed step's data-axis bytes below the plain
-    step's), then the CLI at --mesh 2x2 --grad-compress through a crash.
-    (y)'s step-1 gradients and parameters reach the ranks through a file
-    (``TP_REF``), each rank reading its blocks. Returns the ranks' launches."""
+def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
+    """(tp): tensor parallelism of (y)'s model, llama3.2-1b at full width cut
+    to ``TP_DEPTH`` layers, in gloo ranks spawned on this one card (NCCL
+    cannot put two ranks of a group on one GPU; gloo stages the collectives
+    through the host): 1x2 plain against one rank's plain steps of the same
+    model and its two controls, 1x2 compressed against its compressed steps
+    (only the model axis's sums act), 2x2 plain and compressed (the
+    compressed step's data-axis bytes below the plain step's), then the CLI
+    at --mesh 2x2 --grad-compress through a crash. The one-rank run's step-1
+    gradients and parameters reach the ranks through a file (``TP_REF``),
+    each rank reading its blocks. Returns the ranks' launches."""
     import gc
 
+    from repro_torch.configs import get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_arch(TRAIN_ARCH).full_config()
+    ref = train_reference(torch, ops, dev, dataclasses.replace(
+        full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH]), SEED + 100, TP_REF,
+        TRAIN_LEAVES, TP_RATIO, "tp")
+    emit("train/tp_one_rank_reference", **ref["one_rank"])
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
@@ -4611,8 +4802,8 @@ def phase_tp(torch, ops, dev, ref: dict, kernel4_tp: dict) -> list:
                     check(all(n == TRAIN_LEAVES for ks in k4 for n in ks),
                           f"(tp) {name}: kernel 4 launched {k4} a step, not {TRAIN_LEAVES}")
                     ratios = [x["comp/ratio"] for rs in recs for x in rs]
-                    check(all(abs(r / TRAIN_RATIO - 1) <= 1e-6 for r in ratios),
-                          f"(tp) {name}: comp/ratio {ratios} != {TRAIN_RATIO}")
+                    check(all(abs(r / TP_RATIO - 1) <= 1e-6 for r in ratios),
+                          f"(tp) {name}: comp/ratio {ratios} != {TP_RATIO}")
                 else:
                     check(not any(n for ks in k4 for n in ks), f"(tp) {name}: kernel 4 {k4}")
                 if not kind.startswith("control"):
@@ -4659,15 +4850,15 @@ def phase_tp(torch, ops, dev, ref: dict, kernel4_tp: dict) -> list:
     return launched
 
 
-def ts_tokens_gate(toks, ref: dict, rows: slice) -> dict:
+def ts_tokens_gate(toks, ref: dict, rows: slice, limit: float = TS_LOGIT_TOL) -> dict:
     """Gate 3: greedy tokens equal to the one-rank run's for each request up
     to the first token whose logits there had a top-2 margin below
-    ``TS_LOGIT_TOL`` of their largest logit (where the roundings of another
+    ``limit`` of their largest logit (where the roundings of another
     summation order may flip the argmax)."""
     want, margins = ref["tokens"][rows], ref["margins"][rows]
     got = toks.cpu()
-    small = margins < TS_LOGIT_TOL
-    first = [int(row.nonzero()[0]) if bool(row.any()) else SERVE_T for row in small]
+    small = margins < limit
+    first = [int(row.nonzero()[0]) if bool(row.any()) else want.shape[1] for row in small]
     equal_before = all(bool((got[b, :k] == want[b, :k]).all()) for b, k in enumerate(first))
     return dict(first_small_margin_step=first, equal_before_it=equal_before,
                 tokens_equal=int((got == want).sum()), tokens=int(got.numel()))
@@ -4846,7 +5037,8 @@ def ts_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
     real = dist.all_reduce
     try:
         ref = torch.load(TS_REF, mmap=True, map_location="cpu", weights_only=True)
-        cfg = get_arch(SERVE_ARCH).full_config()
+        full = get_arch(SERVE_ARCH).full_config()
+        cfg = dataclasses.replace(full, n_layers=TS_DEPTH, pattern=full.pattern[:TS_DEPTH])
         results = {}
         with torch.no_grad():
             model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev)
@@ -4868,7 +5060,7 @@ def ts_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
 
                 out, wall = host_s(torch, lambda: serve_main(TS_CLI))
                 results["cli"] = dict(tokens=out.cpu(), wall_s=wall)
-        out_q.put((rank, results))
+        out_q.put((rank, on_host(torch, results)))
     finally:
         dist.all_reduce = real
         dist.destroy_process_group()
@@ -4943,14 +5135,11 @@ def phase_ts(torch, ops, dev) -> list:
     resident = torch.cuda.memory_allocated()
     emit("serve/ts_memory", parent_allocated_gib=resident / 2**30,
          card_free_gib=torch.cuda.mem_get_info()[0] / 2**30)
-    from repro_torch.configs import get_arch
-
     ref = torch.load(TS_REF, mmap=True, map_location="cpu", weights_only=True)
     dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
     n_folds = (SERVE_T - 1) // dp
     per_conv = 2 * (SERVE_S // SERVE_KC["panel"] * 4 + 2)  # as (s): constant in heads
-    want_k1 = per_conv + get_arch(SERVE_ARCH).full_config().n_layers * (
-        n_folds * 2 * 4 + n_folds * dp // every * 2 * 2)
+    want_k1 = per_conv + TS_DEPTH * (n_folds * 2 * 4 + n_folds * dp // every * 2 * 2)
     launched = []
     try:
         for world in (2, 4):
@@ -5020,6 +5209,642 @@ def phase_ts(torch, ops, dev) -> list:
     finally:
         del ref
         TS_REF.unlink(missing_ok=True)
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# (ep): expert parallelism and MLA heads on the model axis
+# ---------------------------------------------------------------------------
+
+
+def ep_one_rank(torch, prompt, toks, walk_logits, pre_recs, dec_recs, keep_logits: bool = True,
+                **extra) -> dict:
+    """A one-rank serve run as (ep)'s ranks read it, on the host: the prompt
+    and tokens, each token's top-2 margin (prefill's logits, then each
+    step's), prefill's logits and (``keep_logits``) each step's, and every
+    MoE call's expert choices (prefill: (T, k) a MoE layer; decode:
+    (steps, MoE layers, B, k)); ``extra`` as given."""
+    n_moe = len(pre_recs)
+    out = dict(prompt=prompt.cpu(), tokens=toks.cpu(),
+               margins=torch.stack([ts_margin(lg) for lg in walk_logits], 1),
+               prefill_logits=walk_logits[0],
+               experts_pre=[r["experts"].to(torch.int16).cpu() for r in pre_recs],
+               experts_dec=torch.stack([r["experts"].to(torch.int16).cpu() for r in dec_recs])
+               .reshape(len(dec_recs) // n_moe, n_moe, *dec_recs[0]["experts"].shape),
+               dropped_share=route_stats(torch, pre_recs)["dropped_share"], **extra)
+    if keep_logits:
+        out["logits"] = torch.stack(walk_logits[1:])
+    return out
+
+
+def ep_layer_record(torch, model, cfg, prompt, n_max: int) -> dict:
+    """(ep) gate 1's one-rank side, on the host: deepseek's first MoE layer
+    over (t)'s prompt — its MLA mixer's input and output, its FFN's input
+    and output, the routing's expert choices and the dispatch's slots and
+    keep bits (each assignment in token-major, then top-k order)."""
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import layer_specs
+    from repro_torch.models.layers import embed_tokens, rmsnorm
+    from repro_torch.models.mla import mla_prefill
+    from repro_torch.models.moe import dispatch_groups, dispatch_slots, moe_ffn
+
+    specs = layer_specs(cfg)
+    i = next(j for j, spec in enumerate(specs) if spec.ffn == "moe")
+    x = embed_tokens(model.embed.tok, prompt)
+    for b, spec in zip(model.blocks[:i], specs[:i]):
+        x, _ = blk.block_prefill(b, spec, cfg, x, n_max)
+    b = model.blocks[i]
+    h = rmsnorm(b.norm1, x, cfg.norm_eps)
+    y, _ = mla_prefill(b.mixer, h, cfg, n_max)
+    u = rmsnorm(b.norm2, x + y, cfg.norm_eps)
+    out, r = moe_ffn(b.ffn, u, cfg)
+    P, cap = dispatch_groups(u.shape[0] * u.shape[1], cfg)
+    slot, keep = dispatch_slots(r.experts, P, cap, cfg.n_experts)
+    return dict(layer=i, mla_in=h.cpu(), mla_out=y.cpu(), moe_in=u.cpu(), moe_out=out.cpu(),
+                experts=r.experts.to(torch.int16).cpu(), slot=slot.reshape(-1).to(torch.int16).cpu(),
+                keep=keep.reshape(-1).cpu(), groups=P, capacity=cap)
+
+
+def ep_forced(torch, sh, mesh, model, cfg, ref: dict, rows: slice, dev, counter) -> dict:
+    """Gate 2 on this rank: prefill's logits over its rows and every decode
+    step's fed the one-rank run's tokens, against that run's, relative to
+    the largest logit, with the one-rank run's expert choices taken in place
+    of its own (``moe.forced_experts``) and each MoE call's own choices
+    counted against them (flipped assignments); the cache's bytes; each
+    step's host ms and collectives. On random weights the ranks' own
+    choices flip 4-26 % of a layer's assignments (H100 runs of this script,
+    in PERF.md), so the logits are held with the choices replayed."""
+    from repro_torch.models import decode_step, moe, prefill
+    from repro_torch.serve import cache_nbytes
+
+    n_steps = ref["logits"].shape[0]
+    S = ref["prompt"].shape[1]
+    cache_len = S + ref["logits"].shape[0] + 1
+    prompt = ref["prompt"][rows].to(dev)
+    n_moe = len(ref["experts_pre"])
+    tok_rows = slice(rows.start * S, rows.stop * S)
+    choices = [e[tok_rows] for e in ref["experts_pre"]]
+    choices += [ref["experts_dec"][t, j, rows] for t in range(n_steps) for j in range(n_moe)]
+    ms, coll = [], []
+    with sh.activation_sharding(mesh), moe.forced_experts(choices) as flips:
+        lg0, cache = prefill(model, cfg, prompt, cache_len)
+        pre = err(lg0, ref["prefill_logits"][rows].to(dev))[1]
+        nbytes = cache_nbytes(cache)
+        errs = []
+        for t in range(n_steps):
+            before = counter.read()
+            lg, t_s = host_s(torch, lambda: decode_step(  # noqa: B023
+                model, cfg, cache, ref["tokens"][rows, t:t + 1].to(dev))[0])
+            errs.append(err(lg, ref["logits"][t][rows].to(dev))[1])
+            ms.append(1e3 * t_s)
+            coll.append(ts_collectives(counter.read(), before, 1))
+    flips = [int(f) for f in flips[:n_moe * (n_steps + 1)]]
+    del cache
+    out = dict(prefill_rel_err=pre, step_rel_err=errs,
+               flips_prefill_by_layer=flips[:n_moe], flips_decode=sum(flips[n_moe:]),
+               flips_decode_by_step=[sum(flips[n_moe + t * n_moe:n_moe + (t + 1) * n_moe])
+                                     for t in range(n_steps)], cache_nbytes=nbytes)
+    if ms:
+        out.update(forced_step_host_ms=median(ms), forced_step_collectives=coll[len(coll) // 2])
+    return out
+
+
+def ep_serve(torch, ops, sh, mesh, model, cfg, ref: dict, counter, dev, n_new: int, limit: float,
+             kc=None, seed: int = SEED + 140) -> dict:
+    """One ``generate`` on this rank under the mesh, its launch counts and
+    collectives reset just before: its tokens (gate 3), CUDA-event times,
+    collectives, launches and peak memory."""
+    import torch.distributed as dist
+
+    from repro_torch.serve import generate
+
+    d, di = mesh.shape["data"], mesh.index("data")
+    rows = slice(di * SERVE_B // d, (di + 1) * SERVE_B // d)
+    prompt = ref["prompt"][rows].to(dev)
+    with sh.activation_sharding(mesh):
+        generate(model, cfg, prompt[:, :64], 2, kv_compress=kc)  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        counter.reset()
+        ops.reset_launches()
+        t, st = {}, {}
+        toks = generate(model, cfg, prompt, n_new, gen=gen(torch, dev, seed), kv_compress=kc,
+                        timings=t, stats=st)
+        torch.cuda.synchronize()
+    return dict(tokens=toks.cpu(), timings=t, stats=st, rate=decode_rate(t, st, prompt.shape[0]),
+                collectives=counter.read(), launches=dict(ops.LAUNCHES),
+                peak_gib=(torch.cuda.max_memory_allocated() - resident) / 2**30,
+                resident_gib=resident / 2**30, tokens_gate=ts_tokens_gate(toks, ref, rows, limit),
+                dp_index=di, tp_index=mesh.index("model"))
+
+
+def ep_layer_gate(torch, sh, mesh, model, cfg, ref: dict, dev, controls: bool) -> dict:
+    """Gate 1 on this rank: the first MoE layer's routing, dispatch and
+    output, and its MLA mixer's output, on (t)'s recorded inputs over the
+    rank's rows. A choice that differs from the one-rank run's is a near
+    tie where the rank's own probabilities of the two experts lie within
+    1e-4 of each other, relatively (fp32 products in another order). With
+    ``controls`` also the two outputs with their ``reduce_from_tp`` left out
+    (the MoE combine's, MLA's after ``w_o``), which must fail the gate."""
+    from repro_torch.models import mla, moe
+    from repro_torch.models.mla import mla_prefill
+
+    lay = ref["layer"]
+    blk = model.blocks[lay["layer"]]
+    d, di = mesh.shape["data"], mesh.index("data")
+    Bl, k = SERVE_B // d, cfg.moe_top_k
+    T = Bl * SERVE_S
+    u = lay["moe_in"][di * Bl:(di + 1) * Bl].to(dev)
+    want_e = lay["experts"][di * T:(di + 1) * T].to(dev).long()
+    asg = slice(di * T * k, (di + 1) * T * k)
+    want_slot, want_keep = lay["slot"][asg].to(dev).long(), lay["keep"][asg].to(dev)
+    with sh.activation_sharding(mesh):
+        r = moe.route(blk.ffn, u.reshape(T, -1), cfg)
+        _, slot_own, keep_own, P, cap = moe.dispatch_plan(r.experts, cfg)
+        _, slot_w, keep_w, _, _ = moe.dispatch_plan(want_e, cfg)
+        out, _ = moe.moe_ffn(blk.ffn, u, cfg)
+        h = lay["mla_in"][di * Bl:(di + 1) * Bl].to(dev)
+        y, _ = mla_prefill(blk.mixer, h, cfg, SERVE_S)
+        ctl = {}
+        if controls:
+            for name, mod, fn in (("moe_combine_unreduced", moe, lambda: moe.moe_ffn(blk.ffn, u, cfg)),
+                                  ("mla_unreduced", mla, lambda: mla_prefill(blk.mixer, h, cfg,
+                                                                             SERVE_S))):
+                real = mod.reduce_from_tp
+                mod.reduce_from_tp = lambda x: x
+                try:
+                    got = fn()[0]
+                finally:
+                    mod.reduce_from_tp = real
+                want = lay["moe_out" if name.startswith("moe") else "mla_out"]
+                ctl[name] = err(got, want[di * Bl:(di + 1) * Bl].to(dev))[1]
+    differ = r.experts != want_e
+    p_own = torch.gather(r.probs, 1, r.experts)
+    p_want = torch.gather(r.probs, 1, want_e)
+    gap = ((p_own - p_want).abs() / torch.maximum(p_own, p_want))[differ]
+    ties = int((gap <= 1e-4).sum())
+    return dict(experts_equal=bool(torch.equal(r.experts, want_e)),
+                flipped_assignments=int(differ.sum()), flipped_tokens=int(differ.any(-1).sum()),
+                near_tie_flips=ties, other_flips=int(differ.sum()) - ties,
+                largest_flip_gap=float(gap.max()) if gap.numel() else 0.0,
+                own_slots_keep_equal=bool(torch.equal(slot_own, want_slot)
+                                          and torch.equal(keep_own, want_keep)),
+                slots_keep_equal_given_choices=bool(torch.equal(slot_w, want_slot)
+                                                    and torch.equal(keep_w, want_keep)),
+                dropped_own=int((~keep_own).sum()), dropped_given_choices=int((~keep_w).sum()),
+                assignments=T * k, groups=P, capacity=cap,
+                moe_rel_err=err(out, lay["moe_out"][di * Bl:(di + 1) * Bl].to(dev))[1],
+                mla_rel_err=err(y, lay["mla_out"][di * Bl:(di + 1) * Bl].to(dev))[1],
+                controls=ctl)
+
+
+def ep_controls(torch, sh, mesh, model, cfg, ref: dict, dev, names: tuple) -> dict:
+    """Serve controls at 1x2, each a prefill whose logits must fail gate 2's
+    limit: ``moe_combine_unreduced``, the MoE combine without its
+    ``reduce_from_tp``; ``every_rank_expert_block_0``, every rank taking
+    expert block 0's assignments (with its own block's weights)."""
+    from repro_torch.models import moe, prefill
+
+    real = dict(moe_reduce=moe.reduce_from_tp, local=moe._local_experts)
+    patches = {
+        "moe_combine_unreduced": lambda: setattr(moe, "reduce_from_tp", lambda x: x),
+        "every_rank_expert_block_0": lambda: setattr(
+            moe, "_local_experts", lambda p, c: (0, real["local"](p, c)[1])),
+    }
+    prompt = ref["prompt"].to(dev)
+    out = {}
+    for name in names:
+        patches[name]()
+        try:
+            with sh.activation_sharding(mesh):
+                lg, _ = prefill(model, cfg, prompt, SERVE_S + 1)
+        finally:
+            moe.reduce_from_tp, moe._local_experts = real["moe_reduce"], real["local"]
+        out[name] = err(lg, ref["prefill_logits"].to(dev))[1]
+    return out
+
+
+def ep_kimi_compressed(torch, sh, mesh, model, cfg, ref: dict, dev) -> dict:
+    """Gate 4's conversion alone on this rank, from (u)'s seed: each of its
+    heads' error over its optimum, ``cache_nbytes``."""
+    from repro_torch.models import prefill
+    from repro_torch.serve import KVCompressionConfig, cache_nbytes, compress_prefill_cache
+
+    kc = KVCompressionConfig(**SERVE_KC)
+    with sh.activation_sharding(mesh):
+        _, dense = prefill(model, cfg, ref["prompt"].to(dev), SERVE_S + KIMI_T)
+        comp = compress_prefill_cache(gen(torch, dev, SEED + 87), cfg, dense, kc)
+    errs, opts = serve_errors(torch, cfg, dense, comp)
+    ratio = errs / opts
+    out = dict(heads=int(errs.numel()), error_over_optimal=[float(ratio.min()),
+                                                            float(ratio.max())],
+               beats_optimum=bool((errs < opts * (1 - OPT_SLACK)).any()),
+               cache_nbytes=cache_nbytes(comp))
+    del dense, comp
+    return out
+
+
+def ep_serve_runs(torch, ops, sh, mesh, arch: str, ref: dict, counter, dev) -> dict:
+    """This rank's (ep) serve runs of ``arch`` (its blocks drawn leaf by leaf
+    from (t)'s or (u)'s seed): deepseek — gate 1, ``generate``, gates 2-3,
+    at 1x2 the controls; kimi — ``generate`` dense and compressed, gates
+    2-3 dense, gate 4."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serve import KVCompressionConfig
+
+    cfg = get_arch(arch).full_config()
+    if arch == KIMI_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=KIMI_DEPTH, pattern=cfg.pattern[:KIMI_DEPTH])
+    seed = SEED + (80 if arch == DEEPSEEK_ARCH else 84)
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, seed), cfg, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    d, di = mesh.shape["data"], mesh.index("data")
+    rows = slice(di * SERVE_B // d, (di + 1) * SERVE_B // d)
+    limit = EP_LOGIT_TOL[arch]
+    out = {}
+    if arch == DEEPSEEK_ARCH:
+        r = ref["t"]
+        out["ds_layer"] = ep_layer_gate(torch, sh, mesh, model, cfg, r, dev,
+                                        controls=mesh.shape["data"] == 1)
+        out["ds_dense"] = ep_serve(torch, ops, sh, mesh, model, cfg, r, counter, dev, SERVE_T,
+                                   limit)
+        out["ds_dense"]["forced"] = ep_forced(torch, sh, mesh, model, cfg, r, rows, dev, counter)
+        if mesh.shape["data"] == 1:
+            out["ds_controls"] = ep_controls(torch, sh, mesh, model, cfg, r, dev,
+                                             ("every_rank_expert_block_0",))
+    else:
+        kc = KVCompressionConfig(**SERVE_KC)
+        out["kimi_dense"] = ep_serve(torch, ops, sh, mesh, model, cfg, ref["u_dense"], counter,
+                                     dev, KIMI_T, limit, seed=SEED + 86)
+        out["kimi_dense"]["forced"] = ep_forced(torch, sh, mesh, model, cfg, ref["u_dense"],
+                                                rows, dev, counter)
+        out["kimi_compressed"] = ep_serve(torch, ops, sh, mesh, model, cfg, ref["u_compressed"],
+                                          counter, dev, KIMI_T, limit, kc=kc, seed=SEED + 86)
+        out["kimi_compressed"].update(ep_kimi_compressed(torch, sh, mesh, model, cfg,
+                                                         ref["u_compressed"], dev))
+        out["kimi_controls"] = ep_controls(torch, sh, mesh, model, cfg, ref["u_dense"], dev,
+                                           ("moe_combine_unreduced", "every_rank_expert_block_0"))
+    for key in ("ds_dense", "kimi_dense", "kimi_compressed"):
+        if key in out:
+            out[key]["init_s"] = init_s
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
+    """One gloo rank of (ep) on the card: the runs of ``EP_RUNS[world]`` at its
+    mesh, the model and data axes' all-reduces counted."""
+    import datetime
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    build.build_all()  # loads the libraries the parent built
+    dev = torch.device(job["device"])
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=900))
+    real = dist.all_reduce
+    try:
+        shape, runs = EP_RUNS[world]
+        mesh = make_host_mesh(*shape)
+        counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                                  "data": mesh.group("data")})
+        dist.all_reduce = counter
+        results = {}
+        with torch.no_grad():
+            ref = torch.load(EP_REF, mmap=True, map_location="cpu", weights_only=True)
+            for run in runs:
+                if run == "ds_serve":
+                    results.update(ep_serve_runs(torch, ops, sh, mesh, DEEPSEEK_ARCH, ref,
+                                                 counter, dev))
+                elif run == "kimi":
+                    results.update(ep_serve_runs(torch, ops, sh, mesh, KIMI_ARCH, ref, counter,
+                                                 dev))
+            del ref
+        if "ds_train" in runs:
+            full = get_arch(DEEPSEEK_ARCH).full_config()
+            cfg = dataclasses.replace(full, n_layers=EP_TRAIN_DEPTH,
+                                      pattern=full.pattern[:EP_TRAIN_DEPTH])
+            ref = torch.load(EP_TRAIN_REF, mmap=True, map_location="cpu", weights_only=True)
+            for kind, steps in EP_TRAIN_RUNS[shape]:
+                results[f"train_{kind}"] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref,
+                                                  counter, dev, seed=SEED + 130)
+            del ref
+        out_q.put((rank, on_host(torch, results)))
+    finally:
+        dist.all_reduce = real
+        dist.destroy_process_group()
+
+
+def train_reference(torch, ops, dev, cfg, seed: int, path, leaves: int, ratio: float,
+                    what: str, steps: int = 3) -> dict:
+    """A mesh phase's one-rank training run, in this process: ``cfg`` from
+    ``seed``, step 1's loss and gradients, then ``steps`` plain and
+    compressed steps from that state on (y)'s batches, optimizer and
+    compression settings; kernel 4 ``leaves`` times a compressed step and
+    ``comp/ratio`` the reference's ``ratio``. The gradients and each kind's
+    parameters after step 1 go to ``path`` (memory-mapped by the ranks,
+    which read their blocks); returns the losses, grad norms and the
+    squared norms of step 1's updates."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.device import fold_in
+    from repro_torch.models import init_params, param_count
+    from repro_torch.train import (CompressionConfig, OptimizerConfig, compression_ratio,
+                                   init_opt_state, make_compressed_train_step, make_train_step)
+
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S,
+                                  seed=SEED), device=dev)
+    batches = [data.batch_at(i) for i in range(steps)]
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    model = init_params(gen(torch, dev, seed), cfg, device=dev)
+    n_params = param_count(model)
+    oc = OptimizerConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 10 + 1),
+                         total_steps=TRAIN_STEPS)
+    ccfg = CompressionConfig(**TRAIN_CCFG)
+    got_ratio = compression_ratio(model, ccfg)
+    check(got_ratio == ratio, f"({what}) one rank: compression_ratio {got_ratio} != {ratio}")
+    # the initial weights stay on the card: step 1's updates are summed there
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    loss0, grads0 = train_grads(torch, model, cfg, batches[0], remat="dots")
+    grads0 = {k: v.cpu() for k, v in grads0.items()}
+    params1, params1c, update_sq = {}, {}, {}
+
+    def keep_step1(into: dict, kind: str) -> None:
+        named = dict(model.named_parameters())
+        update_sq[kind] = {k: float(torch.sum((named[k].detach().double() - w.double()) ** 2))
+                           for k, w in init.items()}
+        into.update({k: v.detach().to("cpu", copy=True) for k, v in named.items()})
+
+    def plain_step(st, b, i):
+        out = step(st, b)
+        if i == 0:
+            keep_step1(params1, "plain")
+        return out
+
+    step = make_train_step(cfg, oc, remat="dots")
+    state = {"params": model, "opt": init_opt_state(model, oc)}
+    state, plain, _ = train_run(torch, ops, plain_step, state, batches, resident)
+    del state
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(init[k])
+    torch.cuda.empty_cache()
+
+    def compressed_step(st, b, i):
+        out = cstep(st, b, fold_in(9, i))
+        if i == 0:
+            keep_step1(params1c, "compressed")
+        return out
+
+    cstep, init_err = make_compressed_train_step(cfg, oc, ccfg, remat="dots")
+    state = {"params": model, "opt": init_opt_state(model, oc), "err": init_err(model)}
+    state, comp, launched = train_run(torch, ops, compressed_step, state, batches, resident)
+    check(launched["twoside_sketch"] == leaves * steps,
+          f"({what}) one rank: kernel 4 launched {launched['twoside_sketch']} times")
+    check(all(abs(r / ratio - 1) <= 1e-6 for r in comp["comp/ratio"]),
+          f"({what}) one rank: comp/ratio {comp['comp/ratio']}")
+    out = dict(loss0=loss0, update_sq=sum(update_sq["plain"].values()),
+               update_sq_c=sum(update_sq["compressed"].values()),
+               update_sq_leaf=update_sq["plain"], update_sq_c_leaf=update_sq["compressed"],
+               plain_losses=plain["losses"], plain_grad_norms=plain["grad_norms"],
+               compressed_losses=comp["losses"], compressed_grad_norms=comp["grad_norms"],
+               one_rank=dict(params=n_params, depth=cfg.n_layers, compression_ratio=got_ratio,
+                             plain_step_ms=plain["step_ms"], compressed_step_ms=comp["step_ms"],
+                             plain_peak_gib=plain["peak_gib"], compressed_peak_gib=comp["peak_gib"],
+                             kernel4_launches=launched["twoside_sketch"]))
+    del state, model, init
+    torch.cuda.empty_cache()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"grads0": grads0, "params1": params1, "params1c": params1c}, path)
+    return out
+
+
+def _ep_serve_gates(name: str, per_rank: dict, limit: float) -> dict:
+    """Gates 2-3 over one (ep) serve run's ranks: the logits within ``limit``
+    with the one-rank expert choices replayed (the ranks' own flips beside);
+    tokens equal up to each request's first small margin; a model group's
+    tokens equal."""
+    groups = {}
+    for r in per_rank.values():
+        groups.setdefault(r["dp_index"], []).append(r["tokens"])
+    check(all(all(torch_equal(t, ts[0]) for t in ts) for ts in groups.values()),
+          f"(ep) {name}: ranks of a model-axis group returned different tokens")
+    toks = [r["tokens_gate"] for r in per_rank.values()]
+    check(all(g["equal_before_it"] for g in toks), f"(ep) {name}: tokens differ: {toks}")
+    recs = [r["forced"] for r in per_rank.values()]
+    rep = dict(prefill_rel_err=max(x["prefill_rel_err"] for x in recs),
+               step_rel_err=max(max(x["step_rel_err"]) for x in recs),
+               flips_prefill_by_layer=[x["flips_prefill_by_layer"] for x in recs],
+               flips_decode=[x["flips_decode"] for x in recs])
+    check(rep["prefill_rel_err"] <= limit and rep["step_rel_err"] <= limit,
+          f"(ep) {name}: logits with the one-rank choices replayed {rep} (limit {limit})")
+    return dict(tokens=toks, limit=limit, replayed=rep)
+
+
+def phase_ep(torch, ops, dev, kernels_ep: dict) -> list:
+    """(ep): expert parallelism and MLA heads on the model axis in gloo ranks
+    spawned on this one card (NCCL cannot put two ranks of a group on one
+    GPU; gloo stages the collectives through the host): deepseek-v2-lite's
+    full config served at 1x2 (and its controls) and 2x2, kimi-k2 at depth 2
+    at 1x2 dense and compressed, deepseek trained at ``EP_TRAIN_DEPTH`` at
+    1x2 plain (and its control) and compressed and at 2x2 plain, against
+    (t)'s and (u)'s runs and one rank's training run. Returns the ranks'
+    launches."""
+    import gc
+
+    from repro_torch.configs import get_arch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    full = get_arch(DEEPSEEK_ARCH).full_config()
+    train_ref = train_reference(torch, ops, dev, dataclasses.replace(
+        full, n_layers=EP_TRAIN_DEPTH, pattern=full.pattern[:EP_TRAIN_DEPTH]), SEED + 130,
+        EP_TRAIN_REF, EP_TRAIN_LEAVES, EP_TRAIN_RATIO, "ep", steps=2)
+    check(train_ref["one_rank"]["params"] == EP_TRAIN_PARAMS,
+          f"(ep) one rank: {train_ref['one_rank']['params']} parameters")
+    emit("train/ep_one_rank_reference", s=time.perf_counter() - t0, **train_ref["one_rank"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(EP_SAVE, EP_REF)
+    ref = {k: dict(dropped_share=v["dropped_share"], kernel1=v.get("kernel1"),
+                   cache_nbytes=v.get("cache_nbytes"),
+                   error_over_optimal=v.get("error_over_optimal"))
+           for k, v in EP_SAVE.items()}
+    n_moe_t = len(EP_SAVE["t"]["experts_pre"])
+    lay = EP_SAVE["t"]["layer"]
+    one_rank_drops = int((~lay["keep"]).sum())
+    EP_SAVE.clear()
+    free_gib = torch.cuda.mem_get_info()[0] / 2**30
+    emit("ep/memory", parent_allocated_gib=torch.cuda.memory_allocated() / 2**30,
+         card_free_gib=free_gib, reckoned_2x2_gib=4 * EP_RANK_GIB)
+    check(free_gib >= 4 * EP_RANK_GIB, f"(ep): {free_gib} GiB free; 2x2 needs 4 x {EP_RANK_GIB}")
+    launched = []
+    try:
+        for world in (2, 4):
+            shape, runs = EP_RUNS[world]
+            tag = f"{shape[0]}x{shape[1]}"
+            results, wall = host_s(torch, lambda: spawn_ranks(  # noqa: B023
+                torch, world, dict(device=str(dev)), 1200.0, ep_rank))
+            per = lambda key: {r: results[r][key] for r in range(world)}  # noqa: E731, B023
+            if "ds_serve" in runs:
+                lays = per("ds_layer")
+                moe_tol = (get_arch(DEEPSEEK_ARCH).full_config().moe_top_k + 3) * 2.0 ** -8
+                moe_err = max(x["moe_rel_err"] for x in lays.values())
+                mla_err = max(x["mla_rel_err"] for x in lays.values())
+                check(moe_err <= moe_tol and mla_err <= EP_MLA_TOL,
+                      f"(ep) {tag} gate 1: MoE layer {moe_err} (limit {moe_tol}), MLA {mla_err} "
+                      f"(limit {EP_MLA_TOL})")
+                check(all(x["slots_keep_equal_given_choices"] for x in lays.values()),
+                      f"(ep) {tag} gate 1: slots or keep differ given the one-rank choices")
+                if shape[0] == 1:  # the rank routes (t)'s rows: bitwise
+                    check(all(x["experts_equal"] and x["own_slots_keep_equal"]
+                              for x in lays.values()), f"(ep) {tag} gate 1: routing not bitwise")
+                check(all(x["other_flips"] == 0 for x in lays.values()),
+                      f"(ep) {tag} gate 1: choices differ beyond near ties: {lays}")
+                model0 = [x for r, x in lays.items() if results[r]["ds_dense"]["tp_index"] == 0]
+                drops = sum(x["dropped_given_choices"] for x in model0)
+                check(drops == one_rank_drops,
+                      f"(ep) {tag} gate 1: {drops} drops over the data ranks, one rank "
+                      f"{one_rank_drops}")
+                gates = _ep_serve_gates(f"{tag}_deepseek", per("ds_dense"),
+                                        EP_LOGIT_TOL[DEEPSEEK_ARCH])
+                dense = per("ds_dense")
+                first = dense[0]
+                emit(f"serve/ep_{tag}_deepseek", mesh=list(shape), backend="gloo on one card",
+                     route=first["stats"]["route"], requests_per_rank=SERVE_B // shape[0],
+                     gates=gates, layer_gate=dict(
+                         per_rank=lays, moe_limit=moe_tol, mla_limit=EP_MLA_TOL,
+                         drops_over_data_ranks=drops, one_rank_drops=one_rank_drops,
+                         assignments=sum(x["assignments"] for x in model0),
+                         one_rank_dropped_share=ref["t"]["dropped_share"]),
+                     prefill_ms_per_rank=[r["timings"]["prefill"] for r in dense.values()],
+                     decode_ms_per_token_per_rank=[r["rate"]["decode_ms_per_token"]
+                                                   for r in dense.values()],
+                     generate_collectives_rank0=first["collectives"],
+                     decode_step_collectives_rank0=first["forced"]["forced_step_collectives"],
+                     forced_step_host_ms_rank0=first["forced"]["forced_step_host_ms"],
+                     peak_gib_per_rank=[r["peak_gib"] for r in dense.values()],
+                     resident_gib_per_rank=[r["resident_gib"] for r in dense.values()],
+                     cache_nbytes_per_rank=first["forced"]["cache_nbytes"],
+                     t_cache_nbytes=DEEPSEEK_LATENT_BYTES, init_s_per_rank=[
+                         r["init_s"] for r in dense.values()],
+                     moe_layers=n_moe_t, timing="CUDA events in each rank", rate_rank0=first["rate"])
+                launched += [r["launches"] for r in dense.values()]
+                if shape[0] == 1:
+                    ctl = per("ds_controls")
+                    worst = {c: min(x[c] for x in ctl.values()) for c in ctl[0]}
+                    check(all(v > EP_LOGIT_TOL[DEEPSEEK_ARCH] for v in worst.values()),
+                          f"(ep) a control passes gate 2: {worst}")
+                    lay_ctl = {c: min(x["controls"][c] for x in lays.values())
+                               for c in lays[0]["controls"]}
+                    check(lay_ctl["moe_combine_unreduced"] > moe_tol
+                          and lay_ctl["mla_unreduced"] > EP_MLA_TOL,
+                          f"(ep) a layer control passes gate 1: {lay_ctl}")
+                    emit(f"serve/ep_{tag}_deepseek_controls", prefill_rel_err_least_rank=worst,
+                         limit=EP_LOGIT_TOL[DEEPSEEK_ARCH], layer_rel_err_least_rank=lay_ctl,
+                         layer_limits=dict(moe=moe_tol, mla=EP_MLA_TOL), failed=True)
+            if "kimi" in runs:
+                limit = EP_LOGIT_TOL[KIMI_ARCH]
+                ctl = per("kimi_controls")
+                worst = {c: min(x[c] for x in ctl.values()) for c in ctl[0]}
+                check(all(v > limit for v in worst.values()),
+                      f"(ep) a kimi control passes gate 2: {worst}")
+                emit(f"serve/ep_{tag}_kimi_controls", prefill_rel_err_least_rank=worst,
+                     limit=limit, failed=True)
+                for mode in ("dense", "compressed"):
+                    runs_k = per(f"kimi_{mode}")
+                    first = runs_k[0]
+                    fields = {}
+                    if mode == "dense":
+                        fields["gates"] = _ep_serve_gates(f"{tag}_kimi_dense", runs_k, limit)
+                    else:
+                        toks = [r["tokens_gate"] for r in runs_k.values()]
+                        check(all(g["equal_before_it"] for g in toks),
+                              f"(ep) {tag} kimi compressed: tokens differ: {toks}")
+                        k1 = [r["launches"]["countsketch_batched"] for r in runs_k.values()]
+                        check(all(n == ref["u_compressed"]["kernel1"] for n in k1),
+                              f"(ep) {tag} kimi compressed: kernel 1 launched {k1}, (u) "
+                              f"{ref['u_compressed']['kernel1']}")
+                        check(not any(r["beats_optimum"] for r in runs_k.values()),
+                              f"(ep) {tag} kimi compressed: a head beats its optimal error")
+                        fields.update(tokens=toks, kernel1_launches_per_rank=k1,
+                                      u_kernel1_launches=ref["u_compressed"]["kernel1"],
+                                      error_over_optimal_per_rank=[
+                                          r["error_over_optimal"] for r in runs_k.values()],
+                                      u_error_over_optimal=ref["u_compressed"]["error_over_optimal"],
+                                      cache_nbytes_per_rank=first["cache_nbytes"],
+                                      u_cache_nbytes=ref["u_compressed"]["cache_nbytes"],
+                                      heads_per_rank=first["heads"])
+                    launched += [r["launches"] for r in runs_k.values()]
+                    emit(f"serve/ep_{tag}_kimi_{mode}", mesh=list(shape),
+                         backend="gloo on one card", route=first["stats"]["route"],
+                         prefill_ms_per_rank=[r["timings"]["prefill"] for r in runs_k.values()],
+                         convert_ms_rank0=first["timings"].get("convert"),
+                         decode_ms_per_token_per_rank=[r["rate"]["decode_ms_per_token"]
+                                                       for r in runs_k.values()],
+                         generate_collectives_rank0=first["collectives"],
+                         peak_gib_per_rank=[r["peak_gib"] for r in runs_k.values()],
+                         timing="CUDA events in each rank", **fields)
+            if "ds_train" in runs:
+                for kind, steps in EP_TRAIN_RUNS[shape]:
+                    per_rank = per(f"train_{kind}")
+                    name = f"{tag}_{kind}"
+                    gates = _tp_gates(f"ep {name}", per_rank, train_ref, kind,
+                                      watch=("router", "w_dkv"))
+                    recs = [r["steps"] for r in per_rank.values()]
+                    k4 = [[x["kernel4"] for x in rs] for rs in recs]
+                    if kind == "compressed":
+                        check(all(n == EP_TRAIN_LEAVES for ks in k4 for n in ks),
+                              f"(ep) {name}: kernel 4 launched {k4} a step, not "
+                              f"{EP_TRAIN_LEAVES}")
+                        ratios = [x["comp/ratio"] for rs in recs for x in rs]
+                        check(all(abs(r / EP_TRAIN_RATIO - 1) <= 1e-6 for r in ratios),
+                              f"(ep) {name}: comp/ratio {ratios} != {EP_TRAIN_RATIO}")
+                    else:
+                        check(not any(n for ks in k4 for n in ks), f"(ep) {name}: kernel 4 {k4}")
+                    if not kind.startswith("control"):
+                        for rs in recs:
+                            totals = {}
+                            for x in rs:
+                                for key, v in x["launches"].items():
+                                    totals[key] = totals.get(key, 0) + v
+                            launched.append(totals)
+                    ms = [median([x["ms"] for x in rs[1:]] or [rs[0]["ms"]]) for rs in recs]
+                    emit(f"train/ep_{name}", mesh=list(shape), depth=EP_TRAIN_DEPTH,
+                         backend="gloo on one card", steps=len(recs[0]),
+                         step_ms_median_per_rank=ms,
+                         tokens_per_s=TRAIN_B * TRAIN_S / max(ms) * 1e3,
+                         peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+                         losses=[x["loss"] for x in recs[0]],
+                         grad_norms=[x["grad_norm"] for x in recs[0]],
+                         comp={k: [x[k] for x in recs[0]] for k in recs[0][0]
+                               if k.startswith("comp/")},
+                         collectives_per_step_rank0=[x["collectives"] for x in recs[0]],
+                         kernel4_launches_per_step=k4, gates=gates,
+                         step_ms_rank0=[x["ms"] for x in recs[0]],
+                         one_rank_step_ms=train_ref["one_rank"]["compressed_step_ms" if kind ==
+                                                                 "compressed" else "plain_step_ms"])
+            emit(f"ep/{tag}_spawn", spawn_to_exit_s=wall)
+    finally:
+        EP_REF.unlink(missing_ok=True)
+        EP_TRAIN_REF.unlink(missing_ok=True)
+    emit("ep/kernels", **kernels_ep)
     return launched
 
 
@@ -5122,17 +5947,20 @@ def main() -> int:
         mark("t: deepseek")
         runs_launches += phase_kimi(torch, ops, dev)
         mark("u: kimi")
+        with torch.enable_grad():  # its one-rank training run
+            runs_launches += phase_ep(torch, ops, dev, dict(
+                kernel4_blocks=kernels["twoside_sketch_ep"],
+                kernel1_rank_heads=kernels["countsketch_batched"]["ep"]))
+        mark("ep: expert parallel")
         runs_launches += phase_mamba(torch, ops, dev)
         mark("v: mamba2")
         runs_launches += phase_zamba(torch, ops, dev)
         mark("w: zamba2")
         runs_launches += phase_vision(torch, ops, dev)
         mark("x: vision")
-    launched_y, tp_ref = phase_train(torch, ops, dev)
-    runs_launches += launched_y
+    runs_launches += phase_train(torch, ops, dev)
     mark("y: train")
-    runs_launches += phase_tp(torch, ops, dev, tp_ref, kernels["twoside_sketch_tp"])
-    del tp_ref
+    runs_launches += phase_tp(torch, ops, dev, kernels["twoside_sketch_tp"])
     mark("tp: tensor parallel")
     for launches in runs_launches:
         for k, v in launches.items():

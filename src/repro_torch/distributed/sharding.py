@@ -29,14 +29,33 @@ outside :func:`activation_sharding` or at model axis 1.
   vocab. (The reference's rules read a scanned dense FFN stack (L, D, F)
   as MoE experts by its rank and put its layer axis over ``model``;
   :func:`param_pspecs` returns those specs as they are.)
-* The run time takes only the dense stack (``ATTN``, ``ATTN_LOCAL``, dense
-  FFN) and only whole shards: whole heads, equal FFN and vocab blocks
-  (:func:`check_tp`). Where the rules would replicate a dim they lay out
-  over ``model``, or a block would split a head, it raises; it never runs
-  a replicated weight as though it were split.
+* A MoE layer's ``(E, D, Fe)`` / ``(E, Fe, D)`` expert tensors are true
+  expert stacks in the port (each layer its own leaf): they are cut on the
+  expert dim by ``_MOE_LAYOUTS``' ``ep``; its ``shared`` FFN takes the
+  dense FFN's rules; the ``router`` stays whole. MLA's ``w_q``, ``w_uk``
+  and ``w_uv`` are cut by columns, which are whole heads, ``w_o`` by rows;
+  ``w_dkv`` stays whole, and so does the latent cache.
+* The run time takes ``ATTN``, ``ATTN_LOCAL`` and ``MLA`` mixers with dense
+  or MoE FFNs, and only whole shards: whole heads, equal FFN, expert,
+  shared-expert and vocab blocks (:func:`check_tp`). Mamba-2, shared and
+  cross attention and a modality input raise at model axis > 1. Where the
+  rules would replicate a dim they lay out over ``model``, or a block would
+  split a head, it raises; it never runs a replicated weight as though it
+  were split. :func:`cut_at_init` draws a model leaf by leaf, each cut to
+  the rank's block at once, so a model that does not fit the card whole
+  never sits there.
 * The context is a module global, not a context variable: the autograd
   engine's device threads run the backward and ``torch.utils.checkpoint``'s
   recomputation, which must see it too.
+
+**The data axes.** A context computes what the reference's SPMD program
+computes over the global batch (``jit`` with the batch sharded over
+``data``): the MoE capacity dispatch groups and ranks each assignment as
+the global batch's run does, and the Switch aux loss reads the global
+top-1 counts (:func:`global_batch_group`). ``per_shard=True`` computes
+each data rank's loss, dispatch and aux over its own rows, as the
+reference's ``shard_map`` over the data axes does (the compressed train
+step).
 
 **Serving** runs under the same context. A data rank holds its rows of the
 batch (:func:`shard_batch`) and of every cache; a model rank holds its KV
@@ -58,8 +77,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "ParallelismRules", "activation_sharding", "batch_pspec", "block",
-           "cache_pspec", "check_tp", "copy_to_tp", "dp_index", "explain", "gather_tp",
-           "leaf_pspec", "param_pspecs", "reduce_from_tp", "ref_path", "shard_batch",
+           "cache_pspec", "check_tp", "copy_to_tp", "cut_at_init", "dp_index", "explain",
+           "gather_tp", "global_batch_group", "leaf_pspec", "param_pspecs", "reduce_from_tp", "ref_path", "shard_batch",
            "shard_cache", "shard_params", "spec_block", "spec_str", "tp_cut", "tp_cuts",
            "tp_group", "tp_index", "tp_names"]
 
@@ -339,22 +358,35 @@ def _check_run_rules(rules: ParallelismRules) -> None:
 
 
 def check_tp(cfg, m: int) -> None:
-    """Raise unless ``cfg`` runs at model axis ``m`` in whole shards: only
-    the dense stack (``ATTN``, ``ATTN_LOCAL``, dense FFN, no shared or
-    cross attention, no modality input) at ``m > 1``, with the query and
-    KV heads, the FFN width and the vocab each a multiple of ``m``."""
-    from ..models.config import ATTN, ATTN_LOCAL, DENSE
+    """Raise unless ``cfg`` runs at model axis ``m`` in whole shards. At
+    ``m > 1`` the mixers must be ``ATTN``, ``ATTN_LOCAL`` or ``MLA`` and the
+    FFNs dense or MoE, with no modality input (``MAMBA2``, ``SHARED_ATTN``,
+    ``CROSS`` and ``d_vision > 0`` raise ``NotImplementedError``, naming
+    ``ROADMAP.md``); the query heads, the vocab and, where the pattern has
+    them, the KV heads (GQA), the FFN width (dense), the experts and the
+    shared experts' width (MoE) must each be a multiple of ``m``
+    (``ValueError`` otherwise)."""
+    from ..models.config import ATTN, ATTN_LOCAL, DENSE, MLA, MOE
 
     if m == 1:
         return
-    kinds = sorted({(s.mixer, s.ffn) for s in cfg.pattern})
-    if any(mx not in (ATTN, ATTN_LOCAL) or f != DENSE for mx, f in kinds) or cfg.d_vision:
+    mixers, ffns = {s.mixer for s in cfg.pattern}, {s.ffn for s in cfg.pattern}
+    if mixers - {ATTN, ATTN_LOCAL, MLA} or ffns - {DENSE, MOE} or cfg.d_vision:
+        kinds = sorted({(s.mixer, s.ffn) for s in cfg.pattern})
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism at model axis {m} runs the dense stack only "
-            f"(ATTN, ATTN_LOCAL, dense FFN); its blocks are {kinds}. MoE, MLA, Mamba-2, "
-            "shared and cross attention wait in ROADMAP.md §1")
-    for what, n in (("query heads", cfg.n_heads), ("KV heads", cfg.n_kv_heads),
-                    ("FFN width", cfg.d_ff), ("vocab", cfg.vocab_size)):
+            f"{cfg.name}: tensor parallelism at model axis {m} runs ATTN, ATTN_LOCAL and MLA "
+            f"mixers with dense or MoE FFNs; its blocks are {kinds}. Mamba-2, shared and cross "
+            "attention and a modality input wait in ROADMAP.md §1")
+    sizes = [("query heads", cfg.n_heads), ("vocab", cfg.vocab_size)]
+    if mixers & {ATTN, ATTN_LOCAL}:
+        sizes.append(("KV heads", cfg.n_kv_heads))
+    if DENSE in ffns:
+        sizes.append(("FFN width", cfg.d_ff))
+    if MOE in ffns:
+        sizes.append(("experts", cfg.n_experts))
+        if cfg.n_shared_experts:
+            sizes.append(("shared-expert width", cfg.n_shared_experts * cfg.d_ff_expert))
+    for what, n in sizes:
         if n % m:
             raise ValueError(f"{cfg.name}: {n} {what} do not split into {m} whole shards; the "
                              "run time never splits a head or replicates a sharded dim")
@@ -457,6 +489,48 @@ def shard_params(params, rules: ParallelismRules, mesh):
             for name, v in params.items()}
 
 
+def _init_layout_path(module, name: str, ndim: int) -> tuple:
+    # the path _layout reads for a parameter registered on ``module``: the
+    # expert stacks (>= 3-D) of a module that declares an ``expert_layout``
+    # prefix by that layout, the rest by their own name
+    prefix = getattr(module, "expert_layout", None)
+    return (prefix, name) if prefix is not None and ndim >= 3 else ref_path(name)
+
+
+@contextlib.contextmanager
+def cut_at_init(mesh, rules: Optional[ParallelismRules] = None):
+    """Within it, every parameter a module registers is cut at once to this
+    rank's block on the model axis, as :func:`shard_params` cuts it: a
+    model drawn here is drawn leaf by leaf from its generator in the init
+    order, each leaf whole, its block kept and the whole freed before the
+    next draw, so its blocks equal a whole model's blocks bit for bit and
+    the whole model never sits on the device (the counterpart of the
+    reference placing its weights by ``param_shardings``). Used through
+    :func:`~repro_torch.models.init_params`'s ``mesh=``."""
+    from torch import nn
+
+    rules = (rules or ParallelismRules()).with_mesh(mesh)
+    if mesh.shape[rules.tp_axis] == 1:
+        yield
+        return
+    _check_run_rules(rules)
+
+    def hook(module, name, p):
+        if p is None:
+            return None
+        cut = tp_cut(_init_layout_path(module, name, p.dim()), p.shape, rules, mesh)
+        if cut is None:
+            return None
+        with torch.no_grad():
+            return nn.Parameter(block(p.data, cut), requires_grad=p.requires_grad)
+
+    handle = nn.modules.module.register_module_parameter_registration_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
 def spec_block(t, spec, mesh):
     """This rank's block of a whole tensor (or numpy array) laid out by
     ``spec`` (one entry a dim: ``None``, an axis name or a tuple of names)
@@ -497,18 +571,23 @@ def shard_batch(x, mesh: Mesh, rules: Optional[ParallelismRules] = None):
     return spec_block(x, (rules.dp_axes,), mesh)
 
 
-_ACT: list = []  # the active (mesh, rules), innermost last
+_ACT: list = []  # the active (mesh, rules, per_shard), innermost last
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh: Mesh, rules: Optional[ParallelismRules] = None):
+def activation_sharding(mesh: Mesh, rules: Optional[ParallelismRules] = None, *,
+                        per_shard: bool = False):
     """Run the model code on ``mesh``'s model axis: :func:`copy_to_tp` and
     :func:`reduce_from_tp` all-reduce over its group, :func:`tp_index` gives
-    this rank's place. Wrap the forward and the backward both."""
+    this rank's place. Wrap the forward and the backward both. Over the
+    data axes the model computes what the reference's SPMD program computes
+    over the global batch (:func:`global_batch_group`), or with
+    ``per_shard`` what its ``shard_map`` over the data axes computes on each
+    rank's rows alone."""
     rules = (rules or ParallelismRules()).with_mesh(mesh)
     if mesh.shape[rules.tp_axis] > 1:
         _check_run_rules(rules)
-    _ACT.append((mesh, rules))
+    _ACT.append((mesh, rules, per_shard))
     try:
         yield
     finally:
@@ -520,7 +599,7 @@ def tp_group():
     ``None`` outside it or at model axis 1."""
     if not _ACT:
         return None
-    mesh, rules = _ACT[-1]
+    mesh, rules, _ = _ACT[-1]
     return mesh.group(rules.tp_axis)
 
 
@@ -529,7 +608,7 @@ def tp_index() -> Tuple[int, int]:
     :func:`activation_sharding`)."""
     if not _ACT:
         return 0, 1
-    mesh, rules = _ACT[-1]
+    mesh, rules, _ = _ACT[-1]
     return mesh.index(rules.tp_axis), mesh.shape[rules.tp_axis]
 
 
@@ -538,8 +617,22 @@ def dp_index() -> Tuple[int, int]:
     :func:`activation_sharding` (``(0, 1)`` outside it)."""
     if not _ACT:
         return 0, 1
-    mesh, rules = _ACT[-1]
+    mesh, rules, _ = _ACT[-1]
     return mesh.index(rules.dp_axes), mesh.axis_size(rules.dp_axes)
+
+
+def global_batch_group():
+    """The data axes' process group where the model computes over the global
+    batch, as the reference's SPMD program does (:func:`activation_sharding`
+    without ``per_shard``, data axes of size > 1): the MoE dispatch and the
+    aux loss then read the other data ranks' routing. ``None`` outside the
+    context, per shard, or with one data rank."""
+    if not _ACT:
+        return None
+    mesh, rules, per_shard = _ACT[-1]
+    if per_shard or mesh.axis_size(rules.dp_axes) == 1:
+        return None
+    return mesh.group(rules.dp_axes)
 
 
 def gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:

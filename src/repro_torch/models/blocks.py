@@ -39,8 +39,10 @@ the GQA mixer runs this rank's heads in training, prefill and decode:
 ``w_q``, ``w_k``, ``w_v`` hold their columns, ``w_o`` their rows, the
 partial outputs are summed over the model axis, and every K/V cache (the
 full one, the ``ATTN_LOCAL`` ring, a pluggable backend) holds the rank's
-``KV/m`` heads (``ATTN`` and ``ATTN_LOCAL``; the run time raises for the
-other kinds).
+``KV/m`` heads; MLA runs the rank's heads over the whole latent cache
+(:mod:`~repro_torch.models.mla`), MoE the rank's experts
+(:mod:`~repro_torch.models.moe`). The run time raises for Mamba-2, shared
+and cross attention there.
 """
 
 from __future__ import annotations
@@ -305,8 +307,8 @@ def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, leng
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
-    # K/V caches hold this rank's KV heads under tensor parallelism (the run
-    # time takes only the dense stack there: ATTN and ATTN_LOCAL)
+    # K/V caches hold this rank's KV heads under tensor parallelism (ATTN and
+    # ATTN_LOCAL); MLA's latent is whole on every model rank
     KV, hd, dt = cfg.n_kv_heads // tp_index()[1], cfg.head_dim, cfg.param_dtype
     mixer = spec.mixer
     if mixer == MLA:

@@ -102,12 +102,13 @@ def decode_positions(B: int, length: torch.Tensor) -> torch.Tensor:
     return length.reshape(1, 1).expand(B, 1)
 
 
-def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+def ffn(p, x: torch.Tensor, activation: str = "silu", *, reduce: bool = True) -> torch.Tensor:
     """SwiGLU (``silu``) or the non-gated GELU MLP (tanh GELU, as
     ``jax.nn.gelu``); ``p`` holds ``w_up``, ``w_down`` and, for SwiGLU,
     ``w_gate``, each used as ``x @ w``; under tensor parallelism the local
     columns of ``w_gate``/``w_up`` and rows of ``w_down``, the partial
-    outputs summed over the model axis."""
+    outputs summed over the model axis (``reduce=False`` returns the
+    partial, for a caller that sums it with another)."""
     x = copy_to_tp(x)
     up = x @ p.w_up
     if activation == "silu":
@@ -116,7 +117,8 @@ def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(activation)
-    return reduce_from_tp(h @ p.w_down)
+    out = h @ p.w_down
+    return reduce_from_tp(out) if reduce else out
 
 
 def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,14 @@ absorbed-matmul form is a later performance lever). Q and K are
 
 Decode writes the new latent entry into the cache in place at ``length``
 (a 0-d int on the device, read there), as the GQA decode does.
+
+Under tensor parallelism (:func:`repro_torch.distributed.activation_sharding`)
+a rank holds its ``H/m`` heads: the columns of ``w_q``, ``w_uk`` and
+``w_uv`` and the rows of ``w_o``, the output summed over the model axis.
+``w_dkv`` stays whole, so the latent cache is whole on every model rank;
+its output ``c_kv`` and ``k_rope`` pass through ``copy_to_tp`` before the
+rank's heads read them (their gradient is partial on each rank), while
+``q``'s input passes through it as a column-sharded product's does.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..distributed.sharding import copy_to_tp, reduce_from_tp
 from .attention import attention_train, decode_attention, flash_attention
 from .config import ModelConfig
 from .layers import apply_rope, decode_positions, init_scale, param, positions
@@ -42,22 +51,26 @@ class MLA(nn.Module):
 
 
 def _project(p: MLA, x, pos, cfg: ModelConfig):
-    """q (B, S, H, nope+rope) with RoPE on its rope part, the latent c_kv
-    (B, S, r), and one shared roped key k_rope (B, S, 1, rope)."""
+    """q (B, S, H, nope+rope) with RoPE on its rope part (this rank's heads
+    under tensor parallelism), the latent c_kv (B, S, r), and one shared
+    roped key k_rope (B, S, 1, rope)."""
     B, S, _ = x.shape
-    H, nope, rope_d = cfg.n_heads, cfg.nope_head_dim, cfg.rope_head_dim
-    q = (x @ p.w_q).reshape(B, S, H, nope + rope_d)
+    nope, rope_d = cfg.nope_head_dim, cfg.rope_head_dim
+    q = (copy_to_tp(x) @ p.w_q).reshape(B, S, -1, nope + rope_d)
     q = torch.cat([q[..., :nope], apply_rope(q[..., nope:], pos, cfg.rope_theta)], dim=-1)
-    dkv = x @ p.w_dkv  # (B, S, r + rope)
+    dkv = x @ p.w_dkv  # (B, S, r + rope), whole on every rank
     c_kv, k_rope = dkv[..., : cfg.kv_lora_rank], dkv[..., cfg.kv_lora_rank :]
     return q, c_kv, apply_rope(k_rope[:, :, None, :], pos, cfg.rope_theta)
 
 
 def _decompress(p: MLA, c_kv, k_rope, cfg: ModelConfig):
-    """Latent → per-head K (nope, then the broadcast rope key) and V."""
+    """Latent → per-head K (nope, then the broadcast rope key) and V, for
+    the heads this rank holds."""
     B, S, _ = c_kv.shape
-    H, nope = cfg.n_heads, cfg.nope_head_dim
-    k_nope = (c_kv @ p.w_uk).reshape(B, S, H, nope)
+    nope = cfg.nope_head_dim
+    c_kv, k_rope = copy_to_tp(c_kv), copy_to_tp(k_rope)
+    k_nope = (c_kv @ p.w_uk).reshape(B, S, -1, nope)
+    H = k_nope.shape[2]
     v = (c_kv @ p.w_uv).reshape(B, S, H, cfg.v_head_dim)
     k = torch.cat([k_nope, k_rope.expand(B, S, H, cfg.rope_head_dim)], dim=-1)
     return k, v
@@ -69,7 +82,7 @@ def mla_train(p: MLA, x, cfg: ModelConfig):
     q, c_kv, k_rope = _project(p, x, positions(B, S, x.device), cfg)
     k, v = _decompress(p, c_kv, k_rope, cfg)
     o = attention_train(q, k, v, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    return o.reshape(B, S, -1) @ p.w_o
+    return reduce_from_tp(o.reshape(B, S, -1) @ p.w_o)
 
 
 def mla_prefill(p: MLA, x, cfg: ModelConfig, cache_len: int):
@@ -83,7 +96,7 @@ def mla_prefill(p: MLA, x, cfg: ModelConfig, cache_len: int):
                         device=x.device)
     cache[:, :S, : cfg.kv_lora_rank] = c_kv
     cache[:, :S, cfg.kv_lora_rank :] = k_rope[:, :, 0]
-    return o.reshape(B, S, -1) @ p.w_o, cache
+    return reduce_from_tp(o.reshape(B, S, -1) @ p.w_o), cache
 
 
 def mla_decode(p: MLA, x, cfg: ModelConfig, cache: torch.Tensor, length: torch.Tensor):
@@ -97,4 +110,4 @@ def mla_decode(p: MLA, x, cfg: ModelConfig, cache: torch.Tensor, length: torch.T
     cache.index_copy_(1, length.reshape(1).long(), entry)
     k, v = _decompress(p, cache[..., :r], cache[..., None, r:], cfg)
     o = decode_attention(q, k, v, length + 1)
-    return o.reshape(B, 1, -1) @ p.w_o
+    return reduce_from_tp(o.reshape(B, 1, -1) @ p.w_o)

@@ -31,10 +31,12 @@ program per token); on the CPU it runs eagerly.
 
 Under :func:`~repro_torch.distributed.activation_sharding` every entry
 point runs this rank's part of a (data, model) mesh: its rows of the
-batch, and at model axis ``m > 1`` its shards of a dense stack (other
-archs raise ``NotImplementedError``, never running a block replicated as
-though it were split); ``prefill`` and ``decode_step`` return the whole
-vocab's logits, gathered over the model axis.
+batch, and at model axis ``m > 1`` its shards of GQA and MLA heads, dense
+FFN blocks and MoE experts (Mamba-2, shared and cross attention raise
+``NotImplementedError``, never running a block replicated as though it
+were split); ``prefill`` and ``decode_step`` return the whole vocab's
+logits, gathered over the model axis. ``init_params(..., mesh=)`` draws a
+rank's blocks leaf by leaf.
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..device import DeviceLike, resolve_device
-from ..distributed.sharding import check_tp, tp_index
+from ..distributed.sharding import check_tp, cut_at_init, tp_index
 from . import blocks as blk
 from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
 from .layers import (embed_tokens, gather_vocab, init_scale, lm_logits, param, rmsnorm,
@@ -108,15 +110,25 @@ class Transformer(nn.Module):
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
-                device: DeviceLike = None) -> Transformer:
+                device: DeviceLike = None, mesh=None) -> Transformer:
     """A :class:`Transformer` with the reference's initialisation (truncated
     normals at its scales, unit norms), drawn from ``gen`` on ``device``
-    (``None`` means CUDA and raises without it). ``gen=None`` seeds 0."""
+    (``None`` means CUDA and raises without it). ``gen=None`` seeds 0.
+
+    With a ``mesh`` (:class:`~repro_torch.distributed.Mesh`) it holds this
+    rank's blocks on the model axis, each leaf drawn whole in the init
+    order and cut at once (:func:`~repro_torch.distributed.cut_at_init`):
+    the blocks :func:`~repro_torch.distributed.shard_params` cuts from the
+    whole model, bit for bit, without the whole model on the device."""
     dev = resolve_device(device)
     if gen is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(0)
-    return Transformer(gen, cfg, dev)
+    if mesh is None:
+        return Transformer(gen, cfg, dev)
+    check_tp(cfg, mesh.shape["model"])
+    with cut_at_init(mesh):
+        return Transformer(gen, cfg, dev)
 
 
 def _layers(params: Transformer, cfg: ModelConfig):

@@ -28,7 +28,9 @@ the configuration, before the loop: at model axis ``m > 1`` the decode loop
 runs the eager body (gloo stages a CUDA tensor's collective through the
 host, which no CUDA graph can capture, and NCCL cannot hold two ranks of a
 group on one card), and on a data-only mesh (``d × 1``) each rank captures
-and replays its own graphs, a step there having no collective.
+and replays its own graphs, a step there having no collective, unless the
+MoE capacity dispatch gathers the expert ids over the data axes
+(:func:`~repro_torch.models.moe.decode_gathers`), which runs it eagerly too.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..kernels import ops
 from ..models import decode_step, prefill
 from ..models.blocks import PLAIN, REFRESH
 from ..models.config import ModelConfig
+from ..models.moe import decode_gathers
 from .kv_cache import CompressedKV, compress_prefill_cache, decode_schedule
 from .kv_compress import KVCompressionConfig
 
@@ -179,9 +182,9 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
 
     On the card the decode loop replays CUDA graphs of
     :func:`_fused_decode_step` (module docstring); on the CPU, inside
-    :func:`~repro_torch.kernels.ops.eager_route`, or at model axis ``m > 1``
-    (the step's collectives cannot be captured), it runs the same body
-    eagerly. Under a mesh ``prompt`` (and ``vision``) are this rank's rows
+    :func:`~repro_torch.kernels.ops.eager_route`, at model axis ``m > 1``
+    or where the MoE dispatch gathers over the data axes (the step's
+    collectives cannot be captured), it runs the same body eagerly. Under a mesh ``prompt`` (and ``vision``) are this rank's rows
     (:func:`~repro_torch.distributed.shard_batch`) and so is the result.
 
     ``gen`` draws the sampled tokens and, with ``kv_compress``, the
@@ -224,7 +227,8 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
                                   out=out, phase=phase)
 
     graphs = None
-    if dev.type == "cuda" and not ops._EAGER and tp_index()[1] == 1:
+    if (dev.type == "cuda" and not ops._EAGER and tp_index()[1] == 1
+            and not decode_gathers(cfg, dense_moe, prompt.shape[0])):
         graphs = _DecodeGraphs(body, gen if temperature > 0.0 else None)
     eager = refreshes = 0
     for i, (phase, _) in enumerate(schedule):

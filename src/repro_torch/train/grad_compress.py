@@ -53,7 +53,9 @@ reconstruction sums ``R S_Rᵀ = Σ_k R_k S_R,kᵀ`` and returns the block
 every triple takes the mean, as above. The EF residual is the rank's block;
 the compressibility, ``comp/wire_floats`` and ``comp/ratio`` read the
 logical shapes, and ``comp/ef_norm``, ``comp/rel_err`` sum their squares
-over the model axis. No leaf is gathered.
+over the model axis. No leaf is gathered. A block of a stack's slices (a
+MoE layer's experts, cut on dim −3) holds whole slices: it is compressed
+slice by slice with the logical leaf's sketches and no model-axis sum.
 """
 
 from __future__ import annotations
@@ -278,6 +280,8 @@ def compressed_mean_grads(grads: dict, err: dict, key: int, ccfg: CompressionCon
         k = sketches[i] if sketches is not None else fold_in(key, i)
         k = _resolve(k, shape, ccfg, dev)
         reduce = None
+        if cut is not None and cut[0] == -3:
+            cut = None  # whole slices of a stack: this rank's slices alone
         if cut is not None:
             k = _block_sketches(k, cut)
             # the terms the block only holds a part of: (C, M) or (R, M)
@@ -301,7 +305,7 @@ def compressed_mean_grads(grads: dict, err: dict, key: int, ccfg: CompressionCon
         if with_stats:
             L = shape[0] if len(shape) == 3 else 1
             wire += L * ((shape[-2] + shape[-1]) * ccfg.rank + ccfg.s * ccfg.s)
-            j = int(cut is not None)
+            j = int(path in cuts)
             ef_sq[j] += torch.sum(out_err[path] * out_err[path])
             local_sq[j] += torch.sum(local * local)
             resid_sq[j] += torch.sum(resid * resid)

@@ -11,7 +11,12 @@ Both run on one process per rank of a
 The reference's partitioner-managed layout becomes explicit collectives:
 over the data axes every gradient takes the mean (``all_reduce(SUM) / d``;
 the shards of the batch are equal, so this is the global batch's mean) or,
-compressed, every (C, R, M) triple; over the model axis the forward and the
+compressed, every (C, R, M) triple. The plain step computes over the global
+batch as the reference's ``jit`` does (the MoE dispatch and the aux loss's
+top-1 counts read every data rank's routing, so the mean of the ranks'
+gradients is the global one); the compressed step computes each rank's
+loss, dispatch and aux on its own rows, as the reference's ``shard_map``
+over the data axes does (``activation_sharding(per_shard=True)``); over the model axis the forward and the
 backward run under :func:`~repro_torch.distributed.activation_sharding`
 (each rank its block of every weight, :func:`cross_entropy` vocab-parallel),
 the gradient norm sums the blocks' squares, and compression works on each
@@ -80,8 +85,8 @@ class _Parallel:
         self.dp_world = self.mesh.axis_size(self.rules.dp_axes)
         self.tp_group = self.mesh.group(self.rules.tp_axis)
 
-    def context(self):
-        return activation_sharding(self.mesh, self.rules)
+    def context(self, per_shard: bool = False):
+        return activation_sharding(self.mesh, self.rules, per_shard=per_shard)
 
     def cuts(self, params) -> dict:
         return tp_cuts(params, self.rules, self.mesh)
@@ -185,7 +190,7 @@ def make_compressed_train_step(cfg: ModelConfig, oc: OptimizerConfig, ccfg: Comp
     def train_step(state, batch, step_seed: int, sketches: Optional[dict] = None):
         params = state["params"]
         groups = stacked_leaves(params, cfg)
-        with par.context():
+        with par.context(per_shard=True):  # the reference's shard_map over the data axes
             loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
         stacked = group_leaves(grads, groups)
         del grads

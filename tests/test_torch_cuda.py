@@ -968,3 +968,28 @@ def test_cuda_generate_on_a_1x1_mesh_takes_the_graph_route(cuda):
         got = generate(model, cfg, prompt, 12, stats=meshed)
     assert plain["route"] == meshed["route"] == "graph" and meshed["replays"] == 12 - 2
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+def test_cuda_moe_generate_on_a_1x1_mesh_takes_the_graph_route(cuda, arch):
+    """The MoE archs' capacity dispatch (deepseek's MLA beside it) under
+    ``activation_sharding`` of a 1×1 mesh: the data-axis dispatch plan and
+    the expert-parallel combine add no collective and no read-back at 1×1,
+    so ``generate`` replays its CUDA graphs, with the eager route's tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import Mesh, activation_sharding
+    from repro_torch.models import init_params
+    from repro_torch.serve import generate
+
+    cfg = get_arch(arch).smoke_config()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = init_params(g, cfg, device=cuda)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda, generator=g)
+    eager, meshed = {}, {}
+    with ops.eager_route():
+        want = generate(model, cfg, prompt, 12, stats=eager)
+    with activation_sharding(Mesh({"data": 1, "model": 1})):
+        got = generate(model, cfg, prompt, 12, stats=meshed)
+    assert eager["route"] == "eager"
+    assert meshed["route"] == "graph" and meshed["replays"] == 12 - 2
+    assert torch.equal(got, want)

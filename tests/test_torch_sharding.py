@@ -244,13 +244,80 @@ def test_run_time_cuts_layers_where_the_rules_read_a_stack_as_experts():
     assert "final_norm.scale" not in cuts and "segments.0.0.norm1.scale" not in cuts
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mamba2-1.3b", "zamba2-1.2b",
-                                  "llama-3.2-vision-90b", "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "llama-3.2-vision-90b"])
 def test_run_time_raises_beyond_the_dense_stack(arch):
     cfg = pconfigs.get_arch(arch).smoke_config()
     model = pmodels.Transformer(torch.Generator(), cfg, torch.device("meta"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ps.shard_params(model, ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 2}))
+
+
+def _ref_key(name: str) -> tuple:
+    # a port parameter name as the reference's key path of an unscanned layer
+    return tuple(jax.tree_util.SequenceKey(int(k)) if k.isdigit() else jax.tree_util.DictKey(k)
+                 for k in ps.ref_path(name))
+
+
+MOE_MLA_ARCHS = ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"]
+
+
+@pytest.mark.parametrize("arch", MOE_MLA_ARCHS)
+def test_run_time_cuts_experts_and_mla_heads(arch):
+    """At 1×2 and 2×2, every rank's block of every parameter of the MoE
+    archs (``shard_params``, and ``init_params(mesh=)`` drawing leaf by
+    leaf, bit for bit the same) is the block the reference's
+    ``leaf_pspec`` lays out for an unscanned layer's leaf: the experts'
+    ``(E, D, Fe)`` stacks by ``_MOE_LAYOUTS``' ``ep`` on dim −3, the shared
+    FFN and MLA's ``w_q``/``w_uk``/``w_uv`` by columns (whole heads), the
+    ``w_o``'s by rows; ``router`` and ``w_dkv`` whole. A prefill cache's
+    MLA latents are whole on every model rank (``cache_pspec``), a GQA
+    cache holds the rank's KV heads."""
+    cfg = pconfigs.get_arch(arch).smoke_config()
+    g = torch.Generator()
+    g.manual_seed(0)
+    whole = pmodels.init_params(g, cfg, device="cpu")
+    named = {k: v.detach() for k, v in whole.named_parameters()}
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=g)
+    _, cache = pmodels.prefill(whole, cfg, tokens, 12, dense_moe=True)
+    seen = set()
+    for shape in ((1, 2), (2, 2)):
+        fake = FakeMesh(dict(zip(("data", "model"), shape)))
+        rules = rs.ParallelismRules().with_mesh(fake)
+        for rank in range(shape[0] * shape[1]):
+            mesh = ps.Mesh(fake.shape, rank)
+            cut = ps.shard_params(named, ps.ParallelismRules(), mesh)
+            g = torch.Generator()
+            g.manual_seed(0)
+            drawn = dict(pmodels.init_params(g, cfg, device="cpu", mesh=mesh).named_parameters())
+            for name, t in named.items():
+                spec = tuple(rs.leaf_pspec(_ref_key(name), jax.ShapeDtypeStruct(t.shape,
+                                                                                jnp.float32),
+                                           rules, fake))
+                want = _rule_block(t, spec, fake.shape, rank)
+                assert torch.equal(cut[name], want) and torch.equal(drawn[name], want), name
+                leaf = name.split(".")[-1]
+                if leaf in ("router", "w_dkv"):
+                    assert cut[name].shape == t.shape, name
+                elif t.dim() == 3:
+                    assert spec == ("model", None, None), (name, spec)
+                    seen.add("experts")
+                elif leaf in ("w_q", "w_uk", "w_uv") or ".shared.w_" in name and leaf != "w_down":
+                    assert spec == (None, "model"), (name, spec)
+                    seen.add(leaf)
+                elif leaf in ("w_o", "w_down"):
+                    assert spec == ("model", None), (name, spec)
+            for layer, lc in zip(cache["layers"], ps.shard_cache(cache, mesh)["layers"]):
+                for name, t in layer.items():
+                    di, mi = rank // shape[1], rank % shape[1]
+                    rows = t[di * 4 // shape[0]:(di + 1) * 4 // shape[0]]
+                    if name == "latent":
+                        assert torch.equal(lc[name], rows)
+                        seen.add("latent")
+                    else:
+                        kv = t.shape[2] // shape[1]
+                        assert torch.equal(lc[name], rows[:, :, mi * kv:(mi + 1) * kv])
+    assert {"experts", "w_q"} <= seen
+    assert ({"w_uk", "w_uv", "latent"} <= seen) == (arch == "deepseek-v2-lite-16b")
 
 
 def test_run_time_raises_rather_than_replicate_or_split_a_head():

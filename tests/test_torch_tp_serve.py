@@ -26,9 +26,10 @@ rows (``shard_batch``).
   ranks equal (``tests/test_torch_serve.py``'s bounds).
 * Sampling at temperature 0.8: every rank's tokens are its rows of the
   one-rank port run's from the same seed.
-* Data-only meshes serve every arch: deepseek-v2-lite (``dense_moe``) and
-  mamba2 smoke configs at 2×1 against the reference. At 1×2 the archs
-  beyond the dense stack raise ``NotImplementedError``.
+* Data-only meshes serve deepseek-v2-lite (``dense_moe``) and mamba2 smoke
+  configs at 2×1 against the reference. At 1×2 Mamba-2, shared and cross
+  attention raise ``NotImplementedError``; the MoE archs pass the checks
+  (``tests/test_torch_ep.py`` serves them on the model axis).
 * Controls that must fail the gates: ``_gqa_decode`` without its
   ``reduce_from_tp``; the vocab gather with its shards in the wrong order.
 * The CLI at ``--mesh 1x2 --kv-compress 4`` in two ranks gives the ``1x1``
@@ -489,8 +490,7 @@ def test_data_axis_serves_every_arch(refs, two_ranks, arch):
         assert r["route"] == "eager" and len(r["logits"]) == N - 1
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b", "mamba2-1.3b",
-                                  "zamba2-1.2b", "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "llama-3.2-vision-90b"])
 def test_model_axis_raises_beyond_the_dense_stack(arch):
     """``init_cache``, ``prefill``, ``decode_step`` and ``generate`` refuse
     at model axis 2 before any weight is read: none runs a block as though
@@ -504,6 +504,33 @@ def test_model_axis_raises_beyond_the_dense_stack(arch):
                      lambda: pmodels.decode_step(model, cfg, {}, tokens[:, :1]),
                      lambda: pserve.generate(model, cfg, tokens, 2)):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
+                call()
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
+def test_model_axis_admits_moe_and_mla(arch):
+    """At model axis 2 the MoE archs pass the run time's checks: ``init_cache``
+    holds a rank's KV heads of a GQA cache and the whole latent of an MLA
+    one, and ``prefill``, ``decode_step`` and ``generate`` run until their
+    first collective, which a mesh without process groups refuses
+    (``tests/test_torch_ep.py`` runs them in ranks)."""
+    cfg = pconfigs.get_arch(arch).smoke_config()
+    g = torch.Generator()
+    g.manual_seed(0)
+    mesh = Mesh({"data": 1, "model": 2}, 1)
+    model = pmodels.init_params(g, cfg, device="cpu", mesh=mesh)
+    tokens = torch.zeros((2, 4), dtype=torch.int32)
+    with activation_sharding(mesh):
+        cache = pmodels.init_cache(cfg, 2, 8, device="cpu")
+        for layer in cache["layers"]:
+            if "latent" in layer:
+                assert layer["latent"].shape == (2, 8, cfg.kv_lora_rank + cfg.rope_head_dim)
+            else:
+                assert layer["k"].shape == (2, 8, cfg.n_kv_heads // 2, cfg.head_dim)
+        for call in (lambda: pmodels.prefill(model, cfg, tokens, 8),
+                     lambda: pmodels.decode_step(model, cfg, cache, tokens[:, :1]),
+                     lambda: pserve.generate(model, cfg, tokens, 2)):
+            with pytest.raises(ValueError, match="process group"):
                 call()
 
 

@@ -195,19 +195,20 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    not), (3) every loss, grad_norm and ``comp/*`` finite, (4) a rank-8
    stacked gradient of w_up's shape reconstructs within the reference's
    0.03 (a full-rank one must not), (5) ``python -m
-   repro_torch.launch.train`` at depth 2, compressed, a crash at step 3:
-   one restart, 6 steps. The serving phases (r)-(x) run under ``no_grad``;
+   repro_torch.launch.train`` at depth 2 on (y)'s batch shape, compressed,
+   a crash at step 3: one restart, 6 steps; the process runs beside (hy) and
+   is checked after it (``train/y_cli``). The serving phases (r)-(x) run under ``no_grad``;
 19. (tp) tensor parallelism — (y)'s model cut to its first ``TP_DEPTH`` = 4
    of 16 layers (the script's time limit; each rank drawing its blocks of
-   the seeded initial weights leaf by leaf) and batches in gloo
-   ranks spawned on this one card (their collectives staged through the
+   the seeded initial weights leaf by leaf) and batches in the gloo
+   rank pools on this one card (their collectives staged through the
    host; NCCL cannot hold two ranks of a group on one GPU): 1x2 plain, 3
    steps; two controls, one whose ``reduce_from_tp`` backward all-reduces
    again, one whose ``cross_entropy`` leaves out the model axis's sum of
    exponentials; 1x2 compressed, 3 steps; 2x2 plain and compressed, 2 steps
    each; then the CLI (``launch.train.main``) at ``--mesh 2x2
-   --grad-compress``, (y)'s gate depth, a crash at step 3 (one restart, the
-   replayed step's loss equal). Gates against one rank's run of the same
+   --grad-compress``, (y)'s gate depth and batch shape, a crash at step 3
+   (one restart, the replayed step's loss equal). Gates against one rank's run of the same
    depth and kind (plain or compressed, ``train_reference``, made first in
    this process): step 1's loss (``TP_LOSS0_TOL``), every step's
    loss (``TP_LOSS_TOL``), every gradient leaf (relative Frobenius,
@@ -222,8 +223,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
 20. (ts) serving under a mesh — run right after (s): (r)'s model cut to
    its first ``TS_DEPTH`` = 2 of 16 layers (the script's time limit; its
    seeded weights drawn whole on each rank, then cut by ``shard_params``),
-   (r)'s 8 requests of 2048 seeded tokens and 64 new tokens, in gloo ranks
-   spawned on this one card: 2x1 dense (each rank its 4 requests, replaying
+   (r)'s 8 requests of 2048 seeded tokens and 64 new tokens, in the gloo
+   rank pools on this one card: 2x1 dense (each rank its 4 requests, replaying
    its own CUDA graphs), 1x2 dense, compressed uniform and adaptive ((s)'s
    ``KVCompressionConfig``, kernel 1's stacked launch on each rank's 512
    heads), sampled at (z)'s temperature, and two controls (``_gqa_decode``
@@ -243,14 +244,15 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    ``generate`` those of (s). Each run prints prefill and decode ms a token
    (CUDA events in the rank), the all-reduces' calls, bytes and ms by axis
    (prefill and a decode step), their share, peak GiB a rank,
-   ``cache_nbytes`` a rank beside (r)'s and (s)'s, and the spawn-to-exit
+   ``cache_nbytes`` a rank beside (r)'s and (s)'s, and the pool job's
    seconds. The kernels phase holds kernel 1's stacked launch at the
    ranks' head counts;
 21. (ep) expert parallelism and MLA heads on the model axis — run right
-   after (t) and (u), in gloo ranks spawned on this one card, each rank
+   after (t) and (u), in the gloo rank pools on this one card, each rank
    drawing its blocks leaf by leaf (``init_params(mesh=)``): deepseek-v2-lite's
-   full config served at 1x2 and 2x2 on (r)'s requests, 64 greedy tokens,
-   the capacity dispatch and the dense latent cache; kimi-k2 at (u)'s depth
+   full config served at 1x2 and 2x2 on (r)'s requests, ``EP_DS_T`` = 8
+   greedy tokens (the first of (t)'s 64: the time limit), the capacity
+   dispatch and the dense latent cache; kimi-k2 at (u)'s depth
    2 at 1x2, dense and compressed ((s)'s settings, kernel 1's stacked
    launch on each rank's 32 heads); deepseek cut to ``EP_TRAIN_DEPTH`` = 3
    of 27 layers trained at 1x2 (plain 2 steps, compressed 2 with kernel 4
@@ -275,7 +277,40 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    and kimi's combine without its sum; at gate 5 the gates without
    ``copy_to_tp`` (the router gradient). The kernels phase holds
    kernel 4 at deepseek's MLA and shared-FFN rank blocks and kernel 1 at
-   kimi's rank heads.
+   kimi's rank heads;
+22. (hy) Mamba-2, shared and cross attention on the model axis — after
+   (y), at 1x2 in the two-rank pool, each rank drawing its blocks leaf by
+   leaf: mamba2-1.3b cut to 8 of 48 layers, zamba2-1.2b to 14 of 38 (its
+   shared positions 7 and 13) and the vision model to one [4 self + 1
+   cross] unit of 20 (cross gates 0.5), at full width, served on
+   ``HY_B`` = 4 requests of 2048 tokens (the vision model's with the
+   stub's patches), ``HY_T`` = 16 greedy tokens, dense and (the vision model) with (s)'s
+   compressed cache; zamba2 trained 3 plain and 3 compressed steps on
+   (y)'s batches and settings. Gates against one rank's runs of the same
+   models and depths, made first in this process (``HY_REF``,
+   ``HY_TRAIN_REF``): (1)-(4) as (ts)'s within ``HY_LOGIT_TOL``; the
+   first Mamba-2 layer's gated RMSNorm output on this rank's channels
+   within ``HY_LAYER_TOL`` of one rank's; kernel 1's launches a compressed
+   ``generate`` a rank those of one rank's run (each launch over the
+   rank's half of the heads, (ep)'s kimi shape); (tp)'s training gates,
+   every replicated leaf (Mamba-2's ``w_out``, ``w_bc``, ``w_dt``,
+   ``conv_bc_*``, ``dt_bias``, ``a_log``, ``d_skip``, the norms) equal
+   bit for bit on both ranks after every step, kernel 4 30 times a
+   compressed step a rank, ``comp/ratio`` the reference's; the cross
+   layer's output within ``HY_LAYER_TOL`` of one rank's; controls that
+   must fail: Mamba-2's output unsummed over the model axis (gate 1), the
+   gated norm over the rank's own channels and the cross output unsummed
+   (their layer gates), the whole leaves read without ``copy_to_tp`` (the
+   training gates). Each run prints prefill and decode ms a token, peak
+   GiB a rank, the all-reduces' calls, bytes and ms (prefill, a decode
+   step, a train step) and their share. The kernels phase holds kernel 4
+   at zamba2's rank blocks and whole ``w_out``.
+
+The mesh phases' ranks are two pools (``RankPool``) of two and four gloo
+ranks on the card, started after (h) beside (m)-(p) and closed after
+(tp): each phase hands them its job instead of spawning its
+own. (m)'s host times take one more timed drive a side, (o)'s one (the
+time limit).
 
 The line before the last lists every kernel with its launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -298,6 +333,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 M_ROWS, N_COLS, PANEL, C_BUDGET, R_BUDGET = 32768, 65536, 256, 128, 128
@@ -317,8 +353,11 @@ SPSD_MIN_GAIN = 0.01  # (j)'s admission threshold, in mean column energies
 # margin by which its error ratio may exceed (e)'s fast_cur core's (both are
 # draws of the same sketched solve at s = 1920)
 GMR_SKETCH, GMR_MARGIN = 1920, 0.05
-# (m): the estimator's band (the reference's acceptance); (n): data-parallel workers
+# (m): the estimator's band (the reference's acceptance); (n): data-parallel workers.
+# (m)'s host times: the larger of the bitwise run's and one more timed drive,
+# on and off (cut from two rounds of four drives for the script's time limit)
 EST_BAND, WORKERS = 2.0, 4
+OBS_TIMED = (True, False)
 SEED = 0
 # fp32 sums over up to m = 32768 terms, in the kernel's fixed order against
 # cuBLAS's / index_add_'s order: relative to the largest entry of the output
@@ -499,7 +538,45 @@ EP_MLA_TOL = 4 * 2.0 ** -8
 # places, and the embedding weigh as much as its two layers. Each limit lies
 # below its controls' readings (deepseek's 0.27-1.16)
 EP_LOGIT_TOL = {DEEPSEEK_ARCH: 27 * 2.0 ** -8, KIMI_ARCH: TS_LOGIT_TOL}
+# deepseek's greedy tokens at 1x2 and 2x2 (generate, and gate 2's decode steps
+# fed (t)'s tokens): the first 8 of (t)'s 64, cut for the script's time
+# limit (each step costs 0.33-0.50 s a rank through gloo on one card)
+EP_DS_T = 8
 EP_SAVE: dict = {}  # (t)'s and (u)'s one-rank records, written to EP_REF by (ep)
+# (hy): Mamba-2, shared and cross attention on the model axis at 1x2 in the
+# two-rank pool on this card, at full width, depth cut for the script's time
+# limit: mamba2-1.3b to 8 of 48 layers, zamba2-1.2b to 14 of 38 (its first
+# two shared-attention positions, 7 and 13), the vision model to one [4 self
+# + 1 cross] unit of 20 (its cross gate 0.5: 0 at init adds nothing). HY_B
+# requests of 2048 tokens ((r)'s 8 cut to 4 for the time limit; the vision
+# model's with the stub's patches), HY_T greedy tokens, each run held to one
+# rank's run of the same model and
+# depth in this process (HY_REF, memory-mapped); zamba2 trained 3 plain and
+# 3 compressed steps on (y)'s batches, optimizer and compression settings
+# against one rank's (HY_TRAIN_REF). Its tree: the reference's
+# compression_ratio (jax.eval_shape) and 30 compressible leaves (kernel 4's
+# launches a compressed step a rank: 23 rank blocks, 7 whole w_out)
+HY_REF = ROOT / "build" / "chip_smoke_hy_ref.pt"
+HY_TRAIN_REF = ROOT / "build" / "chip_smoke_hy_train_ref.pt"
+HY_DEPTH = {MAMBA_ARCH: 8, ZAMBA_ARCH: 14, VISION_ARCH: 5}
+HY_SEED = {MAMBA_ARCH: SEED + 150, ZAMBA_ARCH: SEED + 153, VISION_ARCH: SEED + 156}
+HY_B, HY_T = 4, 16
+HY_ZAMBA_PARAMS, HY_ZAMBA_LEAVES, HY_ZAMBA_RATIO = 555_560_704, 30, 31.580188885170042
+HY_TRAIN_RUNS = (("plain", 3), ("compressed", 3), ("control_whole", 1))
+HY_TAG = {MAMBA_ARCH: "mamba2", ZAMBA_ARCH: "zamba2", VISION_ARCH: "vision"}
+# the whole leaves of Mamba-2 and the cross layers, watched in the gradients
+HY_WHOLE = ("w_out", "w_bc", "w_dt", "conv_bc_w", "conv_bc_b", "dt_bias", "a_log", "d_skip",
+            "vision_proj", "gate")
+# gates 1-2: (ts)'s limit, each of at most 16 layers rounding its partial
+# sums over the model axis to bf16 at other places than one rank does
+HY_LOGIT_TOL = TS_LOGIT_TOL
+# the layer gates, over HY_LAYER_B of the requests on one rank's recorded
+# inputs: mamba2's first Mamba-2 layer, its gated RMSNorm's output (bf16) on
+# this rank's channels (the sum of squares summed in another order, y's
+# products rounded to bf16 at other places), and the vision model's cross
+# layer's output ((x)'s CROSS_TOL: p and the output rounded to bf16 at other
+# places, and the partial outputs' sum), against one rank's
+HY_LAYER_B, HY_LAYER_TOL = 2, 4 * 2.0 ** -8
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -582,7 +659,11 @@ def timed(torch, fn, iters: int = 10, warmup: int = 2) -> float:
 def device_ms(torch, fn, iters: int = 20) -> tuple:
     """``(device busy ms, device ops)`` per call of ``fn`` under
     ``torch.profiler``, after two warm-up calls: the kernel time without the
-    host's launch overhead, which bounds a CUDA-event time of short calls."""
+    host's launch overhead, which bounds a CUDA-event time of short calls.
+    Now and then a profile of calls of a few microseconds comes back with no
+    device entries at all (at the vision model's rank heads, and once at
+    (x)'s 128 heads): such a profile is taken again, up to twice, and a time
+    of 0 fails the run."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -591,7 +672,11 @@ def device_ms(torch, fn, iters: int = 20) -> tuple:
         for _ in range(iters):
             fn()
 
-    _, busy, n_ops, _ = device_profile(torch, run)
+    for _ in range(3):
+        _, busy, n_ops, _ = device_profile(torch, run)
+        if busy > 0:
+            break
+    check(busy > 0, "device_ms: three profiles saw no device time")
     return busy / iters, n_ops / iters
 
 
@@ -824,6 +909,7 @@ def phase_kernels(torch, ops, peaks, dev) -> dict:
     blocks = kernel_twoside_compress(torch, ops, peaks, dev, g)
     out["twoside_sketch_tp"] = {k: v for k, v in blocks.items() if k.startswith("tp ")}
     out["twoside_sketch_ep"] = {k: v for k, v in blocks.items() if k.startswith("ep ")}
+    out["twoside_sketch_hy"] = {k: v for k, v in blocks.items() if k.startswith("hy ")}
     out["twoside_sketch"]["max_abs_err"] = max(
         [out["twoside_sketch"]["max_abs_err"]] + [v["max_abs_err"] for v in blocks.values()])
     out["countsketch_batched"] = kernel_batched(torch, ops, dev, g, peaks)
@@ -842,7 +928,9 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
     (s)'s heads: the conversion's 512 heads at 1x2 and 256 at 2x2 (panel 32)
     and a decode fold's 32 and 16 (one layer, panel 8); (ep)'s rank blocks of
     (u)'s heads at 1x2, 32 (8 requests x 4 kv-heads of one layer) at head_dim
-    128, panel 32 and 8; the folds' windows from
+    128, panel 32 and 8; (hy)'s rank heads of the vision model at 1x2, 16 (4
+    requests x 4 kv-heads of one layer) at head_dim 128, panel 32 and 8; the
+    folds' windows from
     the prompt's end; OSNAP p = 4, s_c = s_r = 96, c0 = 64. Each held against
     its plain version (``force_plain``) with fp32 and bf16 operands: S_C on
     a panel window (gather), the Ω window on the panel's transpose
@@ -868,7 +956,10 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
                             64),
                            ("conversion_ep_kimi_1x2", SERVE_B * 8 // 2, SERVE_KC["panel"], 128),
                            ("decode_fold_ep_kimi_1x2", SERVE_B * 8 // 2,
-                            SERVE_KC["decode_panel"], 128)):
+                            SERVE_KC["decode_panel"], 128),
+                           ("conversion_hy_vision_1x2", HY_B * 8 // 2, SERVE_KC["panel"], 128),
+                           ("decode_fold_hy_vision_1x2", HY_B * 8 // 2, SERVE_KC["decode_panel"],
+                            128)):
         base = 0 if name.startswith("conversion") else SERVE_S
         S_C = StackedOSNAPSketch.draw(g, N, s, hd, p=p)
         S_R = StackedOSNAPSketch.draw(g, N, s, n_max, p=p).index_windows(L, base)
@@ -927,7 +1018,8 @@ def kernel_batched(torch, ops, dev, g, peaks) -> dict:
              library="one index_add_ over item*s + hash buckets of pre-signed rows",
              bound_ms=b, bound_by=by, bytes=nbytes, rel_err={k: v[1] for k, v in errs.items()})
         del panels, signed, acc
-    out = dict(out["conversion"], ep={k: v for k, v in out.items() if "_ep_" in k})
+    out = dict(out["conversion"], ep={k: v for k, v in out.items() if "_ep_" in k},
+               hy={k: v for k, v in out.items() if "_hy_" in k})
     out["max_abs_err"] = max(e[0] for e in errs.values())
     out["max_rel_err"] = max(e[1] for e in errs.values())
     emit("kernel/countsketch_batched_cases", shape=shapes,
@@ -1296,7 +1388,10 @@ TWOSIDE_TRAIN_SHAPES = (("embed.tok", 1, 128256, 2048, 128256, 2048),
                         ("ep mixer.w_q column block", 2, 2048, 1536, 2048, 3072),
                         ("ep mixer.w_uk column block", 2, 512, 1024, 512, 2048),
                         ("ep ffn.shared.w_up column block", 2, 2048, 1408, 2048, 2816),
-                        ("ep ffn.shared.w_down row block", 2, 1408, 2048, 2816, 2048))
+                        ("ep ffn.shared.w_down row block", 2, 1408, 2048, 2816, 2048),
+                        ("hy mixer.w_z column block", 2, 2048, 2048, 2048, 4096),
+                        ("hy mixer.w_out whole", 2, 4096, 2048, 4096, 2048),
+                        ("hy embed.lm_head vocab block", 1, 2048, 16000, 2048, 32000))
 
 
 def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
@@ -1305,9 +1400,11 @@ def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
     x 2048, and w_up's stack, 16 items of 2048 x 8192; and (tp)'s blocks at
     model axis 2, where S_C or S_R^T is a column slice of the whole leaf's
     sketch, and (ep)'s: deepseek's MLA and shared-FFN stacks (its 2 MoE
-    layers at (ep)'s training depth) at model axis 2; its stream-K plans
+    layers at (ep)'s training depth) at model axis 2, and (hy)'s: zamba2's
+    Mamba-2 w_z column block and whole w_out (a segment's stack of 2) and
+    its lm_head's vocab block at model axis 2; its stream-K plans
     there (few output tiles, deep k) against the card's slots and their
-    scratch. Returns the (tp) and (ep) shapes' numbers."""
+    scratch. Returns the (tp), (ep) and (hy) shapes' numbers."""
     ps = importlib.import_module("repro_torch.kernels.panel_score")
     tw = importlib.import_module("repro_torch.kernels.twoside_sketch")
     n_sm = ps.sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
@@ -1342,7 +1439,7 @@ def kernel_twoside_compress(torch, ops, peaks, dev, g) -> dict:
              plain_ms=p_ms, library_ms=lib_ms,
              library="torch.matmul(torch.matmul(S_C, G), S_R^T), fp32 highest", bound_ms=b,
              bound_by=by, tflops=flops / k_ms / 1e9, sms=n_sm, plans=plans)
-        if name.startswith(("tp ", "ep ")):
+        if name.startswith(("tp ", "ep ", "hy ")):
             out[name] = dict(max_abs_err=e_abs, rel_err=e_rel, ms=k_ms, plain_ms=p_ms,
                              library_ms=lib_ms, bound_ms=b, bound_by=by)
         del sc, a, srt, got, want
@@ -2135,10 +2232,10 @@ def telemetry_run(torch, ops, name, make, data, panel, fin, fields, true_error,
     del on
     torch.cuda.empty_cache()
     times = {False: [t_off], True: [t_on]}
-    for tel in (True, False, False, True) * 2:
+    for tel in OBS_TIMED:
         times[tel].append(_stream(torch, ops, lambda: make(tel), data, panel)[2])
         torch.cuda.empty_cache()
-    t_off, t_on = (sorted(times[tel])[2] for tel in (False, True))
+    t_off, t_on = (sorted(times[tel])[len(times[tel]) // 2] for tel in (False, True))
     dev_ms = {}
     prof_panels = 8 if window else num_panels
     for tel in (False, True):
@@ -2380,7 +2477,9 @@ CKPT_ROOT = ROOT / "build" / "chip_smoke_ckpt"
 CRASH_A, CRASH_I = 150, 70
 RESUME_CADENCE = {"a_fixed_countsketch": (4, 2), "b_adaptive_countsketch_chunk": (4, 2),
                   "c_adaptive_gaussian_route_b": (16, 4), "i_streaming_spsd": (4, 2)}
-RESUME_TIMED = 3  # timed drives per side, taken in turns; saves and restores timed
+# timed drives per side (cut from 3 to 1 for the script's time limit); saves
+# and restores timed as often
+RESUME_TIMED = 1
 # (o), (a): run_resilient_loop over 64 one-chunk steps fails at step 37 and
 # restores the checkpoint of step 32
 LOOP_FAIL_AT, LOOP_CKPT_EVERY = 37, 8
@@ -2766,30 +2865,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_rank(rank: int, world: int, init: str, jobs: dict, out_q) -> None:
-    """One gloo rank of (q), in its own process on the card: each job's
-    column block (a view of the parent's tensor, shared through CUDA IPC)
-    through ``mesh_sharded_stream``, launches and ``all_reduce`` calls
-    counted over that call alone; then rank 0's merged state is broadcast
-    and every rank compares it with its own, and rank 0 holds its state
-    against ``simulate_sharded_stream`` at the same W (C, R, indices and
-    counters bitwise; M bitwise at W = 2, within ``MESH_M_TOL`` beyond) and,
-    for (a) at W = 2, against ``run_resilient_sharded_stream``."""
-    import datetime
-
+def mesh_rank(rank: int, world: int, jobs: dict) -> dict:
+    """One pool rank's (q) job on the card: each job's column block (a view
+    of the parent's tensor, shared through CUDA IPC) through
+    ``mesh_sharded_stream``, launches and ``all_reduce`` calls counted over
+    that call alone; then rank 0's merged state is broadcast and every rank
+    compares it with its own, and rank 0 holds its state against
+    ``simulate_sharded_stream`` at the same W (C, R, indices and counters
+    bitwise; M bitwise at W = 2, within ``MESH_M_TOL`` beyond) and, for (a)
+    at W = 2, against ``run_resilient_sharded_stream``."""
     import torch
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.stream import (ArrayPanelSource, mesh_sharded_stream, padded_n,
                                     run_resilient_sharded_stream, simulate_sharded_stream)
 
-    if any(data.is_cuda for _, data in jobs.values()):
-        build.build_all()  # loads the libraries the parent built
-    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=300))
     real, calls, coll_ms = dist.all_reduce, [0], []
     real(torch.zeros(1, device="cuda" if torch.cuda.is_available() else "cpu"))  # connects
 
@@ -2840,15 +2931,18 @@ def mesh_rank(rank: int, world: int, init: str, jobs: dict, out_q) -> None:
             results[name] = res
             del merged, state0
             torch.cuda.empty_cache()
-        out_q.put((rank, on_host(torch, results)))
+        return results
     finally:
-        dist.all_reduce = real
-        dist.destroy_process_group()
-        # drop the parent's tensors before this process exits: an exit that
-        # still holds them never releases them to the parent (CUDA IPC), which
-        # then keeps A and K on the card for every later phase
+        # drop the parent's tensors at once: while this rank holds them (CUDA
+        # IPC), the parent cannot free A and K for the later phases
         jobs.clear()
         torch.cuda.synchronize()
+
+
+def pool_sync(rank: int, world: int, job: dict) -> dict:
+    """An empty pool job: once it returns, every rank has finished freeing
+    its previous job's tensors (a rank frees a job before it takes the next)."""
+    return {}
 
 
 def on_host(torch, obj):
@@ -2875,43 +2969,131 @@ def from_host(torch, obj):
     return obj
 
 
-def spawn_ranks(torch, world: int, jobs: dict, timeout: float = 600.0, target=None) -> dict:
-    """Run ``target`` (``mesh_rank``) in ``world`` spawned processes and
-    gather their results; a failed rank fails the phase (the others are
-    stopped). The ranks meet at a file of their own (a ``file://`` store in
-    a fresh temporary directory), not a TCP port: ranks spawned at the same
-    time by another process can neither take it nor join their group."""
-    import queue
-    import tempfile
+def pool_rank(rank: int, world: int, init: str, queues: list, out_q) -> None:
+    """One gloo rank of a :class:`RankPool` on the card, kept for every mesh
+    phase from (q) on: the kernels loaded and the group made once, then each
+    job ``(target, job)`` of its queue in turn, ``target(rank, world, job)``
+    returning the results it sends back (as numpy, ``on_host``); ``None``
+    ends it. ``dist.all_reduce`` is restored after each job (the phases
+    count collectives by wrapping it), and the job's memory is freed."""
+    import datetime
+    import gc
 
-    mp = torch.multiprocessing
-    out_q = mp.get_context("spawn").Queue()
-    store = tempfile.mkdtemp()
-    procs = mp.start_processes(target or mesh_rank,
-                               args=(world, f"file://{store}/store", jobs, out_q),
-                               nprocs=world, join=False, start_method="spawn")
-    results, deadline = {}, time.monotonic() + timeout
+    # ranks share the card: growable segments leave no reserved but unused
+    # blocks behind (1.7 GiB a rank with fixed ones, which 2x2 lacks)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+
+    build.build_all()  # loads the libraries the parent built
+    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=900))
+    real = dist.all_reduce
     try:
-        while len(results) < world:
+        out_q.put((rank, "ready"))
+        while (item := queues[rank].get()) is not None:
+            target, job = item
             try:
-                rank, out = out_q.get(timeout=1.0)
-                results[rank] = from_host(torch, out)  # the ranks send numpy (on_host)
-            except queue.Empty:
-                procs.join(timeout=0)  # raises if a rank failed
-                check(time.monotonic() < deadline, f"mesh W={world}: ranks did not report")
-        while not procs.join(timeout=1.0):
-            check(time.monotonic() < deadline, f"mesh W={world}: ranks did not exit")
+                out = target(rank, world, job)
+            finally:
+                dist.all_reduce = real
+            out_q.put((rank, on_host(torch, out)))
+            del out, item
+            gc.collect()
+            torch.cuda.empty_cache()
     finally:
-        for p in procs.processes:
-            if p.is_alive():
-                p.terminate()
-        shutil.rmtree(store, ignore_errors=True)
-    return results
+        dist.destroy_process_group()
+
+
+class RankPool:
+    """``world`` gloo ranks spawned once on this card (:func:`pool_rank`) and
+    shared by the mesh phases (q), (ts), (ep), (hy) and (tp), which hand them
+    jobs through :meth:`run` in place of a spawn each: a spawn's start (the
+    interpreter, torch, a CUDA context, the kernels' libraries, the group)
+    is paid once a world, and overlaps the phases the parent runs before
+    the first job. The ranks meet at a file of their own (a ``file://``
+    store in a fresh temporary directory), not a TCP port: ranks another
+    process spawns at the same time can neither take it nor join their
+    group."""
+
+    def __init__(self, torch, world: int):
+        import tempfile
+
+        mp = torch.multiprocessing
+        ctx = mp.get_context("spawn")
+        self.torch, self.world = torch, world
+        self.queues = [ctx.Queue() for _ in range(world)]
+        self.out_q = ctx.Queue()
+        self.store = tempfile.mkdtemp()
+        self.t0 = time.perf_counter()
+        self.ready_s = None
+        self.procs = mp.start_processes(pool_rank, args=(world, f"file://{self.store}/store",
+                                                         self.queues, self.out_q),
+                                        nprocs=world, join=False, start_method="spawn")
+
+    def _collect(self, timeout: float, what: str) -> dict:
+        import queue
+
+        results, deadline = {}, time.monotonic() + timeout
+        while len(results) < self.world:
+            try:
+                rank, out = self.out_q.get(timeout=1.0)
+                results[rank] = out
+            except queue.Empty:
+                self.procs.join(timeout=0)  # raises if a rank failed
+                check(time.monotonic() < deadline, f"pool W={self.world}: {what} did not report")
+        return results
+
+    def run(self, target, job: dict, timeout: float = 900.0) -> dict:
+        """``target(rank, world, job)`` on every rank; their results by rank.
+        A failed rank fails the phase."""
+        if self.ready_s is None:
+            self._collect(300.0, "the ranks' start")
+            self.ready_s = time.perf_counter() - self.t0
+            emit(f"mesh/pool_w{self.world}", spawn_to_ready_s=self.ready_s)
+        for q in self.queues:
+            q.put((target, job))
+        out = self._collect(timeout, target.__name__)
+        return {r: from_host(self.torch, v) for r, v in out.items()}
+
+    def close(self, timeout: float = 120.0) -> None:
+        try:
+            for q in self.queues:
+                q.put(None)
+            deadline = time.monotonic() + timeout
+            while not self.procs.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    break
+        finally:
+            for p in self.procs.processes:
+                if p.is_alive():
+                    p.terminate()
+            shutil.rmtree(self.store, ignore_errors=True)
+
+
+POOLS: dict = {}  # world -> RankPool, open from (q) to (tp)
+
+
+def pool_run(torch, world: int, target, job: dict, timeout: float = 900.0) -> dict:
+    """``target`` on the open pool of ``world`` ranks (one is started if none is)."""
+    if world not in POOLS:
+        POOLS[world] = RankPool(torch, world)
+    return POOLS[world].run(target, job, timeout)
+
+
+def close_pool(world: int) -> None:
+    pool = POOLS.pop(world, None)
+    if pool is not None:
+        pool.close()
 
 
 def phase_mesh(torch, A, K, ci_ri, ci_i, dev) -> list:
     """(q): ``mesh_sharded_stream`` in W = 2 and 4 gloo ranks on this one card
-    ((a) telemetered, (c), (d), (i); ``mesh_rank``) — the ranks share the
+    (the rank pools; (a) telemetered, (c), (d), (i); ``mesh_rank``) — the ranks share the
     parent's A and K through CUDA IPC, never a copy — with the kernel build
     reused by the ranks; then an NCCL group of one rank in this process runs
     (a) against the single-host stream, bitwise. Two ranks sharing one card
@@ -2935,7 +3117,7 @@ def phase_mesh(torch, A, K, ci_ri, ci_i, dev) -> list:
     mtimes = [p.stat().st_mtime_ns for p in libs]
     launched = []
     for world in MESH_WORKERS:
-        results, wall = host_s(torch, lambda: spawn_ranks(torch, world, jobs))
+        results, wall = host_s(torch, lambda: pool_run(torch, world, mesh_rank, jobs))  # noqa: B023
         for name in jobs:
             per_rank = [results[r][name] for r in range(world)]
             check(all(r["same_as_rank0"] for r in per_rank), f"mesh {name} W={world}: ranks differ")
@@ -2954,7 +3136,8 @@ def phase_mesh(torch, A, K, ci_ri, ci_i, dev) -> list:
                  block_cols=per_rank[0]["block_cols"], ranks_equal=True,
                  vs_simulate=dict(bitwise_but=per_rank[0]["vs_simulate_rel_err"]),
                  vs_resilient=per_rank[0].get("vs_resilient_rel_err"))
-        emit(f"mesh/w{world}", spawn_to_exit_s=wall, shared_operands="CUDA IPC views, no copies")
+        pool_run(torch, world, pool_sync, {})  # the ranks have let go of A and K
+        emit(f"mesh/w{world}", pool_job_s=wall, shared_operands="CUDA IPC views, no copies")
     check(libs and [p.stat().st_mtime_ns for p in libs] == mtimes,
           "mesh: the ranks rebuilt kernels")
 
@@ -3422,15 +3605,17 @@ def ts_margin(logits):
     return ((top[:, 0] - top[:, 1]) / lg.abs().amax(-1)).cpu()
 
 
-def ts_reference(torch, model, cfg, prompt, keep_logits: bool, **kw) -> dict:
-    """A one-rank ``generate`` of (r) or (s) for (ts)'s gates: its tokens,
-    prefill's last logits, and for each token the top-2 margin of the
-    logits it was drawn from (prefill's, then each decode step's; (B, T));
-    with ``keep_logits`` each decode step's logits, on the host."""
+def ts_reference(torch, model, cfg, prompt, keep_logits: bool, n_tokens: int = SERVE_T,
+                 vision=None, **kw) -> dict:
+    """A one-rank ``generate`` of (r) or (s) for (ts)'s gates (or of (hy)'s
+    models, ``n_tokens`` and ``vision`` given): its tokens, prefill's last
+    logits, and for each token the top-2 margin of the logits it was drawn
+    from (prefill's, then each decode step's; (B, T)); with ``keep_logits``
+    each decode step's logits, on the host."""
     from repro_torch.models import prefill
     from repro_torch.serve import generate
 
-    lg0, _ = prefill(model, cfg, prompt, SERVE_S + SERVE_T)
+    lg0, _ = prefill(model, cfg, prompt, prompt.shape[1] + n_tokens, vision)
     margins, steps = [ts_margin(lg0)], []
 
     def hook(i, lg):
@@ -3438,7 +3623,7 @@ def ts_reference(torch, model, cfg, prompt, keep_logits: bool, **kw) -> dict:
         if keep_logits:
             steps.append(lg.float().cpu())
 
-    toks = generate(model, cfg, prompt, SERVE_T, on_step=hook, **kw)
+    toks = generate(model, cfg, prompt, n_tokens, on_step=hook, vision=vision, **kw)
     out = dict(tokens=toks.cpu(), margins=torch.stack(margins, 1),
                prefill_logits=lg0.float().cpu())
     if keep_logits:
@@ -4375,28 +4560,45 @@ def compressed_step_profile(torch, cstep, state, batch, seed: int) -> dict:
                 top=[[k[:60], us / 1e3, n] for k, us, n in top]), state
 
 
-def train_cli(torch) -> dict:
-    """(y) gate (5): the training CLI at depth 2, compressed, a crash
-    injected at step 3; a checkpoint every 3 steps under ``build/``."""
+Y_CLI: dict = {}  # (y) gate (5)'s CLI process, run beside (hy)
+
+
+def start_train_cli() -> None:
+    """(y) gate (5): the training CLI at depth 2 on (y)'s batch shape and
+    llama3.2-1b's vocabulary, compressed, a crash injected at step 3; a checkpoint
+    every 3 steps under ``build/``. It runs in its own process beside (hy)
+    (its work is the card's and the disk's, (hy)'s the host's collectives),
+    finished by :func:`finish_train_cli` (the time limit)."""
     ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--layers",
            str(TRAIN_GATE_DEPTH), "--dtype", "bfloat16", "--batch", str(TRAIN_B), "--seq",
-           str(TRAIN_S), "--steps", "6", "--grad-compress", "--fail-at-step", "3",
-           "--ckpt-every", "3", "--ckpt-dir", str(ckpt)]
+           str(TRAIN_S), "--steps", "6", "--grad-compress", "--fail-at-step", "3", "--ckpt-every", "3",
+           "--ckpt-dir", str(ckpt)]
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    t0 = time.perf_counter()
+    Y_CLI.update(cmd=cmd, ckpt=ckpt, t0=time.perf_counter(),
+                 proc=subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True))
+
+
+def finish_train_cli() -> dict:
+    """Wait for (y) gate (5)'s CLI and check it: one restart, 6 steps."""
+    cli = dict(Y_CLI)
+    Y_CLI.clear()
+    proc = cli["proc"]
     try:
-        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        out, errs = proc.communicate(timeout=600)
     finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
-    wall = time.perf_counter() - t0
-    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("[train]")]
-    check(out.returncode == 0, f"(y) gate 5: the CLI exited {out.returncode}: "
-          f"{out.stderr[-2000:]}")
+        if proc.poll() is None:
+            proc.kill()
+        shutil.rmtree(cli["ckpt"], ignore_errors=True)
+    wall = time.perf_counter() - cli["t0"]
+    lines = [ln for ln in out.splitlines() if ln.startswith("[train]")]
+    check(proc.returncode == 0, f"(y) gate 5: the CLI exited {proc.returncode}: {errs[-2000:]}")
     done = lines[-1] if lines else ""
     check("done: 6 steps" in done and "restarts=1" in done, f"(y) gate 5: {lines}")
-    return dict(cmd=" ".join(cmd[1:]), wall_s=wall, lines=lines)
+    return dict(cmd=" ".join(cli["cmd"][1:]), wall_s=wall, lines=lines,
+                beside="(hy): references and the ranks' job")
 
 
 def phase_train(torch, ops, dev) -> list:
@@ -4482,7 +4684,7 @@ def phase_train(torch, ops, dev) -> list:
     check(recon["full_rank_control"] > TRAIN_RECON_TOL,
           f"(y) gate 4: the full-rank control passes: {recon['full_rank_control']}")
     torch.cuda.empty_cache()
-    cli = train_cli(torch)
+    start_train_cli()
     emit("train/y_llama_train", arch=TRAIN_ARCH, params=n_params, init_s=init_s,
          resident_from_earlier_phases_gib=resident / 2**30,
          batch=[TRAIN_B, TRAIN_S], steps=TRAIN_STEPS, remat="dots", optimizer=dataclasses.asdict(oc),
@@ -4490,7 +4692,7 @@ def phase_train(torch, ops, dev) -> list:
          kernel4_launches=launched["twoside_sketch"], launches=launched,
          compressed_step_profile=profile, gates=dict(**gates, reconstruction=recon,
                                                      reconstruction_tol=TRAIN_RECON_TOL,
-                                                     cli=cli))
+                                                     cli="train/y_cli"))
     return [launched]
 
 
@@ -4529,10 +4731,12 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
     ``reduce_from_tp``'s backward all-reducing again, in them and in the
     step; ``control_ce``: with ``cross_entropy``'s sum of exponentials over
     the model axis left out; ``control_gates``: the MoE gates not passed
-    through ``copy_to_tp``) against the one-rank run's, then ``steps`` steps
+    through ``copy_to_tp``; ``control_whole``: Mamba-2's whole tensors read
+    without ``copy_to_tp``) against the one-rank run's, then ``steps`` steps
     of (y)'s batches (this rank's data-parallel share); each step's
-    CUDA-event ms, metrics, collectives and kernel-4 launches, step 1's
-    parameters against the one-rank run's of the same kind."""
+    CUDA-event ms, metrics, collectives, kernel-4 launches and whether every
+    replicated leaf is equal bit for bit on the model axis's ranks after
+    it, step 1's parameters against the one-rank run's of the same kind."""
     import torch.distributed as dist
 
     from repro_torch.data import DataConfig, SyntheticLM
@@ -4570,8 +4774,14 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
     from repro_torch.models import moe as moe_mod
     from repro_torch.train import train_step as ts
 
+    from repro_torch.models import ssm as ssm_mod
+
     real_backward, real_reduce = sh._ReduceFromTP.backward, ts.reduce_from_tp
-    real_copy = moe_mod.copy_to_tp
+    real_copy, real_ssm_copy = moe_mod.copy_to_tp, ssm_mod.copy_to_tp
+    if kind == "control_whole":
+        # bc, dt, A, D and w_out skip copy_to_tp; the input to w_z, w_x keeps it
+        ssm_mod.copy_to_tp = lambda x: (real_ssm_copy(x) if x.dim() == 3
+                                        and x.shape[-1] == cfg.d_model else x)
     if kind == "control_gates":
         # the gates (T, k) skip copy_to_tp; the experts' input keeps it
         moe_mod.copy_to_tp = lambda x: x if x.shape[-1] == cfg.moe_top_k else real_copy(x)
@@ -4628,11 +4838,12 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
             recs.append(dict(ms=ev[0].elapsed_time(ev[1]), collectives=counter.read(),
                              kernel4=ops.LAUNCHES["twoside_sketch"], launches=dict(ops.LAUNCHES),
                              **{k: float(v) for k, v in metrics.items()}))
+            recs[-1]["whole_equal"] = whole_leaves_equal(torch, dist, mesh, named, blocks)
             if i == 0:
                 update_sq = sq_err(named, "params1c" if kind == "compressed" else "params1")
     finally:
         sh._ReduceFromTP.backward, ts.reduce_from_tp = real_backward, real_reduce
-        moe_mod.copy_to_tp = real_copy
+        moe_mod.copy_to_tp, ssm_mod.copy_to_tp = real_copy, real_ssm_copy
     out = dict(kind=kind, steps=recs, loss0=loss0, grad_sq=grad_sq, update_sq=update_sq,
                blocks=sorted(blocks), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                tp_index=mesh.index("model"), dp_index=at)
@@ -4641,52 +4852,55 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
     return out
 
 
-def tp_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
-    """One gloo rank of (tp) on the card: the runs of ``TP_RUNS`` at its
-    mesh, then (``job["cli"]``) the training CLI in the same group."""
-    import datetime
+def whole_leaves_equal(torch, dist, mesh, named: dict, blocks) -> bool:
+    """Whether every leaf not cut over the model axis (``named`` less
+    ``blocks``) is equal bit for bit on this rank and the model axis's rank
+    0: each broadcast from that rank and compared."""
+    group, src = mesh.group("model"), mesh.rank - mesh.index("model")
+    same = True
+    with torch.no_grad():
+        for k, p in named.items():
+            if k in blocks or group is None:
+                continue
+            t = p.detach().clone()
+            dist.broadcast(t, src=src, group=group)
+            same &= bool(torch.equal(t, p.detach()))
+    return same
 
-    # four ranks share the card: growable segments leave no reserved but
-    # unused blocks behind (1.7 GiB a rank with fixed ones, which 2x2 lacks)
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+def tp_rank(rank: int, world: int, job: dict) -> dict:
+    """One pool rank's (tp) job on the card: the runs of ``TP_RUNS`` at its
+    mesh, then (``job["cli"]``) the training CLI in the same group."""
     import torch
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as sh
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
 
-    build.build_all()  # loads the libraries the parent built
     dev = torch.device("cuda")
-    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=600))
-    try:
-        mesh = make_host_mesh(*job["mesh"])
-        counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
-                                                  "data": mesh.group("data")})
-        dist.all_reduce = counter
-        full = get_arch(TRAIN_ARCH).full_config()
-        cfg = dataclasses.replace(full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH])
-        ref = torch.load(TP_REF, mmap=True, map_location="cpu", weights_only=True)
-        results = {}
-        for kind, steps in TP_RUNS[job["mesh"]]:
-            results[kind] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref, counter, dev)
-        del ref
-        dist.all_reduce = counter.real
-        if job.get("cli"):
-            from repro_torch.launch.train import main as train_main
+    mesh = make_host_mesh(*job["mesh"])
+    counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                              "data": mesh.group("data")})
+    dist.all_reduce = counter
+    full = get_arch(TRAIN_ARCH).full_config()
+    cfg = dataclasses.replace(full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH])
+    ref = torch.load(TP_REF, mmap=True, map_location="cpu", weights_only=True)
+    results = {}
+    for kind, steps in TP_RUNS[job["mesh"]]:
+        results[kind] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref, counter, dev)
+    del ref
+    dist.all_reduce = counter.real
+    if job.get("cli"):
+        from repro_torch.launch.train import main as train_main
 
-            t0 = time.perf_counter()
-            rep = train_main(job["cli"])
-            results["cli"] = dict(steps_run=rep.steps_run, restarts=rep.restarts,
-                                  losses=[float(x) for x in rep.losses],
-                                  wall_s=time.perf_counter() - t0)
-        out_q.put((rank, on_host(torch, results)))
-    finally:
-        dist.destroy_process_group()
+        t0 = time.perf_counter()
+        rep = train_main(job["cli"])
+        results["cli"] = dict(steps_run=rep.steps_run, restarts=rep.restarts,
+                              losses=[float(x) for x in rep.losses],
+                              wall_s=time.perf_counter() - t0)
+    return results
 
 
 def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str, watch: tuple = ()) -> dict:
@@ -4775,10 +4989,6 @@ def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
     gc.collect()
     torch.cuda.empty_cache()
     resident = torch.cuda.memory_allocated()
-    free_gib = torch.cuda.mem_get_info()[0] / 2**30
-    emit("train/tp_memory", parent_allocated_gib=resident / 2**30, card_free_gib=free_gib)
-    check(free_gib >= 4 * TP_RANK_GIB,
-          f"(tp): {free_gib} GiB free on the card; 2x2 needs 4 x {TP_RANK_GIB}")
     ckpt = ROOT / "build" / "chip_smoke_tp_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     cli = ["--arch", TRAIN_ARCH, "--layers", str(TRAIN_GATE_DEPTH), "--dtype", "bfloat16",
@@ -4789,8 +4999,15 @@ def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
     try:
         for shape, runs in TP_RUNS.items():
             world = shape[0] * shape[1]
+            if world == 4:  # the last mesh run: the two-rank pool's memory back first
+                close_pool(2)
+                free_gib = torch.cuda.mem_get_info()[0] / 2**30
+                emit("train/tp_memory", parent_allocated_gib=resident / 2**30,
+                     card_free_gib=free_gib)
+                check(free_gib >= 4 * TP_RANK_GIB,
+                      f"(tp): {free_gib} GiB free on the card; 2x2 needs 4 x {TP_RANK_GIB}")
             job = dict(mesh=shape, cli=cli if shape == (2, 2) else None)
-            results, wall = host_s(torch, lambda: spawn_ranks(torch, world, job, 900.0, tp_rank))
+            results, wall = host_s(torch, lambda: pool_run(torch, world, tp_rank, job))  # noqa: B023
             tag = f"{shape[0]}x{shape[1]}"
             for kind, steps in runs:
                 per_rank = {r: results[r][kind] for r in range(world)}
@@ -4826,6 +5043,7 @@ def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
                      collectives_per_step_rank0=coll,
                      collective_share_rank0=[c / x["ms"] for c, x in zip(coll_ms, recs[0])],
                      kernel4_launches_per_step=k4, gates=gates[name],
+                     whole_leaves_equal_per_step=[[x["whole_equal"] for x in rs] for rs in recs],
                      limits=dict(loss0=TP_LOSS0_TOL, loss=TP_LOSS_TOL, grad=TP_GRAD_TOL,
                                  grad_norm=TP_GRAD_NORM_TOL, update=TP_UPDATE_TOL),
                      step_ms_rank0=[x["ms"] for x in recs[0]],
@@ -4842,7 +5060,7 @@ def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
                 emit("train/tp_2x2_cli_and_wire", data_axis_bytes_per_step_rank0=dp,
                      compressed_over_plain=max(dp["compressed"]) / min(dp["plain"]),
                      cli=dict(argv=cli, per_rank=clis))
-            emit(f"train/tp_{tag}_spawn", spawn_to_exit_s=wall)
+            emit(f"train/tp_{tag}_ranks", pool_job_s=wall)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
         TP_REF.unlink(missing_ok=True)
@@ -4855,8 +5073,9 @@ def ts_tokens_gate(toks, ref: dict, rows: slice, limit: float = TS_LOGIT_TOL) ->
     to the first token whose logits there had a top-2 margin below
     ``limit`` of their largest logit (where the roundings of another
     summation order may flip the argmax)."""
-    want, margins = ref["tokens"][rows], ref["margins"][rows]
     got = toks.cpu()
+    n = got.shape[1]  # a run may take fewer tokens than the one-rank run's
+    want, margins = ref["tokens"][rows, :n], ref["margins"][rows, :n]
     small = margins < limit
     first = [int(row.nonzero()[0]) if bool(row.any()) else want.shape[1] for row in small]
     equal_before = all(bool((got[b, :k] == want[b, :k]).all()) for b, k in enumerate(first))
@@ -5010,60 +5229,48 @@ def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev)
     return out
 
 
-def ts_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
-    """One gloo rank of (ts) on the card: (r)'s model drawn whole from its
+def ts_rank(rank: int, world: int, job: dict) -> dict:
+    """One pool rank's (ts) job on the card: (r)'s model drawn whole from its
     seed, then each mesh of ``TS_RUNS[world]`` in turn (its weights cut by
     ``shard_params``; a 2x1 mesh keeps them whole) and its runs, the model
     axis's and the data axis's all-reduces counted; then (``job["cli"]``)
     the serve CLI at ``TS_CLI`` in the same group."""
-    import datetime
-
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     import torch
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as sh
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
 
-    build.build_all()  # loads the libraries the parent built
     dev = torch.device("cuda")
-    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=600))
     real = dist.all_reduce
-    try:
-        ref = torch.load(TS_REF, mmap=True, map_location="cpu", weights_only=True)
-        full = get_arch(SERVE_ARCH).full_config()
-        cfg = dataclasses.replace(full, n_layers=TS_DEPTH, pattern=full.pattern[:TS_DEPTH])
-        results = {}
-        with torch.no_grad():
-            model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev)
-            for shape, kinds in TS_RUNS[world]:
-                mesh = make_host_mesh(*shape)
-                sh.shard_params(model, sh.ParallelismRules(), mesh)
-                torch.cuda.empty_cache()
-                counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
-                                                          "data": mesh.group("data")})
-                dist.all_reduce = counter
-                for kind in kinds:
-                    results[(shape, kind)] = ts_run(torch, ops, sh, mesh, model, cfg, kind, ref,
-                                                    counter, dev)
-                dist.all_reduce = real
-            del model, ref
+    ref = torch.load(TS_REF, mmap=True, map_location="cpu", weights_only=True)
+    full = get_arch(SERVE_ARCH).full_config()
+    cfg = dataclasses.replace(full, n_layers=TS_DEPTH, pattern=full.pattern[:TS_DEPTH])
+    results = {}
+    with torch.no_grad():
+        model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev)
+        for shape, kinds in TS_RUNS[world]:
+            mesh = make_host_mesh(*shape)
+            sh.shard_params(model, sh.ParallelismRules(), mesh)
             torch.cuda.empty_cache()
-            if job.get("cli"):
-                from repro_torch.launch.serve import main as serve_main
+            counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                                      "data": mesh.group("data")})
+            dist.all_reduce = counter
+            for kind in kinds:
+                results[(shape, kind)] = ts_run(torch, ops, sh, mesh, model, cfg, kind, ref,
+                                                counter, dev)
+            dist.all_reduce = real
+        del model, ref
+        torch.cuda.empty_cache()
+        if job.get("cli"):
+            from repro_torch.launch.serve import main as serve_main
 
-                out, wall = host_s(torch, lambda: serve_main(TS_CLI))
-                results["cli"] = dict(tokens=out.cpu(), wall_s=wall)
-        out_q.put((rank, on_host(torch, results)))
-    finally:
-        dist.all_reduce = real
-        dist.destroy_process_group()
+            out, wall = host_s(torch, lambda: serve_main(TS_CLI))
+            results["cli"] = dict(tokens=out.cpu(), wall_s=wall)
+    return results
 
 
 def _ts_gates(name: str, per_rank: dict, ref: dict, kind: str, shape: tuple) -> dict:
@@ -5144,7 +5351,7 @@ def phase_ts(torch, ops, dev) -> list:
     try:
         for world in (2, 4):
             job = dict(cli=world == 2)
-            results, wall = host_s(torch, lambda: spawn_ranks(torch, world, job, 900.0, ts_rank))  # noqa: B023
+            results, wall = host_s(torch, lambda: pool_run(torch, world, ts_rank, job))  # noqa: B023
             for shape, kinds in TS_RUNS[world]:
                 tag = f"{shape[0]}x{shape[1]}"
                 for kind in kinds:
@@ -5205,7 +5412,7 @@ def phase_ts(torch, ops, dev) -> list:
                       "(ts) CLI: the ranks' tokens differ")
                 emit("serve/ts_cli", argv=TS_CLI, shape=list(clis[0]["tokens"].shape),
                      wall_s=[c["wall_s"] for c in clis])
-            emit(f"serve/ts_world{world}_spawn", spawn_to_exit_s=wall)
+            emit(f"serve/ts_world{world}_ranks", pool_job_s=wall)
     finally:
         del ref
         TS_REF.unlink(missing_ok=True)
@@ -5265,9 +5472,11 @@ def ep_layer_record(torch, model, cfg, prompt, n_max: int) -> dict:
                 keep=keep.reshape(-1).cpu(), groups=P, capacity=cap)
 
 
-def ep_forced(torch, sh, mesh, model, cfg, ref: dict, rows: slice, dev, counter) -> dict:
-    """Gate 2 on this rank: prefill's logits over its rows and every decode
-    step's fed the one-rank run's tokens, against that run's, relative to
+def ep_forced(torch, sh, mesh, model, cfg, ref: dict, rows: slice, dev, counter,
+              n_steps: Optional[int] = None) -> dict:
+    """Gate 2 on this rank: prefill's logits over its rows and each decode
+    step's (the first ``n_steps``, all by default) fed the one-rank run's
+    tokens, against that run's, relative to
     the largest logit, with the one-rank run's expert choices taken in place
     of its own (``moe.forced_experts``) and each MoE call's own choices
     counted against them (flipped assignments); the cache's bytes; each
@@ -5277,9 +5486,9 @@ def ep_forced(torch, sh, mesh, model, cfg, ref: dict, rows: slice, dev, counter)
     from repro_torch.models import decode_step, moe, prefill
     from repro_torch.serve import cache_nbytes
 
-    n_steps = ref["logits"].shape[0]
+    n_steps = ref["logits"].shape[0] if n_steps is None else n_steps
     S = ref["prompt"].shape[1]
-    cache_len = S + ref["logits"].shape[0] + 1
+    cache_len = S + n_steps + 1
     prompt = ref["prompt"][rows].to(dev)
     n_moe = len(ref["experts_pre"])
     tok_rows = slice(rows.start * S, rows.stop * S)
@@ -5471,9 +5680,10 @@ def ep_serve_runs(torch, ops, sh, mesh, arch: str, ref: dict, counter, dev) -> d
         r = ref["t"]
         out["ds_layer"] = ep_layer_gate(torch, sh, mesh, model, cfg, r, dev,
                                         controls=mesh.shape["data"] == 1)
-        out["ds_dense"] = ep_serve(torch, ops, sh, mesh, model, cfg, r, counter, dev, SERVE_T,
+        out["ds_dense"] = ep_serve(torch, ops, sh, mesh, model, cfg, r, counter, dev, EP_DS_T,
                                    limit)
-        out["ds_dense"]["forced"] = ep_forced(torch, sh, mesh, model, cfg, r, rows, dev, counter)
+        out["ds_dense"]["forced"] = ep_forced(torch, sh, mesh, model, cfg, r, rows, dev, counter,
+                                              EP_DS_T - 1)
         if mesh.shape["data"] == 1:
             out["ds_controls"] = ep_controls(torch, sh, mesh, model, cfg, r, dev,
                                              ("every_rank_expert_block_0",))
@@ -5497,57 +5707,43 @@ def ep_serve_runs(torch, ops, sh, mesh, arch: str, ref: dict, counter, dev) -> d
     return out
 
 
-def ep_rank(rank: int, world: int, init: str, job: dict, out_q) -> None:
-    """One gloo rank of (ep) on the card: the runs of ``EP_RUNS[world]`` at its
-    mesh, the model and data axes' all-reduces counted."""
-    import datetime
-
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+def ep_rank(rank: int, world: int, job: dict) -> dict:
+    """One pool rank's (ep) job on the card: the runs of ``EP_RUNS[world]`` at
+    its mesh, the model and data axes' all-reduces counted."""
     import torch
     import torch.distributed as dist
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_arch
     from repro_torch.distributed import sharding as sh
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
 
-    build.build_all()  # loads the libraries the parent built
     dev = torch.device(job["device"])
-    dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank,
-                            timeout=datetime.timedelta(seconds=900))
-    real = dist.all_reduce
-    try:
-        shape, runs = EP_RUNS[world]
-        mesh = make_host_mesh(*shape)
-        counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
-                                                  "data": mesh.group("data")})
-        dist.all_reduce = counter
-        results = {}
-        with torch.no_grad():
-            ref = torch.load(EP_REF, mmap=True, map_location="cpu", weights_only=True)
-            for run in runs:
-                if run == "ds_serve":
-                    results.update(ep_serve_runs(torch, ops, sh, mesh, DEEPSEEK_ARCH, ref,
-                                                 counter, dev))
-                elif run == "kimi":
-                    results.update(ep_serve_runs(torch, ops, sh, mesh, KIMI_ARCH, ref, counter,
-                                                 dev))
-            del ref
-        if "ds_train" in runs:
-            full = get_arch(DEEPSEEK_ARCH).full_config()
-            cfg = dataclasses.replace(full, n_layers=EP_TRAIN_DEPTH,
-                                      pattern=full.pattern[:EP_TRAIN_DEPTH])
-            ref = torch.load(EP_TRAIN_REF, mmap=True, map_location="cpu", weights_only=True)
-            for kind, steps in EP_TRAIN_RUNS[shape]:
-                results[f"train_{kind}"] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref,
-                                                  counter, dev, seed=SEED + 130)
-            del ref
-        out_q.put((rank, on_host(torch, results)))
-    finally:
-        dist.all_reduce = real
-        dist.destroy_process_group()
+    shape, runs = EP_RUNS[world]
+    mesh = make_host_mesh(*shape)
+    counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                              "data": mesh.group("data")})
+    dist.all_reduce = counter
+    results = {}
+    with torch.no_grad():
+        ref = torch.load(EP_REF, mmap=True, map_location="cpu", weights_only=True)
+        for run in runs:
+            if run == "ds_serve":
+                results.update(ep_serve_runs(torch, ops, sh, mesh, DEEPSEEK_ARCH, ref, counter,
+                                             dev))
+            elif run == "kimi":
+                results.update(ep_serve_runs(torch, ops, sh, mesh, KIMI_ARCH, ref, counter, dev))
+        del ref
+    if "ds_train" in runs:
+        full = get_arch(DEEPSEEK_ARCH).full_config()
+        cfg = dataclasses.replace(full, n_layers=EP_TRAIN_DEPTH,
+                                  pattern=full.pattern[:EP_TRAIN_DEPTH])
+        ref = torch.load(EP_TRAIN_REF, mmap=True, map_location="cpu", weights_only=True)
+        for kind, steps in EP_TRAIN_RUNS[shape]:
+            results[f"train_{kind}"] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref,
+                                              counter, dev, seed=SEED + 130)
+        del ref
+    return results
 
 
 def train_reference(torch, ops, dev, cfg, seed: int, path, leaves: int, ratio: float,
@@ -5699,8 +5895,8 @@ def phase_ep(torch, ops, dev, kernels_ep: dict) -> list:
         for world in (2, 4):
             shape, runs = EP_RUNS[world]
             tag = f"{shape[0]}x{shape[1]}"
-            results, wall = host_s(torch, lambda: spawn_ranks(  # noqa: B023
-                torch, world, dict(device=str(dev)), 1200.0, ep_rank))
+            results, wall = host_s(torch, lambda: pool_run(  # noqa: B023
+                torch, world, ep_rank, dict(device=str(dev)), 1200.0))
             per = lambda key: {r: results[r][key] for r in range(world)}  # noqa: E731, B023
             if "ds_serve" in runs:
                 lays = per("ds_layer")
@@ -5837,14 +6033,448 @@ def phase_ep(torch, ops, dev, kernels_ep: dict) -> list:
                                if k.startswith("comp/")},
                          collectives_per_step_rank0=[x["collectives"] for x in recs[0]],
                          kernel4_launches_per_step=k4, gates=gates,
+                         whole_leaves_equal_per_step=[[x["whole_equal"] for x in rs]
+                                                      for rs in recs],
                          step_ms_rank0=[x["ms"] for x in recs[0]],
                          one_rank_step_ms=train_ref["one_rank"]["compressed_step_ms" if kind ==
                                                                  "compressed" else "plain_step_ms"])
-            emit(f"ep/{tag}_spawn", spawn_to_exit_s=wall)
+            emit(f"ep/{tag}_ranks", pool_job_s=wall)
     finally:
         EP_REF.unlink(missing_ok=True)
         EP_TRAIN_REF.unlink(missing_ok=True)
     emit("ep/kernels", **kernels_ep)
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# (hy): Mamba-2, shared and cross attention on the model axis
+# ---------------------------------------------------------------------------
+
+
+def hy_cfg(arch: str):
+    """(hy)'s config of ``arch``: its full width at ``HY_DEPTH[arch]`` layers."""
+    from repro_torch.configs import get_arch
+
+    full = get_arch(arch).full_config()
+    depth = HY_DEPTH[arch]
+    return dataclasses.replace(full, n_layers=depth, pattern=full.pattern[:depth])
+
+
+def hy_model(torch, arch: str, dev, mesh=None) -> tuple:
+    """(hy)'s model of ``arch`` from its seed (this rank's blocks, drawn leaf
+    by leaf, with a ``mesh``), the vision model's cross gates at 0.5; the
+    config and the seconds the draw took."""
+    from repro_torch.models import init_params
+
+    cfg = hy_cfg(arch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, HY_SEED[arch]), cfg, device=dev, mesh=mesh)
+    with torch.no_grad():
+        for b, spec in zip(model.blocks, cfg.pattern):
+            if spec.mixer == "cross":
+                b.mixer.gate.fill_(0.5)
+    torch.cuda.synchronize()
+    return cfg, model, time.perf_counter() - t0
+
+
+def hy_references(torch, ops, dev) -> dict:
+    """One rank's serve runs of (hy)'s three models, saved to ``HY_REF``:
+    ``HY_B`` requests of 2048 seeded tokens in each model's vocabulary (and
+    the stub's patch embeddings for the vision model); dense ``generate``
+    (tokens, margins, prefill's and each step's logits); the vision model's
+    compressed run ((s)'s compression from a seed; tokens, margins, kernel
+    1's launches); for mamba2 its first Mamba-2 layer's input and its gated
+    norm's output, for the vision model its cross layer's input, projected
+    patches and output, over ``HY_LAYER_B`` requests (the layer gates).
+    Returns each model's parameter count, init seconds and kernel-1
+    launches."""
+    from repro_torch.models import blocks, prefill, ssm
+    from repro_torch.models.attention import cross_attention
+    from repro_torch.models.layers import embed_tokens, rmsnorm
+    from repro_torch.models.modality import synth_patch_embeddings
+    from repro_torch.serve import KVCompressionConfig
+
+    ref, info = {}, {}
+    with torch.no_grad():
+        for arch in HY_DEPTH:
+            cfg, model, init_s = hy_model(torch, arch, dev)
+            g = gen(torch, dev, HY_SEED[arch] + 1)
+            prompt = torch.randint(0, cfg.vocab_size, (HY_B, SERVE_S), generator=g, device=dev)
+            vision = synth_patch_embeddings(g, cfg, HY_B, dev) if cfg.d_vision else None
+            rec = dict(prompt=prompt.cpu(), vision=None if vision is None else vision.cpu(),
+                       dense=ts_reference(torch, model, cfg, prompt, True, HY_T, vision))
+            info[arch] = dict(params=sum(p.numel() for p in model.parameters()), init_s=init_s)
+            if cfg.d_vision:
+                ops.reset_launches()
+                rec["compressed"] = ts_reference(
+                    torch, model, cfg, prompt, False, HY_T, vision,
+                    kv_compress=KVCompressionConfig(**SERVE_KC), gen=gen(torch, dev,
+                                                                         HY_SEED[arch] + 2))
+                info[arch]["kernel1"] = ops.LAUNCHES["countsketch_batched"]
+            if arch == MAMBA_ARCH:
+                layer = model.blocks[0]
+                h = rmsnorm(layer.norm1, embed_tokens(model.embed.tok, prompt[:HY_LAYER_B]),
+                            cfg.norm_eps)
+                seen, real = [], ssm._gated_norm
+                ssm._gated_norm = lambda s_, y, eps: seen.append(real(s_, y, eps)) or seen[-1]
+                try:
+                    ssm.mamba2_forward(layer.mixer, h, cfg)
+                finally:
+                    ssm._gated_norm = real
+                rec["norm"] = dict(h=h.cpu(), g=seen[0].cpu())
+            if cfg.d_vision:  # the cross layer's input and output at prefill
+                seen, real = [], blocks._cross_attend
+
+                def recorded(p_, c_, x, k, v, core=cross_attention):  # noqa: B023
+                    y = real(p_, c_, x, k, v, core)  # noqa: B023
+                    seen.append((x, y))  # noqa: B023
+                    return y
+
+                blocks._cross_attend = recorded
+                try:
+                    prefill(model, cfg, prompt[:HY_LAYER_B], SERVE_S + 1, vision[:HY_LAYER_B])
+                finally:
+                    blocks._cross_attend = real
+                vis = vision[:HY_LAYER_B].to(cfg.param_dtype) @ model.vision_proj
+                rec["cross"] = dict(h=seen[0][0].cpu(), vis=vis.cpu(), y=seen[0][1].cpu())
+            ref[arch] = rec
+            del model, vision
+            torch.cuda.empty_cache()
+    HY_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, HY_REF)
+    return info
+
+
+def hy_serve(torch, ops, sh, mesh, model, cfg, ref: dict, counter, dev, kc=None,
+             seed: int = 0) -> dict:
+    """One (hy) serve run on this rank under the mesh: ``generate`` of
+    ``HY_T`` tokens on the ``HY_B`` requests, its launches and collectives
+    reset just before (its tokens against the one-rank run's: gate 3); dense, also
+    prefill's logits (gate 1) and the one-rank run's tokens through
+    ``decode_step``, each step's logits (gate 2), its host ms and
+    collectives."""
+    import torch.distributed as dist
+
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import cache_nbytes, generate
+
+    rows = slice(0, HY_B)  # one data rank
+    prompt = ref["prompt"].to(dev)
+    vision = None if ref["vision"] is None else ref["vision"].to(dev)
+    r = ref["compressed" if kc else "dense"]
+    with sh.activation_sharding(mesh):
+        generate(model, cfg, prompt[:2, :256], 9 if kc else 3, kv_compress=kc,
+                 vision=None if vision is None else vision[:2])  # warm-up
+        torch.cuda.synchronize()
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        counter.reset()
+        ops.reset_launches()
+        t, st = {}, {}
+        toks = generate(model, cfg, prompt, HY_T, vision=vision, kv_compress=kc,
+                        gen=gen(torch, dev, seed) if kc else None, timings=t, stats=st)
+        torch.cuda.synchronize()
+        out = dict(tokens=toks.cpu(), timings=t, stats=st, rate=decode_rate(t, st, HY_B),
+                   collectives=counter.read(), launches=dict(ops.LAUNCHES),
+                   peak_gib=(torch.cuda.max_memory_allocated() - resident) / 2**30,
+                   resident_gib=resident / 2**30,
+                   tokens_gate=ts_tokens_gate(toks, r, rows, HY_LOGIT_TOL))
+        if kc is not None:
+            return out
+        counter.reset()
+        (lg0, cache), pre_s = host_s(torch, lambda: prefill(model, cfg, prompt,
+                                                            SERVE_S + HY_T, vision))
+        pre_coll = counter.read()
+        out.update(prefill_rel_err=err(lg0, r["prefill_logits"].to(dev))[1],
+                   prefill_host_ms=1e3 * pre_s, prefill_collectives=pre_coll,
+                   prefill_collective_share=sum(v["ms"] for v in pre_coll.values()) / (1e3 * pre_s),
+                   cache_nbytes=cache_nbytes(cache["layers"]))
+        errs, ms, coll = [], [], []
+        for i in range(HY_T - 1):
+            before = counter.read()
+            lg, t_s = host_s(torch, lambda: decode_step(  # noqa: B023
+                model, cfg, cache, r["tokens"][rows, i:i + 1].to(dev))[0])
+            errs.append(err(lg, r["logits"][i].to(dev))[1])
+            ms.append(1e3 * t_s)
+            coll.append(ts_collectives(counter.read(), before, 1))
+        del cache
+    out.update(step_rel_err=errs, forced_step_host_ms=median(ms),
+               forced_step_collectives=coll[len(coll) // 2],
+               collective_share=median([sum(v["ms"] for v in c.values()) / x
+                                        for c, x in zip(coll, ms)]))
+    return out
+
+
+def hy_controls(torch, sh, mesh, model, cfg, ref: dict, dev) -> dict:
+    """(hy)'s serve control on this rank, a prefill whose logits must fail
+    gate 1: ``mamba2_unsummed``, Mamba-2's output left unsummed over the
+    model axis (each rank's normed ``y`` placed in zeros, not gathered, so
+    ``w_out`` gives the rank's partial output alone)."""
+    from repro_torch.models import prefill, ssm
+
+    def own_block(g, dim=-1):
+        index, m = sh.tp_index()
+        n = g.shape[-1]
+        out = g.new_zeros((*g.shape[:-1], n * m))
+        out[..., index * n:(index + 1) * n] = g
+        return out
+
+    ssm.gather_from_tp = own_block
+    try:
+        with sh.activation_sharding(mesh):
+            lg, _ = prefill(model, cfg, ref["prompt"].to(dev), SERVE_S + 1)
+    finally:
+        ssm.gather_from_tp = sh.gather_from_tp
+    return dict(mamba2_unsummed=err(lg, ref["dense"]["prefill_logits"].to(dev))[1])
+
+
+def hy_layer_gate(torch, sh, mesh, model, cfg, ref: dict, dev) -> dict:
+    """(hy)'s layer gate on this rank, on the one-rank run's recorded
+    inputs, and its control, which must fail it: mamba2's first Mamba-2
+    layer, its gated RMSNorm's output on this rank's channels against that
+    run's block (control: the norm over the rank's own channels alone); the
+    vision model's cross layer, its output against that run's (control:
+    the output left unsummed over the model axis)."""
+    from repro_torch.models import blocks, ssm
+    from repro_torch.models.layers import rmsnorm
+
+    out = {}
+    if "norm" in ref:
+        h = ref["norm"]["h"].to(dev)
+        want = ref["norm"]["g"]
+        m, mi = mesh.shape["model"], mesh.index("model")
+        n = want.shape[-1] // m
+        want = want[..., mi * n:(mi + 1) * n].to(dev)
+        real = ssm._gated_norm
+        for name, fn in (("rel_err", real), ("control_rel_err",
+                                             lambda s_, y, eps: rmsnorm(s_, y, eps))):
+            seen = []
+            ssm._gated_norm = lambda s_, y, eps: seen.append(fn(s_, y, eps)) or seen[-1]  # noqa: B023
+            try:
+                with sh.activation_sharding(mesh):
+                    ssm.mamba2_forward(model.blocks[0].mixer, h, cfg)
+            finally:
+                ssm._gated_norm = real
+            out[name] = err(seen[0], want)[1]
+        out.update(layer="mamba2 gated norm", control="own_mean", channels=[mi * n, (mi + 1) * n])
+    else:
+        rec = {k: v.to(dev) for k, v in ref["cross"].items()}
+        mix = next(b.mixer for b, s_ in zip(model.blocks, cfg.pattern) if s_.mixer == "cross")
+        for name in ("rel_err", "control_rel_err"):
+            if name == "control_rel_err":
+                blocks.reduce_from_tp = lambda x: x
+            try:
+                with sh.activation_sharding(mesh):
+                    k, v = blocks._cross_kv(mix, rec["vis"], cfg)
+                    y = blocks._cross_attend(mix, cfg, rec["h"], k, v)
+            finally:
+                blocks.reduce_from_tp = sh.reduce_from_tp
+            out[name] = err(y, rec["y"])[1]
+        out.update(layer="vision cross output", control="cross_unsummed")
+    return out
+
+
+def hy_rank(rank: int, world: int, job: dict) -> dict:
+    """One pool rank's (hy) job on the card at mesh 1x2: each model's blocks
+    drawn leaf by leaf, served dense (and the vision model compressed) with
+    its controls and, for mamba2, the layer gate; then zamba2's training
+    runs of ``HY_TRAIN_RUNS``, every replicated leaf compared bit for bit on
+    the model axis after each step. The model axis's all-reduces counted."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import KVCompressionConfig
+
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(1, 2)
+    counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                              "data": mesh.group("data")})
+    dist.all_reduce = counter
+    results = {}
+    with torch.no_grad():
+        ref = torch.load(HY_REF, mmap=True, map_location="cpu", weights_only=True)
+        for arch in HY_DEPTH:
+            cfg, model, init_s = hy_model(torch, arch, dev, mesh)
+            out = dict(init_s=init_s, dense=hy_serve(torch, ops, sh, mesh, model, cfg, ref[arch],
+                                                     counter, dev))
+            if cfg.d_vision:
+                out["compressed"] = hy_serve(torch, ops, sh, mesh, model, cfg, ref[arch],
+                                             counter, dev, KVCompressionConfig(**SERVE_KC),
+                                             HY_SEED[arch] + 2)
+            if arch == MAMBA_ARCH:
+                out["controls"] = hy_controls(torch, sh, mesh, model, cfg, ref[arch], dev)
+            if arch != ZAMBA_ARCH:
+                out["layer_gate"] = hy_layer_gate(torch, sh, mesh, model, cfg, ref[arch], dev)
+            results[arch] = out
+            del model
+            torch.cuda.empty_cache()
+        del ref
+    ref = torch.load(HY_TRAIN_REF, mmap=True, map_location="cpu", weights_only=True)
+    cfg = hy_cfg(ZAMBA_ARCH)
+    for kind, steps in HY_TRAIN_RUNS:
+        results[f"train_{kind}"] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref, counter,
+                                          dev, seed=HY_SEED[ZAMBA_ARCH])
+    del ref
+    return results
+
+
+def _hy_serve_gates(name: str, per_rank: dict, controls: dict = None) -> dict:
+    """(hy)'s serve gates over one run's ranks: dense — prefill's logits
+    (gate 1) and each teacher-forced step's (gate 2) within
+    ``HY_LOGIT_TOL`` of the largest logit; both — the tokens equal to the
+    one-rank run's up to each request's first small margin (gate 3) and on
+    the two model ranks (gate 4); each control failing gate 1."""
+    toks = [r["tokens"] for r in per_rank.values()]
+    same = all(torch_equal(t, toks[0]) for t in toks)
+    check(same, f"(hy) {name}: the model ranks returned different tokens")
+    gates = [r["tokens_gate"] for r in per_rank.values()]
+    check(all(g["equal_before_it"] for g in gates), f"(hy) {name}: tokens differ: {gates}")
+    out = dict(model_group_tokens_equal=same, tokens=gates)
+    if "prefill_rel_err" in per_rank[0]:
+        pre = max(r["prefill_rel_err"] for r in per_rank.values())
+        step = max(max(r["step_rel_err"]) for r in per_rank.values())
+        check(pre <= HY_LOGIT_TOL and step <= HY_LOGIT_TOL,
+              f"(hy) {name}: prefill logits {pre}, decode steps {step} > {HY_LOGIT_TOL}")
+        out.update(prefill_rel_err=pre, step_rel_err=step, limit=HY_LOGIT_TOL)
+    if controls:
+        worst = {c: min(x[c] for x in controls.values()) for c in controls[0]}
+        check(all(v > HY_LOGIT_TOL for v in worst.values()),
+              f"(hy) {name}: a control passes gate 1: {worst}")
+        out["controls_prefill_rel_err_least_rank"] = worst
+    return out
+
+
+def phase_hy(torch, ops, dev, kernels_hy: dict) -> list:
+    """(hy): Mamba-2, shared and cross attention on the model axis at 1x2 in
+    the two-rank pool on this one card (gloo stages the collectives through
+    the host): mamba2-1.3b, zamba2-1.2b and the vision model served at full
+    width and cut depth (``HY_DEPTH``), dense and (the vision model) with
+    the compressed cache, against one rank's runs of the same models and
+    depths made here first; zamba2 trained plain, compressed and with the
+    whole leaves' control against one rank's training run. Returns the
+    ranks' launches."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    info = hy_references(torch, ops, dev)
+    train_ref = train_reference(torch, ops, dev, hy_cfg(ZAMBA_ARCH), HY_SEED[ZAMBA_ARCH],
+                                HY_TRAIN_REF, HY_ZAMBA_LEAVES, HY_ZAMBA_RATIO, "hy", steps=3)
+    check(train_ref["one_rank"]["params"] == HY_ZAMBA_PARAMS,
+          f"(hy) one rank: {train_ref['one_rank']['params']} parameters")
+    emit("train/hy_one_rank_reference", **train_ref["one_rank"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("hy/references", s=time.perf_counter() - t0, one_rank=info,
+         parent_allocated_gib=torch.cuda.memory_allocated() / 2**30,
+         card_free_gib=torch.cuda.mem_get_info()[0] / 2**30)
+    launched = []
+    try:
+        results, wall = host_s(torch, lambda: pool_run(torch, 2, hy_rank, {}))
+        for arch in HY_DEPTH:
+            per = {r: results[r][arch] for r in range(2)}
+            tag = HY_TAG[arch]
+            for mode in ("dense", "compressed"):
+                if mode not in per[0]:
+                    continue
+                runs = {r: x[mode] for r, x in per.items()}
+                first = runs[0]
+                ctl = ({r: x["controls"] for r, x in per.items()}
+                       if mode == "dense" and "controls" in per[0] else None)
+                gates = _hy_serve_gates(f"{tag} {mode}", runs, ctl)
+                k1 = [x["launches"]["countsketch_batched"] for x in runs.values()]
+                want_k1 = info[arch].get("kernel1", 0) if mode == "compressed" else 0
+                check(all(n == want_k1 for n in k1),
+                      f"(hy) {tag} {mode}: kernel 1 launched {k1}, one rank {want_k1}")
+                if mode == "compressed":
+                    check(want_k1 > 0, f"(hy) {tag}: the one-rank compressed run launched no "
+                          "kernel 1")
+                routes = {x["stats"]["route"] for x in runs.values()}
+                check(routes == {"eager"}, f"(hy) {tag} {mode}: routes {routes}")
+                fields = dict(
+                    arch=arch, depth=HY_DEPTH[arch], mesh=[1, 2], backend="gloo on one card",
+                    route="eager", requests=HY_B, prompt_len=SERVE_S, new_tokens=HY_T,
+                    gates=gates, init_s_per_rank=[x["init_s"] for x in per.values()],
+                    one_rank_params=info[arch]["params"],
+                    prefill_ms_per_rank=[x["timings"]["prefill"] for x in runs.values()],
+                    decode_ms_per_token_per_rank=[x["rate"]["decode_ms_per_token"]
+                                                  for x in runs.values()],
+                    generate_collectives_rank0=first["collectives"],
+                    peak_gib_per_rank=[x["peak_gib"] for x in runs.values()],
+                    resident_gib_per_rank=[x["resident_gib"] for x in runs.values()],
+                    kernel1_launches_per_rank=k1, one_rank_kernel1_launches=want_k1,
+                    timing="CUDA events in each rank", rate_rank0=first["rate"])
+                if mode == "dense":
+                    fields.update(
+                        prefill_host_ms_rank0=first["prefill_host_ms"],
+                        prefill_collectives_rank0=first["prefill_collectives"],
+                        prefill_collective_share_rank0=first["prefill_collective_share"],
+                        decode_step_collectives_rank0=first["forced_step_collectives"],
+                        decode_step_collective_share_rank0=first["collective_share"],
+                        forced_step_host_ms_rank0=first["forced_step_host_ms"],
+                        cache_nbytes_per_rank=first["cache_nbytes"])
+                if mode == "dense" and "layer_gate" in per[0]:
+                    lg_ = {r: x["layer_gate"] for r, x in per.items()}
+                    sound = max(x["rel_err"] for x in lg_.values())
+                    ctl_l = min(x["control_rel_err"] for x in lg_.values())
+                    check(sound <= HY_LAYER_TOL < ctl_l,
+                          f"(hy) {tag}: {lg_[0]['layer']} {sound}, control {ctl_l} "
+                          f"(limit {HY_LAYER_TOL})")
+                    fields["layer_gate"] = dict(per_rank=lg_, rel_err=sound,
+                                                control_rel_err=ctl_l, limit=HY_LAYER_TOL,
+                                                requests=HY_LAYER_B)
+                launched += [x["launches"] for x in runs.values()]
+                emit(f"serve/hy_{tag}_{mode}", **fields)
+        for kind, steps in HY_TRAIN_RUNS:
+            per_rank = {r: results[r][f"train_{kind}"] for r in range(2)}
+            name = f"1x2_{kind}"
+            gates = _tp_gates(f"hy {name}", per_rank, train_ref, kind, watch=HY_WHOLE)
+            recs = [r["steps"] for r in per_rank.values()]
+            k4 = [[x["kernel4"] for x in rs] for rs in recs]
+            if kind == "compressed":
+                check(all(n == HY_ZAMBA_LEAVES for ks in k4 for n in ks),
+                      f"(hy) {name}: kernel 4 launched {k4} a step, not {HY_ZAMBA_LEAVES}")
+                ratios = [x["comp/ratio"] for rs in recs for x in rs]
+                check(all(abs(r / HY_ZAMBA_RATIO - 1) <= 1e-6 for r in ratios),
+                      f"(hy) {name}: comp/ratio {ratios} != {HY_ZAMBA_RATIO}")
+            else:
+                check(not any(n for ks in k4 for n in ks), f"(hy) {name}: kernel 4 {k4}")
+            whole = [[x["whole_equal"] for x in rs] for rs in recs]
+            if not kind.startswith("control"):
+                check(all(all(w) for w in whole),
+                      f"(hy) {name}: a replicated leaf differs between the model ranks: {whole}")
+                for rs in recs:
+                    totals = {}
+                    for x in rs:
+                        for key, v in x["launches"].items():
+                            totals[key] = totals.get(key, 0) + v
+                    launched.append(totals)
+            ms = [median([x["ms"] for x in rs[1:]] or [rs[0]["ms"]]) for rs in recs]
+            coll = [x["collectives"] for x in recs[0]]
+            coll_ms = [sum(v["ms"] for v in c.values()) for c in coll]
+            emit(f"train/hy_{name}", arch=ZAMBA_ARCH, depth=HY_DEPTH[ZAMBA_ARCH], mesh=[1, 2],
+                 backend="gloo on one card", steps=len(recs[0]), step_ms_median_per_rank=ms,
+                 tokens_per_s=TRAIN_B * TRAIN_S / max(ms) * 1e3,
+                 peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+                 losses=[x["loss"] for x in recs[0]], grad_norms=[x["grad_norm"] for x in recs[0]],
+                 comp={k: [x[k] for x in recs[0]] for k in recs[0][0] if k.startswith("comp/")},
+                 collectives_per_step_rank0=coll,
+                 collective_share_rank0=[c / x["ms"] for c, x in zip(coll_ms, recs[0])],
+                 kernel4_launches_per_step=k4, whole_leaves_equal_per_step=whole, gates=gates,
+                 step_ms_rank0=[x["ms"] for x in recs[0]],
+                 one_rank_step_ms=train_ref["one_rank"]["compressed_step_ms" if kind ==
+                                                         "compressed" else "plain_step_ms"])
+        emit("hy/1x2_ranks", pool_job_s=wall)
+    finally:
+        HY_REF.unlink(missing_ok=True)
+        HY_TRAIN_REF.unlink(missing_ok=True)
+    emit("hy/kernels", **kernels_hy)
     return launched
 
 
@@ -5901,6 +6531,9 @@ def main() -> int:
     mark("e, l")
     runs_launches.append(run_sp_svd(torch, A, dev))
     mark("h")
+    # the mesh phases' ranks start now, beside (m)-(p): one pool a world size
+    for world in (2, 4):
+        POOLS[world] = RankPool(torch, world)
     runs_launches += phase_obs(torch, A, runs)
     mark("m: a-d")
     runs_launches += phase_shard(torch, A, runs, errors, dev)
@@ -5960,8 +6593,15 @@ def main() -> int:
         mark("x: vision")
     runs_launches += phase_train(torch, ops, dev)
     mark("y: train")
+    runs_launches += phase_hy(torch, ops, dev, dict(
+        kernel4_blocks=kernels["twoside_sketch_hy"],
+        kernel1_rank_heads=kernels["countsketch_batched"]["hy"]))
+    emit("train/y_cli", **finish_train_cli())  # (y) gate (5), run beside (hy)
+    mark("hy: mamba2, shared and cross attention on a mesh")
     runs_launches += phase_tp(torch, ops, dev, kernels["twoside_sketch_tp"])
     mark("tp: tensor parallel")
+    for world in (2, 4):
+        close_pool(world)
     for launches in runs_launches:
         for k, v in launches.items():
             totals[k] += v
@@ -5981,4 +6621,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:  # a failed phase leaves no rank or process behind
+        for world in list(POOLS):
+            POOLS.pop(world).close(timeout=30.0)
+        if Y_CLI and Y_CLI["proc"].poll() is None:
+            Y_CLI["proc"].kill()
+    sys.exit(rc)

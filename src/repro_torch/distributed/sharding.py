@@ -17,11 +17,15 @@ replicated, as the reference's rules degrade.
 partitioner move activations where ``shard_act`` asks. The port runs one
 process per rank of a :class:`Mesh` (``launch/mesh.py``), each holding its
 block of every weight on the model axis (:func:`shard_params`), and the
-model code calls two autograd Functions where the reference calls
+model code calls autograd Functions where the reference calls
 ``shard_act``: :func:`copy_to_tp` (identity forward, all-reduce backward)
-before a column-sharded product, :func:`reduce_from_tp` (all-reduce
-forward, identity backward) after a row-sharded one. Both are the identity
-outside :func:`activation_sharding` or at model axis 1.
+before a column-sharded product or where a rank reads its part of a whole
+tensor, :func:`reduce_from_tp` (all-reduce forward, identity backward)
+after a row-sharded one, :func:`sum_over_tp` (all-reduce both ways) for a
+sum that every rank's part feeds and reads, :func:`gather_from_tp` (the
+blocks joined forward, the rank's block of the gradient backward) where a
+whole weight reads a cut activation. Each is the identity outside
+:func:`activation_sharding` or at model axis 1.
 
 * Each layer is a leaf of its own in the port, so a layer's tensors take
   the rules of an unscanned layer: ``w_q``, ``w_k``, ``w_v``, ``w_gate``,
@@ -35,13 +39,22 @@ outside :func:`activation_sharding` or at model axis 1.
   dense FFN's rules; the ``router`` stays whole. MLA's ``w_q``, ``w_uk``
   and ``w_uv`` are cut by columns, which are whole heads, ``w_o`` by rows;
   ``w_dkv`` stays whole, and so does the latent cache.
-* The run time takes ``ATTN``, ``ATTN_LOCAL`` and ``MLA`` mixers with dense
-  or MoE FFNs, and only whole shards: whole heads, equal FFN, expert,
-  shared-expert and vocab blocks (:func:`check_tp`). Mamba-2, shared and
-  cross attention and a modality input raise at model axis > 1. Where the
-  rules would replicate a dim they lay out over ``model``, or a block would
-  split a head, it raises; it never runs a replicated weight as though it
-  were split. :func:`cut_at_init` draws a model leaf by leaf, each cut to
+* Mamba-2 (``_LEAF_LAYOUTS``): ``w_z``, ``w_x``, ``conv_x_*`` and
+  ``norm_scale`` are cut by channels, which are whole SSM heads; ``w_bc``,
+  ``w_dt``, ``conv_bc_*``, ``dt_bias``, ``a_log``, ``d_skip`` and
+  ``w_out`` (no rule: ``P()``) stay whole. A rank reads its heads' part of
+  the whole ``bc``, ``dt``, ``A`` and ``D`` through :func:`copy_to_tp`, so
+  their leaves' gradients come out whole; the gated norm sums its squares
+  over the model axis (:func:`sum_over_tp`) and its output is gathered
+  (:func:`gather_from_tp`) for the whole ``w_out``. Shared attention's
+  model-level GQA and each cross layer are cut as any GQA; ``vision_proj``
+  and the cross ``gate`` stay whole.
+* The run time takes every mixer and FFN, and only whole shards: whole
+  query, KV, MLA and SSM heads, equal FFN, expert, shared-expert and vocab
+  blocks (:func:`check_tp`). Where the rules would replicate a dim they
+  lay out over ``model``, or a block would split a head, it raises; it
+  never runs a replicated weight as though it were split.
+  :func:`cut_at_init` draws a model leaf by leaf, each cut to
   the rank's block at once, so a model that does not fit the card whole
   never sits there.
 * The context is a module global, not a context variable: the autograd
@@ -79,8 +92,8 @@ import torch.distributed as dist
 __all__ = ["Mesh", "ParallelismRules", "activation_sharding", "batch_pspec", "block",
            "cache_pspec", "check_tp", "copy_to_tp", "cut_at_init", "dp_index", "explain",
            "gather_tp", "global_batch_group", "leaf_pspec", "param_pspecs", "reduce_from_tp", "ref_path", "shard_batch",
-           "shard_cache", "shard_params", "spec_block", "spec_str", "tp_cut", "tp_cuts",
-           "tp_group", "tp_index", "tp_names"]
+           "gather_from_tp", "shard_cache", "shard_params", "spec_block", "spec_str",
+           "sum_over_tp", "tp_cut", "tp_cuts", "tp_group", "tp_index", "tp_names"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -358,28 +371,31 @@ def _check_run_rules(rules: ParallelismRules) -> None:
 
 
 def check_tp(cfg, m: int) -> None:
-    """Raise unless ``cfg`` runs at model axis ``m`` in whole shards. At
-    ``m > 1`` the mixers must be ``ATTN``, ``ATTN_LOCAL`` or ``MLA`` and the
-    FFNs dense or MoE, with no modality input (``MAMBA2``, ``SHARED_ATTN``,
-    ``CROSS`` and ``d_vision > 0`` raise ``NotImplementedError``, naming
-    ``ROADMAP.md``); the query heads, the vocab and, where the pattern has
-    them, the KV heads (GQA), the FFN width (dense), the experts and the
-    shared experts' width (MoE) must each be a multiple of ``m``
-    (``ValueError`` otherwise)."""
-    from ..models.config import ATTN, ATTN_LOCAL, DENSE, MLA, MOE
+    """Raise ``ValueError`` unless ``cfg`` runs at model axis ``m`` in whole
+    shards: the vocab and, where the pattern has them, the query and KV
+    heads (GQA, shared and cross attention), the MLA heads, the FFN width
+    (dense), the experts and the shared experts' width (MoE) and the SSM
+    heads (Mamba-2, hence ``d_inner``) must each be a multiple of ``m``,
+    and the SSM heads must read one B/C group (``ssm_groups = 1``). Every
+    mixer, FFN and a modality input run at ``m > 1``: the projected vision
+    embeddings, the Mamba-2 leaves the reference keeps whole (``w_bc``,
+    ``w_dt``, ``conv_bc_*``, ``dt_bias``, ``a_log``, ``d_skip``,
+    ``w_out``), ``vision_proj`` and the cross gates are whole on every
+    rank."""
+    from ..models.config import ATTN, ATTN_LOCAL, CROSS, DENSE, MAMBA2, MLA, MOE, SHARED_ATTN
+    from ..models.ssm import ssm_dims
 
     if m == 1:
         return
     mixers, ffns = {s.mixer for s in cfg.pattern}, {s.ffn for s in cfg.pattern}
-    if mixers - {ATTN, ATTN_LOCAL, MLA} or ffns - {DENSE, MOE} or cfg.d_vision:
-        kinds = sorted({(s.mixer, s.ffn) for s in cfg.pattern})
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism at model axis {m} runs ATTN, ATTN_LOCAL and MLA "
-            f"mixers with dense or MoE FFNs; its blocks are {kinds}. Mamba-2, shared and cross "
-            "attention and a modality input wait in ROADMAP.md §1")
-    sizes = [("query heads", cfg.n_heads), ("vocab", cfg.vocab_size)]
-    if mixers & {ATTN, ATTN_LOCAL}:
+    sizes = []
+    if MAMBA2 in mixers:
+        sizes.append(("SSM heads", ssm_dims(cfg)[1]))
+    if mixers & {ATTN, ATTN_LOCAL, SHARED_ATTN, CROSS}:
         sizes.append(("KV heads", cfg.n_kv_heads))
+    if mixers & {ATTN, ATTN_LOCAL, MLA, SHARED_ATTN, CROSS}:
+        sizes.append(("query heads", cfg.n_heads))
+    sizes.append(("vocab", cfg.vocab_size))
     if DENSE in ffns:
         sizes.append(("FFN width", cfg.d_ff))
     if MOE in ffns:
@@ -390,6 +406,9 @@ def check_tp(cfg, m: int) -> None:
         if n % m:
             raise ValueError(f"{cfg.name}: {n} {what} do not split into {m} whole shards; the "
                              "run time never splits a head or replicates a sharded dim")
+    if MAMBA2 in mixers and cfg.ssm_groups > 1:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_groups} B/C groups; above model axis 1 the run "
+                         "time takes one group, which every rank's SSM heads read whole")
 
 
 def ref_path(name: str) -> tuple:
@@ -683,8 +702,46 @@ class _ReduceFromTP(torch.autograd.Function):
         return g, None
 
 
+class _SumOverTP(torch.autograd.Function):
+    """Sum of the ranks' partial values forward and backward: every rank
+    reads the sum, so each rank's part takes the gradient summed over the
+    ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _GatherFromTP(torch.autograd.Function):
+    """The model axis's blocks joined along ``dim`` (:func:`gather_tp`)
+    forward; backward, this rank's block of the gradient, which is the
+    whole one on every rank (the product that reads the joined tensor is
+    computed whole on each)."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        return gather_tp(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        index = tp_index()[0]
+        return g.narrow(ctx.dim, index * ctx.n, ctx.n).contiguous(), None
+
+
 def copy_to_tp(x: torch.Tensor) -> torch.Tensor:
-    """Mark a replicated input of a column-sharded product."""
+    """Mark a replicated input of a column-sharded product, or a whole tensor
+    of which a rank reads its part: its gradient is summed over the model
+    axis."""
     group = tp_group()
     return x if group is None else _CopyToTP.apply(x, group)
 
@@ -693,3 +750,16 @@ def reduce_from_tp(x: torch.Tensor) -> torch.Tensor:
     """Sum the partial outputs of a row-sharded product over the model axis."""
     group = tp_group()
     return x if group is None else _ReduceFromTP.apply(x, group)
+
+
+def sum_over_tp(x: torch.Tensor) -> torch.Tensor:
+    """Sum the ranks' partial values over the model axis where every rank
+    then reads the sum (a norm's sum of squares over a channel block)."""
+    group = tp_group()
+    return x if group is None else _SumOverTP.apply(x, group)
+
+
+def gather_from_tp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Join the model axis's blocks of ``x`` along ``dim`` for a whole weight
+    to read; the backward keeps this rank's block of the gradient."""
+    return x if tp_group() is None else _GatherFromTP.apply(x, dim)

@@ -20,9 +20,9 @@ a card; gloo on the CPU) or a default group the caller made (gloo ranks
 sharing one card). The default is the world by 1. Every rank draws the
 whole weights from the seed and keeps its blocks (``shard_params``); each
 data rank serves its rows of the seeded prompt (and of the vision stub's
-embeddings); ``m > 1`` is tensor parallelism of the dense archs (others
-raise), its decode loop eager. Rank 0 prints the mesh, the decode route
-and its rows' tokens.
+embeddings); ``m > 1`` is tensor parallelism of every arch, its decode
+loop eager. Rank 0 prints the mesh, the decode route and its rows'
+tokens.
 """
 
 from __future__ import annotations

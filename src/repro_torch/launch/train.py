@@ -15,10 +15,12 @@ process, else the ranks ``torchrun`` starts (the group is then made from
 its environment: NCCL on the card, one rank a card; gloo on the CPU) or a
 default group the caller made (gloo ranks sharing one card). Each rank
 trains on its data-parallel share of the batch; ``m > 1`` is tensor
-parallelism (each rank holds its block of every weight, the dense archs
-only), ``d > 1`` data parallelism by the mean of the gradients, or by GMR
-compression with ``--grad-compress``. The default is the world by 1. Each
-rank keeps its own checkpoints.
+parallelism (each rank holds its block of every weight, every arch), ``d >
+1`` data parallelism by the mean of the gradients, or by GMR compression
+with ``--grad-compress``. The default is the world by 1. Each rank keeps
+its own checkpoints. A vision arch's batches carry the modality stub's
+patch embeddings, drawn for each step from the seed (the reference's CLI
+passes none, and its vision arch raises for want of them).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from ..data import DataConfig, SyntheticLM
 from ..device import fold_in, generator, resolve_device
 from ..distributed import ParallelismRules, shard_params
 from ..models import init_params, param_count
+from ..models.modality import synth_patch_embeddings
 from .mesh import cli_mesh
 from ..train import (CompressionConfig, OptimizerConfig, compression_ratio, init_opt_state,
                      make_compressed_train_step, make_train_step)
@@ -120,7 +123,11 @@ def main(argv=None):
     share, at = args.batch // d, mesh.index("data")
 
     def batch_fn(step):
-        return {k: v[at * share:(at + 1) * share] for k, v in data.batch_at(step).items()}
+        batch = data.batch_at(step)
+        if cfg.d_vision:  # the modality stub's patch embeddings, drawn per step
+            batch["vision"] = synth_patch_embeddings(generator(fold_in(args.seed + 1, step), dev),
+                                                     cfg, args.batch, dev)
+        return {k: v[at * share:(at + 1) * share] for k, v in batch.items()}
 
     remat = None if args.remat == "none" else args.remat
 

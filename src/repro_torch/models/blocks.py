@@ -39,10 +39,14 @@ the GQA mixer runs this rank's heads in training, prefill and decode:
 ``w_q``, ``w_k``, ``w_v`` hold their columns, ``w_o`` their rows, the
 partial outputs are summed over the model axis, and every K/V cache (the
 full one, the ``ATTN_LOCAL`` ring, a pluggable backend) holds the rank's
-``KV/m`` heads; MLA runs the rank's heads over the whole latent cache
+``KV/m`` heads; shared attention runs the rank's heads of the model-level
+GQA the same way, at each of its positions. A cross layer runs the rank's
+query and KV heads over the whole projected vision embeddings (its K/V
+cache the rank's KV heads) and sums its partial outputs before the gate.
+MLA runs the rank's heads over the whole latent cache
 (:mod:`~repro_torch.models.mla`), MoE the rank's experts
-(:mod:`~repro_torch.models.moe`). The run time raises for Mamba-2, shared
-and cross attention there.
+(:mod:`~repro_torch.models.moe`), Mamba-2 the rank's SSM heads
+(:mod:`~repro_torch.models.ssm`).
 """
 
 from __future__ import annotations
@@ -209,18 +213,23 @@ def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Te
 
 
 def _cross_kv(p: Cross, vis, cfg: ModelConfig):
+    # this rank's KV heads of the whole projected vision embeddings, which
+    # pass through copy_to_tp (vision_proj's gradient is then whole)
     B, P, _ = vis.shape
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return (vis @ p.w_k).reshape(B, P, KV, hd), (vis @ p.w_v).reshape(B, P, KV, hd)
+    vis = copy_to_tp(vis)
+    hd = cfg.head_dim
+    return (vis @ p.w_k).reshape(B, P, -1, hd), (vis @ p.w_v).reshape(B, P, -1, hd)
 
 
 def _cross_attend(p: Cross, cfg: ModelConfig, x, k, v, core=cross_attention):
-    # no mask, no RoPE; the gate's fp32 tanh promotes the product, as the
-    # reference's 0-d fp32 array does, before the cast back to x's dtype
+    # no mask, no RoPE; this rank's query heads, their partial outputs summed
+    # before the gate (so the gate's gradient is whole); the gate's fp32
+    # tanh promotes the product, as the reference's 0-d fp32 array does,
+    # before the cast back to x's dtype
     B, S, _ = x.shape
-    q = (x @ p.w_q).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    q = (copy_to_tp(x) @ p.w_q).reshape(B, S, -1, cfg.head_dim)
     o = core(q, k, v).reshape(B, S, -1)
-    return (torch.tanh(p.gate) * (o @ p.w_o).float()).to(x.dtype)
+    return (torch.tanh(p.gate) * reduce_from_tp(o @ p.w_o).float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +316,9 @@ def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, leng
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
-    # K/V caches hold this rank's KV heads under tensor parallelism (ATTN and
-    # ATTN_LOCAL); MLA's latent is whole on every model rank
+    # K/V caches hold this rank's KV heads under tensor parallelism (ATTN,
+    # ATTN_LOCAL, SHARED_ATTN and CROSS), Mamba-2's states its channels and
+    # heads; MLA's latent is whole on every model rank
     KV, hd, dt = cfg.n_kv_heads // tp_index()[1], cfg.head_dim, cfg.param_dtype
     mixer = spec.mixer
     if mixer == MLA:

@@ -33,6 +33,26 @@ before the gated RMSNorm.
 ``jax.nn.softplus`` returns log(1 + eˣ); the two differ there by
 log(1 + e⁻ˣ) < 2.1e-9, below half an fp32 ulp of 20 (9.5e-7), so they
 round to the same fp32 value.
+
+Under tensor parallelism (:func:`repro_torch.distributed.activation_sharding`)
+a rank runs its ``H/m`` SSM heads, as the reference's layout places them:
+it holds the columns of ``w_z`` and ``w_x``, the channels of ``conv_x_*``
+and ``norm_scale``, and the states of its heads (``conv_x``'s channels,
+the SSM state's heads). ``bc`` and ``dt`` come whole from the whole
+``w_bc``, ``w_dt``, ``conv_bc_*`` and ``dt_bias``; the rank's heads read
+the one B/C group (``check_tp`` admits ``ssm_groups = 1`` at a model axis
+above 1) and their part of ``dt``, ``A`` and ``D``, all through
+``copy_to_tp``, so every
+whole leaf's gradient is summed over the model axis once (its input
+``x`` goes through ``copy_to_tp`` only on the way to ``w_z`` and
+``w_x``). The gated RMSNorm normalises over the whole ``d_inner``: its sum
+of squares is summed over the model axis (``sum_over_tp``). The normed
+``y`` is gathered over the model axis (``gather_from_tp``, 2·B·S·d_inner
+bytes a layer in bf16) and every rank multiplies it by the whole
+``w_out``: the product is one rank's bit for bit and ``w_out``'s gradient
+is whole with no sum. Multiplying the rank's rows of ``w_out`` and summing
+the partial outputs would move half the bytes, but it rounds two partial
+products to the model dtype where one rank rounds once.
 """
 
 from __future__ import annotations
@@ -43,17 +63,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import copy_to_tp, gather_from_tp, sum_over_tp, tp_index
 from .config import ModelConfig
 from .layers import init_scale, param, rmsnorm
 
-__all__ = ["Mamba2", "init_mamba2_state", "mamba2_decode", "mamba2_forward", "ssd_chunked"]
+__all__ = ["Mamba2", "init_mamba2_state", "mamba2_decode", "mamba2_forward", "ssd_chunked",
+           "ssm_dims"]
 
 
-def _dims(cfg: ModelConfig):
+def ssm_dims(cfg: ModelConfig) -> tuple:
+    """A Mamba-2 mixer's whole ``(d_inner, heads H, head dim P, groups G,
+    state N)``, as the reference's ``_dims``."""
     d_in = cfg.d_inner
     H = cfg.ssm_heads or d_in // cfg.ssm_head_dim
-    P = d_in // H
-    return d_in, H, P, cfg.ssm_groups, cfg.ssm_state
+    return d_in, H, d_in // H, cfg.ssm_groups, cfg.ssm_state
 
 
 class Mamba2(nn.Module):
@@ -65,7 +88,7 @@ class Mamba2(nn.Module):
     def __init__(self, gen, cfg: ModelConfig, device):
         super().__init__()
         D, dt = cfg.d_model, cfg.param_dtype
-        d_in, H, P, G, N = _dims(cfg)
+        d_in, H, P, G, N = ssm_dims(cfg)
         K = cfg.ssm_conv
         f32 = dict(dtype=torch.float32, device=device)
         # dt log-uniform in [0.001, 0.1], stored as softplus⁻¹(dt)
@@ -170,14 +193,43 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int):
 
 
 def _project(p: Mamba2, x):
-    return x @ p.w_z, x @ p.w_x, x @ p.w_bc, x @ p.w_dt
+    # this rank's z and x columns; bc and dt_raw whole
+    xt = copy_to_tp(x)
+    return xt @ p.w_z, xt @ p.w_x, x @ p.w_bc, x @ p.w_dt
 
 
-def _gated_out(p: Mamba2, y, xh, z, cfg: ModelConfig, x_dtype):
-    # D skip in fp32, back to the model dtype, then the gated RMSNorm and w_out
-    y = y + p.d_skip[:, None] * xh.float()
+def _rank_heads(p: Mamba2, Hr: int, bc, dt):
+    """B and C from the whole ``bc`` (…, 2GN), and this rank's ``Hr`` heads'
+    part of the whole ``dt`` (…, H), ``A`` and ``D`` (all of them at model
+    axis 1; above it the one group, G = 1, is every rank's)."""
+    A, D = -torch.exp(p.a_log), p.d_skip
+    index, m = tp_index()
+    if m > 1:
+        bc, dt, A, D = copy_to_tp(bc), copy_to_tp(dt), copy_to_tp(A), copy_to_tp(D)
+        heads = slice(index * Hr, (index + 1) * Hr)
+        dt, A, D = dt[..., heads], A[heads], D[heads]
+    half = bc.shape[-1] // 2
+    return bc[..., :half], bc[..., half:], dt, A, D
+
+
+def _gated_norm(scale, y, eps: float):
+    # RMSNorm over the whole d_inner; a rank holds its channels, so the sum
+    # of squares is summed over the model axis
+    m = tp_index()[1]
+    if m == 1:
+        return rmsnorm(scale, y, eps)
+    yf = y.float()
+    var = sum_over_tp(torch.sum(yf * yf, dim=-1, keepdim=True)) / (y.shape[-1] * m)
+    return (yf * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+def _gated_out(p: Mamba2, y, xh, z, D, cfg: ModelConfig, x_dtype):
+    # D skip in fp32, back to the model dtype, then the gated RMSNorm and
+    # w_out (over the whole normed y, gathered over the model axis)
+    y = y + D[:, None] * xh.float()
     y = y.reshape(*z.shape).to(x_dtype)
-    return rmsnorm(p.norm_scale, y * F.silu(z), cfg.norm_eps) @ p.w_out
+    g = _gated_norm(p.norm_scale, y * F.silu(z), cfg.norm_eps)
+    return gather_from_tp(g) @ p.w_out
 
 
 def mamba2_forward(p: Mamba2, x, cfg: ModelConfig, conv_x=None, conv_bc=None):
@@ -186,18 +238,17 @@ def mamba2_forward(p: Mamba2, x, cfg: ModelConfig, conv_x=None, conv_bc=None):
     the last K − 1 pre-conv inputs. Conv windows passed in prefix the
     inputs. (The reference's signature also takes an ``ssm_state``, which
     its scan ignores; the port leaves it out.)"""
-    d_in, H, P, G, N = _dims(cfg)
+    d_in, H, P, G, N = ssm_dims(cfg)
     Bsz, S, _ = x.shape
     z, xr, bc, dt_raw = _project(p, x)
     xr, conv_x = _causal_conv(xr, p.conv_x_w, p.conv_x_b, conv_x)
     bc, conv_bc = _causal_conv(bc, p.conv_bc_w, p.conv_bc_b, conv_bc)
-    xh = xr.reshape(Bsz, S, H, P)
-    Bm = bc[..., : G * N].reshape(Bsz, S, G, N)
-    Cm = bc[..., G * N :].reshape(Bsz, S, G, N)
+    xh = xr.reshape(Bsz, S, -1, P)  # this rank's heads
     dt = F.softplus(dt_raw.float() + p.dt_bias)
-    A = -torch.exp(p.a_log)
+    Bm, Cm, dt, A, D = _rank_heads(p, xh.shape[2], bc, dt)
+    Bm, Cm = Bm.reshape(Bsz, S, -1, N), Cm.reshape(Bsz, S, -1, N)
     y, ssm_state = ssd_chunked(xh, dt, A, Bm, Cm, cfg.ssm_chunk)
-    return _gated_out(p, y, xh, z, cfg, x.dtype), (conv_x, conv_bc, ssm_state)
+    return _gated_out(p, y, xh, z, D, cfg, x.dtype), (conv_x, conv_bc, ssm_state)
 
 
 def _conv_step(u, w, b, state):
@@ -209,28 +260,32 @@ def _conv_step(u, w, b, state):
 def mamba2_decode(p: Mamba2, x, cfg: ModelConfig, conv_x, conv_bc, ssm_state):
     """One token, x (B, 1, D), from the states of :func:`mamba2_forward` or
     :func:`init_mamba2_state`; returns ``(y, (conv_x, conv_bc, ssm_state))``."""
-    d_in, H, P, G, N = _dims(cfg)
+    d_in, H, P, G, N = ssm_dims(cfg)
     Bsz = x.shape[0]
     z, xr, bc, dt_raw = _project(p, x)
     xr, conv_x = _conv_step(xr, p.conv_x_w, p.conv_x_b, conv_x)
     bc, conv_bc = _conv_step(bc, p.conv_bc_w, p.conv_bc_b, conv_bc)
-    xh = xr.reshape(Bsz, H, P)
-    rep = H // G
-    Brep = bc[..., : G * N].reshape(Bsz, G, N).repeat_interleave(rep, dim=1).float()  # (B, H, N)
-    Crep = bc[..., G * N :].reshape(Bsz, G, N).repeat_interleave(rep, dim=1).float()
+    xh = xr.reshape(Bsz, -1, P)  # this rank's heads
+    Hr = xh.shape[1]
     dt = F.softplus(dt_raw[:, 0].float() + p.dt_bias)  # (B, H)
-    decay = torch.exp(dt * -torch.exp(p.a_log))
+    Bm, Cm, dt, A, D = _rank_heads(p, Hr, bc[:, 0], dt)
+    rep = Hr // (Bm.shape[-1] // N)
+    Brep = Bm.reshape(Bsz, -1, N).repeat_interleave(rep, dim=1).float()  # (B, Hr, N)
+    Crep = Cm.reshape(Bsz, -1, N).repeat_interleave(rep, dim=1).float()
+    decay = torch.exp(dt * A)
     ssm_state = ssm_state * decay[..., None, None] + torch.einsum(
         "bhn,bhd->bhnd", Brep, xh.float() * dt[..., None])
     y = torch.einsum("bhn,bhnd->bhd", Crep, ssm_state)
-    return _gated_out(p, y, xh, z, cfg, x.dtype), (conv_x, conv_bc, ssm_state)
+    return _gated_out(p, y, xh, z, D, cfg, x.dtype), (conv_x, conv_bc, ssm_state)
 
 
 def init_mamba2_state(cfg: ModelConfig, batch: int, device) -> tuple:
     """Zero ``(conv_x (B, K−1, d_inner), conv_bc (B, K−1, 2GN))`` in the
-    parameter dtype and the fp32 SSM state (B, H, N, P)."""
-    d_in, H, P, G, N = _dims(cfg)
-    dt, K = cfg.param_dtype, cfg.ssm_conv
-    return (torch.zeros((batch, K - 1, d_in), dtype=dt, device=device),
+    parameter dtype and the fp32 SSM state (B, H, N, P); under tensor
+    parallelism ``conv_x`` holds the rank's ``d_inner/m`` channels and the
+    state its ``H/m`` heads (``cache_pspec``'s layout)."""
+    d_in, H, P, G, N = ssm_dims(cfg)
+    dt, K, m = cfg.param_dtype, cfg.ssm_conv, tp_index()[1]
+    return (torch.zeros((batch, K - 1, d_in // m), dtype=dt, device=device),
             torch.zeros((batch, K - 1, 2 * G * N), dtype=dt, device=device),
-            torch.zeros((batch, H, N, P), dtype=torch.float32, device=device))
+            torch.zeros((batch, H // m, N, P), dtype=torch.float32, device=device))

@@ -31,12 +31,14 @@ program per token); on the CPU it runs eagerly.
 
 Under :func:`~repro_torch.distributed.activation_sharding` every entry
 point runs this rank's part of a (data, model) mesh: its rows of the
-batch, and at model axis ``m > 1`` its shards of GQA and MLA heads, dense
-FFN blocks and MoE experts (Mamba-2, shared and cross attention raise
-``NotImplementedError``, never running a block replicated as though it
-were split); ``prefill`` and ``decode_step`` return the whole vocab's
-logits, gathered over the model axis. ``init_params(..., mesh=)`` draws a
-rank's blocks leaf by leaf.
+batch, and at model axis ``m > 1`` its shards of GQA, shared-attention,
+cross-attention and MLA heads, Mamba-2 SSM heads, dense FFN blocks and MoE
+experts, with ``vision_proj``, the cross gates and the leaves the
+reference keeps whole on every rank (a width that would split a head
+raises ``ValueError``, never running a block replicated as though it were
+split); ``prefill`` and ``decode_step`` return the whole vocab's logits,
+gathered over the model axis. ``init_params(..., mesh=)`` draws a rank's
+blocks leaf by leaf.
 """
 
 from __future__ import annotations
@@ -191,8 +193,8 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *
     ``"full"``, ``"dots"``) checkpoints each repeat's unit, as the
     reference remats each scan step's body. Under
     :func:`~repro_torch.distributed.activation_sharding` at model axis
-    ``m > 1`` it runs this rank's shards of a dense stack (other archs
-    raise, as does a width that does not split into whole shards)."""
+    ``m > 1`` it runs this rank's shards (a width that does not split into
+    whole shards raises)."""
     check_tp(cfg, tp_index()[1])
     x = embed_tokens(params.embed.tok, tokens)
     ex = _extras(params, cfg, vision)
@@ -222,7 +224,8 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
                device: DeviceLike = None) -> dict:
     """A zeroed cache of ``batch`` rows (this rank's, under a mesh) and
     ``cache_len`` positions; under tensor parallelism each K/V cache holds
-    the rank's KV heads."""
+    the rank's KV heads, each Mamba-2 state its SSM heads and ``conv_x``
+    channels."""
     check_tp(cfg, tp_index()[1])
     dev = resolve_device(device)
     return {"layers": [blk.init_block_cache(spec, cfg, batch, cache_len, dev)
@@ -237,9 +240,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
     and a cache of ``cache_len`` positions holding it. Under
     :func:`~repro_torch.distributed.activation_sharding` the prompt is this
     rank's rows, the cache its block (:func:`~repro_torch.distributed.shard_cache`)
-    and the logits the whole vocab's, gathered over the model axis; at model
-    axis ``m > 1`` only the dense stack runs (other archs raise
-    ``NotImplementedError``)."""
+    and the logits the whole vocab's, gathered over the model axis."""
     check_tp(cfg, tp_index()[1])
     B, S = tokens.shape
     x = embed_tokens(params.embed.tok, tokens)

@@ -21,9 +21,13 @@ its SVD finalize waits for the host. A CPU tensor runs every step eagerly,
 and so does the card inside :func:`~repro_torch.kernels.ops.eager_route`.
 
 Under a mesh (:func:`~repro_torch.distributed.activation_sharding`) each
-rank generates its rows of the batch on its shards of the weights; the
-logits reach the sampling whole (gathered over the model axis), so every
-rank of a model-axis group samples the same tokens. The route is chosen by
+rank generates its rows of the batch on its shards of the weights (every
+arch: GQA, shared and cross attention on the rank's heads, MLA on its
+heads over the whole latent, Mamba-2 on its SSM heads, dense FFNs and MoE
+experts on its blocks), its caches on its heads (the Mamba-2 states on its
+heads and conv channels); the logits reach the sampling whole (gathered
+over the model axis), so every rank of a model-axis group samples the same
+tokens. The route is chosen by
 the configuration, before the loop: at model axis ``m > 1`` the decode loop
 runs the eager body (gloo stages a CUDA tensor's collective through the
 host, which no CUDA graph can capture, and NCCL cannot hold two ranks of a
@@ -184,7 +188,8 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
     :func:`_fused_decode_step` (module docstring); on the CPU, inside
     :func:`~repro_torch.kernels.ops.eager_route`, at model axis ``m > 1``
     or where the MoE dispatch gathers over the data axes (the step's
-    collectives cannot be captured), it runs the same body eagerly. Under a mesh ``prompt`` (and ``vision``) are this rank's rows
+    collectives cannot be captured), it runs the same body eagerly. Under
+    a mesh ``prompt`` (and ``vision``) are this rank's rows
     (:func:`~repro_torch.distributed.shard_batch`) and so is the result.
 
     ``gen`` draws the sampled tokens and, with ``kv_compress``, the

@@ -55,7 +55,11 @@ the compressibility, ``comp/wire_floats`` and ``comp/ratio`` read the
 logical shapes, and ``comp/ef_norm``, ``comp/rel_err`` sum their squares
 over the model axis. No leaf is gathered. A block of a stack's slices (a
 MoE layer's experts, cut on dim −3) holds whole slices: it is compressed
-slice by slice with the logical leaf's sketches and no model-axis sum.
+slice by slice with the logical leaf's sketches and no model-axis sum. A
+leaf the model axis keeps whole (Mamba-2's ``w_out``, the router, MLA's
+``w_dkv``) has a whole gradient, equal on every model rank: each rank
+compresses it with the same sketches, so its update is equal bit for bit
+on them.
 """
 
 from __future__ import annotations

@@ -137,6 +137,27 @@ def _grads_microbatched(loss_fn, params, batch: dict, n_micro: int):
     return loss_sum / n_micro, metrics, {k: a / n_micro for k, a in acc.items()}
 
 
+def _global_microbatches(batch: dict, n_micro: int, par: "_Parallel") -> dict:
+    """This data rank's share of each of the global batch's ``n_micro``
+    microbatches, in microbatch order: the reference's
+    ``_grads_microbatched`` splits the global batch (microbatch i its rows
+    ``[i·B/n, (i+1)·B/n)``), which the ``d`` data ranks then share as they
+    share a batch. Each entry is gathered over the data axes (an all-reduce
+    of each rank's rows placed in zeros, exact) and re-cut."""
+    d, at = par.dp_world, par.mesh.index(par.rules.dp_axes)
+    out = {}
+    for k, x in batch.items():
+        b = x.shape[0]
+        if b % n_micro:
+            raise ValueError(f"a global batch of {b * d} rows does not split into {n_micro} "
+                             f"microbatches of {d} equal data shares")
+        whole = x.new_zeros((d * b, *x.shape[1:]))
+        whole[at * b:(at + 1) * b] = x
+        dist.all_reduce(whole, group=par.dp_group)
+        out[k] = whole.reshape(n_micro, d, b // n_micro, *x.shape[1:])[:, at].reshape(x.shape)
+    return out
+
+
 def init_train_state(gen: Optional[torch.Generator], cfg: ModelConfig, oc: OptimizerConfig, *,
                      device=None) -> dict:
     params = init_params(gen, cfg, device=device)
@@ -148,12 +169,17 @@ def make_train_step(cfg: ModelConfig, oc: OptimizerConfig, *, remat: Optional[st
     """The plain step: ``(state, batch) → (state, metrics)``. On a ``mesh``
     each rank holds its block of the weights and its data-parallel share of
     the batch; the gradients and the loss metrics take the mean over the
-    data axes."""
+    data axes. With ``microbatch`` n > 1 each microbatch is the global
+    batch's, as the reference's: a data rank runs its share of each
+    (:func:`_global_microbatches`), and the metrics are the last global
+    microbatch's."""
     loss_fn = make_loss_fn(cfg, remat=remat, dense_moe=dense_moe)
     par = _Parallel(mesh)
 
     def train_step(state, batch):
         params = state["params"]
+        if microbatch > 1 and par.dp_group is not None:
+            batch = _global_microbatches(batch, microbatch, par)
         with par.context():
             loss, metrics, grads = _grads_microbatched(loss_fn, params, batch, microbatch)
         if par.dp_group is not None:

@@ -38,6 +38,11 @@ data rank serves its rows. Meshes 1×2, 2×1 (two ranks) and 2×2 (four).
 * F9 and F10, regressions: 2×1 prefill on the capacity path at
   ``moe_dispatch_shards`` 4 and 1, and the 2×1 plain step's ``aux`` and
   router gradient, against the reference.
+* F11, a regression: the plain step at ``microbatch=2`` on 2×1 and 2×2,
+  on the capacity path and the dropless one: each data rank takes its
+  share of each global microbatch, so loss, ``aux``, the metrics and every
+  gradient leaf are those of the reference's ``_grads_microbatched`` on the
+  global batch.
 * The MoE layer alone at 1×2: routed and shared experts summed once.
 * The serve and train CLIs at ``--mesh 1x2`` against ``1x1``.
 
@@ -74,6 +79,7 @@ PATHS = {"cap4": (dict(capacity_factor=CF, moe_dispatch_shards=4), False),
          "dense": (dict(capacity_factor=CF), True)}
 SERVE = [(DS, "cap4"), (DS, "cap1"), (DS, "dense"), (KIMI, "cap4"), (KIMI, "dense")]
 TRAIN = [(DS, "cap4"), (KIMI, "cap4")]
+MICRO = ["cap4", "dense"]  # F11: the plain step at microbatch 2 on a data axis
 TWO, FOUR = [(1, 2), (2, 1)], [(2, 2)]
 KC = dict(rank=4, oversample=2, panel=8, decode_panel=4, refresh_every=8)
 OC = dict(lr=1e-2, clip_norm=None)
@@ -212,6 +218,32 @@ def _train(case, arch, mesh, compressed: bool):
     return out
 
 
+def _micro(case, path, mesh):
+    """The plain step at ``microbatch=2`` on this rank's rows: the gradients
+    it hands AdamW (the data axis's mean) and its metrics."""
+    from repro_torch.train import OptimizerConfig, make_train_step
+    from repro_torch.train import train_step as pts
+
+    cfg, dense_moe = _cfg(DS, path), PATHS[path][1]
+    d, at = mesh.shape["data"], mesh.index("data")
+    batch = {"tokens": torch.from_numpy(case["tokens"][at * B // d:(at + 1) * B // d])}
+    state = convert.train_state(case["state"], cfg, "cpu", mesh=mesh)
+    real, seen = pts.adamw_update, {}
+
+    def recorded(grads, *args, **kwargs):
+        seen.update({k: g.detach().numpy().copy() for k, g in grads.items()})
+        return real(grads, *args, **kwargs)
+
+    pts.adamw_update = recorded
+    try:
+        step = make_train_step(cfg, OptimizerConfig(**OC), remat=None, microbatch=2,
+                               dense_moe=dense_moe, mesh=mesh)
+        _, m = step(state, batch)
+    finally:
+        pts.adamw_update = real
+    return dict(grads=seen, metrics={k: float(v) for k, v in m.items()})
+
+
 def _control_gates(case, mesh):
     """1×2 gradients with the MoE gates not passed through ``copy_to_tp``
     (each rank's router gradient then sees only its experts' gates)."""
@@ -279,6 +311,8 @@ def _rank(rank, world, store, jobs, out_q):
                 results[job] = _compressed(jobs["kimi_compressed"], mesh)
             elif kind == "train":
                 results[job] = _train(jobs["cases"][job[1]], job[1], mesh, job[1] == DS)
+            elif kind == "micro":
+                results[job] = _micro(jobs["cases"][DS], job[1], mesh)
             elif kind == "control_gates":
                 results[job] = _control_gates(jobs["cases"][DS], mesh)
             elif kind == "layer":
@@ -444,6 +478,23 @@ def _ref_train(arch: str, params, tokens, compressed: bool) -> dict:
     return out
 
 
+def _ref_micro(params, tokens, path: str) -> dict:
+    """The reference's ``_grads_microbatched`` at 2 microbatches on the global
+    batch (microbatch i its rows [i·B/2, (i+1)·B/2)): the mean loss, the
+    last microbatch's metrics, the mean gradients and their global norm."""
+    jax, jnp, rconfigs, rmodels, rserve = _jax()
+    from repro.train import make_loss_fn
+    from repro.train.train_step import _grads_microbatched
+
+    loss_fn = make_loss_fn(_cfg(DS, path, rconfigs), dense_moe=PATHS[path][1])
+    loss, metrics, grads = jax.jit(lambda p, t: _grads_microbatched(loss_fn, p, {"tokens": t}, 2))(
+        params, jnp.asarray(tokens))
+    grads = convert.model_state(jax.tree.map(np.asarray, grads), _cfg(DS, path))
+    return dict(loss=float(loss), metrics={k: float(v) for k, v in metrics.items()}, grads=grads,
+                grad_norm=float(np.sqrt(sum(np.sum(g.astype(np.float64) ** 2)
+                                            for g in grads.values()))))
+
+
 _SHARDS = {}  # the vmapped reference's result, made once
 
 
@@ -519,11 +570,13 @@ def runs():
     run2 = [("serve", arch, path, shape) for arch, path in SERVE for shape in TWO]
     run2 += [("train", arch, shape) for arch, _ in TRAIN for shape in TWO]
     run2 += [("compressed", shape) for shape in TWO]
+    run2 += [("micro", path, (2, 1)) for path in MICRO]
     run2 += [("control_gates", (1, 2)), ("layer", (1, 2)),
              ("cli_serve", tuple(CLI_SERVE + ["--arch", DS])),
              ("cli_serve", tuple(CLI_SERVE + ["--arch", KIMI])), ("cli_train", tuple(CLI_TRAIN))]
     run4 = [("serve", arch, path, (2, 2)) for arch, path in SERVE]
     run4 += [("train", DS, (2, 2)), ("compressed", (2, 2))]
+    run4 += [("micro", path, (2, 2)) for path in MICRO]
     two = _Ranks(2, dict(jobs, run=run2))
     four = _Ranks(4, dict(jobs, run=run4))
 
@@ -533,6 +586,8 @@ def runs():
     for arch, _ in TRAIN:
         refs[arch] = dict(_ref_train(arch, cases[arch]["jax_params"], cases[arch]["tokens"],
                                      arch == DS), state=cases[arch]["state"])
+    refs["micro"] = {path: _ref_micro(cases[DS]["jax_params"], cases[DS]["tokens"], path)
+                     for path in MICRO}
     # the port in this process: keep masks of each serve case's prefill, the
     # layer, the CLIs at 1x1
     one = {}
@@ -721,6 +776,30 @@ def test_f10_data_axis_aux_and_router_gradient(refs, ranks):
         assert routers
         for k in routers:
             assert _rel(r["grads"][k], ref["grads"][k]) <= GRAD_TOL, k
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+@pytest.mark.parametrize("path", MICRO)
+def test_f11_microbatches_split_the_global_batch(refs, ranks, path, shape):
+    """F11: the plain step at ``microbatch=2`` on a data axis takes, on each
+    data rank, its share of each global microbatch (the reference's
+    ``_grads_microbatched`` splits the global batch), so the capacity
+    dispatch and the aux loss see the global microbatch: loss and ``aux``
+    (the last microbatch's) within 1e-5 relative, every gradient leaf
+    (``router`` included) within 1e-4 relative Frobenius, the gradient
+    norm within 1e-5 (the F9/F10 bounds)."""
+    ref = refs["micro"][path]
+    for rank, res in ranks[shape].items():
+        r = res[("micro", path, shape)]
+        m, what = r["metrics"], f"F11 {path} {shape} rank {rank}"
+        assert abs(m["loss"] / ref["loss"] - 1) <= LOSS_TOL, (what, m["loss"], ref["loss"])
+        for k in ("aux", "ce"):
+            assert abs(m[k] / ref["metrics"][k] - 1) <= LOSS_TOL, (what, k, m[k],
+                                                                   ref["metrics"][k])
+        assert abs(m["grad_norm"] / ref["grad_norm"] - 1) <= LOSS_TOL, what
+        assert any(k.endswith("ffn.router") for k in r["grads"])
+        for k, g in _blocks(ref["grads"], shape, rank).items():
+            assert _rel(r["grads"][k], g) <= GRAD_TOL, (what, k, _rel(r["grads"][k], g))
 
 
 def test_gates_without_copy_to_tp_break_the_router_gradient(refs, ranks):

@@ -246,10 +246,65 @@ def test_run_time_cuts_layers_where_the_rules_read_a_stack_as_experts():
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "llama-3.2-vision-90b"])
 def test_run_time_raises_beyond_the_dense_stack(arch):
+    """Mamba-2, shared and cross attention and a modality input run at model
+    axis 2: every rank's block of every parameter at 1×2 and 2×2
+    (``shard_params``, and ``init_params(mesh=)`` drawing leaf by leaf, bit
+    for bit the same) is the block the reference's ``leaf_pspec`` lays out
+    for an unscanned layer's leaf, the leaves it keeps whole (``w_bc``,
+    ``w_dt``, ``conv_bc_*``, ``dt_bias``, ``a_log``, ``d_skip``,
+    ``w_out``, ``vision_proj``, the cross ``gate``) whole; a prefill
+    cache's cut (``shard_cache``) is the reference's ``cache_pspec`` block
+    and ``init_cache`` under the mesh has its shape. At model axis 3 an SSM
+    or KV head would split, and the run time raises ``ValueError``."""
     cfg = pconfigs.get_arch(arch).smoke_config()
-    model = pmodels.Transformer(torch.Generator(), cfg, torch.device("meta"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ps.shard_params(model, ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 2}))
+    g = torch.Generator()
+    g.manual_seed(0)
+    whole = pmodels.init_params(g, cfg, device="cpu")
+    named = {k: v.detach() for k, v in whole.named_parameters()}
+    tokens = torch.randint(0, cfg.vocab_size, (4, 8), generator=g)
+    vision = (torch.randn((4, cfg.n_patches, cfg.d_vision), generator=g) if cfg.d_vision
+              else None)
+    _, cache = pmodels.prefill(whole, cfg, tokens, 12, vision)
+    kept = {"w_bc", "w_dt", "conv_bc_w", "conv_bc_b", "dt_bias", "a_log", "d_skip", "w_out",
+            "vision_proj", "gate"}
+    seen = set()
+    for shape in ((1, 2), (2, 2)):
+        fake = FakeMesh(dict(zip(("data", "model"), shape)))
+        rules = rs.ParallelismRules().with_mesh(fake)
+        for rank in range(shape[0] * shape[1]):
+            mesh = ps.Mesh(fake.shape, rank)
+            cut = ps.shard_params(named, ps.ParallelismRules(), mesh)
+            g = torch.Generator()
+            g.manual_seed(0)
+            drawn = dict(pmodels.init_params(g, cfg, device="cpu", mesh=mesh).named_parameters())
+            for name, t in named.items():
+                spec = tuple(rs.leaf_pspec(_ref_key(name), jax.ShapeDtypeStruct(t.shape,
+                                                                                jnp.float32),
+                                           rules, fake))
+                want = _rule_block(t, spec, fake.shape, rank)
+                assert torch.equal(cut[name], want) and torch.equal(drawn[name], want), name
+                leaf = name.split(".")[-1]
+                if leaf in kept:
+                    assert cut[name].shape == t.shape, name
+                    seen.add(leaf)
+                elif leaf in ("w_z", "w_x", "w_q", "w_k", "w_v", "w_o", "norm_scale"):
+                    assert cut[name].numel() * 2 == t.numel(), name
+            layers = ps.shard_cache(cache, mesh)["layers"]
+            with ps.activation_sharding(mesh):
+                local = pmodels.init_cache(cfg, 4 // shape[0], 12, device="cpu")["layers"]
+            for lw, lc, ll in zip(cache["layers"], layers, local):
+                for name, t in lw.items():
+                    spec = rs.cache_pspec((jax.tree_util.DictKey(name),),
+                                          jax.ShapeDtypeStruct(t.shape, jnp.float32), rules,
+                                          fake, seq_shard=False)
+                    want = _rule_block(t, tuple(spec), fake.shape, rank)
+                    assert torch.equal(lc[name], want), (shape, rank, name)
+                    assert ll[name].shape == want.shape, (shape, rank, name)
+    assert seen == kept & {n.split(".")[-1] for n in named}
+    with pytest.raises(ValueError, match="SSM heads" if cfg.ssm_heads else "KV heads"):
+        ps.shard_params(whole, ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 3}))
+    with pytest.raises(NotImplementedError, match="FSDP"):
+        ps.shard_params(whole, ps.ParallelismRules(fsdp=True), ps.Mesh({"data": 1, "model": 2}))
 
 
 def _ref_key(name: str) -> tuple:

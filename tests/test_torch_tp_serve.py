@@ -28,8 +28,9 @@ rows (``shard_batch``).
   one-rank port run's from the same seed.
 * Data-only meshes serve deepseek-v2-lite (``dense_moe``) and mamba2 smoke
   configs at 2×1 against the reference. At 1×2 Mamba-2, shared and cross
-  attention raise ``NotImplementedError``; the MoE archs pass the checks
-  (``tests/test_torch_ep.py`` serves them on the model axis).
+  attention and the MoE archs pass the checks (``tests/test_torch_ep.py``
+  and ``tests/test_torch_tp_hybrid.py`` serve them on the model axis); at
+  model axis 3 a split head raises ``ValueError``.
 * Controls that must fail the gates: ``_gqa_decode`` without its
   ``reduce_from_tp``; the vocab gather with its shards in the wrong order.
 * The CLI at ``--mesh 1x2 --kv-compress 4`` in two ranks gives the ``1x1``
@@ -492,18 +493,43 @@ def test_data_axis_serves_every_arch(refs, two_ranks, arch):
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-1.2b", "llama-3.2-vision-90b"])
 def test_model_axis_raises_beyond_the_dense_stack(arch):
-    """``init_cache``, ``prefill``, ``decode_step`` and ``generate`` refuse
-    at model axis 2 before any weight is read: none runs a block as though
-    it were split."""
+    """At model axis 2 Mamba-2, shared and cross attention pass the run
+    time's checks: ``init_cache`` holds a rank's SSM heads and ``conv_x``
+    channels (``conv_bc`` whole) and its KV heads of a shared or cross
+    K/V cache, and ``prefill``, ``decode_step`` and ``generate`` run until
+    their first collective, which a mesh without process groups refuses
+    (``tests/test_torch_tp_hybrid.py`` runs them in ranks). At model axis 3
+    a head would split: every entry point raises ``ValueError`` before any
+    weight is read."""
     cfg = pconfigs.get_arch(arch).smoke_config()
-    model = pmodels.Transformer(torch.Generator(), cfg, torch.device("meta"))
+    g = torch.Generator()
+    g.manual_seed(0)
+    mesh = Mesh({"data": 1, "model": 2}, 1)
+    model = pmodels.init_params(g, cfg, device="cpu", mesh=mesh)
     tokens = torch.zeros((2, 4), dtype=torch.int32)
-    with activation_sharding(Mesh({"data": 1, "model": 2})):
+    vision = torch.zeros((2, cfg.n_patches, cfg.d_vision)) if cfg.d_vision else None
+    H, K = cfg.ssm_heads, cfg.ssm_conv
+    with activation_sharding(mesh):
+        cache = pmodels.init_cache(cfg, 2, 8, device="cpu")
+        for layer in cache["layers"]:
+            if "ssm" in layer:
+                assert layer["ssm"].shape == (2, H // 2, cfg.ssm_state, cfg.d_inner // H)
+                assert layer["conv_x"].shape == (2, K - 1, cfg.d_inner // 2)
+                assert layer["conv_bc"].shape == (2, K - 1, 2 * cfg.ssm_groups * cfg.ssm_state)
+            else:
+                assert layer["k"].shape[2] == cfg.n_kv_heads // 2
+        for call in (lambda: pmodels.prefill(model, cfg, tokens, 8, vision),
+                     lambda: pmodels.decode_step(model, cfg, cache, tokens[:, :1]),
+                     lambda: pserve.generate(model, cfg, tokens, 2, vision=vision)):
+            with pytest.raises(ValueError, match="process group"):
+                call()
+    meta = pmodels.Transformer(torch.Generator(), cfg, torch.device("meta"))
+    with activation_sharding(Mesh({"data": 1, "model": 3})):
         for call in (lambda: pmodels.init_cache(cfg, 2, 8, device="cpu"),
-                     lambda: pmodels.prefill(model, cfg, tokens, 8),
-                     lambda: pmodels.decode_step(model, cfg, {}, tokens[:, :1]),
-                     lambda: pserve.generate(model, cfg, tokens, 2)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                     lambda: pmodels.prefill(meta, cfg, tokens, 8, vision),
+                     lambda: pmodels.decode_step(meta, cfg, {}, tokens[:, :1]),
+                     lambda: pserve.generate(meta, cfg, tokens, 2, vision=vision)):
+            with pytest.raises(ValueError, match="heads"):
                 call()
 
 

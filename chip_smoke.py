@@ -182,7 +182,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    graphs against ``eager_route()`` from one seed: greedy tokens equal,
    every step's logits equal (or within ``SERVE_LOGIT_TOL``, the
    difference printed), launches equal (kernel 1's fold counted through
-   the replays), two graph runs at temperature 0.8 equal (equality with
+   the replays), two graph runs at temperature 0.8 equal over their first
+   16 tokens (equality with
    eager printed); decode ms a token on both routes, capture ms, eager
    refresh steps, graphs and pool bytes, one profiled step of each route
    (device busy ms, idle share, host launch calls); every graph's warm-up
@@ -394,9 +395,11 @@ ZAMBA_KV_BYTES = 6 * 2 * SERVE_B * (SERVE_S + SERVE_T) * 32 * 64 * 2
 ZAMBA_SSM_BYTES = 32 * SERVE_B * (64 * 64 * 64 * 4 + 3 * (4096 + 128) * 2)
 VISION_ARCH, VISION_DEPTH, VISION_PARAMS, VISION_T = "llama-3.2-vision-90b", 10, 10_668_384_258, 32
 # (z): the decode loop's CUDA graphs against the eager route on (r)-(x): the
-# sampled runs' temperature, and the decode step a one-step profile reads (a
-# plain replay: the plain graph is warmed up and captured at step 0)
-Z_TEMPERATURE, Z_PROFILE_STEP = 0.8, 2
+# sampled runs' temperature and tokens (the first 16 of the greedy runs'
+# 64, for the script's time limit: two graph runs and an eager one a
+# served run), and the decode step a one-step profile reads (a plain
+# replay: the plain graph is warmed up and captured at step 0)
+Z_TEMPERATURE, Z_SAMPLED_T, Z_PROFILE_STEP = 0.8, 16, 2
 # (v) gate (1): the chunked scan against the token-by-token recurrence, fp32,
 # one full-width layer over 2048 tokens: exp of within-chunk cumulative sums
 # against products of per-step decays, relative to the largest entry (the
@@ -456,8 +459,13 @@ TRAIN_RECON_TOL = 0.03
 # control's gradients stay near the one-rank run's (at init the one-hot
 # term dominates the logit gradient: 0.130, grad_norm 1.4e-4, update
 # 0.105); only the loss limits catch it
-TP_RUNS = {(1, 2): (("plain", 3), ("control", 1), ("control_ce", 1), ("compressed", 3)),
-           (2, 2): (("plain", 2), ("compressed", 2))}
+# (dr): the census's peak (on meta) against the card's max_memory_allocated
+# over one step: the allocator rounds each block to 512 bytes and keeps
+# cuBLAS's workspace, which no dispatched op shows
+DR_PEAK_TOL = 0.10
+TP_RUNS = {(1, 2): (("plain", 2), ("control", 1), ("control_ce", 1), ("compressed", 2)),
+           (2, 1): (("fsdp", 2), ("control_fsdp", 1)),
+           (2, 2): (("plain", 1), ("compressed", 1), ("fsdp", 2))}
 # (tp)'s depth: (y)'s model cut to its first 4 of 16 layers (the script's time
 # limit), held to one rank's run of the same depth (``train_reference``); the
 # reference's compression_ratio of that tree (jax.eval_shape)
@@ -485,6 +493,12 @@ TS_RUNS = {2: (((2, 1), ("dense",)),
                          "control_gather"))),
            4: (((2, 2), ("dense", "uniform")),)}
 TS_REF = ROOT / "build" / "chip_smoke_ts_ref.pt"
+# (fs)'s serving at 2x1 under FSDP: every decode step gathers every weight
+# over the data axis through the host (gloo: 0.9 s a token at 2x1, 7.3 s for
+# the vision model at 2x2 on an H100's host), so it takes FS_T of (ts)'s
+# tokens and FS_FORCED teacher-forced steps, and the vision model
+# FS_VISION_T of (hy)'s (the script's time limit)
+FS_T, FS_FORCED, FS_VISION_T = 4, 1, 4
 # (ts)'s depth: (r)'s model cut to its first 2 of 16 layers (the script's time
 # limit), held to one rank's runs of the same depth (``ts_references``)
 TS_DEPTH = 2
@@ -522,8 +536,8 @@ EP_RANK_GIB = 16.5
 # rank's run of the same depth, in this process, is the reference
 EP_TRAIN_DEPTH, EP_TRAIN_PARAMS = 3, 1_670_133_760
 EP_TRAIN_LEAVES, EP_TRAIN_RATIO = 18, 1.4932004489699509
-EP_TRAIN_RUNS = {(1, 2): (("plain", 2), ("control_gates", 1), ("compressed", 2)),
-                 (2, 2): (("plain", 2),)}
+EP_TRAIN_RUNS = {(1, 2): (("plain", 2), ("control_gates", 1), ("compressed", 1)),
+                 (2, 2): (("plain", 1),)}
 # gate 1, deepseek's first MoE layer (1) on (t)'s recorded inputs: its FFN
 # ((t)'s gate-2 bound, k weighted terms and their sum rounded to bf16 at other
 # places, plus the model axis's partial sums and their sum) and its MLA mixer
@@ -562,7 +576,7 @@ HY_DEPTH = {MAMBA_ARCH: 8, ZAMBA_ARCH: 14, VISION_ARCH: 5}
 HY_SEED = {MAMBA_ARCH: SEED + 150, ZAMBA_ARCH: SEED + 153, VISION_ARCH: SEED + 156}
 HY_B, HY_T = 4, 16
 HY_ZAMBA_PARAMS, HY_ZAMBA_LEAVES, HY_ZAMBA_RATIO = 555_560_704, 30, 31.580188885170042
-HY_TRAIN_RUNS = (("plain", 3), ("compressed", 3), ("control_whole", 1))
+HY_TRAIN_RUNS = (("plain", 2), ("compressed", 2), ("control_whole", 1))
 HY_TAG = {MAMBA_ARCH: "mamba2", ZAMBA_ARCH: "zamba2", VISION_ARCH: "vision"}
 # the whole leaves of Mamba-2 and the cross layers, watched in the gradients
 HY_WHOLE = ("w_out", "w_bc", "w_dt", "conv_bc_w", "conv_bc_b", "dt_bias", "a_log", "d_skip",
@@ -3048,19 +3062,32 @@ class RankPool:
                 check(time.monotonic() < deadline, f"pool W={self.world}: {what} did not report")
         return results
 
-    def run(self, target, job: dict, timeout: float = 900.0) -> dict:
-        """``target(rank, world, job)`` on every rank; their results by rank.
-        A failed rank fails the phase."""
+    def submit(self, target, job: dict) -> None:
+        """Hand ``target(rank, world, job)`` to every rank; :meth:`collect`
+        waits for it (the other pool may work meanwhile)."""
         if self.ready_s is None:
             self._collect(300.0, "the ranks' start")
             self.ready_s = time.perf_counter() - self.t0
             emit(f"mesh/pool_w{self.world}", spawn_to_ready_s=self.ready_s)
         for q in self.queues:
             q.put((target, job))
-        out = self._collect(timeout, target.__name__)
+        self.pending = target.__name__
+
+    def collect(self, timeout: float = 900.0) -> dict:
+        """The submitted job's results by rank. A failed rank fails the phase."""
+        out = self._collect(timeout, self.pending)
         return {r: from_host(self.torch, v) for r, v in out.items()}
 
+    def run(self, target, job: dict, timeout: float = 900.0) -> dict:
+        """``target(rank, world, job)`` on every rank; their results by rank."""
+        self.submit(target, job)
+        return self.collect(timeout)
+
     def close(self, timeout: float = 120.0) -> None:
+        """Stop the ranks: each told to leave, then (after ``timeout``, or at
+        once where a rank failed) terminated."""
+        from torch.multiprocessing import ProcessRaisedException
+
         try:
             for q in self.queues:
                 q.put(None)
@@ -3068,6 +3095,8 @@ class RankPool:
             while not self.procs.join(timeout=1.0):
                 if time.monotonic() > deadline:
                     break
+        except ProcessRaisedException:
+            pass  # a failed rank: the others are terminated below
         finally:
             for p in self.procs.processes:
                 if p.is_alive():
@@ -3083,6 +3112,13 @@ def pool_run(torch, world: int, target, job: dict, timeout: float = 900.0) -> di
     if world not in POOLS:
         POOLS[world] = RankPool(torch, world)
     return POOLS[world].run(target, job, timeout)
+
+
+def pool_submit(torch, world: int, target, job: dict) -> None:
+    """:func:`pool_run` without waiting: collect with ``POOLS[world].collect()``."""
+    if world not in POOLS:
+        POOLS[world] = RankPool(torch, world)
+    POOLS[world].submit(target, job)
 
 
 def close_pool(world: int) -> None:
@@ -3297,8 +3333,9 @@ def graph_gate(torch, ops, model, cfg, prompt, n_tokens: int, run: str, control:
     check(g["launches"] == e["launches"],
           f"(z) {run}: launches {g['launches']} on the graphs, {e['launches']} eager")
     del g["logits"], e["logits"]
-    s1, s2 = go(temperature=Z_TEMPERATURE), go(temperature=Z_TEMPERATURE)
-    se = go(eager=True, temperature=Z_TEMPERATURE)
+    n_s = min(n_tokens, Z_SAMPLED_T)
+    s1, s2 = (go(temperature=Z_TEMPERATURE, n=n_s) for _ in range(2))
+    se = go(eager=True, temperature=Z_TEMPERATURE, n=n_s)
     check(torch.equal(s1["tokens"], s2["tokens"]),
           f"(z) {run}: two graph runs at temperature {Z_TEMPERATURE} differ")
     profiles = {name: step_profile(torch, lambda hook, eager=eager: go(
@@ -3319,7 +3356,7 @@ def graph_gate(torch, ops, model, cfg, prompt, n_tokens: int, run: str, control:
                logits=dict(steps=len(diffs), bitwise_equal=bitwise, max_abs_err=worst_abs,
                            max_rel_err=worst_rel, tol=SERVE_LOGIT_TOL),
                launches_equal=True, launches=g["launches"],
-               sampled=dict(temperature=Z_TEMPERATURE, graph_runs_equal=True,
+               sampled=dict(temperature=Z_TEMPERATURE, new_tokens=n_s, graph_runs_equal=True,
                             equal_to_eager=torch.equal(s1["tokens"], se["tokens"]),
                             share_equal_to_eager=float((s1["tokens"] == se["tokens"])
                                                        .float().mean())),
@@ -4646,6 +4683,12 @@ def phase_train(torch, ops, dev) -> list:
     wall, busy, n_ops, top = device_profile(torch, lambda: held.append(step(held.pop(), batches[0])[0]))
     plain["step_profile"] = dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
                                  device_ops=n_ops, top=top)
+    # (dr): one more plain step censused on the card and on meta
+    meta_model = init_params(torch.Generator(), cfg, device="meta")
+    meta_batch = {k: torch.empty_like(v, device="meta") for k, v in batches[0].items()}
+    dr_launched = [dr_step(torch, ops, "y_plain", lambda st: step(*st), (held[0], batches[0]),
+                           ({"params": meta_model, "opt": init_opt_state(meta_model, oc)},
+                            meta_batch))]
     del state, held
     with torch.no_grad():
         for k, p in model.named_parameters():
@@ -4661,6 +4704,15 @@ def phase_train(torch, ops, dev) -> list:
     state, comp, launched = train_run(torch, ops, compressed_step, state, batches, resident)
     profile, state = compressed_step_profile(torch, cstep, state, batches[0],
                                              fold_in(9, TRAIN_STEPS))
+    # (dr): one more compressed step (kernel 4 once a leaf) on the card and on meta
+    seed = fold_in(9, TRAIN_STEPS + 1)
+    dr_launched.append(dr_step(
+        torch, ops, "y_compressed", lambda st: cstep(st[0], st[1], seed), (state, batches[0]),
+        ({"params": meta_model, "opt": init_opt_state(meta_model, oc),
+          "err": init_err(meta_model)}, meta_batch)))
+    check(dr_launched[-1].get("twoside_sketch") == TRAIN_LEAVES,
+          f"(dr) y_compressed: kernel 4 launched {dr_launched[-1]}, not {TRAIN_LEAVES}")
+    del meta_model, meta_batch
     check(launched["twoside_sketch"] == TRAIN_LEAVES * TRAIN_STEPS,
           f"(y): kernel 4 launched {launched['twoside_sketch']} times, not "
           f"{TRAIN_LEAVES * TRAIN_STEPS}")
@@ -4693,31 +4745,49 @@ def phase_train(torch, ops, dev) -> list:
          compressed_step_profile=profile, gates=dict(**gates, reconstruction=recon,
                                                      reconstruction_tol=TRAIN_RECON_TOL,
                                                      cli="train/y_cli"))
-    return [launched]
+    return [launched] + dr_launched
 
 
 class CollectiveCounter:
     """Wraps ``dist.all_reduce`` in a rank: calls, bytes and synchronised
-    host ms by group name (``model``, ``data``; others ``world``)."""
+    host ms by group name (``model``, ``data``; others ``world``); with
+    :meth:`wrap_fsdp`, FSDP's ``all_gather_into_tensor`` and
+    ``reduce_scatter_tensor`` too, as ``<group>:all-gather`` and
+    ``<group>:reduce-scatter`` (their result bytes)."""
 
     def __init__(self, torch, dist, groups: dict):
         self.torch, self.dist, self.real = torch, dist, dist.all_reduce
+        self.real_fsdp = dict(all_gather_into_tensor=dist.all_gather_into_tensor,
+                              reduce_scatter_tensor=dist.reduce_scatter_tensor)
         self.names = {id(g): name for name, g in groups.items() if g is not None}
         self.reset()
 
     def reset(self) -> None:
         self.rec = {}
 
-    def __call__(self, t, *args, group=None, **kwargs):
+    def _count(self, key: str, fn, t, *args, group=None, **kwargs):
         self.torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = self.real(t, *args, group=group, **kwargs)
+        out = fn(t, *args, group=group, **kwargs)
         self.torch.cuda.synchronize()
-        r = self.rec.setdefault(self.names.get(id(group), "world"), [0, 0, 0.0])
+        r = self.rec.setdefault(key.format(self.names.get(id(group), "world")), [0, 0, 0.0])
         r[0] += 1
         r[1] += t.numel() * t.element_size()
         r[2] += 1e3 * (time.perf_counter() - t0)
         return out
+
+    def __call__(self, t, *args, group=None, **kwargs):
+        return self._count("{}", self.real, t, *args, group=group, **kwargs)
+
+    def wrap_fsdp(self) -> None:
+        for name, kind in (("all_gather_into_tensor", "all-gather"),
+                           ("reduce_scatter_tensor", "reduce-scatter")):
+            setattr(self.dist, name, functools.partial(self._count, "{}:" + kind,
+                                                       self.real_fsdp[name]))
+
+    def unwrap_fsdp(self) -> None:
+        for name, fn in self.real_fsdp.items():
+            setattr(self.dist, name, fn)
 
     def read(self) -> dict:
         return {k: dict(calls=c, bytes=b, ms=ms) for k, (c, b, ms) in self.rec.items()}
@@ -4732,8 +4802,10 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
     step; ``control_ce``: with ``cross_entropy``'s sum of exponentials over
     the model axis left out; ``control_gates``: the MoE gates not passed
     through ``copy_to_tp``; ``control_whole``: Mamba-2's whole tensors read
-    without ``copy_to_tp``) against the one-rank run's, then ``steps`` steps
-    of (y)'s batches (this rank's data-parallel share); each step's
+    without ``copy_to_tp``; ``fsdp``: under FSDP rules, each block cut over
+    the data axis too; ``control_fsdp``: with FSDP's gradients not
+    reduce-scattered, each rank keeping its own) against the one-rank run's,
+    then ``steps`` steps of (y)'s batches (this rank's data-parallel share); each step's
     CUDA-event ms, metrics, collectives, kernel-4 launches and whether every
     replicated leaf is equal bit for bit on the model axis's ranks after
     it, step 1's parameters against the one-rank run's of the same kind."""
@@ -4745,7 +4817,7 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
     from repro_torch.train import (CompressionConfig, OptimizerConfig, init_opt_state,
                                    make_compressed_train_step, make_loss_fn, make_train_step)
 
-    rules = sh.ParallelismRules().with_mesh(mesh)
+    rules = sh.ParallelismRules(fsdp=kind in ("fsdp", "control_fsdp")).with_mesh(mesh)
     d, at = mesh.shape["data"], mesh.index("data")
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_B, seq_len=TRAIN_S,
                                   seed=SEED), device=dev)
@@ -4754,17 +4826,18 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
                for i in range(steps)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    model = init_params(gen(torch, dev, seed), cfg, device=dev, mesh=mesh)
+    model = init_params(gen(torch, dev, seed), cfg, device=dev, mesh=mesh, rules=rules)
     torch.cuda.empty_cache()
-    blocks = sh.tp_names(model, rules, mesh)
+    blocks, fsdp = sh.tp_names(model, rules, mesh), sh.fsdp_names(model)
 
     @torch.no_grad()
     def sq_err(got: dict, which: str) -> dict:
         # |got - (y)'s block|^2 by leaf, (y)'s whole tensors read from the file
         out = {}
         for k, g in got.items():
-            w = ref[which][k]
-            w = sh.block(w, sh.tp_cut(sh.ref_path(k), w.shape, rules, mesh)).to(dev)
+            w, path = ref[which][k], sh.ref_path(k)
+            w = sh.block(sh.block(w, sh.tp_cut(path, w.shape, rules, mesh)),
+                         sh.fsdp_cut(path, w.shape, rules, mesh)).to(dev)
             out[k] = (float(torch.sum((g.double() - w.double()) ** 2)),
                       float(torch.sum(w.double() ** 2)))
         return out
@@ -4778,6 +4851,13 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
 
     real_backward, real_reduce = sh._ReduceFromTP.backward, ts.reduce_from_tp
     real_copy, real_ssm_copy = moe_mod.copy_to_tp, ssm_mod.copy_to_tp
+    real_gather_back = sh._GatherFSDP.backward
+    if kind == "control_fsdp":
+        def own(ctx, g):  # this rank's slice of its own gradient, not summed
+            n = g.shape[ctx.dim] // d
+            return g.narrow(ctx.dim, at * n, n).contiguous(), None, None
+
+        sh._GatherFSDP.backward = staticmethod(own)
     if kind == "control_whole":
         # bc, dt, A, D and w_out skip copy_to_tp; the input to w_z, w_x keeps it
         ssm_mod.copy_to_tp = lambda x: (real_ssm_copy(x) if x.dim() == 3
@@ -4805,8 +4885,9 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
             grads = dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
         loss0 = float(loss.detach())
         if d > 1:
-            for g in grads.values():
-                dist.all_reduce(g, group=mesh.group("data"))
+            for k, g in grads.items():
+                if k not in fsdp:  # an FSDP block's gradient arrives summed over data
+                    dist.all_reduce(g, group=mesh.group("data"))
                 g.div_(d)
             lv = torch.tensor([loss0], device=dev)
             dist.all_reduce(lv, group=mesh.group("data"))
@@ -4822,7 +4903,7 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
             state["err"] = init_err(model)
             step_fn = lambda s, b, i: cstep(s, b, fold_in(9, i))  # noqa: E731
         else:
-            step = make_train_step(cfg, oc, remat="dots", mesh=mesh)
+            step = make_train_step(cfg, oc, remat="dots", mesh=mesh, rules=rules)
             step_fn = lambda s, b, i: step(s, b)  # noqa: E731
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         recs, update_sq = [], None
@@ -4844,8 +4925,10 @@ def tp_run(torch, ops, sh, mesh, cfg, kind: str, steps: int, ref: dict, counter,
     finally:
         sh._ReduceFromTP.backward, ts.reduce_from_tp = real_backward, real_reduce
         moe_mod.copy_to_tp, ssm_mod.copy_to_tp = real_copy, real_ssm_copy
+        sh._GatherFSDP.backward = real_gather_back
     out = dict(kind=kind, steps=recs, loss0=loss0, grad_sq=grad_sq, update_sq=update_sq,
-               blocks=sorted(blocks), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               blocks=sorted(blocks), fsdp=sorted(fsdp),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                tp_index=mesh.index("model"), dp_index=at)
     del state, model, step_fn
     torch.cuda.empty_cache()
@@ -4884,6 +4967,7 @@ def tp_rank(rank: int, world: int, job: dict) -> dict:
     counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
                                               "data": mesh.group("data")})
     dist.all_reduce = counter
+    counter.wrap_fsdp()
     full = get_arch(TRAIN_ARCH).full_config()
     cfg = dataclasses.replace(full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH])
     ref = torch.load(TP_REF, mmap=True, map_location="cpu", weights_only=True)
@@ -4892,6 +4976,7 @@ def tp_rank(rank: int, world: int, job: dict) -> dict:
         results[kind] = tp_run(torch, ops, sh, mesh, cfg, kind, steps, ref, counter, dev)
     del ref
     dist.all_reduce = counter.real
+    counter.unwrap_fsdp()
     if job.get("cli"):
         from repro_torch.launch.train import main as train_main
 
@@ -4913,15 +4998,18 @@ def _tp_gates(name: str, per_rank: dict, ref: dict, kind: str, watch: tuple = ()
     other run pass them all."""
     first = per_rank[0]
     grad_d, grad_w, upd = {}, {}, {}
+
+    def counted(r, k):  # a block once a rank holding it, a replicated part once
+        return ((k in r["blocks"] or r["tp_index"] == 0)
+                and (k in r.get("fsdp", ()) or r["dp_index"] == 0))
+
     for r in per_rank.values():
-        if r["dp_index"]:
-            continue
         for k, (dd, ww) in r["grad_sq"].items():
-            if k in r["blocks"] or r["tp_index"] == 0:
+            if counted(r, k):
                 grad_d[k] = grad_d.get(k, 0.0) + dd
                 grad_w[k] = grad_w.get(k, 0.0) + ww
         for k, (dd, _) in r["update_sq"].items():
-            if k in r["blocks"] or r["tp_index"] == 0:
+            if counted(r, k):
                 upd[k] = upd.get(k, 0.0) + dd
     leaf = {k: math.sqrt(grad_d[k] / max(grad_w[k], 1e-300)) for k in grad_d}
     grad_err = max(leaf.values())
@@ -4979,12 +5067,13 @@ def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
 
     from repro_torch.configs import get_arch
 
+    from repro_torch.distributed import ParallelismRules
+
     gc.collect()
     torch.cuda.empty_cache()
     full = get_arch(TRAIN_ARCH).full_config()
-    ref = train_reference(torch, ops, dev, dataclasses.replace(
-        full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH]), SEED + 100, TP_REF,
-        TRAIN_LEAVES, TP_RATIO, "tp")
+    cfg = dataclasses.replace(full, n_layers=TP_DEPTH, pattern=full.pattern[:TP_DEPTH])
+    ref = train_reference(torch, ops, dev, cfg, SEED + 100, TP_REF, TRAIN_LEAVES, TP_RATIO, "tp")
     emit("train/tp_one_rank_reference", **ref["one_rank"])
     gc.collect()
     torch.cuda.empty_cache()
@@ -5048,6 +5137,14 @@ def phase_tp(torch, ops, dev, kernel4_tp: dict) -> list:
                                  grad_norm=TP_GRAD_NORM_TOL, update=TP_UPDATE_TOL),
                      step_ms_rank0=[x["ms"] for x in recs[0]],
                      resident_parent_gib=resident / 2**30)
+                if (shape, kind) == ((1, 2), "plain"):  # (dr): the model axis's all-reduces
+                    census = meta_step_census(torch, shape, cfg, ParallelismRules())
+                    dr_collectives(name, census, coll, {"all-reduce": "model"})
+                if kind == "fsdp":
+                    census = meta_step_census(torch, shape, cfg, ParallelismRules(fsdp=True))
+                    tp_only = results[0].get("plain")
+                    fs_report(name, shape, census, coll, per_rank, tp_only and {
+                        r: results[r]["plain"]["peak_gib"] for r in range(world)})
             if shape == (2, 2):
                 dp = {kind: [x["collectives"].get("data", {}).get("bytes", 0)
                              for x in results[0][kind]["steps"]] for kind, _ in runs}
@@ -5089,7 +5186,8 @@ def ts_collectives(after: dict, before: dict, steps: int) -> dict:
             for k, v in after.items()}
 
 
-def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev) -> dict:
+def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev, rules=None,
+           n_tokens: int = SERVE_T, n_forced: int = SERVE_T - 1) -> dict:
     """One (ts) run on this rank under ``activation_sharding``: ``dense``
     (``generate``, then prefill's logits (gate 1) and (r)'s tokens through
     ``decode_step``, each step's logits (gate 2)), ``uniform`` / ``adaptive``
@@ -5099,7 +5197,8 @@ def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev)
     from (z)'s seed), or a control (``control_reduce``: ``_gqa_decode``
     without its ``reduce_from_tp``; ``control_gather``: the vocab's shards
     gathered in the wrong order). Launch counts are reset just before and
-    read just after ``generate``."""
+    read just after ``generate``. ``rules`` (FSDP's) replace the default
+    rules; ``n_tokens`` tokens are generated and ``n_forced`` steps forced."""
     import torch.distributed as dist
 
     from repro_torch.models import blocks, decode_step, prefill, transformer
@@ -5124,7 +5223,7 @@ def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev)
             coll.append(ts_collectives(counter.read(), before, 1))
         return errs, ms, coll
 
-    with sh.activation_sharding(mesh):
+    with sh.activation_sharding(mesh, rules):
         if kind.startswith("control"):
             real_decode, real_gather = blocks._gqa_decode, transformer.gather_vocab
 
@@ -5156,7 +5255,8 @@ def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev)
               if kind in ("uniform", "adaptive") else None)
         sampled = kind == "sampled"
         seed = SEED + 62 if kc else SEED + 110
-        generate(model, cfg, prompt[:, :256], 9 if kc else 3, kv_compress=kc)  # warm-up
+        if rules is None:  # under FSDP the pool's earlier runs warmed the kernels
+            generate(model, cfg, prompt[:, :256], 9 if kc else 3, kv_compress=kc)  # warm-up
         torch.cuda.synchronize()
         dist.barrier()
         torch.cuda.reset_peak_memory_stats()
@@ -5164,7 +5264,7 @@ def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev)
         counter.reset()
         ops.reset_launches()
         t, st = {}, {}
-        toks = generate(model, cfg, prompt, SERVE_T, gen=gen(torch, dev, seed),
+        toks = generate(model, cfg, prompt, n_tokens, gen=gen(torch, dev, seed),
                         temperature=Z_TEMPERATURE if sampled else 0.0, kv_compress=kc,
                         timings=t, stats=st)
         torch.cuda.synchronize()
@@ -5181,13 +5281,13 @@ def ts_run(torch, ops, sh, mesh, model, cfg, kind: str, ref: dict, counter, dev)
             out.update(prefill_rel_err=err(lg0, ref["r"]["prefill_logits"][rows].to(dev))[1],
                        prefill_host_ms=1e3 * pre_s, prefill_collectives=counter.read(),
                        cache_nbytes=cache_nbytes(cache))
-            errs, ms, coll = forced(cache, SERVE_T - 1)
+            errs, ms, coll = forced(cache, n_forced)
             out.update(step_rel_err=errs, forced_step_host_ms=median(ms),
                        forced_step_collectives=coll[len(coll) // 2],
                        collective_share=median([sum(v["ms"] for v in c.values()) / x
                                                 for c, x in zip(coll, ms)]))
             del cache
-            if d > 1 and m == 1:  # gate 6: one graph launch a replayed step, as (r)'s
+            if d > 1 and m == 1 and rules is None:  # gate 6: one graph launch a replayed step
                 out["step_profile"] = step_profile(torch, lambda hook: generate(
                     model, cfg, prompt, Z_PROFILE_STEP + 2, on_step=hook), Z_PROFILE_STEP)
             return out
@@ -5263,8 +5363,28 @@ def ts_rank(rank: int, world: int, job: dict) -> dict:
                 results[(shape, kind)] = ts_run(torch, ops, sh, mesh, model, cfg, kind, ref,
                                                 counter, dev)
             dist.all_reduce = real
-        del model, ref
+        del model
         torch.cuda.empty_cache()
+        if world == 2:  # (fs): FSDP at 2x1, each rank's blocks drawn over the data axis
+            mesh = make_host_mesh(2, 1)
+            rules = sh.ParallelismRules(fsdp=True)
+            model = init_params(gen(torch, dev, SEED + 60), cfg, device=dev, mesh=mesh,
+                                rules=rules)
+            torch.cuda.empty_cache()
+            counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                                      "data": mesh.group("data")})
+            dist.all_reduce = counter
+            counter.wrap_fsdp()
+            try:
+                for kind in ("dense", "uniform"):
+                    results[("fsdp", kind)] = ts_run(torch, ops, sh, mesh, model, cfg, kind, ref,
+                                                     counter, dev, rules, FS_T, FS_FORCED)
+            finally:
+                dist.all_reduce = real
+                counter.unwrap_fsdp()
+            del model
+            torch.cuda.empty_cache()
+        del ref
         if job.get("cli"):
             from repro_torch.launch.serve import main as serve_main
 
@@ -5322,6 +5442,42 @@ def _ts_gates(name: str, per_rank: dict, ref: dict, kind: str, shape: tuple) -> 
     return out
 
 
+def fs_serve_gates(results: dict, ref: dict) -> list:
+    """(fs)'s serving at 2x1 under FSDP, (ts)'s model and requests: dense
+    (prefill's and ``FS_FORCED`` forced steps' logits, gates 1 and 2, and
+    the tokens, gate 3) and the compressed cache uniform (the tokens; kernel
+    1's stacked launch on each rank, as (s)'s count for ``FS_T`` tokens at
+    ``TS_DEPTH``). Returns the ranks' launches."""
+    dp, every = SERVE_KC["decode_panel"], SERVE_KC["refresh_every"]
+    n_folds = (FS_T - 1) // dp
+    per_conv = 2 * (SERVE_S // SERVE_KC["panel"] * 4 + 2)
+    want_k1 = per_conv + TS_DEPTH * (n_folds * 2 * 4 + n_folds * dp // every * 2 * 2)
+    launched = []
+    for kind in ("dense", "uniform"):
+        per_rank = {r: results[r][("fsdp", kind)] for r in range(2)}
+        name = f"fsdp_2x1_{kind}"
+        gates = _ts_gates(name, per_rank, ref, kind, (2, 1))
+        routes = {r["stats"]["route"] for r in per_rank.values()}
+        check(routes == {"eager"}, f"(fs) {name}: routes {routes}")
+        k1 = [r["launches"]["countsketch_batched"] for r in per_rank.values()]
+        want = want_k1 if kind == "uniform" else 0
+        check(all(n == want for n in k1), f"(fs) {name}: kernel 1 launched {k1}, want {want}")
+        launched += [r["launches"] for r in per_rank.values()]
+        first = per_rank[0]
+        emit(f"serve/fs_{name}", mesh=[2, 1], rules="fsdp=True", backend="gloo on one card",
+             route="eager", requests_per_rank=SERVE_B // 2, new_tokens=FS_T, gates=gates,
+             prefill_ms_per_rank=[r["timings"]["prefill"] for r in per_rank.values()],
+             decode_ms_per_token_per_rank=[r["rate"]["decode_ms_per_token"]
+                                           for r in per_rank.values()],
+             generate_collectives_rank0=first["collectives"],
+             prefill_collectives_rank0=first.get("prefill_collectives"),
+             decode_step_collectives_rank0=first.get("forced_step_collectives"),
+             peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+             resident_gib_per_rank=[r["resident_gib"] for r in per_rank.values()],
+             kernel1_launches_per_rank=k1, timing="CUDA events in each rank")
+    return launched
+
+
 def torch_equal(a, b) -> bool:
     return a.shape == b.shape and bool((a == b).all())
 
@@ -5349,9 +5505,13 @@ def phase_ts(torch, ops, dev) -> list:
     want_k1 = per_conv + TS_DEPTH * (n_folds * 2 * 4 + n_folds * dp // every * 2 * 2)
     launched = []
     try:
+        # the four-rank job runs beside the two-rank one (their work is the host's)
+        pool_submit(torch, 4, ts_rank, dict(cli=False))
+        done = {2: host_s(torch, lambda: pool_run(torch, 2, ts_rank, dict(cli=True))),
+                4: host_s(torch, lambda: POOLS[4].collect())}
         for world in (2, 4):
             job = dict(cli=world == 2)
-            results, wall = host_s(torch, lambda: pool_run(torch, world, ts_rank, job))  # noqa: B023
+            results, wall = done[world]
             for shape, kinds in TS_RUNS[world]:
                 tag = f"{shape[0]}x{shape[1]}"
                 for kind in kinds:
@@ -5406,6 +5566,8 @@ def phase_ts(torch, ops, dev) -> list:
                                       s_cache_nbytes=ref[f"s_{kind}"]["cache_nbytes"],
                                       heads_per_rank=first["heads"])
                     emit(f"serve/ts_{name}", **fields)
+            if world == 2:
+                launched += fs_serve_gates(results, ref)
             if job["cli"]:
                 clis = [results[r]["cli"] for r in range(world)]
                 check(all(torch_equal(c["tokens"], clis[0]["tokens"]) for c in clis),
@@ -6060,16 +6222,16 @@ def hy_cfg(arch: str):
     return dataclasses.replace(full, n_layers=depth, pattern=full.pattern[:depth])
 
 
-def hy_model(torch, arch: str, dev, mesh=None) -> tuple:
+def hy_model(torch, arch: str, dev, mesh=None, rules=None) -> tuple:
     """(hy)'s model of ``arch`` from its seed (this rank's blocks, drawn leaf
-    by leaf, with a ``mesh``), the vision model's cross gates at 0.5; the
-    config and the seconds the draw took."""
+    by leaf, with a ``mesh`` and its ``rules``), the vision model's cross
+    gates at 0.5; the config and the seconds the draw took."""
     from repro_torch.models import init_params
 
     cfg = hy_cfg(arch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = init_params(gen(torch, dev, HY_SEED[arch]), cfg, device=dev, mesh=mesh)
+    model = init_params(gen(torch, dev, HY_SEED[arch]), cfg, device=dev, mesh=mesh, rules=rules)
     with torch.no_grad():
         for b, spec in zip(model.blocks, cfg.pattern):
             if spec.mixer == "cross":
@@ -6323,6 +6485,108 @@ def hy_rank(rank: int, world: int, job: dict) -> dict:
     return results
 
 
+def fs_vision_rank(rank: int, world: int, job: dict) -> dict:
+    """(fs): one pool rank's serve run of (hy)'s vision model (depth 5, full
+    width) at 2x2 under FSDP rules, its blocks drawn over the data and model
+    axes: ``generate`` of ``FS_VISION_T`` tokens on its rows of (hy)'s
+    requests (no warm-up: the first call), its prefill's logits against the
+    one-rank run's; every collective counted."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve import decode as decode_mod
+    from repro_torch.serve import generate
+
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(2, 2)
+    rules = sh.ParallelismRules(fsdp=True)
+    counter = CollectiveCounter(torch, dist, {"model": mesh.group("model"),
+                                              "data": mesh.group("data")})
+    dist.all_reduce = counter
+    counter.wrap_fsdp()
+    try:
+        with torch.no_grad():
+            ref = torch.load(HY_REF, mmap=True, map_location="cpu", weights_only=True)[VISION_ARCH]
+            cfg, model, init_s = hy_model(torch, VISION_ARCH, dev, mesh, rules)
+            di = mesh.index("data")
+            rows = slice(di * HY_B // 2, (di + 1) * HY_B // 2)
+            prompt = sh.shard_batch(ref["prompt"].to(dev), mesh)
+            vision = sh.shard_batch(ref["vision"].to(dev), mesh)
+            r = ref["dense"]
+            seen, real = [], decode_mod.prefill
+
+            def recorded(*a, **kw):  # generate's own prefill, its logits kept
+                seen.append(real(*a, **kw))
+                return seen[-1]
+
+            with sh.activation_sharding(mesh, rules):
+                torch.cuda.synchronize()
+                dist.barrier()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                counter.reset()
+                ops.reset_launches()
+                t, st = {}, {}
+                decode_mod.prefill = recorded
+                try:
+                    toks = generate(model, cfg, prompt, FS_VISION_T, vision=vision, timings=t,
+                                    stats=st)
+                finally:
+                    decode_mod.prefill = real
+                torch.cuda.synchronize()
+                out = dict(tokens=toks.cpu(), timings=t, stats=st, init_s=init_s,
+                           rate=decode_rate(t, st, HY_B // 2), collectives=counter.read(),
+                           launches=dict(ops.LAUNCHES), resident_gib=resident / 2**30,
+                           peak_gib=(torch.cuda.max_memory_allocated() - resident) / 2**30,
+                           tokens_gate=ts_tokens_gate(toks, r, rows, HY_LOGIT_TOL),
+                           dp_index=di,
+                           prefill_rel_err=err(seen[0][0], r["prefill_logits"][rows].to(dev))[1])
+            del model, ref, seen
+    finally:
+        dist.all_reduce = counter.real
+        counter.unwrap_fsdp()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fs_vision(torch, hy_vision_peaks) -> list:
+    """(fs): the vision model, an FSDP arch of the dry run, at 2x2 in the
+    four-rank pool after (hy)'s two-rank job (beside it, the two jobs' CUDA
+    memory passed the card's in a development run), against one rank's run
+    of (hy): the tokens (gate 3, and equal on a data rank's model ranks) and
+    prefill's logits (gate 1). Returns the ranks' launches."""
+    per_rank, wall = host_s(torch, lambda: pool_run(torch, 4, fs_vision_rank, {}))
+    groups = {}
+    for r in per_rank.values():
+        groups.setdefault(r["dp_index"], []).append(r["tokens"])
+    check(all(all(torch_equal(t, ts[0]) for t in ts) for ts in groups.values()),
+          "(fs) vision 2x2: a model-axis group's ranks returned different tokens")
+    gates = [r["tokens_gate"] for r in per_rank.values()]
+    check(all(g["equal_before_it"] for g in gates), f"(fs) vision 2x2: tokens differ: {gates}")
+    pre = max(r["prefill_rel_err"] for r in per_rank.values())
+    check(pre <= HY_LOGIT_TOL, f"(fs) vision 2x2: prefill logits {pre} > {HY_LOGIT_TOL}")
+    routes = {r["stats"]["route"] for r in per_rank.values()}
+    check(routes == {"eager"}, f"(fs) vision 2x2: routes {routes}")
+    first = per_rank[0]
+    emit("serve/fs_vision_2x2", arch=VISION_ARCH, depth=HY_DEPTH[VISION_ARCH], mesh=[2, 2],
+         rules="fsdp=True", backend="gloo on one card", route="eager", requests=HY_B,
+         new_tokens=FS_VISION_T, gates=dict(tokens=gates, prefill_rel_err=pre,
+                                            limit=HY_LOGIT_TOL),
+         init_s_per_rank=[r["init_s"] for r in per_rank.values()],
+         prefill_ms_per_rank=[r["timings"]["prefill"] for r in per_rank.values()],
+         decode_ms_per_token_per_rank=[r["rate"]["decode_ms_per_token"]
+                                       for r in per_rank.values()],
+         generate_collectives_rank0=first["collectives"],
+         peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+         resident_gib_per_rank=[r["resident_gib"] for r in per_rank.values()],
+         tp_only_1x2_peak_gib_per_rank=hy_vision_peaks, pool_job_s=wall,
+         timing="CUDA events in each rank; the first generate, no warm-up")
+    return [r["launches"] for r in per_rank.values()]
+
+
 def _hy_serve_gates(name: str, per_rank: dict, controls: dict = None) -> dict:
     """(hy)'s serve gates over one run's ranks: dense — prefill's logits
     (gate 1) and each teacher-forced step's (gate 2) within
@@ -6365,7 +6629,7 @@ def phase_hy(torch, ops, dev, kernels_hy: dict) -> list:
     t0 = time.perf_counter()
     info = hy_references(torch, ops, dev)
     train_ref = train_reference(torch, ops, dev, hy_cfg(ZAMBA_ARCH), HY_SEED[ZAMBA_ARCH],
-                                HY_TRAIN_REF, HY_ZAMBA_LEAVES, HY_ZAMBA_RATIO, "hy", steps=3)
+                                HY_TRAIN_REF, HY_ZAMBA_LEAVES, HY_ZAMBA_RATIO, "hy", steps=2)
     check(train_ref["one_rank"]["params"] == HY_ZAMBA_PARAMS,
           f"(hy) one rank: {train_ref['one_rank']['params']} parameters")
     emit("train/hy_one_rank_reference", **train_ref["one_rank"])
@@ -6471,11 +6735,221 @@ def phase_hy(torch, ops, dev, kernels_hy: dict) -> list:
                  one_rank_step_ms=train_ref["one_rank"]["compressed_step_ms" if kind ==
                                                          "compressed" else "plain_step_ms"])
         emit("hy/1x2_ranks", pool_job_s=wall)
+        vis = {r: results[r][VISION_ARCH]["dense"] for r in range(2)}
+        launched += fs_vision(torch, [vis[r]["peak_gib"] + vis[r]["resident_gib"] for r in vis])
     finally:
         HY_REF.unlink(missing_ok=True)
         HY_TRAIN_REF.unlink(missing_ok=True)
     emit("hy/kernels", **kernels_hy)
     return launched
+
+
+# ---------------------------------------------------------------------------
+# (dr): the census on the card against the census on meta; (fs): FSDP
+# ---------------------------------------------------------------------------
+
+
+def to_meta(torch, x):
+    """``x`` (a tensor, a dataclass such as an engine state or a sketch, or
+    lists, tuples and dicts of them) with every tensor's shape on ``meta``."""
+    if torch.is_tensor(x):
+        return x.to("meta")
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{f.name: to_meta(torch, getattr(x, f.name))
+                                         for f in dataclasses.fields(x) if f.init})
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_meta(torch, y) for y in x)
+    if isinstance(x, dict):
+        return {k: to_meta(torch, v) for k, v in x.items()}
+    return x
+
+
+def census_diff(card: dict, meta: dict) -> dict:
+    """The ops whose counts differ between two censuses (``by_op``)."""
+    a, b = card.get("by_op", {}), meta.get("by_op", {})
+    return {k: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+def dr_step(torch, ops, name: str, run, card_state, meta_state) -> dict:
+    """(dr) on one train step: ``run(state)`` censused on the card (launch
+    counts reset just before, the peak from a reset) and on ``meta``
+    (``meta_state``, the same shapes); the ops, flops, bytes and kernel
+    launches must be equal, the ``meta`` census's peak within
+    ``DR_PEAK_TOL`` of the card's ``max_memory_allocated`` over the step
+    (less what other phases hold), and a control, the ``meta`` peak with
+    frees not tracked, must miss it."""
+    from repro_torch.launch.hlo_census import Census
+
+    torch.cuda.synchronize()
+    probe = Census()
+    probe.track(card_state)
+    other = torch.cuda.memory_allocated() - probe.live  # held by earlier phases
+    del probe
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    card = Census()
+    card.track(card_state)
+    with card:
+        run(card_state)
+        torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - other
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    got = card.result(by_op=True)
+    del card
+    out = {}
+    for frees in (True, False):
+        meta = Census(track_frees=frees)
+        meta.track(meta_state)
+        with meta:
+            run(meta_state)
+        out[frees] = meta.result(by_op=True)
+        del meta
+    want = out[True]
+    rec = dict(card={k: got[k] for k in ("n_ops", "flops", "hbm_bytes", "kernels")},
+               meta={k: want[k] for k in ("n_ops", "flops", "hbm_bytes", "kernels")},
+               launches=launches, card_max_memory_allocated=card_peak,
+               meta_peak_bytes=want["peak_bytes"], card_census_peak_bytes=got["peak_bytes"],
+               peak_rel_err=want["peak_bytes"] / card_peak - 1,
+               control_no_frees_peak_bytes=out[False]["peak_bytes"],
+               control_rel_err=out[False]["peak_bytes"] / card_peak - 1, limit=DR_PEAK_TOL,
+               census_s=dict(card=got["wall_s"], meta=want["wall_s"]))
+    diff = census_diff(got, want)
+    emit(f"dr/{name}", **rec, ops_that_differ=diff)
+    for key in ("n_ops", "flops", "hbm_bytes"):
+        check(got[key] == want[key], f"(dr) {name}: {key} card {got[key]} != meta {want[key]}: "
+              f"{diff}")
+    k_card = {k: v["launches"] for k, v in got["kernels"].items()}
+    k_meta = {k: v["launches"] for k, v in want["kernels"].items()}
+    check(k_card == k_meta == launches,
+          f"(dr) {name}: kernel launches card {k_card}, meta {k_meta}, LAUNCHES {launches}")
+    check(abs(rec["peak_rel_err"]) <= DR_PEAK_TOL,
+          f"(dr) {name}: meta peak {want['peak_bytes']} vs card {card_peak}")
+    check(abs(rec["control_rel_err"]) > DR_PEAK_TOL,
+          f"(dr) {name}: the no-frees control passes: {rec['control_rel_err']}")
+    return launches
+
+
+def dr_streams(torch, ops, A, runs) -> list:
+    """(dr) on (a)'s and (c)'s streams at their full shape: each censused on
+    the card and, from its state and operand moved to ``meta``, there; the
+    kernels' launches in both censuses equal to ``LAUNCHES`` of the card's
+    run (kernel 1 for (a), kernel 3 for (c)). Returns the card runs'
+    launches."""
+    from repro_torch.launch.hlo_census import Census
+    from repro_torch.stream.engine import stream_panels
+
+    launched = []
+    for name, kernel in (("a_fixed_countsketch", "countsketch"),
+                         ("c_adaptive_gaussian_route_b", "panel_update")):
+        state = runs[name]()
+        meta_state, meta_A = to_meta(torch, state), torch.empty_like(A, device="meta")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with Census() as card:
+            stream_panels(state, A, PANEL)
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        with Census() as meta:
+            stream_panels(meta_state, meta_A, PANEL)
+        got, want = card.result(by_op=True), meta.result(by_op=True)
+        k_card = {k: v["launches"] for k, v in got["kernels"].items()}
+        k_meta = {k: v["launches"] for k, v in want["kernels"].items()}
+        emit(f"dr/stream_{name}", launches=launches, census_card=k_card, census_meta=k_meta,
+             card={k: got[k] for k in ("n_ops", "flops", "hbm_bytes", "peak_bytes")},
+             meta={k: want[k] for k in ("n_ops", "flops", "hbm_bytes", "peak_bytes")},
+             ops_that_differ=census_diff(got, want))
+        check(launches.get(kernel, 0) > 0 and k_card == k_meta == launches,
+              f"(dr) {name}: launches {launches}, census card {k_card}, meta {k_meta}")
+        launched.append(launches)
+        del state, meta_state
+        torch.cuda.empty_cache()
+    return launched
+
+
+def meta_step_census(torch, shape: tuple, cfg, rules) -> dict:
+    """The census of one plain step of ``cfg`` (``TP_RUNS``' optimizer,
+    ``remat="dots"``) on ``meta`` as rank 0 of a ``fake`` process group of
+    the ``shape`` mesh's ranks, its batch (y)'s data-parallel share."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.hlo_census import Census
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import OptimizerConfig, init_opt_state, make_train_step
+
+    meta = torch.device("meta")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=shape[0] * shape[1])
+    try:
+        mesh = make_host_mesh(*shape)
+        model = init_params(torch.Generator(), cfg, device=meta, mesh=mesh, rules=rules)
+        oc = OptimizerConfig(lr=TRAIN_LR, warmup_steps=min(20, TRAIN_STEPS // 10 + 1),
+                             total_steps=TRAIN_STEPS)
+        state = {"params": model, "opt": init_opt_state(model, oc)}
+        rows = TRAIN_B // shape[0]
+        batch = {k: torch.zeros((rows, TRAIN_S), dtype=torch.int32, device=meta)
+                 for k in ("tokens", "labels")}
+        step = make_train_step(cfg, oc, remat="dots", mesh=mesh, rules=rules)
+        with Census() as c:
+            step(state, batch)
+        return c.result()
+    finally:
+        dist.destroy_process_group()
+
+
+def dr_collectives(name: str, census: dict, steps: list, kinds: dict) -> dict:
+    """The ``meta`` census's collectives of one step against each measured
+    step's (a rank's ``CollectiveCounter``): calls and bytes of each census
+    kind equal to those of its counter key (``kinds``: kind -> key)."""
+    got = {}
+    for kind, key in kinds.items():
+        want = census["collectives"].get(kind, {})
+        seen = [(c.get(key, {}).get("calls", 0), c.get(key, {}).get("bytes", 0)) for c in steps]
+        got[kind] = dict(census_calls=want.get("count", 0),
+                         census_bytes=want.get("result_bytes", 0.0), measured=seen)
+        check(want.get("count", 0) > 0 and all(c == want["count"] and b == want["result_bytes"]
+                                               for c, b in seen),
+              f"{name}: census {kind} {want} != measured {seen}")
+    emit(f"dr/{name}_collectives", census=got, census_wall_s=census["wall_s"])
+    return got
+
+
+def fs_report(name: str, shape: tuple, census: dict, steps: list, per_rank: dict,
+              tp_peaks) -> None:
+    """(fs)'s report of one FSDP training run: the all-gathers and
+    reduce-scatters a step (calls, GB, ms) against the ``meta`` census's
+    count of them (equal), the peak GiB a rank beside the TP-only run's at
+    the same mesh."""
+    got = dr_collectives(f"fs_{name}", census, steps, {"all-gather": "data:all-gather",
+                                                       "reduce-scatter": "data:reduce-scatter"})
+    emit(f"train/fs_{name}", mesh=list(shape), rules="fsdp=True", census=got,
+         per_step_rank0=[{k: v for k, v in c.items() if ":" in k} for c in steps],
+         peak_gib_per_rank=[r["peak_gib"] for r in per_rank.values()],
+         tp_only_peak_gib_per_rank=tp_peaks)
+
+
+def dr_dryrun_cell(torch) -> dict:
+    """(dr): one dry-run cell, llama3.2-1b ``train_4k`` at 16x16, censused on
+    the host (``meta``, a fake group of 256); its record."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    out = ROOT / "build" / "dryrun"
+    try:
+        rec, wall = host_s(torch, lambda: dryrun.run_cell(
+            "llama3.2-1b", "train_4k", out_dir=str(out), verbose=False))
+    finally:
+        dryrun._MESHES.clear()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(out, ignore_errors=True)
+    check(rec["flops_per_device"] > 0 and rec["collectives"]["all-reduce"]["count"] > 0,
+          f"(dr) dry-run cell: {rec}")
+    return dict(wall_s=wall, **{k: rec[k] for k in (
+        "arch", "shape", "mesh", "n_params", "flops_per_device", "hbm_bytes_per_device",
+        "n_ops", "collectives", "memory")})
 
 
 def main() -> int:
@@ -6523,9 +6997,10 @@ def main() -> int:
     totals, runs, errors = phase_paths(torch, A, dev)
     phase_route_parity(torch, A, runs)
     phase_profile(torch, A, runs)
-    mark("a-d")
+    totals_dr = dr_streams(torch, ops, A, runs)
+    mark("a-d, dr: streams")
     launches_e, res_e, ratio_e = run_oneshot(torch, A, dev)
-    runs_launches = [launches_e, run_gmr(torch, A, res_e, ratio_e, dev)]
+    runs_launches = totals_dr + [launches_e, run_gmr(torch, A, res_e, ratio_e, dev)]
     del res_e
     torch.cuda.empty_cache()
     mark("e, l")
@@ -6599,7 +7074,9 @@ def main() -> int:
     emit("train/y_cli", **finish_train_cli())  # (y) gate (5), run beside (hy)
     mark("hy: mamba2, shared and cross attention on a mesh")
     runs_launches += phase_tp(torch, ops, dev, kernels["twoside_sketch_tp"])
-    mark("tp: tensor parallel")
+    mark("tp, fs: tensor parallel, FSDP")
+    emit("dr/dryrun_cell", **dr_dryrun_cell(torch))
+    mark("dr: dry-run cell")
     for world in (2, 4):
         close_pool(world)
     for launches in runs_launches:
@@ -6625,7 +7102,7 @@ if __name__ == "__main__":
         rc = main()
     finally:  # a failed phase leaves no rank or process behind
         for world in list(POOLS):
-            POOLS.pop(world).close(timeout=30.0)
+            POOLS.pop(world).close(timeout=30.0)  # never raises a rank's failure
         if Y_CLI and Y_CLI["proc"].poll() is None:
             Y_CLI["proc"].kill()
     sys.exit(rc)

@@ -217,12 +217,13 @@ def model_state(np_params, cfg) -> dict:
     return state
 
 
-def model_params(np_params, cfg, device: DeviceLike = None, *, mesh=None):
+def model_params(np_params, cfg, device: DeviceLike = None, *, mesh=None, rules=None):
     """The port's :class:`~repro_torch.models.Transformer` holding a
     reference parameter pytree (leaves as numpy arrays, ``ml_dtypes``
     bfloat16 included), laid out by :func:`model_state`; every tensor keeps
     its dtype and bits (MoE's fp32 router beside bf16 experts included).
-    With a ``mesh``, its rank's block of each leaf on the model axis
+    With a ``mesh``, its rank's block of each leaf on the model axis and,
+    with FSDP ``rules``, over the data axis
     (:func:`~repro_torch.distributed.shard_params`)."""
     from .distributed.sharding import ParallelismRules, shard_params
     from .models.transformer import Transformer
@@ -230,10 +231,16 @@ def model_params(np_params, cfg, device: DeviceLike = None, *, mesh=None):
     dev = resolve_device(device)
     state = model_state(np_params, cfg)
     model = Transformer(torch.Generator(), cfg, torch.device("meta"))
+    fsdp = {}
     if mesh is not None:
-        state = shard_params(state, ParallelismRules(), mesh)
-        shard_params(model, ParallelismRules(), mesh)
+        rules = rules or ParallelismRules()
+        state = shard_params(state, rules, mesh, cfg=cfg)
+        shard_params(model, rules, mesh)
+        fsdp = {n: p.fsdp_dim for n, p in model.named_parameters() if hasattr(p, "fsdp_dim")}
     model.load_state_dict({k: to_tensor(v, dev) for k, v in state.items()}, assign=True)
+    for n, p in model.named_parameters():
+        if n in fsdp:
+            p.fsdp_dim = fsdp[n]
     return model
 
 
@@ -314,22 +321,24 @@ def stacked_leaves(model, cfg) -> list:
     return out
 
 
-def train_state(np_state, cfg, device: DeviceLike = None, *, mesh=None) -> dict:
+def train_state(np_state, cfg, device: DeviceLike = None, *, mesh=None, rules=None) -> dict:
     """The port's train state ``{"params": Transformer, "opt": {"m", "v":
     {name: tensor}, "step"[, "master"]}}`` from the reference's (leaves as
     numpy arrays): the parameters by :func:`model_params`, each moment tree
     unstacked by :func:`model_state` the same way; with a ``mesh``, each
-    leaf's block on the model axis."""
+    leaf's block on the model axis (and over the data axis under FSDP
+    ``rules``)."""
     from .distributed.sharding import ParallelismRules, shard_params
 
     dev = resolve_device(device)
     opt = np_state["opt"]
-    cut = ((lambda t: shard_params(t, ParallelismRules(), mesh)) if mesh is not None
-           else (lambda t: t))
+    cut = ((lambda t: shard_params(t, rules or ParallelismRules(), mesh, cfg=cfg))
+           if mesh is not None else (lambda t: t))
     out = {k: {n: to_tensor(v, dev) for n, v in cut(model_state(opt[k], cfg)).items()}
            for k in ("m", "v", "master") if k in opt}
     out["step"] = to_tensor(np.asarray(opt["step"]), dev, torch.int32)
-    return {"params": model_params(np_state["params"], cfg, dev, mesh=mesh), "opt": out}
+    return {"params": model_params(np_state["params"], cfg, dev, mesh=mesh, rules=rules),
+            "opt": out}
 
 
 def error_state(np_err, cfg, rank: int = None, device: DeviceLike = None, *, mesh=None) -> dict:

@@ -30,8 +30,10 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def generator(seed: int, device: Optional[torch.device]) -> torch.Generator:
-    """A seeded ``torch.Generator`` on ``device`` (the port's ``jax.random`` key)."""
-    g = torch.Generator(device=device)
+    """A seeded ``torch.Generator`` on ``device`` (the port's ``jax.random`` key);
+    on ``meta``, where none exists, a CPU one (draws there make shapes only)."""
+    meta = device is not None and torch.device(device).type == "meta"
+    g = torch.Generator(device="cpu" if meta else device)
     g.manual_seed(int(seed))
     return g
 

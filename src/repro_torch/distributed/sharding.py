@@ -53,7 +53,22 @@ whole weight reads a cut activation. Each is the identity outside
   query, KV, MLA and SSM heads, equal FFN, expert, shared-expert and vocab
   blocks (:func:`check_tp`). Where the rules would replicate a dim they
   lay out over ``model``, or a block would split a head, it raises; it
-  never runs a replicated weight as though it were split.
+  never runs a replicated weight as though it were split. Where the model
+  axis is a multiple of the GQA family's KV heads (8 heads at 16), each
+  rank keeps them whole (``w_k``, ``w_v`` and the K/V caches, as the
+  reference's ``cache_pspec`` does), and its query heads read the one
+  their group shares; where the query heads do not split either, the rank
+  runs every head and keeps its rows of the output for its block of
+  ``w_o``; a vocab that does not split is kept whole (:func:`whole_leaves`).
+  A whole weight passes through :func:`copy_to_tp`, so its partial
+  gradients are summed.
+* **FSDP** (``rules.fsdp``): each leaf's ``fsdp`` dim is cut over
+  ``fsdp_axes`` (``data``) too, where they divide it (:func:`fsdp_cut`;
+  the block carries ``fsdp_dim``). The model code gathers a block's leaves
+  before it runs (:func:`fsdp_gathered`: ``all_gather_into_tensor``
+  forward, ``reduce_scatter_tensor`` of the gradient backward, summed over
+  the data ranks; gloo takes both on CUDA tensors), so a step's FSDP
+  gradients arrive summed over ``data``.
   :func:`cut_at_init` draws a model leaf by leaf, each cut to
   the rank's block at once, so a model that does not fit the card whole
   never sits there.
@@ -83,6 +98,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -91,9 +107,11 @@ import torch.distributed as dist
 
 __all__ = ["Mesh", "ParallelismRules", "activation_sharding", "batch_pspec", "block",
            "cache_pspec", "check_tp", "copy_to_tp", "cut_at_init", "dp_index", "explain",
-           "gather_tp", "global_batch_group", "leaf_pspec", "param_pspecs", "reduce_from_tp", "ref_path", "shard_batch",
-           "gather_from_tp", "shard_cache", "shard_params", "spec_block", "spec_str",
-           "sum_over_tp", "tp_cut", "tp_cuts", "tp_group", "tp_index", "tp_names"]
+           "fsdp_cut", "fsdp_gathered", "fsdp_group", "fsdp_names", "fsdp_param",
+           "gather_tp", "global_batch_group", "leaf_pspec", "param_pspecs", "reduce_from_tp",
+           "ref_path", "shard_batch", "gather_from_tp", "shard_cache", "shard_params",
+           "spec_block", "spec_str", "sum_over_tp", "tp_cut", "tp_cuts", "tp_group", "tp_index",
+           "tp_names", "is_whole", "whole_leaves"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -363,20 +381,64 @@ def explain(params, rules: ParallelismRules, mesh) -> str:
 
 
 def _check_run_rules(rules: ParallelismRules) -> None:
-    if rules.fsdp or rules.seq_parallel or not rules.tp_enabled or not rules.shard_vocab:
+    if rules.seq_parallel or not rules.tp_enabled or not rules.shard_vocab:
         raise NotImplementedError(
-            f"{rules}: the run time takes the default rules (model-axis tensor parallelism, "
-            "vocab sharded); FSDP, sequence parallelism and a replicated vocab run only as "
-            "rules (ROADMAP.md §1)")
+            f"{rules}: the run time takes model-axis tensor parallelism with the vocab sharded, "
+            "and FSDP over the data axis; sequence parallelism (with the sequence-sharded "
+            "decode cache) is the next item of ROADMAP.md §1, and a replicated vocab or "
+            "weights run only as rules")
+
+
+def _gqa_family(cfg) -> bool:
+    from ..models.config import ATTN, ATTN_LOCAL, CROSS, SHARED_ATTN
+
+    return bool({s.mixer for s in cfg.pattern} & {ATTN, ATTN_LOCAL, SHARED_ATTN, CROSS})
+
+
+@functools.lru_cache(maxsize=None)
+def whole_leaves(cfg, m: int) -> frozenset:
+    """The leaf names the run time keeps whole on every rank at model axis
+    ``m`` where the rules would cut a head or the vocab into parts that are
+    not whole (the reference's partitioner splits them mid-head; its
+    ``cache_pspec`` keeps such KV heads whole): ``tok`` and ``lm_head``
+    where the vocab does not split, GQA's ``w_k`` and ``w_v`` where the KV
+    heads do not (``m`` a multiple of them: each rank's query heads then
+    read one KV head), and ``w_q`` too where the query heads do not (the
+    rank runs every head and keeps its rows of the output for its block of
+    ``w_o``). A whole weight's gradient is summed over the model axis."""
+    if m == 1:
+        return frozenset()
+    out = set()
+    if cfg.vocab_size % m:
+        out |= {"tok", "lm_head"}
+    if _gqa_family(cfg):
+        if cfg.n_kv_heads % m:
+            out |= {"w_k", "w_v"}
+        if cfg.n_heads % m:
+            out.add("w_q")
+    return frozenset(out)
+
+
+def is_whole(name: str, cfg) -> bool:
+    """Whether this rank holds leaf ``name`` (``tok``, ``lm_head``, ``w_q``,
+    ``w_k``, ``w_v``) whole where the rules cut it: :func:`whole_leaves` at
+    the model axis of :func:`activation_sharding` (never outside it). The
+    model code asks this, rather than compare shapes."""
+    m = tp_index()[1]
+    return m > 1 and name in whole_leaves(cfg, m)
 
 
 def check_tp(cfg, m: int) -> None:
     """Raise ``ValueError`` unless ``cfg`` runs at model axis ``m`` in whole
-    shards: the vocab and, where the pattern has them, the query and KV
-    heads (GQA, shared and cross attention), the MLA heads, the FFN width
+    shards: where the pattern has them, the MLA heads, the FFN width
     (dense), the experts and the shared experts' width (MoE) and the SSM
     heads (Mamba-2, hence ``d_inner``) must each be a multiple of ``m``,
-    and the SSM heads must read one B/C group (``ssm_groups = 1``). Every
+    and the SSM heads must read one B/C group (``ssm_groups = 1``). The
+    GQA family's (GQA, shared and cross attention) KV heads must be a
+    multiple of ``m`` or ``m`` a multiple of them, its query heads a
+    multiple of ``m`` or, where they are not, its query width (heads ×
+    head_dim) with the KV heads whole; a vocab that does not split is kept
+    whole (:func:`whole_leaves`). Every
     mixer, FFN and a modality input run at ``m > 1``: the projected vision
     embeddings, the Mamba-2 leaves the reference keeps whole (``w_bc``,
     ``w_dt``, ``conv_bc_*``, ``dt_bias``, ``a_log``, ``d_skip``,
@@ -391,11 +453,12 @@ def check_tp(cfg, m: int) -> None:
     sizes = []
     if MAMBA2 in mixers:
         sizes.append(("SSM heads", ssm_dims(cfg)[1]))
-    if mixers & {ATTN, ATTN_LOCAL, SHARED_ATTN, CROSS}:
+    gqa = bool(mixers & {ATTN, ATTN_LOCAL, SHARED_ATTN, CROSS})
+    kv_whole = gqa and cfg.n_kv_heads % m != 0 and m % cfg.n_kv_heads == 0
+    if gqa and not kv_whole:
         sizes.append(("KV heads", cfg.n_kv_heads))
-    if mixers & {ATTN, ATTN_LOCAL, MLA, SHARED_ATTN, CROSS}:
+    if MLA in mixers or gqa and not (kv_whole and cfg.n_heads * cfg.head_dim % m == 0):
         sizes.append(("query heads", cfg.n_heads))
-    sizes.append(("vocab", cfg.vocab_size))
     if DENSE in ffns:
         sizes.append(("FFN width", cfg.d_ff))
     if MOE in ffns:
@@ -426,16 +489,23 @@ def _tp_dim(path, ndim: int, rules: ParallelismRules):
     return dims[-1] if dims else None
 
 
-def tp_cut(path, shape, rules: ParallelismRules, mesh, *, stack: int = 0):
+def _leaf_name(path) -> str:
+    keys = [k for k in _keys(path) if isinstance(k, str)]
+    return keys[-1] if keys else ""
+
+
+def tp_cut(path, shape, rules: ParallelismRules, mesh, *, stack: int = 0,
+           whole: frozenset = frozenset()):
     """``(dim, parts, index)`` of a whole tensor's block on the model axis
     (``dim`` counted from the end, ``index`` this rank's), or ``None`` for a
-    replicated one. The layout is that of the layer's own leaf: the dims
-    after the first ``stack`` (a stack of layers). Raises where the rules
-    would replicate a dim they lay out over the model axis."""
+    replicated one or a leaf named in ``whole`` (:func:`whole_leaves`). The
+    layout is that of the layer's own leaf: the dims after the first
+    ``stack`` (a stack of layers). Raises where the rules would replicate a
+    dim they lay out over the model axis."""
     layer = _shape(shape)[stack:]
     m = mesh.shape[rules.tp_axis]
     dim = _tp_dim(path, len(layer), rules)
-    if dim is None or m == 1:
+    if dim is None or m == 1 or _leaf_name(path) in whole:
         return None
     if layer[dim] % m:
         raise ValueError(f"{'.'.join(map(str, _keys(path)))} {layer}: dim {layer[dim]} does "
@@ -455,10 +525,11 @@ def tp_cuts(params, rules: ParallelismRules, mesh) -> dict:
     if m == 1:
         return {}
     named = dict(params.named_parameters())
+    whole = whole_leaves(params.cfg, m)
     out = {}
     for path, names in stacked_leaves(params, params.cfg):
         dim = _tp_dim(ref_path(names[0]), named[names[0]].dim(), rules)
-        if dim is not None:
+        if dim is not None and _leaf_name(path) not in whole:
             out[path] = (dim, m, mesh.index(rules.tp_axis))
     return out
 
@@ -466,10 +537,42 @@ def tp_cuts(params, rules: ParallelismRules, mesh) -> dict:
 def tp_names(params, rules: ParallelismRules, mesh) -> frozenset:
     """The names of a model's parameters that are blocks on the model axis."""
     rules = rules.with_mesh(mesh)
-    if mesh.shape[rules.tp_axis] == 1:
+    m = mesh.shape[rules.tp_axis]
+    if m == 1:
         return frozenset()
+    whole = whole_leaves(params.cfg, m)
     return frozenset(n for n, p in params.named_parameters()
-                     if _tp_dim(ref_path(n), p.dim(), rules) is not None)
+                     if _tp_dim(ref_path(n), p.dim(), rules) is not None
+                     and _leaf_name(ref_path(n)) not in whole)
+
+
+def fsdp_cut(path, shape, rules: ParallelismRules, mesh, *, stack: int = 0):
+    """``(dim, parts, index)`` of a whole tensor's block over the FSDP axes
+    (``rules.fsdp_axes``, ``data``), or ``None``: the leaf's layout's
+    ``fsdp`` dim where ``rules.fsdp`` holds and the axes divide it (else
+    replicated, as the reference's ``_divisible``)."""
+    if not rules.fsdp:
+        return None
+    layer = _shape(shape)[stack:]
+    layout = _layout(path, len(layer))
+    d = mesh.axis_size(rules.fsdp_axes)
+    dims = [i - len(layout) for i, sem in enumerate(layout or ()) if sem == "fsdp"]
+    if d == 1 or not dims or layer[dims[0]] % d:
+        return None
+    return dims[0], d, mesh.index(rules.fsdp_axes)
+
+
+def fsdp_names(params) -> frozenset:
+    """The names of a model's parameters that are FSDP blocks."""
+    return frozenset(n for n, p in params.named_parameters() if hasattr(p, "fsdp_dim"))
+
+
+def _cut_leaf(p, path, rules, mesh, whole):
+    # a whole tensor's block on the model axis, then over the FSDP axes; the
+    # FSDP dim (from the end) or None
+    t = block(p, tp_cut(path, p.shape, rules, mesh, whole=whole))
+    fcut = fsdp_cut(path, p.shape, rules, mesh)
+    return block(t, fcut), (fcut[0] if fcut else None)
 
 
 def block(t, cut):
@@ -485,26 +588,31 @@ def block(t, cut):
     return b.clone() if torch.is_tensor(b) else b.copy()
 
 
-def shard_params(params, rules: ParallelismRules, mesh):
-    """This rank's block of each leaf on the model axis (the counterpart of
+def shard_params(params, rules: ParallelismRules, mesh, *, cfg=None):
+    """This rank's block of each leaf on the model axis and, with
+    ``rules.fsdp``, over the FSDP axes (the counterpart of
     ``param_shardings``). ``params``: a :class:`~repro_torch.models.Transformer`,
     whose parameters are replaced in place by copies of their blocks (the
-    whole tensors are freed), or a dict of port parameter names to tensors
-    or numpy arrays, returned as a new dict of blocks."""
+    whole tensors are freed; an FSDP block carries its dim from the end as
+    ``fsdp_dim``), or a dict of port parameter names to tensors or numpy
+    arrays, returned as a new dict of blocks (``cfg`` names the leaves kept
+    whole, :func:`whole_leaves`)."""
     from torch import nn
 
     rules = rules.with_mesh(mesh)
-    if mesh.shape[rules.tp_axis] > 1:
-        _check_run_rules(rules)
+    m = mesh.shape[rules.tp_axis]
+    _check_run_rules(rules)
     if isinstance(params, nn.Module):
-        check_tp(params.cfg, mesh.shape[rules.tp_axis])
+        check_tp(params.cfg, m)
+        whole = whole_leaves(params.cfg, m)
         with torch.no_grad():
             for name, p in params.named_parameters():
-                cut = tp_cut(ref_path(name), p.shape, rules, mesh)
-                if cut is not None:
-                    p.data = block(p.data, cut)
+                p.data, dim = _cut_leaf(p.data, ref_path(name), rules, mesh, whole)
+                if dim is not None:
+                    p.fsdp_dim = dim
         return params
-    return {name: block(v, tp_cut(ref_path(name), _shape(v), rules, mesh))
+    whole = whole_leaves(cfg, m) if cfg is not None else frozenset()
+    return {name: _cut_leaf(v, ref_path(name), rules, mesh, whole)[0]
             for name, v in params.items()}
 
 
@@ -517,9 +625,10 @@ def _init_layout_path(module, name: str, ndim: int) -> tuple:
 
 
 @contextlib.contextmanager
-def cut_at_init(mesh, rules: Optional[ParallelismRules] = None):
+def cut_at_init(mesh, rules: Optional[ParallelismRules] = None, cfg=None):
     """Within it, every parameter a module registers is cut at once to this
-    rank's block on the model axis, as :func:`shard_params` cuts it: a
+    rank's block on the model axis and over the FSDP axes, as
+    :func:`shard_params` cuts it (``cfg`` names the leaves kept whole): a
     model drawn here is drawn leaf by leaf from its generator in the init
     order, each leaf whole, its block kept and the whole freed before the
     next draw, so its blocks equal a whole model's blocks bit for bit and
@@ -529,19 +638,25 @@ def cut_at_init(mesh, rules: Optional[ParallelismRules] = None):
     from torch import nn
 
     rules = (rules or ParallelismRules()).with_mesh(mesh)
-    if mesh.shape[rules.tp_axis] == 1:
+    m = mesh.shape[rules.tp_axis]
+    if m == 1 and not (rules.fsdp and mesh.axis_size(rules.fsdp_axes) > 1):
         yield
         return
     _check_run_rules(rules)
+    whole = whole_leaves(cfg, m) if cfg is not None else frozenset()
 
     def hook(module, name, p):
         if p is None:
             return None
-        cut = tp_cut(_init_layout_path(module, name, p.dim()), p.shape, rules, mesh)
-        if cut is None:
-            return None
+        path, data = _init_layout_path(module, name, p.dim()), p.data
         with torch.no_grad():
-            return nn.Parameter(block(p.data, cut), requires_grad=p.requires_grad)
+            t, dim = _cut_leaf(data, path, rules, mesh, whole)
+        if t is data:
+            return None
+        out = nn.Parameter(t, requires_grad=p.requires_grad)
+        if dim is not None:
+            out.fsdp_dim = dim
+        return out
 
     handle = nn.modules.module.register_module_parameter_registration_hook(hook)
     try:
@@ -763,3 +878,77 @@ def gather_from_tp(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Join the model axis's blocks of ``x`` along ``dim`` for a whole weight
     to read; the backward keeps this rank's block of the gradient."""
     return x if tp_group() is None else _GatherFromTP.apply(x, dim)
+
+
+# ---------------------------------------------------------------------------
+# FSDP at run time: a leaf's block over the data axis gathered where it is used
+# ---------------------------------------------------------------------------
+
+
+def fsdp_group():
+    """The FSDP axes' process group under :func:`activation_sharding` with
+    ``rules.fsdp`` and more than one data rank; ``None`` otherwise."""
+    if not _ACT:
+        return None
+    mesh, rules, _ = _ACT[-1]
+    if not rules.fsdp or mesh.axis_size(rules.fsdp_axes) == 1:
+        return None
+    return mesh.group(rules.fsdp_axes)
+
+
+class _GatherFSDP(torch.autograd.Function):
+    """The FSDP axes' blocks of a leaf joined along ``dim`` (from the end)
+    forward, one ``all_gather_into_tensor``; backward, the gradient's block
+    summed over the ranks, one ``reduce_scatter_tensor`` (gloo takes both on
+    CUDA tensors as on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, p, dim, group):
+        ctx.dim, ctx.group = dim, group
+        parts = dist.get_world_size(group)
+        x = p.movedim(dim, 0).contiguous()
+        out = x.new_empty((parts * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = dist.get_world_size(ctx.group)
+        x = g.movedim(ctx.dim, 0).contiguous()
+        out = x.new_empty((x.shape[0] // parts, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=ctx.group)
+        return out.movedim(0, ctx.dim), None, None
+
+
+def fsdp_param(p: torch.Tensor) -> torch.Tensor:
+    """The whole (model-axis block of a) leaf for an FSDP block ``p``
+    (one that carries ``fsdp_dim``): gathered over the FSDP axes, its
+    gradient reduce-scattered, summed; any other tensor as it is."""
+    dim = getattr(p, "fsdp_dim", None)
+    if dim is None:
+        return p
+    group = fsdp_group()
+    if group is None:
+        raise ValueError("an FSDP block is read outside activation_sharding with FSDP rules")
+    return _GatherFSDP.apply(p, dim, group)
+
+
+@contextlib.contextmanager
+def fsdp_gathered(*modules):
+    """Within it, the FSDP blocks of ``modules`` (and their submodules) read
+    as their gathered leaves (:func:`fsdp_param`), once each; on exit the
+    blocks are back and the gathered leaves are freed, but for what autograd
+    saves. A block's forward runs inside it; under ``remat`` the unit's
+    recomputation runs it again, so the backward gathers again."""
+    swapped = []
+    try:
+        for mod in modules:
+            for sub in mod.modules():
+                for name, p in list(sub._parameters.items()):
+                    if p is not None and hasattr(p, "fsdp_dim"):
+                        swapped.append((sub, name, p))
+                        sub._parameters[name] = fsdp_param(p)
+        yield
+    finally:
+        for sub, name, p in swapped:
+            sub._parameters[name] = p

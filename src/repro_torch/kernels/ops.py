@@ -4,7 +4,15 @@ Dispatch rule, the same for every wrapper:
 
 * a tensor on the CPU takes the kernel's plain version (:mod:`.ref`);
 * a tensor on a CUDA device launches the hand-written kernel, or raises when
-  the arguments are outside what the kernel takes. There is no fallback.
+  the arguments are outside what the kernel takes. There is no fallback;
+* a tensor on the ``meta`` device takes a shape-only launch: it returns
+  outputs of the kernel's shapes, unwritten, and only a census counts it
+  (the dry run's, :mod:`repro_torch.launch.hlo_census`): ``LAUNCHES``
+  counts launches on a card alone.
+
+Under a :class:`~repro_torch.launch.hlo_census.Census` each wrapper records
+one launch with the operations and bytes of its bound; the ops it runs
+itself (the plain version, the orders it builds) are not counted.
 
 ``LAUNCHES`` counts, per kernel, the launches made (a plain integer each;
 kernel 1's stacked launches, one for a whole head batch, under
@@ -28,6 +36,7 @@ import contextlib
 
 import torch
 
+from .. import census as _census
 from . import ref
 from .countsketch import (VIEW_CHUNK, batched_window_orders, bucket_order,
                           countsketch_batched_fold_kernel, countsketch_batched_kernel,
@@ -105,8 +114,14 @@ def add_launches(record: dict) -> None:
 
 def kernel_route_enabled(t: torch.Tensor) -> bool:
     """Should engine hooks send panels down the kernel route? True for CUDA
-    tensors, and on the CPU when a test forces the route."""
-    return _FORCE_KERNEL_ROUTE or t.is_cuda
+    and ``meta`` tensors (a census counts the card's route), and on the CPU
+    when a test forces the route."""
+    return _FORCE_KERNEL_ROUTE or t.is_cuda or t.is_meta
+
+
+def _meta(*tensors) -> bool:
+    """True for a shape-only launch: the tensors lie on ``meta``."""
+    return all(t.is_meta for t in tensors)
 
 
 def _on_card(*tensors) -> bool:
@@ -161,6 +176,63 @@ def _sketch_on_card(hashes, signs) -> None:
     _check(hashes.is_contiguous() and signs.is_contiguous(), "hashes/signs must be contiguous")
 
 
+# ---------------------------------------------------------------------------
+# Census records: each launch's operations and bytes, by its bound's formula
+# (PERF.md §6: each input read once, each output written once)
+# ---------------------------------------------------------------------------
+
+_nb = _census.nbytes
+
+
+def _apply_bound(out, hashes, signs, a, s, **_):
+    m, n = a.shape
+    return ("countsketch", m * n, _nb(a) + 8 * m + 4 * s * n) if m and n and s else None
+
+
+def _fold_bound(out, hashes, signs, x, M, **_):
+    m = x.shape[1]
+    return ("countsketch", x.numel(), _nb(x) + 2 * _nb(M) + 8 * m) if M.numel() and m else None
+
+
+def _batched_bound(out, hashes, signs, a, s, **_):
+    N, p, m = hashes.shape
+    ok = a.numel() and s
+    return ("countsketch_batched", p * a.numel(), _nb(a) + 8 * N * p * m + 4 * out.numel()
+            ) if ok else None
+
+
+def _batched_fold_bound(out, hashes, signs, x, M, **_):
+    N, p, m = hashes.shape
+    return ("countsketch_batched", p * x.numel(), _nb(x) + 2 * _nb(M) + 8 * N * p * m
+            ) if M.numel() and m else None
+
+
+def _score_bound(out, sc, a_l, q):
+    (s_c, m), L, c = sc.shape, a_l.shape[1], q.shape[1]
+    flops = 2 * s_c * L * (m + c + 1)
+    return ("panel_score", flops, _nb(sc) + _nb(a_l) + _nb(q) + 4 * (s_c * L + 2 * L)
+            ) if L else None
+
+
+def _update_bound(out, sc, a_l, srt, q, C, M, *, panel_cap, **_):
+    # C's admitted columns at panel_cap, the most a panel admits: a census
+    # reads nothing back
+    (s_c, m), L, c = sc.shape, a_l.shape[1], q.shape[1]
+    flops = 2 * s_c * L * (m + c + 1 + M.shape[1])
+    cols = int(panel_cap) * m * C.element_size()
+    return ("panel_update", flops, _nb(sc) + _nb(a_l) + _nb(srt) + _nb(q) + 2 * _nb(M) + cols
+            + 4 * (s_c * L + 4 * L))
+
+
+def _twoside_bound(out, sc, a, srt):
+    B = a.shape[0] if a.dim() == 3 else 1
+    (s_c, m), (n, s_r) = sc.shape, srt.shape
+    flops = 2 * B * s_c * n * (m + s_r)
+    return ("twoside_sketch", flops, _nb(sc) + _nb(a) + _nb(srt) + 4 * B * s_c * s_r
+            ) if m and n else None
+
+
+@_census.kernel_launch(_apply_bound)
 def countsketch_apply(hashes, signs, a, s: int, *, order=None, chunks=None,
                       transpose_out: bool = False):
     """``S·a`` for a CountSketch ``(hashes, signs)`` with ``s`` buckets, fp32.
@@ -176,6 +248,9 @@ def countsketch_apply(hashes, signs, a, s: int, *, order=None, chunks=None,
     _check(a.dim() == 2, f"a must be 2-D, got {tuple(a.shape)}")
     m, n = a.shape
     _sketch_args(hashes, signs, m)
+    if _meta(hashes, signs, a):
+        shape = (n, s) if transpose_out else (s, n)
+        return a.new_empty(shape, dtype=torch.float32)
     if not _on_card(hashes, signs, a):
         out = ref.countsketch_ref(hashes, signs, a, s)
         return out.T.contiguous() if transpose_out else out
@@ -204,6 +279,7 @@ def countsketch_apply(hashes, signs, a, s: int, *, order=None, chunks=None,
     return out
 
 
+@_census.kernel_launch(_fold_bound)
 def countsketch_fold(hashes, signs, x, M, *, order=None, fold_dtype=torch.float32):
     """``M += (x·Sᵀ).to(fold_dtype).to(M.dtype)`` in place for a CountSketch
     ``S`` = ``(hashes, signs)`` with ``s = M.shape[1]`` buckets: the
@@ -219,6 +295,8 @@ def countsketch_fold(hashes, signs, x, M, *, order=None, fold_dtype=torch.float3
     _sketch_args(hashes, signs, x.shape[1])
     _check(fold_dtype in _DTYPES, f"fold_dtype must be float32 or bfloat16, got {fold_dtype}")
     s = M.shape[1]
+    if _meta(hashes, signs, x, M):
+        return M
     if not _on_card(hashes, signs, x, M):
         return M.add_(ref.countsketch_ref(hashes, signs, x.T, s).T.to(fold_dtype).to(M.dtype))
     _check(x.dtype in _DTYPES and M.dtype in _DTYPES,
@@ -262,6 +340,7 @@ def _whole_orders(hashes, s: int, L: int) -> tuple:
     return batched_window_orders(hashes.reshape(N * p, m), s, L)
 
 
+@_census.kernel_launch(_batched_bound)
 def countsketch_batched(hashes, signs, a, s: int, *, order=None, chunks=None,
                         transpose_out: bool = False):
     """``out[n] = Σ_q S_{n,q}·a[n]`` for a stack of N items of ``p``
@@ -279,6 +358,9 @@ def countsketch_batched(hashes, signs, a, s: int, *, order=None, chunks=None,
     """
     N, p, m = _stack_args(hashes, signs, a, 1)
     ncols = a.shape[2]
+    if _meta(hashes, signs, a):
+        shape = (N, ncols, s) if transpose_out else (N, s, ncols)
+        return a.new_empty(shape, dtype=torch.float32)
     if not _on_card(hashes, signs, a):
         out = ref.countsketch_batched_ref(hashes, signs, a, s)
         return out.transpose(1, 2).contiguous() if transpose_out else out
@@ -317,6 +399,7 @@ def countsketch_batched(hashes, signs, a, s: int, *, order=None, chunks=None,
     return out
 
 
+@_census.kernel_launch(_batched_fold_bound)
 def countsketch_batched_fold(hashes, signs, x, M, *, order=None):
     """``M[n] += (Σ_q x[n]·S_{n,q}ᵀ).to(M.dtype)`` in place for a stack of N
     items of ``p`` CountSketches (``s = M.shape[2]`` buckets): the batched
@@ -331,6 +414,8 @@ def countsketch_batched_fold(hashes, signs, x, M, *, order=None):
            f"x (N, rows, m) and M (N, rows, s) must share N and rows, got "
            f"{tuple(x.shape)}, {tuple(M.shape)}")
     s = M.shape[2]
+    if _meta(hashes, signs, x, M):
+        return M
     if not _on_card(hashes, signs, x, M):
         return M.add_(ref.countsketch_batched_ref(hashes, signs, x.transpose(1, 2), s)
                       .transpose(1, 2).to(M.dtype))
@@ -351,6 +436,7 @@ def countsketch_batched_fold(hashes, signs, x, M, *, order=None):
     return M
 
 
+@_census.kernel_launch(_score_bound)
 def panel_score(sc, a_l, q):
     """``(sc_a, resid2, energy)`` of one panel, fp32: ``sc_a = S_C·A_L`` (s_c, L),
     ``energy_j = ‖sc_a[:, j]‖²``, ``resid2_j = max(energy_j − ‖qᵀ sc_a[:, j]‖², 0)``.
@@ -363,6 +449,10 @@ def panel_score(sc, a_l, q):
     _check((sc.dtype, a_l.dtype) in _PAIRS,
            f"sc/a_l must be float32/float32, bfloat16/bfloat16 or float32/bfloat16, "
            f"got {sc.dtype}/{a_l.dtype}")
+    if _meta(sc, a_l, q):
+        s_c, L = sc.shape[0], a_l.shape[1]
+        return (sc.new_empty((s_c, L), dtype=torch.float32),
+                sc.new_empty((L,), dtype=torch.float32), sc.new_empty((L,), dtype=torch.float32))
     if not _on_card(sc, a_l, q):
         return ref.panel_score_ref(sc, a_l, q)
     s_c, m = sc.shape
@@ -393,6 +483,7 @@ def _scalars(vals, dtype, device):
                         else torch.full((), v, dtype=dtype, device=device) for v in vals])
 
 
+@_census.kernel_launch(_update_bound)
 def panel_update(sc, a_l, srt, q, C, M, *, min_gain, run_mean, true_cols, n_filled,
                  free, panel_cap: int):
     """Admission-only panel update; ``C`` and ``M`` are updated in place.
@@ -414,6 +505,11 @@ def panel_update(sc, a_l, srt, q, C, M, *, min_gain, run_mean, true_cols, n_fill
            f"{sc.dtype}, a_l {a_l.dtype}, srt {srt.dtype}, C {C.dtype}, M {M.dtype}")
     kw = dict(min_gain=min_gain, run_mean=run_mean, true_cols=true_cols,
               n_filled=n_filled, free=free, panel_cap=panel_cap)
+    if _meta(sc, a_l, srt, q, C, M):
+        s_c, L = sc.shape[0], a_l.shape[1]
+        f32 = dict(dtype=torch.float32)
+        return (C, M, sc.new_empty((s_c, L), **f32), sc.new_empty((L,), **f32),
+                sc.new_empty((L,), **f32), sc.new_empty((L,), dtype=torch.int32))
     if not _on_card(sc, a_l, srt, q, C, M):
         return ref.panel_update_ref(sc, a_l, srt, q, C, M, **kw)
     s_c, m = sc.shape
@@ -443,6 +539,7 @@ def panel_update(sc, a_l, srt, q, C, M, *, min_gain, run_mean, true_cols, n_fill
     return C, M, sc_a, resid2, energy, slots
 
 
+@_census.kernel_launch(_twoside_bound)
 def twoside_sketch(sc, a, srt):
     """``M = sc·a·srt`` in fp32: (s_c, m)·(m, n)·(n, s_r) → (s_c, s_r), or
     for a batch ``a`` (B, m, n) → (B, s_c, s_r) with ``sc``/``srt`` shared.
@@ -455,6 +552,10 @@ def twoside_sketch(sc, a, srt):
     _check(sc.dim() == 2 and srt.dim() == 2 and sc.shape[1] == a.shape[-2]
            and srt.shape[0] == a.shape[-1],
            f"shape mismatch: sc {tuple(sc.shape)}, a {tuple(a.shape)}, srt {tuple(srt.shape)}")
+    if _meta(sc, a, srt):
+        shape = (sc.shape[0], srt.shape[1]) if a.dim() == 2 else (a.shape[0], sc.shape[0],
+                                                                    srt.shape[1])
+        return a.new_empty(shape, dtype=torch.float32)
     if not _on_card(sc, a, srt):
         return ref.twoside_sketch_ref(sc, a, srt)
     _check(sc.dtype in _DTYPES and a.dtype == sc.dtype and srt.dtype == sc.dtype,

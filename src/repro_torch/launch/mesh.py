@@ -18,21 +18,24 @@ import torch.distributed as dist
 
 from ..distributed.sharding import Mesh
 
-__all__ = ["cli_mesh", "make_host_mesh", "make_production_mesh"]
+__all__ = ["cli_mesh", "make_host_mesh", "make_production_mesh", "world_mesh"]
 
 
-def _world_mesh(shape: dict) -> Mesh:
+def world_mesh(shape: dict) -> Mesh:
     """A :class:`Mesh` of ``shape`` over the whole world, with the process
     groups of the model axis and of the data-parallel axes (every axis but
-    ``model``); a world of one needs no process group."""
+    ``model``), and where those are more than one (``pod``, ``data``) of
+    each alone: FSDP gathers over ``data``, and its gradients are summed
+    over ``pod``. A world of one needs no process group."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     if math.prod(shape.values()) != world:
         raise ValueError(f"mesh {shape} needs {math.prod(shape.values())} ranks, the world has "
                          f"{world}")
     mesh = Mesh(dict(shape), dist.get_rank() if dist.is_initialized() else 0)
     names = tuple(shape)
+    dp = tuple(a for a in names if a != "model")
     groups = {}
-    for axes in (("model",), tuple(a for a in names if a != "model")):
+    for axes in (("model",), dp) + (tuple((a,) for a in dp) if len(dp) > 1 else ()):
         if mesh.axis_size(axes) == 1:
             continue
         rest = [a for a in names if a not in axes]
@@ -55,13 +58,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16×16 = 256 ranks (data, model); 2×16×16 = 512 multi-pod (pod, data,
     model). Raises unless the world has that many ranks."""
     shape = {"pod": 2, "data": 16, "model": 16} if multi_pod else {"data": 16, "model": 16}
-    return _world_mesh(shape)
+    return world_mesh(shape)
 
 
 def make_host_mesh(data: int = 4, model: int = 2) -> Mesh:
     """A (data, model) mesh over the world's ``data · model`` ranks: gloo on
     the CPU or for ranks that share one card, NCCL with one rank a card."""
-    return _world_mesh({"data": data, "model": model})
+    return world_mesh({"data": data, "model": model})
 
 
 def cli_mesh(spec: str, dev: torch.device, batch: int) -> Mesh:

@@ -23,6 +23,9 @@ sliding-window (counterpart of ``repro/models/attention.py``).
   :func:`cross_attention_plain`, the reference's einsums, on the CPU or
   inside :func:`plain_attention`.
 
+A ``meta`` tensor takes the card's route: the cuDNN SDPA op the card
+dispatches, called directly (a census of a dry run counts one fused op,
+never the (B, H, S, S) scores of SDPA's math route).
 """
 
 from __future__ import annotations
@@ -113,20 +116,35 @@ def flash_attention_plain(q, k, v, *, window: Optional[int] = None, chunk: int =
     return out[:, :S].to(q.dtype)
 
 
+def _on_card(q) -> bool:
+    # the card's route: CUDA, or ``meta`` (a census counts the card's ops)
+    return (q.is_cuda or q.is_meta) and not _PLAIN
+
+
+def _sdpa_op(qt, kt, vt, *, mask=None, causal=False):
+    """SDPA on (B, H, S, D) operands, GQA through ``enable_gqa`` (KV heads
+    not repeated). On ``meta`` the cuDNN op the card dispatches, called
+    directly: ``scaled_dot_product_attention`` would take its math route
+    there and build the (B, H, S, S) scores."""
+    gqa = qt.shape[1] != kt.shape[1]
+    if qt.is_meta:
+        grad = torch.is_grad_enabled() and any(t.requires_grad for t in (qt, kt, vt))
+        return torch.ops.aten._scaled_dot_product_cudnn_attention(
+            qt, kt, vt, mask, grad, 0.0, causal, False)[0]
+    return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                            is_causal=causal, enable_gqa=gqa)
+
+
 def _sdpa(q, k, v, window: Optional[int]):
-    # SDPA wants (B, H, S, D); GQA through enable_gqa (KV heads not repeated)
+    # SDPA wants (B, H, S, D)
     S = q.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    gqa = q.shape[2] != k.shape[2]
     if window is None:
-        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                             enable_gqa=gqa)
+        o = _sdpa_op(qt, kt, vt, causal=True)
     else:
         pos = torch.arange(S, device=q.device)
         diff = pos[:, None] - pos[None, :]
-        mask = (diff >= 0) & (diff < window)
-        o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                             enable_gqa=gqa)
+        o = _sdpa_op(qt, kt, vt, mask=(diff >= 0) & (diff < window))
     return o.transpose(1, 2)
 
 
@@ -134,7 +152,7 @@ def flash_attention(q, k, v, *, window: Optional[int] = None, chunk: int = 512):
     """Causal (optionally sliding-window) attention, (B, S, H, D) in and out:
     SDPA on a CUDA tensor, :func:`flash_attention_plain` on the CPU or
     inside :func:`plain_attention`."""
-    if q.is_cuda and not _PLAIN:
+    if _on_card(q):
         return _sdpa(q, k, v, window)
     return flash_attention_plain(q, k, v, window=window, chunk=chunk)
 
@@ -257,7 +275,7 @@ def attention_train(q, k, v, *, window: Optional[int] = None, chunk: int = 512,
     on a CUDA tensor (either ``impl``); on the CPU or inside
     :func:`plain_attention`, :func:`flash_attention_vjp` for
     ``impl="custom_vjp"``, else autograd through :func:`flash_attention_plain`."""
-    if q.is_cuda and not _PLAIN:
+    if _on_card(q):
         return _sdpa(q, k, v, window)
     if impl == "custom_vjp":
         return flash_attention_vjp(q, k, v, window, chunk)
@@ -306,11 +324,8 @@ def cross_attention(q, k, v):
     on a CUDA tensor (GQA through ``enable_gqa``, the same head grouping),
     :func:`cross_attention_plain` on the CPU or inside
     :func:`plain_attention`."""
-    if q.is_cuda and not _PLAIN:
-        o = torch.nn.functional.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            enable_gqa=q.shape[2] != k.shape[2])
-        return o.transpose(1, 2)
+    if _on_card(q):
+        return _sdpa_op(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
     return cross_attention_plain(q, k, v)
 
 

@@ -39,8 +39,11 @@ the GQA mixer runs this rank's heads in training, prefill and decode:
 ``w_q``, ``w_k``, ``w_v`` hold their columns, ``w_o`` their rows, the
 partial outputs are summed over the model axis, and every K/V cache (the
 full one, the ``ATTN_LOCAL`` ring, a pluggable backend) holds the rank's
-``KV/m`` heads; shared attention runs the rank's heads of the model-level
-GQA the same way, at each of its positions. A cross layer runs the rank's
+``KV/m`` heads (all KV heads where the model axis is a multiple of them:
+each rank's query heads read the one their group shares; every head where
+the query heads do not split, the rank keeping its rows of the output for
+its block of ``w_o``); shared attention runs the rank's heads of the
+model-level GQA the same way, at each of its positions. A cross layer runs the rank's
 query and KV heads over the whole projected vision embeddings (its K/V
 cache the rank's KV heads) and sums its partial outputs before the gate.
 MLA runs the rank's heads over the whole latent cache
@@ -54,7 +57,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..distributed.sharding import copy_to_tp, reduce_from_tp, tp_index
+from ..distributed.sharding import copy_to_tp, is_whole, reduce_from_tp, tp_index
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -140,15 +143,45 @@ def _theta_for(spec_mixer: str, cfg: ModelConfig) -> float:
     return cfg.rope_theta
 
 
+def _qkv_weights(p: GQA, cfg: ModelConfig):
+    # the projections as the rank reads them: one the run time keeps whole on
+    # every model rank (``sharding.whole_leaves``) passes through copy_to_tp,
+    # so its partial gradients are summed
+    return tuple(copy_to_tp(getattr(p, n)) if is_whole(n, cfg) else getattr(p, n)
+                 for n in ("w_q", "w_k", "w_v"))
+
+
+def _read_kv(k, v, cfg: ModelConfig):
+    """The KV heads this rank's query heads read: all it holds where its
+    KV heads are its block or it runs every query head, else (KV heads kept
+    whole, the query heads split) the one its H/m query heads share."""
+    if not is_whole("w_k", cfg) or is_whole("w_q", cfg):
+        return k, v
+    index, m = tp_index()
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    lo = index * (H // m) // (H // KV)
+    return k.narrow(2, lo, 1), v.narrow(2, lo, 1)
+
+
+def _out_block(o, p: GQA, cfg: ModelConfig):
+    # the attention output's columns for this rank's rows of ``w_o``: all of
+    # them, or where the rank ran every head (``w_q`` whole), its block
+    if not is_whole("w_q", cfg):
+        return o
+    rows = p.w_o.shape[0]
+    return o.narrow(-1, tp_index()[0] * rows, rows)
+
+
 def _gqa_qkv(p: GQA, x, positions, cfg: ModelConfig, theta: float):
     # the heads the projections hold: all of them, or under tensor parallelism
     # this rank's contiguous block of H/m query and KV/m KV heads (each query
-    # head stays with its KV head)
+    # head stays with its KV head), or its query heads with every KV head
     B, S, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ p.w_q).reshape(B, S, -1, hd)
-    k = (x @ p.w_k).reshape(B, S, -1, hd)
-    v = (x @ p.w_v).reshape(B, S, -1, hd)
+    wq, wk, wv = _qkv_weights(p, cfg)
+    q = (x @ wq).reshape(B, S, -1, hd)
+    k = (x @ wk).reshape(B, S, -1, hd)
+    v = (x @ wv).reshape(B, S, -1, hd)
     return apply_rope(q, positions, theta), apply_rope(k, positions, theta), v
 
 
@@ -157,8 +190,9 @@ def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
     x = copy_to_tp(x)
     q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
-    o = attention_train(q, k, v, window=window, chunk=cfg.attn_chunk, impl=cfg.attn_impl)
-    return reduce_from_tp(o.reshape(B, S, -1) @ p.w_o)
+    o = attention_train(q, *_read_kv(k, v, cfg), window=window, chunk=cfg.attn_chunk,
+                        impl=cfg.attn_impl)
+    return reduce_from_tp(_out_block(o.reshape(B, S, -1), p, cfg) @ p.w_o)
 
 
 def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
@@ -166,7 +200,7 @@ def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
     x = copy_to_tp(x)
     q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
-    o = flash_attention(q, k, v, window=window, chunk=cfg.attn_chunk)
+    o = flash_attention(q, *_read_kv(k, v, cfg), window=window, chunk=cfg.attn_chunk)
     if spec_mixer == ATTN_LOCAL:  # ring buffer: token t at slot t % window
         w = cfg.window
         keep = min(S, w)
@@ -178,7 +212,7 @@ def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
         cache = init_block_cache(BlockSpec(ATTN), cfg, B, cache_len, x.device)
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
-    return reduce_from_tp(o.reshape(B, S, -1) @ p.w_o), cache
+    return reduce_from_tp(_out_block(o.reshape(B, S, -1), p, cfg) @ p.w_o), cache
 
 
 def _write_slot(cache: dict, slot: torch.Tensor, k, v) -> None:
@@ -195,16 +229,20 @@ def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Te
     q, k, v = _gqa_qkv(p, x, decode_positions(B, length), cfg, _theta_for(spec_mixer, cfg))
     if not isinstance(cache, dict):
         # pluggable cache backend: owns its append and attention
+        if is_whole("w_k", cfg):
+            raise NotImplementedError(f"{cfg.name}: a compressed cache takes a rank's block of "
+                                      "KV heads, not the whole ones the run time keeps here")
         o = cache.append_attend(q, k, v, length, phase)
     elif spec_mixer == ATTN_LOCAL:
         # ring: slots below min(length + 1, window) are valid, all within the window
         w = cfg.window
         _write_slot(cache, length % w, k, v)
-        o = decode_attention(q, cache["k"], cache["v"], torch.clamp(length + 1, max=w))
+        o = decode_attention(q, *_read_kv(cache["k"], cache["v"], cfg),
+                             torch.clamp(length + 1, max=w))
     else:
         _write_slot(cache, length, k, v)
-        o = decode_attention(q, cache["k"], cache["v"], length + 1)
-    return reduce_from_tp(o.reshape(B, 1, -1) @ p.w_o)
+        o = decode_attention(q, *_read_kv(cache["k"], cache["v"], cfg), length + 1)
+    return reduce_from_tp(_out_block(o.reshape(B, 1, -1), p, cfg) @ p.w_o)
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +256,8 @@ def _cross_kv(p: Cross, vis, cfg: ModelConfig):
     B, P, _ = vis.shape
     vis = copy_to_tp(vis)
     hd = cfg.head_dim
-    return (vis @ p.w_k).reshape(B, P, -1, hd), (vis @ p.w_v).reshape(B, P, -1, hd)
+    _, wk, wv = _qkv_weights(p, cfg)
+    return (vis @ wk).reshape(B, P, -1, hd), (vis @ wv).reshape(B, P, -1, hd)
 
 
 def _cross_attend(p: Cross, cfg: ModelConfig, x, k, v, core=cross_attention):
@@ -227,8 +266,8 @@ def _cross_attend(p: Cross, cfg: ModelConfig, x, k, v, core=cross_attention):
     # tanh promotes the product, as the reference's 0-d fp32 array does,
     # before the cast back to x's dtype
     B, S, _ = x.shape
-    q = (copy_to_tp(x) @ p.w_q).reshape(B, S, -1, cfg.head_dim)
-    o = core(q, k, v).reshape(B, S, -1)
+    q = (copy_to_tp(x) @ _qkv_weights(p, cfg)[0]).reshape(B, S, -1, cfg.head_dim)
+    o = _out_block(core(q, *_read_kv(k, v, cfg)).reshape(B, S, -1), p, cfg)
     return (torch.tanh(p.gate) * reduce_from_tp(o @ p.w_o).float()).to(x.dtype)
 
 
@@ -317,9 +356,11 @@ def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, leng
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
     # K/V caches hold this rank's KV heads under tensor parallelism (ATTN,
-    # ATTN_LOCAL, SHARED_ATTN and CROSS), Mamba-2's states its channels and
-    # heads; MLA's latent is whole on every model rank
-    KV, hd, dt = cfg.n_kv_heads // tp_index()[1], cfg.head_dim, cfg.param_dtype
+    # ATTN_LOCAL, SHARED_ATTN and CROSS; all of them where the run time keeps
+    # them whole), Mamba-2's states its channels and heads; MLA's latent is
+    # whole on every model rank
+    KV = cfg.n_kv_heads if is_whole("w_k", cfg) else cfg.n_kv_heads // tp_index()[1]
+    hd, dt = cfg.head_dim, cfg.param_dtype
     mixer = spec.mixer
     if mixer == MLA:
         return {"latent": torch.zeros((batch, cache_len, cfg.kv_lora_rank + cfg.rope_head_dim),

@@ -16,13 +16,14 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import copy_to_tp, gather_tp, reduce_from_tp, tp_index
+from ..distributed.sharding import copy_to_tp, gather_tp, is_whole, reduce_from_tp, tp_index
 from .config import ModelConfig
 
 
@@ -121,12 +122,14 @@ def ffn(p, x: torch.Tensor, activation: str = "silu", *, reduce: bool = True) ->
     return reduce_from_tp(out) if reduce else out
 
 
-def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor,
+                 cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """The rows of ``tok`` for ``tokens``. Under tensor parallelism ``tok`` is
     this rank's vocab block: a token outside it looks up zeros, and the sum
-    over the model axis holds every token's row."""
+    over the model axis holds every token's row; a table the run time keeps
+    whole (``sharding.is_whole("tok", cfg)``) is looked up as it is."""
     index, parts = tp_index()
-    if parts == 1:
+    if parts == 1 or cfg is not None and is_whole("tok", cfg):
         return tok[tokens.long()]
     V = tok.shape[0]
     local = tokens.long() - index * V
@@ -137,9 +140,10 @@ def embed_tokens(tok: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 def lm_logits(embed, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """fp32 logits through the tied head ``tokᵀ`` or ``lm_head``, with the
     optional ``logit_softcap``; under tensor parallelism this rank's vocab
-    shard of them."""
+    shard of them (the whole vocab's where the run time keeps it whole)."""
+    name = "tok" if cfg.tie_embeddings else "lm_head"
     w = embed.tok.T if cfg.tie_embeddings else embed.lm_head
-    logits = (copy_to_tp(x) @ w).float()
+    logits = ((x if is_whole(name, cfg) else copy_to_tp(x)) @ w).float()
     if cfg.logit_softcap:
         cap = cfg.logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -38,7 +38,10 @@ reference keeps whole on every rank (a width that would split a head
 raises ``ValueError``, never running a block replicated as though it were
 split); ``prefill`` and ``decode_step`` return the whole vocab's logits,
 gathered over the model axis. ``init_params(..., mesh=)`` draws a rank's
-blocks leaf by leaf.
+blocks leaf by leaf. Under FSDP rules each block's leaves (and the
+embedding, ``vision_proj``, a ``SHARED_ATTN`` position's shared GQA) are
+gathered over the data axis where they are read
+(:func:`~repro_torch.distributed.fsdp_gathered`).
 """
 
 from __future__ import annotations
@@ -51,7 +54,8 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..device import DeviceLike, resolve_device
-from ..distributed.sharding import check_tp, cut_at_init, tp_index
+from ..distributed.sharding import (ParallelismRules, check_tp, cut_at_init, fsdp_gathered,
+                                    fsdp_param, is_whole, tp_index)
 from . import blocks as blk
 from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
 from .layers import (embed_tokens, gather_vocab, init_scale, lm_logits, param, rmsnorm,
@@ -112,7 +116,8 @@ class Transformer(nn.Module):
 
 
 def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
-                device: DeviceLike = None, mesh=None) -> Transformer:
+                device: DeviceLike = None, mesh=None,
+                rules: Optional[ParallelismRules] = None) -> Transformer:
     """A :class:`Transformer` with the reference's initialisation (truncated
     normals at its scales, unit norms), drawn from ``gen`` on ``device``
     (``None`` means CUDA and raises without it). ``gen=None`` seeds 0.
@@ -121,15 +126,17 @@ def init_params(gen: Optional[torch.Generator], cfg: ModelConfig, *,
     rank's blocks on the model axis, each leaf drawn whole in the init
     order and cut at once (:func:`~repro_torch.distributed.cut_at_init`):
     the blocks :func:`~repro_torch.distributed.shard_params` cuts from the
-    whole model, bit for bit, without the whole model on the device."""
+    whole model, bit for bit, without the whole model on the device; with
+    ``rules.fsdp`` each block is cut over the data axis too. On ``meta``
+    (shapes only) the draws take a CPU generator, as none exists there."""
     dev = resolve_device(device)
     if gen is None:
-        gen = torch.Generator(device=dev)
+        gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
         gen.manual_seed(0)
     if mesh is None:
         return Transformer(gen, cfg, dev)
     check_tp(cfg, mesh.shape["model"])
-    with cut_at_init(mesh):
+    with cut_at_init(mesh, rules, cfg):
         return Transformer(gen, cfg, dev)
 
 
@@ -146,8 +153,22 @@ def _extras(params: Transformer, cfg: ModelConfig, vision) -> dict:
     if cfg.d_vision > 0:
         if vision is None:
             raise ValueError(f"{cfg.name} requires `vision` embeddings (modality stub output)")
-        ex["vision"] = vision.to(cfg.param_dtype) @ params.vision_proj
+        ex["vision"] = vision.to(cfg.param_dtype) @ fsdp_param(params.vision_proj)
     return ex
+
+
+def _owners(block, spec: BlockSpec, ex: dict) -> tuple:
+    # the modules whose weights a block reads: its own, and the shared GQA
+    # at a SHARED_ATTN position (gathered there under FSDP)
+    return (block, ex["shared"]) if spec.mixer == SHARED_ATTN else (block,)
+
+
+def _logits(params: Transformer, cfg: ModelConfig, h):
+    # the whole vocab's logits: the model axis's shards gathered, unless the
+    # run time keeps the vocab whole
+    with fsdp_gathered(params.embed):
+        logits = lm_logits(params.embed, h, cfg)
+    return logits if is_whole("tok", cfg) else gather_vocab(logits)
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -194,15 +215,18 @@ def forward_hidden(params: Transformer, cfg: ModelConfig, tokens, vision=None, *
     reference remats each scan step's body. Under
     :func:`~repro_torch.distributed.activation_sharding` at model axis
     ``m > 1`` it runs this rank's shards (a width that does not split into
-    whole shards raises)."""
+    whole shards raises). Under FSDP each block's leaves are gathered before
+    it runs (inside the ``remat`` unit, so its recomputation gathers them
+    again rather than keeping them for the backward)."""
     check_tp(cfg, tp_index()[1])
-    x = embed_tokens(params.embed.tok, tokens)
+    x = embed_tokens(fsdp_param(params.embed.tok), tokens, cfg)
     ex = _extras(params, cfg, vision)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def unit_fn(x, aux, unit):
         for spec, block in unit:
-            x, a = blk.block_train(block, spec, cfg, x, ex, dense_moe=dense_moe)
+            with fsdp_gathered(*_owners(block, spec, ex)):
+                x, a = blk.block_train(block, spec, cfg, x, ex, dense_moe=dense_moe)
             aux = aux + a
         return x, aux
 
@@ -217,7 +241,8 @@ def train_logits(params: Transformer, cfg: ModelConfig, tokens, vision=None, *,
     """fp32 logits (B, S, V), or this rank's vocab shard of them under
     tensor parallelism, and the aux loss."""
     h, aux = forward_hidden(params, cfg, tokens, vision, dense_moe=dense_moe, remat=remat)
-    return lm_logits(params.embed, h, cfg), aux
+    with fsdp_gathered(params.embed):
+        return lm_logits(params.embed, h, cfg), aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
@@ -240,18 +265,22 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
     and a cache of ``cache_len`` positions holding it. Under
     :func:`~repro_torch.distributed.activation_sharding` the prompt is this
     rank's rows, the cache its block (:func:`~repro_torch.distributed.shard_cache`)
-    and the logits the whole vocab's, gathered over the model axis."""
+    and the logits the whole vocab's, gathered over the model axis. Under
+    FSDP the embedding is gathered once for the lookup and the logits."""
     check_tp(cfg, tp_index()[1])
     B, S = tokens.shape
-    x = embed_tokens(params.embed.tok, tokens)
-    ex = _extras(params, cfg, vision)
-    caches = []
-    for spec, block in _layers(params, cfg):
-        x, c = blk.block_prefill(block, spec, cfg, x, cache_len, ex, dense_moe=dense_moe)
-        caches.append(c)
-    h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
-    length = torch.full((), S, dtype=torch.int32, device=x.device)
-    return gather_vocab(lm_logits(params.embed, h, cfg)), {"layers": caches, "length": length}
+    with fsdp_gathered(params.embed):
+        x = embed_tokens(params.embed.tok, tokens, cfg)
+        ex = _extras(params, cfg, vision)
+        caches = []
+        for spec, block in _layers(params, cfg):
+            with fsdp_gathered(*_owners(block, spec, ex)):
+                x, c = blk.block_prefill(block, spec, cfg, x, cache_len, ex,
+                                         dense_moe=dense_moe)
+            caches.append(c)
+        h = rmsnorm(params.final_norm, x[:, -1:], cfg.norm_eps)
+        length = torch.full((), S, dtype=torch.int32, device=x.device)
+        return _logits(params, cfg, h), {"layers": caches, "length": length}
 
 
 @torch.no_grad()
@@ -262,17 +291,19 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
     step's place in a compressed cache's schedule
     (:func:`repro_torch.serve.kv_cache.decode_schedule`); dense caches take
     every step alike. Under a mesh, as :func:`prefill`: this rank's rows and
-    cache block, the whole vocab's logits."""
+    cache block, the whole vocab's logits (FSDP: the embedding gathered once)."""
     check_tp(cfg, tp_index()[1])
-    x = embed_tokens(params.embed.tok, token)
     ex = {"shared": params.shared} if _has_shared(cfg) else {}  # cross K/V live in the cache
     length = cache["length"]
-    for (spec, block), layer in zip(_layers(params, cfg), cache["layers"]):
-        x = blk.block_decode(block, spec, cfg, x, layer, length, ex, dense_moe=dense_moe,
-                             phase=phase)
-    h = rmsnorm(params.final_norm, x, cfg.norm_eps)
-    length.add_(1)
-    return gather_vocab(lm_logits(params.embed, h, cfg)), cache
+    with fsdp_gathered(params.embed):
+        x = embed_tokens(params.embed.tok, token, cfg)
+        for (spec, block), layer in zip(_layers(params, cfg), cache["layers"]):
+            with fsdp_gathered(*_owners(block, spec, ex)):
+                x = blk.block_decode(block, spec, cfg, x, layer, length, ex,
+                                     dense_moe=dense_moe, phase=phase)
+        h = rmsnorm(params.final_norm, x, cfg.norm_eps)
+        length.add_(1)
+        return _logits(params, cfg, h), cache
 
 
 def param_count(params: nn.Module) -> int:

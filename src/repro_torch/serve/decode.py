@@ -34,7 +34,8 @@ host, which no CUDA graph can capture, and NCCL cannot hold two ranks of a
 group on one card), and on a data-only mesh (``d × 1``) each rank captures
 and replays its own graphs, a step there having no collective, unless the
 MoE capacity dispatch gathers the expert ids over the data axes
-(:func:`~repro_torch.models.moe.decode_gathers`), which runs it eagerly too.
+(:func:`~repro_torch.models.moe.decode_gathers`), which runs it eagerly too,
+or FSDP rules gather the weights over a data axis above 1 (eager too).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..distributed.sharding import dp_index, tp_index
+from ..distributed.sharding import dp_index, fsdp_group, tp_index
 from ..kernels import ops
 from ..models import decode_step, prefill
 from ..models.blocks import PLAIN, REFRESH
@@ -232,8 +233,10 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
                                   out=out, phase=phase)
 
     graphs = None
+    # gloo's host-staged collectives cannot be captured: the model axis's,
+    # the MoE dispatch's gathers and FSDP's (above data axis 1) run eagerly
     if (dev.type == "cuda" and not ops._EAGER and tp_index()[1] == 1
-            and not decode_gathers(cfg, dense_moe, prompt.shape[0])):
+            and fsdp_group() is None and not decode_gathers(cfg, dense_moe, prompt.shape[0])):
         graphs = _DecodeGraphs(body, gen if temperature > 0.0 else None)
     eager = refreshes = 0
     for i, (phase, _) in enumerate(schedule):

@@ -158,7 +158,13 @@ def _sketches_for(key: int, shape, ccfg: CompressionConfig, device) -> tuple:
     psi = draw_sketch(g, "gaussian", c, m)  # left outer: R = Ψ G
     s_c = draw_sketch(g, ccfg.inner_sketch, ccfg.s, m)
     s_r = draw_sketch(g, ccfg.inner_sketch, ccfg.s, n)
-    return omega, psi, s_c, s_r
+    out = omega, psi, s_c, s_r
+    if torch.device(device).type == "meta":  # drawn on the CPU: their shapes on meta
+        out = tuple(dataclasses.replace(sk, **{f.name: getattr(sk, f.name).to(device)
+                                                for f in dataclasses.fields(sk)
+                                                if torch.is_tensor(getattr(sk, f.name))})
+                    for sk in out)
+    return out
 
 
 def _resolve(key, shape, ccfg, device) -> tuple:

@@ -76,31 +76,43 @@ def init_opt_state(params, oc: OptimizerConfig) -> dict:
     return st
 
 
-def global_norm(tree, *, group=None, sharded=frozenset()) -> torch.Tensor:
+def global_norm(tree, *, group=None, sharded=frozenset(), fsdp_group=None,
+                fsdp_sharded=frozenset()) -> torch.Tensor:
     """``√Σ‖leaf‖²`` in fp32 over a dict of tensors. With a tensor-parallel
     ``group``, the leaves named in ``sharded`` are this rank's blocks: their
-    squares are summed over the group, the replicated leaves' counted once."""
+    squares are summed over the group, the replicated leaves' counted once;
+    with an ``fsdp_group``, those named in ``fsdp_sharded`` are blocks over
+    it too, their squares summed over it as well."""
     tree = named_tensors(tree)
-    if group is None:
+    if group is None and fsdp_group is None:
         return torch.sqrt(sum(torch.sum(t.float() ** 2) for t in tree.values()))
     dev = next(iter(tree.values())).device
-    part = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(2)]
+    # replicated; model-axis blocks; FSDP blocks; blocks over both
+    part = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(4)]
     for k, t in tree.items():
-        part[k in sharded] = part[k in sharded] + torch.sum(t.float() ** 2)
-    dist.all_reduce(part[1], group=group)
-    return torch.sqrt(part[0] + part[1])
+        i = (group is not None and k in sharded) + 2 * (fsdp_group is not None
+                                                        and k in fsdp_sharded)
+        part[i] = part[i] + torch.sum(t.float() ** 2)
+    for g, (a, b) in ((group, (1, 3)), (fsdp_group, (2, 3))):
+        if g is not None:
+            v = torch.stack([part[a], part[b]])
+            dist.all_reduce(v, group=g)
+            part[a], part[b] = v[0], v[1]
+    return torch.sqrt(part[0] + part[1] + part[2] + part[3])
 
 
 @torch.no_grad()
 def adamw_update(grads: dict, opt_state: dict, params, oc: OptimizerConfig, *,
-                 norm_group=None, sharded=frozenset()):
+                 norm_group=None, sharded=frozenset(), fsdp_group=None,
+                 fsdp_sharded=frozenset()):
     """One AdamW step: ``(params, opt_state, {"grad_norm", "lr"})``. The
     parameters (and the master copy) and the moments are updated in place
     and returned; ``opt_state["step"]`` is a new tensor. Under tensor
     parallelism the clip reads the whole model's norm (:func:`global_norm`
     over ``norm_group`` with the ``sharded`` leaves)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads, group=norm_group, sharded=sharded)
+    gnorm = global_norm(grads, group=norm_group, sharded=sharded, fsdp_group=fsdp_group,
+                        fsdp_sharded=fsdp_sharded)
     scale = None
     if oc.clip_norm is not None:
         # fp32 like the reference's (a bf16 gradient times an fp32 array promotes)

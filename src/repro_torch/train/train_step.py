@@ -37,8 +37,9 @@ import torch
 import torch.distributed as dist
 
 from ..convert import stacked_leaves
-from ..distributed.sharding import (Mesh, ParallelismRules, activation_sharding, reduce_from_tp,
-                                    tp_cuts, tp_group, tp_index, tp_names)
+from ..distributed.sharding import (Mesh, ParallelismRules, activation_sharding, fsdp_names,
+                                    is_whole, reduce_from_tp, tp_cuts, tp_group, tp_index,
+                                    tp_names)
 from ..models import init_params, train_logits
 from ..models.config import ModelConfig
 from .grad_compress import (CompressionConfig, _mean, compressed_mean_grads, group_leaves,
@@ -49,7 +50,8 @@ __all__ = ["cross_entropy", "init_train_state", "make_compressed_train_step", "m
            "make_train_step"]
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  cfg: Optional[ModelConfig] = None) -> torch.Tensor:
     """Mean token NLL; logits (B, S, V) fp32, labels (B, S) ints. The gold
     logit is a masked sum over V, as the reference's (which keeps a
     vocab-sharded V local), not a gather.
@@ -57,10 +59,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     Under tensor parallelism the logits are this rank's vocab shard: the
     max is all-reduced (no gradient), then the sum of exponentials, and the
     masked sum runs over the shard's range of token ids, summed over the
-    model axis."""
+    model axis; the whole vocab's logits, where the run time keeps it whole
+    (``sharding.is_whole("tok", cfg)``), take the one-rank route."""
     index, parts = tp_index()
     V = logits.shape[-1]
-    if parts == 1:
+    if parts == 1 or cfg is not None and is_whole("tok", cfg):
         logz = torch.logsumexp(logits, dim=-1)
         onehot = labels[..., None] == torch.arange(V, device=logits.device)
         gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
@@ -75,15 +78,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 class _Parallel:
     """A mesh as a step uses it: the data-parallel group and size, the model
-    axis's group, the context of the forward and backward, and the blocks
-    of a model's leaves. No mesh is a world of one."""
+    axis's group, the FSDP axes' group (``rules.fsdp``) and the axes left
+    over them (``pod`` on the multi-pod mesh), the context of the forward
+    and backward, and the blocks of a model's leaves. No mesh is a world of
+    one."""
 
-    def __init__(self, mesh: Optional[Mesh]):
+    def __init__(self, mesh: Optional[Mesh], rules: Optional[ParallelismRules] = None):
         self.mesh = mesh if mesh is not None else Mesh({"data": 1, "model": 1})
-        self.rules = ParallelismRules().with_mesh(self.mesh)
+        self.rules = (rules or ParallelismRules()).with_mesh(self.mesh)
         self.dp_group = self.mesh.group(self.rules.dp_axes)
         self.dp_world = self.mesh.axis_size(self.rules.dp_axes)
         self.tp_group = self.mesh.group(self.rules.tp_axis)
+        fsdp = self.rules.fsdp and self.mesh.axis_size(self.rules.fsdp_axes) > 1
+        self.fsdp_group = self.mesh.group(self.rules.fsdp_axes) if fsdp else None
+        rest = tuple(a for a in self.rules.dp_axes if a not in self.rules.fsdp_axes)
+        self.rest_group = self.mesh.group(rest) if fsdp and rest else None
 
     def context(self, per_shard: bool = False):
         return activation_sharding(self.mesh, self.rules, per_shard=per_shard)
@@ -93,6 +102,21 @@ class _Parallel:
 
     def blocks(self, params) -> frozenset:
         return tp_names(params, self.rules, self.mesh)
+
+    def fsdp_blocks(self, params) -> frozenset:
+        return fsdp_names(params) if self.fsdp_group is not None else frozenset()
+
+    def mean_grads(self, grads: dict, fsdp: frozenset) -> None:
+        """The data-parallel mean of every gradient, in place: an FSDP
+        block's arrives summed over the FSDP axes (the reduce-scatter of its
+        gather), so it is all-reduced over the other data axes alone."""
+        for name, g in grads.items():
+            if name not in fsdp:
+                _mean(g, self.dp_group, self.dp_world)
+                continue
+            if self.rest_group is not None:
+                dist.all_reduce(g, group=self.rest_group)
+            g.div_(self.dp_world)
 
 
 def make_loss_fn(cfg: ModelConfig, *, remat: Optional[str] = None, dense_moe: bool = False):
@@ -104,7 +128,7 @@ def make_loss_fn(cfg: ModelConfig, *, remat: Optional[str] = None, dense_moe: bo
         logits, aux = train_logits(params, cfg, batch["tokens"], batch.get("vision"),
                                    dense_moe=dense_moe, remat=remat)
         labels = batch["labels"] if "labels" in batch else batch["tokens"]
-        ce = cross_entropy(logits[:, :-1], labels[:, 1:])
+        ce = cross_entropy(logits[:, :-1], labels[:, 1:], cfg)
         loss = ce + cfg.router_aux_weight * aux
         return loss, {"ce": ce, "aux": aux}
 
@@ -165,16 +189,19 @@ def init_train_state(gen: Optional[torch.Generator], cfg: ModelConfig, oc: Optim
 
 
 def make_train_step(cfg: ModelConfig, oc: OptimizerConfig, *, remat: Optional[str] = "dots",
-                    microbatch: int = 1, dense_moe: bool = False, mesh: Optional[Mesh] = None):
+                    microbatch: int = 1, dense_moe: bool = False, mesh: Optional[Mesh] = None,
+                    rules: Optional[ParallelismRules] = None):
     """The plain step: ``(state, batch) → (state, metrics)``. On a ``mesh``
     each rank holds its block of the weights and its data-parallel share of
     the batch; the gradients and the loss metrics take the mean over the
     data axes. With ``microbatch`` n > 1 each microbatch is the global
     batch's, as the reference's: a data rank runs its share of each
     (:func:`_global_microbatches`), and the metrics are the last global
-    microbatch's."""
+    microbatch's. ``rules`` with ``fsdp`` holds each leaf's block over the
+    data axis too (:func:`~repro_torch.distributed.fsdp_gathered`); AdamW
+    then updates the rank's blocks."""
     loss_fn = make_loss_fn(cfg, remat=remat, dense_moe=dense_moe)
-    par = _Parallel(mesh)
+    par = _Parallel(mesh, rules)
 
     def train_step(state, batch):
         params = state["params"]
@@ -183,15 +210,16 @@ def make_train_step(cfg: ModelConfig, oc: OptimizerConfig, *, remat: Optional[st
         with par.context():
             loss, metrics, grads = _grads_microbatched(loss_fn, params, batch, microbatch)
         if par.dp_group is not None:
-            for g in grads.values():
-                _mean(g, par.dp_group, par.dp_world)
+            par.mean_grads(grads, par.fsdp_blocks(params))
             local = {"loss": loss, **metrics}
             vec = _mean(torch.stack([v.float() for v in local.values()]), par.dp_group,
                         par.dp_world)
             loss, metrics = vec[0], {k: vec[i + 1] for i, k in enumerate(metrics)}
         params, opt, opt_metrics = adamw_update(grads, state["opt"], params, oc,
                                                 norm_group=par.tp_group,
-                                                sharded=par.blocks(params))
+                                                sharded=par.blocks(params),
+                                                fsdp_group=par.fsdp_group,
+                                                fsdp_sharded=par.fsdp_blocks(params))
         return {**state, "params": params, "opt": opt}, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
@@ -199,7 +227,8 @@ def make_train_step(cfg: ModelConfig, oc: OptimizerConfig, *, remat: Optional[st
 
 def make_compressed_train_step(cfg: ModelConfig, oc: OptimizerConfig, ccfg: CompressionConfig,
                                *, mesh: Optional[Mesh] = None, remat: Optional[str] = "dots",
-                               dense_moe: bool = False):
+                               dense_moe: bool = False,
+                               rules: Optional[ParallelismRules] = None):
     """The GMR-compressed DP step on ``mesh`` (none is a world of one): the
     triples are averaged over its data axes, and its model axis holds each
     rank's block of the weights. The state gains ``err``, this
@@ -209,9 +238,14 @@ def make_compressed_train_step(cfg: ModelConfig, oc: OptimizerConfig, ccfg: Comp
 
     Returns ``(train_step, init_err)`` with ``train_step(state, batch,
     step_seed, sketches=None) → (state, metrics)``; every metric is the mean
-    over the data-parallel ranks, the ``comp/*`` ones included."""
+    over the data-parallel ranks, the ``comp/*`` ones included. Raises
+    ``ValueError`` under FSDP rules, as the reference's does."""
+    if rules is not None and rules.fsdp:
+        raise ValueError(
+            "gradient compression replaces the DP all-reduce; with FSDP the DP "
+            "reduction is a reduce-scatter of sharded weights — unsupported combination")
     loss_fn = make_loss_fn(cfg, remat=remat, dense_moe=dense_moe)
-    par = _Parallel(mesh)
+    par = _Parallel(mesh, rules)
 
     def train_step(state, batch, step_seed: int, sketches: Optional[dict] = None):
         params = state["params"]

@@ -643,6 +643,13 @@ def test_cpu_tensors_take_plain_versions_without_counting():
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
+    """Tensors on devices without one kernel route raise; ``meta`` now has a
+    shape-only launch (the dry run's census): outputs unwritten, not counted
+    in ``LAUNCHES``, which counts launches on a card."""
     with pytest.raises(ValueError):
-        ops.panel_score(torch.ones(4, 5, device="meta"), torch.ones(5, 3, device="meta"),
-                        torch.zeros(4, 2, device="meta"))
+        ops.panel_score(torch.ones(4, 5), torch.ones(5, 3, device="meta"), torch.zeros(4, 2))
+    before = ops.LAUNCHES["panel_score"]
+    out = ops.panel_score(torch.ones(4, 5, device="meta"), torch.ones(5, 3, device="meta"),
+                          torch.zeros(4, 2, device="meta"))
+    assert [tuple(t.shape) for t in out] == [(4, 3), (3,), (3,)] and all(t.is_meta for t in out)
+    assert ops.LAUNCHES["panel_score"] == before

@@ -255,7 +255,8 @@ def test_run_time_raises_beyond_the_dense_stack(arch):
     ``w_out``, ``vision_proj``, the cross ``gate``) whole; a prefill
     cache's cut (``shard_cache``) is the reference's ``cache_pspec`` block
     and ``init_cache`` under the mesh has its shape. At model axis 3 an SSM
-    or KV head would split, and the run time raises ``ValueError``."""
+    or KV head would split, and the run time raises ``ValueError``; FSDP
+    runs, sequence parallelism raises ``NotImplementedError``."""
     cfg = pconfigs.get_arch(arch).smoke_config()
     g = torch.Generator()
     g.manual_seed(0)
@@ -303,8 +304,9 @@ def test_run_time_raises_beyond_the_dense_stack(arch):
     assert seen == kept & {n.split(".")[-1] for n in named}
     with pytest.raises(ValueError, match="SSM heads" if cfg.ssm_heads else "KV heads"):
         ps.shard_params(whole, ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 3}))
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        ps.shard_params(whole, ps.ParallelismRules(fsdp=True), ps.Mesh({"data": 1, "model": 2}))
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        ps.shard_params(whole, ps.ParallelismRules(seq_parallel=True),
+                        ps.Mesh({"data": 1, "model": 2}))
 
 
 def _ref_key(name: str) -> tuple:
@@ -376,16 +378,29 @@ def test_run_time_cuts_experts_and_mla_heads(arch):
 
 
 def test_run_time_raises_rather_than_replicate_or_split_a_head():
+    """A head never splits: at model axis 3 llama's 2 KV heads raise. Where
+    the model axis is a multiple of the KV heads (4), each rank holds every
+    KV head whole, as the reference's ``cache_pspec`` keeps them, and a
+    vocab that does not split is kept whole (``whole_leaves``; these
+    layouts are held to the reference on numbers at 1×4 by
+    ``tests/test_torch_fsdp.py::test_whole_leaves_match_single_device_reference``);
+    a dim the rules would replicate is never cut (``tp_cut`` raises).
+    Sequence parallelism raises; FSDP runs."""
     base = pconfigs.get_arch("llama3.2-1b").smoke_config()  # 4 query, 2 KV heads
-    mesh4 = ps.Mesh({"data": 1, "model": 4})
     model = pmodels.Transformer(torch.Generator(), base, torch.device("meta"))
     with pytest.raises(ValueError, match="KV heads"):
-        ps.shard_params(model, ps.ParallelismRules(), mesh4)
+        ps.shard_params(model, ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 3}))
+    ps.shard_params(model, ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 4}))
+    D, hd = base.d_model, base.head_dim
+    layer = model.blocks[0].mixer
+    assert layer.w_k.shape == (D, 2 * hd) and layer.w_q.shape == (D, hd)
+    assert ps.whole_leaves(base, 4) == {"w_k", "w_v"}
     odd = dataclasses.replace(base, vocab_size=255)
-    with pytest.raises(ValueError, match="vocab"):
-        ps.check_tp(odd, 2)
-    with pytest.raises(NotImplementedError, match="FSDP"):
-        ps.shard_params(model, ps.ParallelismRules(fsdp=True), ps.Mesh({"data": 1, "model": 2}))
+    ps.check_tp(odd, 2)
+    assert ps.whole_leaves(odd, 2) == {"tok", "lm_head"}
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        ps.shard_params(model, ps.ParallelismRules(seq_parallel=True),
+                        ps.Mesh({"data": 1, "model": 2}))
     with pytest.raises(ValueError, match="replicate"):
         ps.tp_cut("embed.tok", (255, 64), ps.ParallelismRules(), ps.Mesh({"data": 1, "model": 2}))
     cut = ps.shard_params({"embed.tok": np.arange(12.0).reshape(6, 2)}, ps.ParallelismRules(),

@@ -203,11 +203,11 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    of 16 layers (the script's time limit; each rank drawing its blocks of
    the seeded initial weights leaf by leaf) and batches in the gloo
    rank pools on this one card (their collectives staged through the
-   host; NCCL cannot hold two ranks of a group on one GPU): 1x2 plain, 3
-   steps; two controls, one whose ``reduce_from_tp`` backward all-reduces
-   again, one whose ``cross_entropy`` leaves out the model axis's sum of
-   exponentials; 1x2 compressed, 3 steps; 2x2 plain and compressed, 2 steps
-   each; then the CLI (``launch.train.main``) at ``--mesh 2x2
+   host; NCCL cannot hold two ranks of a group on one GPU): the steps of
+   ``TP_RUNS``: 1x2 plain; two controls, one whose ``reduce_from_tp``
+   backward all-reduces again, one whose ``cross_entropy`` leaves out the
+   model axis's sum of exponentials; 1x2 compressed; 2x2 plain and
+   compressed; then the CLI (``launch.train.main``) at ``--mesh 2x2
    --grad-compress``, (y)'s gate depth and batch shape, a crash at step 3
    (one restart, the replayed step's loss equal). Gates against one rank's run of the same
    depth and kind (plain or compressed, ``train_reference``, made first in
@@ -256,9 +256,9 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    dispatch and the dense latent cache; kimi-k2 at (u)'s depth
    2 at 1x2, dense and compressed ((s)'s settings, kernel 1's stacked
    launch on each rank's 32 heads); deepseek cut to ``EP_TRAIN_DEPTH`` = 3
-   of 27 layers trained at 1x2 (plain 2 steps, compressed 2 with kernel 4
-   on every rank's blocks) and 2x2 (plain 2) against one rank's run of the
-   same depth. Gates: (1) deepseek's first MoE layer on (t)'s recorded
+   of 27 layers trained at 1x2 (plain and compressed, kernel 4 on every
+   rank's blocks) and 2x2 (plain), ``EP_TRAIN_RUNS``' steps, against one
+   rank's run of the same depth. Gates: (1) deepseek's first MoE layer on (t)'s recorded
    inputs — routing, slots and keep bitwise at 1x2; at 2x2 choices equal
    bar near ties, slots and keep equal given (t)'s choices, the data
    ranks' drops summing to (t)'s; the MoE and MLA outputs within their
@@ -286,8 +286,8 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    cross] unit of 20 (cross gates 0.5), at full width, served on
    ``HY_B`` = 4 requests of 2048 tokens (the vision model's with the
    stub's patches), ``HY_T`` = 16 greedy tokens, dense and (the vision model) with (s)'s
-   compressed cache; zamba2 trained 3 plain and 3 compressed steps on
-   (y)'s batches and settings. Gates against one rank's runs of the same
+   compressed cache; zamba2 trained (``HY_TRAIN_RUNS``: plain, compressed
+   and a control) on (y)'s batches and settings. Gates against one rank's runs of the same
    models and depths, made first in this process (``HY_REF``,
    ``HY_TRAIN_REF``): (1)-(4) as (ts)'s within ``HY_LOGIT_TOL``; the
    first Mamba-2 layer's gated RMSNorm output on this rank's channels
@@ -305,11 +305,39 @@ Phases, each printed as one JSON line; any failure exits nonzero:
    training gates). Each run prints prefill and decode ms a token, peak
    GiB a rank, the all-reduces' calls, bytes and ms (prefill, a decode
    step, a train step) and their share. The kernels phase holds kernel 4
-   at zamba2's rank blocks and whole ``w_out``.
+   at zamba2's rank blocks and whole ``w_out``;
+23. (lc) the sequence-sharded decode cache (the reference's ``long_500k``
+   cell: ``activation_sharding(..., seq_shard=True)``) — after (tp) and
+   the dry-run cell, at 2x1 in the two-rank pool, each rank holding its
+   block of every K/V cache's positions (of a local layer's ring slots)
+   and the whole batch of one, its decode attention combining the blocks
+   over the data axis: (lc-z) zamba2-1.2b's full config at 524288 slots,
+   all but the last 32 filled with seeded K/V (and seeded Mamba-2 states),
+   16 tokens; (lc-p) zamba2 prefilling 40960 seeded tokens into 65536
+   slots (the ranks' boundary at 32768), 16 tokens; (lc-g) gemma3-12b at
+   full width cut to 12 of 48 layers (two [5 local + 1 global] units), the
+   global caches filled as (lc-z)'s, the 1024-slot rings split 512 a rank,
+   16 tokens; (lc-g4) (lc-g) with keys at std 4 and no drift; (lc-m)
+   mamba2-1.3b's full config, batch 1 replicated, 16 tokens through
+   ``generate``; a ring check (gemma3's layer 0 after the wrap, its ring
+   split 512 a rank, keys at std 4). Each held to one rank decoding the
+   same whole cache in this process first (``LC_REF``): each step's logits
+   (and (lc-p)'s prefill's) within ``LC_LOGIT_TOL`` of the largest, the
+   argmax the one-rank run's token where its margin is at least that;
+   (lc-g4) to a one-rank witness that sums the ranks' blocks in their
+   order (the plain run's distance printed beside); the ring check's
+   output within ``LC_LAYER_TOL`` and each rank's ring block the whole
+   ring's bit for bit; (lc-m) bit for bit, with no collective. Controls
+   that must fail: each rank attending its own block without the combine
+   ((lc-z), (lc-p), (lc-g), (lc-g4), the ring check), one entry of
+   mamba2's first conv window moved ((lc-m)). Each
+   prints decode ms a token (CUDA events in each rank), the data axis's
+   all-reduces a step (calls, bytes, ms) and their share, peak GiB a rank
+   and the card's free GiB before it. No port kernel is on this path.
 
 The mesh phases' ranks are two pools (``RankPool``) of two and four gloo
 ranks on the card, started after (h) beside (m)-(p) and closed after
-(tp): each phase hands them its job instead of spawning its
+(lc): each phase hands them its job instead of spawning its
 own. (m)'s host times take one more timed drive a side, (o)'s one (the
 time limit).
 
@@ -463,9 +491,12 @@ TRAIN_RECON_TOL = 0.03
 # over one step: the allocator rounds each block to 512 bytes and keeps
 # cuBLAS's workspace, which no dispatched op shows
 DR_PEAK_TOL = 0.10
-TP_RUNS = {(1, 2): (("plain", 2), ("control", 1), ("control_ce", 1), ("compressed", 2)),
-           (2, 1): (("fsdp", 2), ("control_fsdp", 1)),
-           (2, 2): (("plain", 1), ("compressed", 1), ("fsdp", 2))}
+# steps of each run: the plain and FSDP runs one (their gates read step 1; the
+# script's time limit), the compressed runs as many as before (kernel 4's
+# launches a step)
+TP_RUNS = {(1, 2): (("plain", 1), ("control", 1), ("control_ce", 1), ("compressed", 2)),
+           (2, 1): (("fsdp", 1), ("control_fsdp", 1)),
+           (2, 2): (("plain", 1), ("compressed", 1), ("fsdp", 1))}
 # (tp)'s depth: (y)'s model cut to its first 4 of 16 layers (the script's time
 # limit), held to one rank's run of the same depth (``train_reference``); the
 # reference's compression_ratio of that tree (jax.eval_shape)
@@ -498,7 +529,7 @@ TS_REF = ROOT / "build" / "chip_smoke_ts_ref.pt"
 # the vision model at 2x2 on an H100's host), so it takes FS_T of (ts)'s
 # tokens and FS_FORCED teacher-forced steps, and the vision model
 # FS_VISION_T of (hy)'s (the script's time limit)
-FS_T, FS_FORCED, FS_VISION_T = 4, 1, 4
+FS_T, FS_FORCED, FS_VISION_T = 4, 1, 2
 # (ts)'s depth: (r)'s model cut to its first 2 of 16 layers (the script's time
 # limit), held to one rank's runs of the same depth (``ts_references``)
 TS_DEPTH = 2
@@ -565,8 +596,8 @@ EP_SAVE: dict = {}  # (t)'s and (u)'s one-rank records, written to EP_REF by (ep
 # requests of 2048 tokens ((r)'s 8 cut to 4 for the time limit; the vision
 # model's with the stub's patches), HY_T greedy tokens, each run held to one
 # rank's run of the same model and
-# depth in this process (HY_REF, memory-mapped); zamba2 trained 3 plain and
-# 3 compressed steps on (y)'s batches, optimizer and compression settings
+# depth in this process (HY_REF, memory-mapped); zamba2 trained (HY_TRAIN_RUNS'
+# steps) on (y)'s batches, optimizer and compression settings
 # against one rank's (HY_TRAIN_REF). Its tree: the reference's
 # compression_ratio (jax.eval_shape) and 30 compressible leaves (kernel 4's
 # launches a compressed step a rank: 23 rank blocks, 7 whole w_out)
@@ -576,7 +607,7 @@ HY_DEPTH = {MAMBA_ARCH: 8, ZAMBA_ARCH: 14, VISION_ARCH: 5}
 HY_SEED = {MAMBA_ARCH: SEED + 150, ZAMBA_ARCH: SEED + 153, VISION_ARCH: SEED + 156}
 HY_B, HY_T = 4, 16
 HY_ZAMBA_PARAMS, HY_ZAMBA_LEAVES, HY_ZAMBA_RATIO = 555_560_704, 30, 31.580188885170042
-HY_TRAIN_RUNS = (("plain", 2), ("compressed", 2), ("control_whole", 1))
+HY_TRAIN_RUNS = (("plain", 1), ("compressed", 2), ("control_whole", 1))
 HY_TAG = {MAMBA_ARCH: "mamba2", ZAMBA_ARCH: "zamba2", VISION_ARCH: "vision"}
 # the whole leaves of Mamba-2 and the cross layers, watched in the gradients
 HY_WHOLE = ("w_out", "w_bc", "w_dt", "conv_bc_w", "conv_bc_b", "dt_bias", "a_log", "d_skip",
@@ -591,6 +622,56 @@ HY_LOGIT_TOL = TS_LOGIT_TOL
 # layer's output ((x)'s CROSS_TOL: p and the output rounded to bf16 at other
 # places, and the partial outputs' sum), against one rank's
 HY_LAYER_B, HY_LAYER_TOL = 2, 4 * 2.0 ** -8
+# (lc): the sequence-sharded decode cache (the reference's long_500k cell,
+# cache_pspec(seq_shard=True)): the two-rank pool at 2x1 on this card, each
+# rank holding its block of every K/V cache's positions (of a local layer's
+# ring slots), the batch of one replicated, against one rank decoding the
+# same whole cache in this process first (LC_REF, memory-mapped). (lc-z)
+# zamba2-1.2b's full config and (lc-g) gemma3-12b's full width cut to
+# LC_GEMMA_DEPTH of 48 layers (two [5 local + 1 global] units: at model axis
+# 1 each rank holds all its weights, and the whole-cache run's beside them
+# must fit the card) at long_500k's 524288 slots, positions [0, LC_FILL)
+# filled with seeded K/V and seeded Mamba-2 states, LC_T tokens decoded
+# (the values drift with the position, by LC_V_DRIFT times a cosine over
+# the slots: a rank's block alone averages to another value than the whole
+# cache, which the uncombined control must show; the keys are plain
+# normals, so the softmax stays smooth); (lc-g4) gemma3 again with keys at
+# std LC_KEY_STD and no drift (a softmax that picks a few positions), held to
+# the one-rank witness that cuts the whole cache into the ranks' blocks and
+# sums them in rank order (lc_blocks_attention), the plain one-rank run's
+# distance printed beside it (the ranks read the witness bit for bit, both
+# 0.109 of the largest logit from the plain run: the order of the sums,
+# grown over 12 layers; NVIDIA H100 80GB HBM3, 700 W, PERF.md); (lc-p)
+# zamba2 prefilling LC_P_PROMPT seeded tokens into LC_P_SLOTS slots (the
+# rank boundary at 32768 crossed), its shared GQA's w_k scaled by LC_P_GAIN
+# (scores that pick positions); (lc-m) mamba2-1.3b's full config, batch 1,
+# bit for bit one rank's (no cross-rank arithmetic touches it). Controls:
+# each rank attending its own block without the combine ((lc-z), (lc-p),
+# (lc-g), (lc-g4), LC_CONTROL_STEPS steps each; the ring check), 2^-6 added to one entry of mamba2's
+# first conv window ((lc-m), one step).
+LC_REF = ROOT / "build" / "chip_smoke_lc_ref.pt"
+GEMMA_ARCH = "gemma3-12b"
+LC_SLOTS, LC_FILL, LC_CHUNK, LC_V_DRIFT = 524288, 524288 - 32, 32768, 1.0
+LC_P_SLOTS, LC_P_PROMPT, LC_P_GAIN = 65536, 40960, 8.0
+LC_M_PROMPT = 2048
+# the layer check: gemma3's global attention (16 query, 8 KV heads of 256)
+# over a seeded cache of LC_SLOTS, keys at std 1 and 4, against one rank's
+# output within LC_LAYER_TOL (the bf16 output's rounding: HY_LAYER_TOL)
+LC_LAYER_SCALES, LC_LAYER_TOL = (1.0, 4.0), 4 * 2.0 ** -8
+# the ring check: gemma3's first layer (a local one) through
+# blocks._gqa_decode on its seeded 1024-slot ring after the wrap, keys at std
+# LC_KEY_STD, at LC_RING_LENGTHS (slot 1023, rank 1's last, then slot 0, rank
+# 0's first), against one rank's whole ring: each step's output within
+# LC_LAYER_TOL, each rank's ring block after the steps the whole ring's bit
+# for bit
+LC_KEY_STD = 4.0
+LC_RING_LENGTHS = (LC_FILL + 31, LC_FILL + 32)
+LC_T, LC_CONTROL_STEPS, LC_D = 16, 2, 2
+LC_GEMMA_DEPTH = 12
+LC_SEED = {ZAMBA_ARCH: SEED + 170, GEMMA_ARCH: SEED + 173, MAMBA_ARCH: SEED + 176}
+# (ts)'s limit of the largest logit: only the order of the combine's sums
+# differs from one rank's, amplified over the layers
+LC_LOGIT_TOL = TS_LOGIT_TOL
 # no head's error may fall below the optimal rank-k error (Eckart-Young), bar
 # fp32 rounding of the two norms
 OPT_SLACK = 1e-3
@@ -6745,6 +6826,566 @@ def phase_hy(torch, ops, dev, kernels_hy: dict) -> list:
 
 
 # ---------------------------------------------------------------------------
+# (lc): the sequence-sharded decode cache
+# ---------------------------------------------------------------------------
+
+
+def lc_model(torch, arch: str, dev) -> tuple:
+    """(lc)'s model of ``arch`` from its seed, whole (model axis 1): the full
+    config, gemma3-12b's cut to ``LC_GEMMA_DEPTH`` layers; the config and
+    the seconds the draw took."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+
+    cfg = get_arch(arch).full_config()
+    if arch == GEMMA_ARCH:
+        cfg = dataclasses.replace(cfg, n_layers=LC_GEMMA_DEPTH,
+                                  pattern=cfg.pattern[:LC_GEMMA_DEPTH])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(gen(torch, dev, LC_SEED[arch]), cfg, device=dev)
+    torch.cuda.synchronize()
+    return cfg, model, time.perf_counter() - t0
+
+
+def lc_fill(torch, cfg, cache: dict, seed: int, dev, key_std: float = 1.0,
+            drift_by: float = LC_V_DRIFT) -> None:
+    """Fill a cache of ``LC_SLOTS`` slots, whole or (under
+    ``activation_sharding(..., seq_shard=True)``) this rank's blocks: every
+    K/V cache's positions below ``LC_FILL`` (a ring's every slot) with
+    seeded normals, the keys times ``key_std``, each value plus
+    ``drift_by·cos(2π·slot/slots)``; chunk ``c`` of layer ``i``
+    (``LC_CHUNK`` positions, a ring's ``window / LC_D`` slots) drawn from a
+    seed of its own, so a rank draws its block's chunks alone and they equal
+    the whole cache's; each Mamba-2 layer's conv windows and state from the
+    layer's seed (replicated); the length ``LC_FILL``."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import layer_specs
+    from repro_torch.models.config import ATTN_LOCAL
+
+    for i, (spec, layer) in enumerate(zip(layer_specs(cfg), cache["layers"])):
+        if "k" not in layer:
+            g = gen(torch, dev, seed * 1_000_003 + i * 4096 + 4095)
+            for name in ("conv_x", "conv_bc", "ssm"):
+                layer[name].copy_(torch.randn(layer[name].shape, generator=g, device=dev))
+            continue
+        ring = spec.mixer == ATTN_LOCAL
+        whole = cfg.window if ring else LC_SLOTS
+        limit = whole if ring else LC_FILL
+        chunk = min(LC_CHUNK, whole // LC_D)
+        start, n, _ = sh.seq_cut(whole)
+        for c in range(start // chunk, (start + n) // chunk):
+            g = gen(torch, dev, seed * 1_000_003 + i * 4096 + c)
+            lo, valid = c * chunk - start, max(0, min(chunk, limit - c * chunk))
+            slot = c * chunk + torch.arange(chunk, device=dev)
+            drift = drift_by * torch.cos(2 * math.pi * slot / whole)[None, :, None, None]
+            for name in ("k", "v"):
+                buf = layer[name]
+                x = torch.randn((buf.shape[0], chunk, *buf.shape[2:]), generator=g, device=dev)
+                if name == "v":
+                    x += drift
+                else:
+                    x *= key_std
+                x[:, valid:] = 0
+                buf[:, lo:lo + chunk].copy_(x)
+    cache["length"].fill_(LC_FILL)
+
+
+def lc_greedy(torch, model, cfg, cache: dict, first) -> dict:
+    """One rank's greedy decode of ``LC_T`` tokens from ``first`` (1, 1):
+    the tokens (1, LC_T + 1), each step's logits (LC_T, V) and top-2 margins
+    on the host, and the decode ms a token (CUDA events)."""
+    from repro_torch.models import decode_step
+
+    toks, logits, margins, ms = [first], [], [], []
+    for _ in range(LC_T):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        lg, _ = decode_step(model, cfg, cache, toks[-1])
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        logits.append(lg[0, 0].float().cpu())
+        margins.append(ts_margin(lg)[0])
+        toks.append(torch.argmax(lg, dim=-1).to(torch.int32))
+    return dict(tokens=torch.cat(toks, 1).cpu(), logits=torch.stack(logits),
+                margins=torch.stack(margins), ms=median(ms))
+
+
+def lc_layer_inputs(torch, dev, scale: float) -> tuple:
+    """The layer check's seeded q (1, 1, 16, 256) and whole K/V caches (1,
+    LC_SLOTS, 8, 256) in bf16, keys at std ``scale``."""
+    g = gen(torch, dev, LC_SEED[GEMMA_ARCH] + 9)
+    q = torch.randn((1, 1, 16, 256), generator=g, device=dev).bfloat16()
+    k = (torch.randn((1, LC_SLOTS, 8, 256), generator=g, device=dev) * scale).bfloat16()
+    v = torch.randn((1, LC_SLOTS, 8, 256), generator=g, device=dev).bfloat16()
+    return q, k, v
+
+
+def lc_ring(torch, model, cfg, dev, combine: bool = True) -> dict:
+    """The ring check on gemma3's first layer (a local one):
+    ``blocks._gqa_decode`` at each of ``LC_RING_LENGTHS`` on a seeded whole
+    ring (keys at std ``LC_KEY_STD``), or under ``seq_shard`` on this rank's
+    block of it (``combine=False``: attending the block alone, the
+    control); each step's output and the ring after the last, on the host."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import blocks
+    from repro_torch.models.config import ATTN_LOCAL
+
+    g = gen(torch, dev, LC_SEED[GEMMA_ARCH] + 11)
+    shape = (1, cfg.window, cfg.n_kv_heads, cfg.head_dim)
+    xs = torch.randn((len(LC_RING_LENGTHS), 1, 1, cfg.d_model), generator=g, device=dev)
+    k = torch.randn(shape, generator=g, device=dev) * LC_KEY_STD
+    v = torch.randn(shape, generator=g, device=dev)
+    start, n, _ = sh.seq_cut(cfg.window)
+    cache = {name: t[:, start:start + n].to(cfg.param_dtype) for name, t in (("k", k), ("v", v))}
+    real, outs = blocks.decode_attention, []
+    if not combine:
+        blocks.decode_attention = lambda *a, group=None, **kw: real(*a, group=None, **kw)
+    try:
+        for x, at in zip(xs.to(cfg.param_dtype), LC_RING_LENGTHS):
+            length = torch.tensor(at, dtype=torch.int32, device=dev)
+            outs.append(blocks._gqa_decode(model.blocks[0].mixer, ATTN_LOCAL, cfg, x, cache,
+                                           length, blocks.PLAIN).float().cpu())
+    finally:
+        blocks.decode_attention = real
+    return dict(out=torch.stack(outs), k=cache["k"].cpu(), v=cache["v"].cpu())
+
+
+def lc_blocks_attention(torch):
+    """The one-rank witness's decode attention: ``decode_attention``'s
+    sequence-sharded combine in one process, the whole cache cut into
+    ``LC_D`` blocks as the ranks hold them and their row maxima, row sums
+    and partial value products combined in rank order, as the two ranks'
+    all-reduces combine them: one rank's run with the ranks' order of
+    sums."""
+    from repro_torch.models.attention import NEG_INF, _partial_values
+
+    def attend(q, k_cache, v_cache, length, *, window=None, start=0, group=None):
+        B, _, H, D = q.shape
+        KV, Dv, n = k_cache.shape[2], v_cache.shape[3], k_cache.shape[1] // LC_D
+        qg = q.reshape(B, KV, H // KV, D)
+        scores = []
+        for b in range(LC_D):
+            s = torch.einsum("bkgd,bpkd->bkgp", qg, k_cache[:, b * n:(b + 1) * n]).float()
+            pos = torch.arange(n, device=q.device) + b * n
+            mask = pos < length
+            if window is not None:
+                mask &= pos >= (length - window)
+            scores.append(torch.where(mask, s / math.sqrt(D), torch.full((), NEG_INF,
+                                                                          device=s.device)))
+        m = torch.stack([s.amax(dim=-1, keepdim=True) for s in scores]).amax(0)
+        es = [torch.exp(s - m) for s in scores]
+        total = es[0].sum(dim=-1, keepdim=True)
+        for e in es[1:]:
+            total = total + e.sum(dim=-1, keepdim=True)
+        o = None
+        for b, e in enumerate(es):
+            part = _partial_values((e / total).to(v_cache.dtype), v_cache[:, b * n:(b + 1) * n])
+            o = part if o is None else o + part
+        return o.to(v_cache.dtype).reshape(B, 1, H, Dv)
+
+    return attend
+
+
+def lc_witness(torch, model, cfg, cache: dict, ref: dict, dev):
+    """``ref``'s tokens forced through ``decode_step`` on the whole cache
+    with :func:`lc_blocks_attention`: each step's logits (on the host)."""
+    from repro_torch.models import blocks, decode_step
+
+    real, logits = blocks.decode_attention, []
+    blocks.decode_attention = lc_blocks_attention(torch)
+    try:
+        for i in range(LC_T):
+            lg, _ = decode_step(model, cfg, cache, ref["tokens"][:, i:i + 1].to(dev))
+            logits.append(lg[0, 0].float().cpu())
+    finally:
+        blocks.decode_attention = real
+    return torch.stack(logits)
+
+
+def lc_references(torch, ops, dev) -> dict:
+    """One rank's runs of (lc)'s four sub-runs on the whole caches, saved to
+    ``LC_REF``: (lc-z) and (lc-g) greedy from a seeded token over a filled
+    cache of ``LC_SLOTS``; (lc-p) zamba2 (its shared ``w_k`` scaled by
+    ``LC_P_GAIN``) prefilling a seeded prompt into ``LC_P_SLOTS`` slots,
+    then greedy; (lc-m) mamba2's ``generate`` on the eager route, each
+    step's logits and prefill's. Returns the card's free GiB before each
+    and the one-rank decode ms a token."""
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.serve import generate
+
+    from repro_torch.models.attention import decode_attention
+
+    ref, info = {}, {}
+    with torch.no_grad():
+        length = torch.tensor(LC_FILL, dtype=torch.int32, device=dev)
+        for scale in LC_LAYER_SCALES:
+            q, k, v = lc_layer_inputs(torch, dev, scale)
+            ref[f"layer_{scale}"] = decode_attention(q, k, v, length).float().cpu()
+            del q, k, v
+        cfg, model, _ = lc_model(torch, ZAMBA_ARCH, dev)
+        info["z_free_gib"] = torch.cuda.mem_get_info()[0] / 2**30
+        cache = init_cache(cfg, 1, LC_SLOTS, device=dev)
+        lc_fill(torch, cfg, cache, LC_SEED[ZAMBA_ARCH], dev)
+        first = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen(
+            torch, dev, LC_SEED[ZAMBA_ARCH] + 1), device=dev, dtype=torch.int32)
+        ref["z"] = lc_greedy(torch, model, cfg, cache, first)
+        info["z_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del cache
+        torch.cuda.empty_cache()
+        model.shared.w_k.mul_(LC_P_GAIN)
+        prompt = torch.randint(0, cfg.vocab_size, (1, LC_P_PROMPT), generator=gen(
+            torch, dev, LC_SEED[ZAMBA_ARCH] + 2), device=dev, dtype=torch.int32)
+        info["p_free_gib"] = torch.cuda.mem_get_info()[0] / 2**30
+        lg0, cache = prefill(model, cfg, prompt, LC_P_SLOTS)
+        first = torch.argmax(lg0, dim=-1).to(torch.int32)
+        ref["p"] = dict(lc_greedy(torch, model, cfg, cache, first), prompt=prompt.cpu(),
+                        prefill_logits=lg0[0, 0].float().cpu())
+        del model, cache, lg0
+        torch.cuda.empty_cache()
+        cfg, model, _ = lc_model(torch, GEMMA_ARCH, dev)
+        info["g_free_gib"] = torch.cuda.mem_get_info()[0] / 2**30
+        cache = init_cache(cfg, 1, LC_SLOTS, device=dev)
+        lc_fill(torch, cfg, cache, LC_SEED[GEMMA_ARCH], dev)
+        first = torch.randint(0, cfg.vocab_size, (1, 1), generator=gen(
+            torch, dev, LC_SEED[GEMMA_ARCH] + 1), device=dev, dtype=torch.int32)
+        ref["g"] = lc_greedy(torch, model, cfg, cache, first)
+        # (lc-g4): keys at std LC_KEY_STD, no drift; the plain run, then the
+        # witness through its tokens on the same fill
+        lc_fill(torch, cfg, cache, LC_SEED[GEMMA_ARCH], dev, LC_KEY_STD, 0.0)
+        ref["g4"] = lc_greedy(torch, model, cfg, cache, first)
+        lc_fill(torch, cfg, cache, LC_SEED[GEMMA_ARCH], dev, LC_KEY_STD, 0.0)
+        ref["g4"]["witness_logits"] = lc_witness(torch, model, cfg, cache, ref["g4"], dev)
+        del cache
+        torch.cuda.empty_cache()
+        ref["ring"] = lc_ring(torch, model, cfg, dev)
+        del model
+        torch.cuda.empty_cache()
+        cfg, model, _ = lc_model(torch, MAMBA_ARCH, dev)
+        info["m_free_gib"] = torch.cuda.mem_get_info()[0] / 2**30
+        prompt = torch.randint(0, cfg.vocab_size, (1, LC_M_PROMPT), generator=gen(
+            torch, dev, LC_SEED[MAMBA_ARCH] + 1), device=dev, dtype=torch.int32)
+        steps = []
+        with ops.eager_route():
+            toks = generate(model, cfg, prompt, LC_T,
+                            on_step=lambda i, lg: steps.append(lg.float().cpu()))
+            lg0, _ = prefill(model, cfg, prompt, LC_M_PROMPT + LC_T)
+        ref["m"] = dict(prompt=prompt.cpu(), tokens=toks.cpu(), logits=torch.stack(steps),
+                        prefill_logits=lg0.float().cpu())
+        del model
+        torch.cuda.empty_cache()
+    info.update({f"{k}_one_rank_decode_ms": ref[k]["ms"] for k in ("z", "p", "g", "g4")})
+    LC_REF.parent.mkdir(parents=True, exist_ok=True)
+    torch.save(ref, LC_REF)
+    return info
+
+
+def lc_forced(torch, model, cfg, cache: dict, ref: dict, counter, steps: int, dev) -> dict:
+    """The one-rank run's tokens through ``decode_step`` on this rank's
+    sequence-sharded cache: each step's logits against ``ref["logits"]``
+    (the largest difference over its largest logit; against
+    ``ref["plain_logits"]`` too where it has them), the step's argmax, its
+    ms (CUDA events) and data-axis all-reduces."""
+    from repro_torch.models import decode_step
+
+    errs, plain, top, ms, coll = [], [], [], [], []
+    for i in range(steps):
+        tok = ref["tokens"][:, i:i + 1].to(dev)
+        before = counter.read()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        lg, _ = decode_step(model, cfg, cache, tok)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        coll.append(ts_collectives(counter.read(), before, 1))
+        errs.append(err(lg[0, 0], ref["logits"][i].to(dev))[1])
+        if "plain_logits" in ref:
+            plain.append(err(lg[0, 0], ref["plain_logits"][i].to(dev))[1])
+        top.append(int(torch.argmax(lg[0, 0])))
+    return dict(rel_err=errs, plain_rel_err=plain, argmax=top, ms=ms, collectives=coll)
+
+
+def lc_uncombined(torch, model, cfg, cache: dict, ref: dict, length: int, counter, dev) -> float:
+    """The control: ``LC_CONTROL_STEPS`` of the forced steps again from
+    ``length``, each rank attending its own block of every K/V cache without
+    the combine over the data axis; the largest step's logit difference."""
+    from repro_torch.models import blocks
+
+    real = blocks.decode_attention
+    blocks.decode_attention = lambda *a, group=None, **kw: real(*a, group=None, **kw)
+    try:
+        cache["length"].fill_(length)
+        out = lc_forced(torch, model, cfg, cache, ref, counter, LC_CONTROL_STEPS, dev)
+    finally:
+        blocks.decode_attention = real
+    return max(out["rel_err"])
+
+
+def lc_sub(torch, run, counter) -> dict:
+    """``run()``'s results with this rank's peak GiB over it, the card's free
+    GiB before it, and its data-axis all-reduces a decode step (the middle
+    step's calls, bytes, ms) and their share of the step."""
+    free = torch.cuda.mem_get_info()[0] / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    f = out["forced"]
+    mid = len(f["ms"]) // 2
+    coll = f["collectives"][mid]
+    return dict(out, card_free_gib_before=free,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                decode_ms_per_token=median(f["ms"]), step_collectives=coll,
+                collective_share=sum(v["ms"] for v in coll.values()) / f["ms"][mid])
+
+
+def lc_rank(rank: int, world: int, job: dict) -> dict:
+    """One pool rank's (lc) job at 2x1 under ``activation_sharding(...,
+    seq_shard=True)``: (lc-z), (lc-p), (lc-g) on this rank's blocks of the
+    caches, each forced through the one-rank run's tokens with its control;
+    (lc-m) ``generate`` and prefill, bit for bit, and its control. The
+    data axis's all-reduces counted."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.serve import generate
+
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(LC_D, 1)
+    counter = CollectiveCounter(torch, dist, {"data": mesh.group("data")})
+    dist.all_reduce = counter
+    ref = torch.load(LC_REF, mmap=True, map_location="cpu", weights_only=True)
+    ops.reset_launches()
+    out = {}
+    with torch.no_grad(), sh.activation_sharding(mesh, seq_shard=True):
+        length = torch.tensor(LC_FILL, dtype=torch.int32, device=dev)
+        for scale in LC_LAYER_SCALES:
+            q, k, v = lc_layer_inputs(torch, dev, scale)
+            n = LC_SLOTS // LC_D
+            kb, vb = k[:, rank * n:(rank + 1) * n].clone(), v[:, rank * n:(rank + 1) * n].clone()
+            del k, v
+            want = ref[f"layer_{scale}"].to(dev)
+            o = decode_attention(q, kb, vb, length, start=rank * n, group=mesh.group("data"))
+            alone = decode_attention(q, kb, vb, length, start=rank * n)
+            out[f"layer_{scale}"] = dict(rel_err=err(o, want)[1],
+                                         control_rel_err=err(alone, want)[1])
+            del q, kb, vb
+        cfg, model, init_s = lc_model(torch, ZAMBA_ARCH, dev)
+
+        def run_z():
+            cache = init_cache(cfg, 1, LC_SLOTS, device=dev)
+            lc_fill(torch, cfg, cache, LC_SEED[ZAMBA_ARCH], dev)
+            f = lc_forced(torch, model, cfg, cache, ref["z"], counter, LC_T, dev)
+            return dict(forced=f, block_slots=cache["layers"][7]["k"].shape[1],
+                        control=lc_uncombined(torch, model, cfg, cache, ref["z"], LC_FILL,
+                                              counter, dev))
+
+        out["z"] = lc_sub(torch, run_z, counter)
+        out["z"]["init_s"] = init_s
+        torch.cuda.empty_cache()
+        model.shared.w_k.mul_(LC_P_GAIN)
+
+        def run_p():
+            lg0, cache = prefill(model, cfg, ref["p"]["prompt"].to(dev), LC_P_SLOTS)
+            f = lc_forced(torch, model, cfg, cache, ref["p"], counter, LC_T, dev)
+            return dict(forced=f, prefill_rel_err=err(lg0[0, 0], ref["p"]["prefill_logits"].to(
+                dev))[1], control=lc_uncombined(torch, model, cfg, cache, ref["p"], LC_P_PROMPT,
+                                                counter, dev))
+
+        out["p"] = lc_sub(torch, run_p, counter)
+        del model
+        torch.cuda.empty_cache()
+        cfg, model, _ = lc_model(torch, GEMMA_ARCH, dev)
+
+        def run_g():
+            cache = init_cache(cfg, 1, LC_SLOTS, device=dev)
+            lc_fill(torch, cfg, cache, LC_SEED[GEMMA_ARCH], dev)
+            f = lc_forced(torch, model, cfg, cache, ref["g"], counter, LC_T, dev)
+            return dict(forced=f, block_slots=[cache["layers"][i]["k"].shape[1] for i in (0, 5)],
+                        control=lc_uncombined(torch, model, cfg, cache, ref["g"], LC_FILL,
+                                              counter, dev))
+
+        out["g"] = lc_sub(torch, run_g, counter)
+        torch.cuda.empty_cache()
+        # (lc-g4): held to the witness, the plain run's distance beside it
+        g4 = dict(ref["g4"], logits=ref["g4"]["witness_logits"], plain_logits=ref["g4"]["logits"])
+
+        def run_g4():
+            cache = init_cache(cfg, 1, LC_SLOTS, device=dev)
+            lc_fill(torch, cfg, cache, LC_SEED[GEMMA_ARCH], dev, LC_KEY_STD, 0.0)
+            f = lc_forced(torch, model, cfg, cache, g4, counter, LC_T, dev)
+            return dict(forced=f, control=lc_uncombined(torch, model, cfg, cache, g4, LC_FILL,
+                                                        counter, dev))
+
+        out["g4"] = lc_sub(torch, run_g4, counter)
+        torch.cuda.empty_cache()
+        ring, alone = lc_ring(torch, model, cfg, dev), lc_ring(torch, model, cfg, dev, False)
+        start, n, _ = sh.seq_cut(cfg.window)
+        want = ref["ring"]
+        out["ring"] = dict(
+            rel_err=[err(o, w)[1] for o, w in zip(ring["out"], want["out"])],
+            control_rel_err=[err(o, w)[1] for o, w in zip(alone["out"], want["out"])],
+            block_equal=all(torch.equal(ring[x], want[x][:, start:start + n]) for x in ("k", "v")),
+            block=[start, n])
+        del model
+        torch.cuda.empty_cache()
+        cfg, model, _ = lc_model(torch, MAMBA_ARCH, dev)
+        r = ref["m"]
+        prompt = r["prompt"].to(dev)
+        steps, st = [], {}
+        torch.cuda.reset_peak_memory_stats()
+        counter.reset()
+        toks = generate(model, cfg, prompt, LC_T, stats=st,
+                        on_step=lambda i, lg: steps.append(lg.float().cpu()))
+        lg0, cache = prefill(model, cfg, prompt, LC_M_PROMPT + LC_T)
+        m = dict(tokens_equal=bool(torch.equal(toks.cpu(), r["tokens"])),
+                 logits_equal=bool(torch.equal(torch.stack(steps), r["logits"])),
+                 prefill_equal=bool(torch.equal(lg0.float().cpu(), r["prefill_logits"])),
+                 route=st["route"], collectives=counter.read(),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        # the control: 2^-6 added to one entry of the first layer's conv
+        # window after prefill, then the first decode step
+        cache["layers"][0]["conv_x"][0, 0, 0] += 2.0 ** -6
+        lg, _ = decode_step(model, cfg, cache, r["tokens"][:, :1].to(dev))
+        m["control_max_abs_diff"] = float((lg.float().cpu() - r["logits"][0]).abs().max())
+        out["m"] = m
+        del model, cache
+    del ref
+    out["launches"] = dict(ops.LAUNCHES)
+    return out
+
+
+def phase_lc(torch, ops, dev) -> list:
+    """(lc): the sequence-sharded decode cache at 2x1 in the two-rank pool on
+    this one card (gloo stages the collectives through the host): zamba2
+    and gemma3 (cut depth) at long_500k's 524288 slots, zamba2's prefill
+    across the rank boundary, mamba2 bit for bit; one rank's runs on the
+    whole caches made here first. Gates: each step's logits within
+    ``LC_LOGIT_TOL`` of the largest (prefill's too), the argmax the one-rank
+    run's next token wherever its top-2 margin is at least that limit;
+    (lc-m) equal bit for bit; every control fails its gate. Returns no
+    launches: the dense cache's path reaches no port kernel."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if LC_D not in POOLS:  # (tp) closed it: its ranks start while the references run
+        POOLS[LC_D] = RankPool(torch, LC_D)
+    torch.cuda.reset_peak_memory_stats()
+    info = lc_references(torch, ops, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("lc/references", s=time.perf_counter() - t0, one_rank=info,
+         card_free_gib=torch.cuda.mem_get_info()[0] / 2**30)
+    ref = torch.load(LC_REF, mmap=True, map_location="cpu", weights_only=True)
+    try:
+        results, wall = host_s(torch, lambda: pool_run(torch, LC_D, lc_rank, {}))
+        launched = {r: {k: v for k, v in x["launches"].items() if v} for r, x in results.items()}
+        check(not any(launched.values()), f"(lc) launched port kernels: {launched}")
+        smi = nvidia_smi()
+        for scale in LC_LAYER_SCALES:
+            per = {r: results[r][f"layer_{scale}"] for r in range(LC_D)}
+            sound = max(x["rel_err"] for x in per.values())
+            ctl = min(x["control_rel_err"] for x in per.values())
+            check(sound <= LC_LAYER_TOL < ctl, f"(lc) layer at key std {scale}: {sound}, "
+                  f"control {ctl} (limit {LC_LAYER_TOL})")
+            emit("serve/lc_layer", key_std=scale, heads=[16, 8], head_dim=256, slots=LC_SLOTS,
+                 valid=LC_FILL, rel_err_per_rank=[x["rel_err"] for x in per.values()],
+                 control_rel_err_per_rank=[x["control_rel_err"] for x in per.values()],
+                 limit=LC_LAYER_TOL, card=smi)
+        per = {r: results[r]["ring"] for r in range(LC_D)}
+        sound = max(e for x in per.values() for e in x["rel_err"])
+        ctl = min(e for x in per.values() for e in x["control_rel_err"])
+        check(sound <= LC_LAYER_TOL < ctl and all(x["block_equal"] for x in per.values()),
+              f"(lc) ring after the wrap: {per} (limit {LC_LAYER_TOL})")
+        emit("serve/lc_ring", arch=GEMMA_ARCH, layer=0, slots=per[0]["block"][1] * LC_D,
+             key_std=LC_KEY_STD, lengths=list(LC_RING_LENGTHS), limit=LC_LAYER_TOL,
+             rel_err_per_rank=[x["rel_err"] for x in per.values()],
+             control_rel_err_per_rank=[x["control_rel_err"] for x in per.values()],
+             blocks_equal_whole_ring=True, blocks=[x["block"] for x in per.values()], card=smi)
+        # (lc-g4): keys at std LC_KEY_STD, held to the one-rank witness with
+        # the ranks' order of sums; the plain one-rank run's distance beside
+        r4, wl = ref["g4"], ref["g4"]["witness_logits"]
+        per = {r: results[r]["g4"] for r in range(LC_D)}
+        errs = [e for x in per.values() for e in x["forced"]["rel_err"]]
+        witness_plain = [err(w, p)[1] for w, p in zip(wl, r4["logits"])]
+        w_margin = [float((t[0] - t[1]) / w.abs().max()) for w in wl for t in [w.topk(2).values]]
+        flips = [(r, i) for r, x in per.items() for i, a in enumerate(x["forced"]["argmax"])
+                 if a != int(torch.argmax(wl[i]))]
+        wide = [(r, i) for r, i in flips if w_margin[i] >= LC_LOGIT_TOL]
+        controls = [x["control"] for x in per.values()]
+        check(max(errs) <= LC_LOGIT_TOL and not wide and min(controls) > LC_LOGIT_TOL,
+              f"(lc-g4) against the witness: logits {max(errs)}, wide flips {wide}, "
+              f"controls {controls} (limit {LC_LOGIT_TOL})")
+        emit("serve/lc_g4", arch=GEMMA_ARCH, key_std=LC_KEY_STD, value_drift=0.0, mesh=[LC_D, 1],
+             new_tokens=LC_T, card=smi, limit=LC_LOGIT_TOL,
+             rel_err_vs_witness_max=max(errs), argmax_flips_vs_witness=flips,
+             rel_err_vs_plain_per_rank=[max(x["forced"]["plain_rel_err"]) for x in per.values()],
+             witness_vs_plain_rel_err_max=max(witness_plain),
+             witness_vs_plain_rel_err_per_step=witness_plain,
+             plain_argmax_flips=[(r, i) for r, x in per.items()
+                                 for i, a in enumerate(x["forced"]["argmax"])
+                                 if a != int(r4["tokens"][0, i + 1])],
+             control_rel_err=controls,
+             decode_ms_per_token_per_rank=[x["decode_ms_per_token"] for x in per.values()],
+             one_rank_decode_ms_per_token=r4["ms"], timing="CUDA events in each rank")
+        for tag, arch, what in (("z", ZAMBA_ARCH, f"{LC_FILL} of {LC_SLOTS} slots filled"),
+                                ("p", ZAMBA_ARCH, f"prefill of {LC_P_PROMPT} into {LC_P_SLOTS}"),
+                                ("g", GEMMA_ARCH, f"{LC_FILL} of {LC_SLOTS} slots filled, depth "
+                                                  f"{LC_GEMMA_DEPTH}")):
+            per = {r: results[r][tag] for r in range(LC_D)}
+            errs = [e for x in per.values() for e in x["forced"]["rel_err"]]
+            errs += [x["prefill_rel_err"] for x in per.values() if "prefill_rel_err" in x]
+            # an argmax may flip only where the one-rank step's top-2 margin
+            # is below the logits' limit
+            margins = ref[tag]["margins"]
+            flips = [(r, i) for r, x in per.items() for i, a in enumerate(x["forced"]["argmax"])
+                     if a != int(ref[tag]["tokens"][0, i + 1])]
+            wide = [(r, i) for r, i in flips if float(margins[i]) >= LC_LOGIT_TOL]
+            controls = [x["control"] for x in per.values()]
+            check(max(errs) <= LC_LOGIT_TOL, f"(lc-{tag}) logits {max(errs)} > {LC_LOGIT_TOL}")
+            check(not wide, f"(lc-{tag}) argmax differs from one rank's at (rank, step) {wide}")
+            check(min(controls) > LC_LOGIT_TOL,
+                  f"(lc-{tag}) the uncombined control passes: {controls}")
+            coll0 = per[0]["step_collectives"]
+            emit(f"serve/lc_{tag}", arch=arch, cache=what, mesh=[LC_D, 1], batch=1,
+                 new_tokens=LC_T, backend="gloo ranks sharing one card; the collectives staged "
+                 "through the host and synchronised by the counter", card=smi,
+                 rel_err_max=max(errs), limit=LC_LOGIT_TOL,
+                 tokens_equal=not flips, argmax_flips=flips, control_rel_err=controls,
+                 block_slots=per[0].get("block_slots"),
+                 decode_ms_per_token_per_rank=[x["decode_ms_per_token"] for x in per.values()],
+                 one_rank_decode_ms_per_token=ref[tag]["ms"],
+                 data_allreduces_per_step_rank0=coll0,
+                 collective_share_per_rank=[x["collective_share"] for x in per.values()],
+                 peak_gib_per_rank=[x["peak_gib"] for x in per.values()],
+                 card_free_gib_before_per_rank=[x["card_free_gib_before"] for x in per.values()],
+                 timing="CUDA events in each rank")
+        per = {r: results[r]["m"] for r in range(LC_D)}
+        for r, x in per.items():
+            check(x["tokens_equal"] and x["logits_equal"] and x["prefill_equal"],
+                  f"(lc-m) rank {r} differs from one rank's: {x}")
+            check(x["control_max_abs_diff"] > 0, f"(lc-m) rank {r}: the moved-state control passes")
+            check(x["route"] == "eager" and not x["collectives"],
+                  f"(lc-m) rank {r}: {x['route']}, collectives {x['collectives']}")
+        emit("serve/lc_m", arch=MAMBA_ARCH, mesh=[LC_D, 1], batch=1, prompt_len=LC_M_PROMPT,
+             new_tokens=LC_T, card=smi, bitwise_equal=True,
+             control_max_abs_diff=[x["control_max_abs_diff"] for x in per.values()],
+             peak_gib_per_rank=[x["peak_gib"] for x in per.values()])
+        emit("lc/2x1_ranks", pool_job_s=wall, s=time.perf_counter() - t0)
+    finally:
+        del ref
+        LC_REF.unlink(missing_ok=True)
+    return []
+
+
+# ---------------------------------------------------------------------------
 # (dr): the census on the card against the census on meta; (fs): FSDP
 # ---------------------------------------------------------------------------
 
@@ -7077,6 +7718,8 @@ def main() -> int:
     mark("tp, fs: tensor parallel, FSDP")
     emit("dr/dryrun_cell", **dr_dryrun_cell(torch))
     mark("dr: dry-run cell")
+    runs_launches += phase_lc(torch, ops, dev)
+    mark("lc: the sequence-sharded decode cache")
     for world in (2, 4):
         close_pool(world)
     for launches in runs_launches:

@@ -92,6 +92,17 @@ heads of every K/V cache (:func:`shard_cache`, the run-time cut of
 before sampling (:func:`gather_tp`), and :func:`dp_index` tells the
 sampling and the compressed cache's sketch draws which rows of the whole
 batch are this rank's.
+
+**The sequence-sharded decode cache** (``activation_sharding(...,
+seq_shard=True)``, the reference's ``cache_pspec(seq_shard=True)`` for its
+``long_500k`` cell): the batch is replicated over the data axes (whole
+on every data rank, as the reference's ``P(None, None)`` token) and every
+data rank runs the whole
+model on it; each K/V cache holds the rank's block of the sequence (of a
+local layer's ring, its block of the slots) where the data axes divide it
+(:func:`seq_cut`, :func:`shard_cache`), and decode attention combines the
+blocks over the data axes (:func:`seq_place`): the reference's SPMD
+partitioner puts in those sums, the port writes them.
 """
 
 from __future__ import annotations
@@ -110,8 +121,9 @@ __all__ = ["Mesh", "ParallelismRules", "activation_sharding", "batch_pspec", "bl
            "fsdp_cut", "fsdp_gathered", "fsdp_group", "fsdp_names", "fsdp_param",
            "gather_tp", "global_batch_group", "leaf_pspec", "param_pspecs", "reduce_from_tp",
            "ref_path", "shard_batch", "gather_from_tp", "shard_cache", "shard_params",
-           "spec_block", "spec_str", "sum_over_tp", "tp_cut", "tp_cuts", "tp_group", "tp_index",
-           "tp_names", "is_whole", "whole_leaves"]
+           "check_seq_shard", "seq_cut", "seq_group", "seq_place", "spec_block", "spec_str",
+           "sum_over_tp", "tp_cut", "tp_cuts", "tp_group", "tp_index", "tp_names", "is_whole",
+           "whole_leaves"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -384,9 +396,10 @@ def _check_run_rules(rules: ParallelismRules) -> None:
     if rules.seq_parallel or not rules.tp_enabled or not rules.shard_vocab:
         raise NotImplementedError(
             f"{rules}: the run time takes model-axis tensor parallelism with the vocab sharded, "
-            "and FSDP over the data axis; sequence parallelism (with the sequence-sharded "
-            "decode cache) is the next item of ROADMAP.md §1, and a replicated vocab or "
-            "weights run only as rules")
+            "FSDP over the data axis and the sequence-sharded decode cache; sequence "
+            "parallelism in prefill (seq_parallel=True, tp_enabled=False, hill-climb cell C) "
+            "is the next slice, ROADMAP.md §1, and a replicated vocab or weights run only as "
+            "rules")
 
 
 def _gqa_family(cfg) -> bool:
@@ -681,16 +694,32 @@ def spec_block(t, spec, mesh):
     return t
 
 
-def shard_cache(cache: dict, mesh: Mesh, rules: Optional[ParallelismRules] = None) -> dict:
+def shard_cache(cache: dict, mesh: Mesh, rules: Optional[ParallelismRules] = None, *,
+                seq_shard: bool = False) -> dict:
     """This rank's block of a whole serving cache (``{"layers": [...],
     "length"}``, each layer a dict of tensors): every leaf cut by its
     :func:`cache_pspec` (K/V batch over the data axes, KV heads over
-    ``model``; MLA latents and Mamba-2 states by their rows and heads), the
-    run-time counterpart of the reference placing its cache by those specs.
-    ``length`` is shared."""
+    ``model``; MLA latents and Mamba-2 states by their rows and heads; with
+    ``seq_shard`` the K/V sequence, or a ring's slots, over the data axes
+    instead of the batch, and every other leaf's batch whole, as the batch
+    is on every data rank: at the reference's batch of 1 that is
+    ``cache_pspec``'s layout too), the run-time counterpart of the reference
+    placing its cache by those specs. ``length`` is shared."""
     rules = (rules or ParallelismRules()).with_mesh(mesh)
-    layers = [{name: spec_block(t, cache_pspec(name, t.shape, rules, mesh, seq_shard=False), mesh)
-               for name, t in layer.items()} for layer in cache["layers"]]
+    dp = rules.dp_axes
+
+    def cut(name, t):
+        spec = cache_pspec(name, t.shape, rules, mesh, seq_shard=seq_shard)
+        if seq_shard and name in ("k", "v"):
+            if spec[-3] is None and mesh.axis_size(dp) > 1:
+                raise ValueError(f"{name} {tuple(t.shape)}: {t.shape[-3]} slots do not split "
+                                 "over the data axes; a sequence-sharded cache takes whole "
+                                 "blocks")
+        elif seq_shard:
+            spec = tuple(None if e == dp else e for e in spec)
+        return spec_block(t, spec, mesh)
+
+    layers = [{name: cut(name, t) for name, t in layer.items()} for layer in cache["layers"]]
     return {"layers": layers, "length": cache["length"]}
 
 
@@ -698,30 +727,42 @@ def shard_batch(x, mesh: Mesh, rules: Optional[ParallelismRules] = None):
     """A data rank's rows of a whole batch (a prompt (B, S), vision
     embeddings (B, P, d), ...): block ``mesh.index(dp_axes)`` of B over the
     data axes (:func:`batch_pspec`'s first entry). ``None`` passes through;
-    a batch that does not split into whole blocks raises."""
+    a batch that does not split into whole blocks raises. (With the
+    sequence-sharded cache the batch is whole on every data rank and does
+    not pass here.)"""
     if x is None:
         return None
     rules = (rules or ParallelismRules()).with_mesh(mesh)
     return spec_block(x, (rules.dp_axes,), mesh)
 
 
-_ACT: list = []  # the active (mesh, rules, per_shard), innermost last
+@dataclasses.dataclass(frozen=True)
+class _Context:
+    mesh: Mesh
+    rules: ParallelismRules
+    per_shard: bool
+    seq_shard: bool
+
+
+_ACT: list = []  # the active contexts, innermost last
 
 
 @contextlib.contextmanager
 def activation_sharding(mesh: Mesh, rules: Optional[ParallelismRules] = None, *,
-                        per_shard: bool = False):
+                        per_shard: bool = False, seq_shard: bool = False):
     """Run the model code on ``mesh``'s model axis: :func:`copy_to_tp` and
     :func:`reduce_from_tp` all-reduce over its group, :func:`tp_index` gives
     this rank's place. Wrap the forward and the backward both. Over the
     data axes the model computes what the reference's SPMD program computes
     over the global batch (:func:`global_batch_group`), or with
     ``per_shard`` what its ``shard_map`` over the data axes computes on each
-    rank's rows alone."""
+    rank's rows alone. With ``seq_shard`` the batch is whole on every data
+    rank and the K/V caches are cut over the sequence instead
+    (:func:`seq_cut`; serving only: the reference's ``long_500k`` cell)."""
     rules = (rules or ParallelismRules()).with_mesh(mesh)
     if mesh.shape[rules.tp_axis] > 1:
         _check_run_rules(rules)
-    _ACT.append((mesh, rules, per_shard))
+    _ACT.append(_Context(mesh, rules, per_shard, seq_shard))
     try:
         yield
     finally:
@@ -733,8 +774,8 @@ def tp_group():
     ``None`` outside it or at model axis 1."""
     if not _ACT:
         return None
-    mesh, rules, _ = _ACT[-1]
-    return mesh.group(rules.tp_axis)
+    ctx = _ACT[-1]
+    return ctx.mesh.group(ctx.rules.tp_axis)
 
 
 def tp_index() -> Tuple[int, int]:
@@ -742,17 +783,19 @@ def tp_index() -> Tuple[int, int]:
     :func:`activation_sharding`)."""
     if not _ACT:
         return 0, 1
-    mesh, rules, _ = _ACT[-1]
-    return mesh.index(rules.tp_axis), mesh.shape[rules.tp_axis]
+    ctx = _ACT[-1]
+    return ctx.mesh.index(ctx.rules.tp_axis), ctx.mesh.shape[ctx.rules.tp_axis]
 
 
 def dp_index() -> Tuple[int, int]:
-    """``(this rank's index, size)`` along the data-parallel axes under
-    :func:`activation_sharding` (``(0, 1)`` outside it)."""
-    if not _ACT:
+    """``(this rank's index, size)`` of the batch's split over the
+    data-parallel axes under :func:`activation_sharding`; ``(0, 1)`` outside
+    it, and with ``seq_shard``, where every data rank holds the whole
+    batch."""
+    if not _ACT or _ACT[-1].seq_shard:
         return 0, 1
-    mesh, rules, _ = _ACT[-1]
-    return mesh.index(rules.dp_axes), mesh.axis_size(rules.dp_axes)
+    ctx = _ACT[-1]
+    return ctx.mesh.index(ctx.rules.dp_axes), ctx.mesh.axis_size(ctx.rules.dp_axes)
 
 
 def global_batch_group():
@@ -760,13 +803,66 @@ def global_batch_group():
     batch, as the reference's SPMD program does (:func:`activation_sharding`
     without ``per_shard``, data axes of size > 1): the MoE dispatch and the
     aux loss then read the other data ranks' routing. ``None`` outside the
-    context, per shard, or with one data rank."""
+    context, per shard, with one data rank, or with ``seq_shard`` (every
+    data rank holds the whole batch)."""
     if not _ACT:
         return None
-    mesh, rules, per_shard = _ACT[-1]
-    if per_shard or mesh.axis_size(rules.dp_axes) == 1:
+    ctx = _ACT[-1]
+    if ctx.per_shard or ctx.seq_shard or ctx.mesh.axis_size(ctx.rules.dp_axes) == 1:
         return None
-    return mesh.group(rules.dp_axes)
+    return ctx.mesh.group(ctx.rules.dp_axes)
+
+
+def seq_group():
+    """The data axes' process group over which a sequence-sharded cache's
+    blocks combine (:func:`activation_sharding` with ``seq_shard``, data axes
+    of size > 1); ``None`` otherwise."""
+    if not _ACT or not _ACT[-1].seq_shard:
+        return None
+    ctx = _ACT[-1]
+    return ctx.mesh.group(ctx.rules.dp_axes)
+
+
+def seq_place() -> Tuple[int, int, object]:
+    """``(index, d, group)``: this rank's place among the ``d`` data ranks
+    over which a sequence-sharded cache is cut (:func:`activation_sharding`
+    with ``seq_shard``), and their group; ``(0, 1, None)`` outside such a
+    context or at one data rank."""
+    group = seq_group()
+    if group is None:
+        return 0, 1, None
+    ctx = _ACT[-1]
+    return ctx.mesh.index(ctx.rules.dp_axes), ctx.mesh.axis_size(ctx.rules.dp_axes), group
+
+
+def seq_cut(n: int) -> Tuple[int, int, object]:
+    """``(start, size, group)`` of this rank's block of ``n`` cache slots (a
+    K/V cache's positions, a ring's slots): block ``index`` of ``d`` equal
+    blocks (:func:`seq_place`; :func:`cache_pspec`'s sequence entry);
+    ``(0, n, None)`` outside a sequence-sharded context. Slots that do not
+    split into ``d`` whole blocks raise ``ValueError`` (the rules would keep
+    them whole on every rank, a layout the sequence-sharded decode does not
+    run)."""
+    index, d, group = seq_place()
+    if n % d:
+        raise ValueError(f"{n} cache slots do not split over the data axes ({d} ranks); a "
+                         "sequence-sharded cache takes whole blocks")
+    return index * (n // d), n // d, group
+
+
+def check_seq_shard(cfg) -> None:
+    """Raise ``NotImplementedError`` where a sequence-sharded cache meets a
+    mixer whose cache the run time does not cut over the sequence: MLA's
+    latent and the cross K/V (no ``long_500k`` cell runs either)."""
+    from ..models.config import CROSS, MLA
+
+    if seq_group() is None:
+        return
+    mixers = {s.mixer for s in cfg.pattern} & {MLA, CROSS}
+    if mixers:
+        raise NotImplementedError(
+            f"{cfg.name}: the sequence-sharded decode cache cuts GQA K/V caches only; "
+            f"{sorted(mixers)} under seq_shard are open items of ROADMAP.md §1")
 
 
 def gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -890,10 +986,10 @@ def fsdp_group():
     ``rules.fsdp`` and more than one data rank; ``None`` otherwise."""
     if not _ACT:
         return None
-    mesh, rules, _ = _ACT[-1]
-    if not rules.fsdp or mesh.axis_size(rules.fsdp_axes) == 1:
+    ctx = _ACT[-1]
+    if not ctx.rules.fsdp or ctx.mesh.axis_size(ctx.rules.fsdp_axes) == 1:
         return None
-    return mesh.group(rules.fsdp_axes)
+    return ctx.mesh.group(ctx.rules.fsdp_axes)
 
 
 class _GatherFSDP(torch.autograd.Function):

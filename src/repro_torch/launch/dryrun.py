@@ -18,10 +18,12 @@ reference's ``memory_analysis``. Nothing touches a card. ``lower_s``,
 holds the census's own wall seconds (``census_s``) instead.
 
 Each cell writes ``dryrun_out/<arch>__<shape>__<mesh>[__<tag>].json`` at the
-repository root. The ``long_500k`` cells shard the decode cache over the
-sequence (the reference's ``seq_shard``), which the run time does not take
-yet: they raise ``NotImplementedError``, and ``--all`` reports them and
-exits 1, as the reference's ``main`` does on failures.
+repository root. The ``long_500k`` cells (batch 1) cut the decode cache's
+sequence over the data axes with the token replicated there (the
+reference's ``seq_shard``): each rank decodes the whole token against its
+block of every K/V cache, and the census counts the data axes' all-reduces
+of the combine. ``--all`` reports a failing cell and exits 1, as the
+reference's ``main`` does.
 
 Usage (on the CPU, no card)::
 
@@ -111,17 +113,15 @@ def input_specs(arch_id: str, shape_name: str, mesh, *, overrides: dict | None =
     ``step(*args)`` run inside ``context`` (the activation sharding of a
     prefill or decode; a train step makes its own). ``config`` replaces the
     arch's full config (a smoke config in the tests)."""
-    if shape_name == "long_500k":
-        raise NotImplementedError(
-            f"{arch_id} {shape_name}: the decode cache sharded over the sequence (the "
-            "reference's seq_shard) is the next item of ROADMAP.md §1 (sequence parallelism "
-            "with the sequence-sharded decode cache)")
     cfg = _config(arch_id, overrides, config)
     knobs = _split(overrides)[1]
     cell = SHAPES[shape_name]
     rules = rules_for(arch_id, mesh, knobs)
     params = init_params(torch.Generator(), cfg, device=META, mesh=mesh, rules=rules)
-    B = cell.global_batch // mesh.axis_size(rules.dp_axes)
+    # long_500k (batch 1): the cache's sequence over the data axes and the
+    # token replicated there, as the reference's seq_shard cell
+    seq_shard = shape_name == "long_500k"
+    B = cell.global_batch if seq_shard else cell.global_batch // mesh.axis_size(rules.dp_axes)
 
     def tokens(seq):
         return torch.zeros((B, seq), dtype=torch.int32, device=META)
@@ -155,13 +155,14 @@ def input_specs(arch_id: str, shape_name: str, mesh, *, overrides: dict | None =
         return step, (params, tokens(cell.seq_len), vision), activation_sharding(mesh, rules)
 
     # decode: one token against a seq_len cache
-    with activation_sharding(mesh, rules):
+    with activation_sharding(mesh, rules, seq_shard=seq_shard):
         cache = init_cache(cfg, B, cell.seq_len, device=META)
 
     def step(params, cache, token):
         return decode_step(params, cfg, cache, token)
 
-    return step, (params, cache, tokens(1)), activation_sharding(mesh, rules)
+    return (step, (params, cache, tokens(1)),
+            activation_sharding(mesh, rules, seq_shard=seq_shard))
 
 
 def _config(arch_id: str, overrides: dict | None, config: ModelConfig | None) -> ModelConfig:

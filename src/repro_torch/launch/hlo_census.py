@@ -249,7 +249,11 @@ class Census(TorchDispatchMode):
         else:
             formula = flop_registry.get(func._overloadpacket)
             if formula is not None:
-                self.flops += float(formula(*args, **kwargs, out_val=out))
+                # an output dtype (``bmm.dtype``'s fp32 out of bf16 operands)
+                # is no operand: the formulas read shapes
+                ops_ = [a for a in args if not isinstance(a, torch.dtype)]
+                kw = {k: v for k, v in kwargs.items() if not isinstance(v, torch.dtype)}
+                self.flops += float(formula(*ops_, **kw, out_val=out))
         return out
 
     def _collective(self, func, args) -> None:

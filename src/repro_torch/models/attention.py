@@ -17,7 +17,8 @@ sliding-window (counterpart of ``repro/models/attention.py``).
   ``torch.autograd.Function``) and ``"scan_ad"`` autograd through
   :func:`flash_attention_plain`.
 * :func:`decode_attention` — one query against a cache with a length mask,
-  fp32 softmax, as the reference.
+  fp32 softmax, as the reference; against a sequence-sharded cache, the
+  rank's block combined over the data axes.
 * :func:`cross_attention` — queries against modality K/V, no mask (the
   reference's ``_cross_attend`` core): SDPA on a CUDA tensor,
   :func:`cross_attention_plain`, the reference's einsums, on the CPU or
@@ -35,6 +36,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 NEG_INF = -1e30
 
@@ -282,13 +284,27 @@ def attention_train(q, k, v, *, window: Optional[int] = None, chunk: int = 512,
     return flash_attention_plain(q, k, v, window=window, chunk=chunk)
 
 
-def decode_attention(q, k_cache, v_cache, length, *, window: Optional[int] = None):
+def decode_attention(q, k_cache, v_cache, length, *, window: Optional[int] = None,
+                     start=0, group=None):
     """One-token attention against a cache.
 
     q: (B, 1, H, D); caches: (B, Smax, KV, D); ``length`` tokens valid (a
     0-d int on the device, or a number): the mask is formed on the device,
     so nothing is read back. fp32 softmax; the value product in the cache's
     dtype.
+
+    A sequence-sharded cache (``group``, the data axes' group of
+    :func:`~repro_torch.distributed.sharding.seq_cut`): the caches are this
+    rank's block of the positions, its first slot at global position
+    ``start``, and the mask reads global positions. The ranks combine as
+    the reference's partitioner does for its sharded softmax: the fp32 row
+    max all-reduced (MAX), the row sum of ``exp(s − max)`` all-reduced
+    (SUM), each rank's normalised ``p`` cast to v's dtype for its partial
+    value product, kept in fp32 (:func:`_partial_values`), the partial
+    outputs summed (SUM) and cast to v's dtype: three small collectives,
+    (B, KV, G) and (B, KV, G, D). A block that is wholly masked gives 0
+    (its ``exp`` underflows against the finite global max). Only the order
+    of the sums differs from one rank's.
     """
     B, _, H, D = q.shape
     KV, Dv, Smax = k_cache.shape[2], v_cache.shape[3], k_cache.shape[1]
@@ -297,13 +313,42 @@ def decode_attention(q, k_cache, v_cache, length, *, window: Optional[int] = Non
     qg = q.reshape(B, KV, G, D)
     s = torch.einsum("bkgd,bpkd->bkgp", qg, k_cache).float() * scale
     pos = torch.arange(Smax, device=q.device)
+    if start:  # a sequence-sharded block's global positions
+        pos = pos + start
     mask = pos < length
     if window is not None:
         mask &= pos >= (length - window)
     s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgp,bpkd->bkgd", p.to(v_cache.dtype), v_cache)
-    return o.reshape(B, 1, H, Dv)
+    if group is None:
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgp,bpkd->bkgd", p.to(v_cache.dtype), v_cache)
+        return o.reshape(B, 1, H, Dv)
+    m = s.amax(dim=-1, keepdim=True)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    e = torch.exp(s - m)
+    total = e.sum(dim=-1, keepdim=True)
+    dist.all_reduce(total, group=group)
+    o = _partial_values((e / total).to(v_cache.dtype), v_cache)
+    dist.all_reduce(o, group=group)
+    return o.to(v_cache.dtype).reshape(B, 1, H, Dv)
+
+
+def _partial_values(p, v):
+    """``p`` (B, KV, G, P) in v's dtype times ``v`` (B, P, KV, D), summed
+    over the positions in fp32: (B, KV, G, D) fp32. A bf16 product keeps its
+    fp32 sums (one ``bmm`` with an fp32 output on the card, the same
+    products upcast on the CPU), so the only rounding to v's dtype is the
+    one after the combine, as one rank's product rounds once."""
+    B, KV, G, P = p.shape
+    pb = p.reshape(B * KV, G, P)
+    vt = v.permute(0, 2, 1, 3).reshape(B * KV, P, v.shape[-1])
+    if v.dtype == torch.float32:
+        o = torch.bmm(pb, vt)
+    elif v.device.type == "cpu":
+        o = torch.bmm(pb.float(), vt.float())
+    else:
+        o = torch.bmm(pb, vt, out_dtype=torch.float32)
+    return o.reshape(B, KV, G, -1)
 
 
 def cross_attention_plain(q, k, v):

@@ -23,7 +23,14 @@ the full history; ``attn_local`` K/V (B, window, KV, hd), a ring; ``mla``
 the latent (B, cache_len, r + rope); ``mamba2`` the conv windows
 (B, K − 1, C) and the fp32 state (B, H, N, P), O(1) in length (prefill
 ignores ``cache_len``); ``cross`` K/V (B, n_patches, KV, hd), static after
-prefill. Decode updates every cache in place (the reference returns an
+prefill. A sequence-sharded cache (``activation_sharding(...,
+seq_shard=True)``) holds this rank's block of the ``attn``,
+``shared_attn`` K/V positions and of the ``attn_local`` ring's slots
+(:func:`~repro_torch.distributed.sharding.seq_cut`): prefill keeps the
+prompt's tokens whose slot is the rank's, decode writes the token on the
+rank whose block holds its slot and attends over the block, the ranks'
+blocks combined in :func:`~repro_torch.models.attention.decode_attention`.
+Decode updates every cache in place (the reference returns an
 updated copy): a new attention token is written at ``length``, a 0-d int
 on the device that every index and mask reads there, and the Mamba-2
 states are copied into their tensors, so no buffer is rebound and a
@@ -57,7 +64,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..distributed.sharding import copy_to_tp, is_whole, reduce_from_tp, tp_index
+from ..distributed.sharding import (copy_to_tp, is_whole, reduce_from_tp, seq_cut, seq_place,
+                                    tp_index)
 from . import mla as mla_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
@@ -195,31 +203,62 @@ def _gqa_train(p: GQA, spec_mixer, cfg: ModelConfig, x):
     return reduce_from_tp(_out_block(o.reshape(B, S, -1), p, cfg) @ p.w_o)
 
 
+def _slots(spec_mixer, cfg: ModelConfig, cache_len: int) -> int:
+    # a K/V cache's slots: the ring's window for a local layer, else cache_len
+    return cfg.window if spec_mixer == ATTN_LOCAL else cache_len
+
+
 def _gqa_prefill(p: GQA, spec_mixer, cfg: ModelConfig, x, cache_len: int):
     B, S, _ = x.shape
+    if spec_mixer != ATTN_LOCAL and S > cache_len:
+        raise ValueError(f"{cfg.name}: a prompt of {S} tokens does not fit a cache of "
+                         f"{cache_len} positions")
     x = copy_to_tp(x)
     q, k, v = _gqa_qkv(p, x, positions(B, S, x.device), cfg, _theta_for(spec_mixer, cfg))
     window = cfg.window if spec_mixer == ATTN_LOCAL else None
     o = flash_attention(q, *_read_kv(k, v, cfg), window=window, chunk=cfg.attn_chunk)
-    if spec_mixer == ATTN_LOCAL:  # ring buffer: token t at slot t % window
+    # this rank's block [start, start + n) of the slots under a sequence-sharded
+    # cache (all of them otherwise): the prompt's tokens whose slot lies in it
+    start, n, _ = seq_cut(_slots(spec_mixer, cfg, cache_len))
+    cache = init_block_cache(BlockSpec(spec_mixer), cfg, B, cache_len, x.device)
+    if spec_mixer == ATTN_LOCAL and n == cfg.window:  # ring buffer: token t at slot t % window
         w = cfg.window
         keep = min(S, w)
         slots = torch.arange(S - keep, S, device=x.device) % w
-        cache = init_block_cache(BlockSpec(ATTN_LOCAL), cfg, B, cache_len, x.device)
         cache["k"][:, slots] = k[:, S - keep :]
         cache["v"][:, slots] = v[:, S - keep :]
+    elif spec_mixer == ATTN_LOCAL:  # a block of the ring: its slots' tokens, gathered
+        w = cfg.window
+        toks = torch.arange(max(S - w, 0), S)
+        toks = toks[(toks % w >= start) & (toks % w < start + n)]
+        slots, toks = (toks % w - start).to(x.device), toks.to(x.device)
+        cache["k"][:, slots] = k[:, toks]
+        cache["v"][:, slots] = v[:, toks]
     else:
-        cache = init_block_cache(BlockSpec(ATTN), cfg, B, cache_len, x.device)
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        hi = min(S, start + n)
+        if hi > start:
+            cache["k"][:, : hi - start] = k[:, start:hi]
+            cache["v"][:, : hi - start] = v[:, start:hi]
     return reduce_from_tp(_out_block(o.reshape(B, S, -1), p, cfg) @ p.w_o), cache
 
 
-def _write_slot(cache: dict, slot: torch.Tensor, k, v) -> None:
-    # the token's K/V into slot ``slot`` (a 0-d int on the device) in place
-    idx = slot.reshape(1).long()
-    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+def _write_slot(cache: dict, slot: torch.Tensor, k, v, start=None) -> None:
+    # the token's K/V into slot ``slot`` (a 0-d int on the device) in place;
+    # with ``start``, a sequence-sharded cache: the global slot is written
+    # where it lies in this rank's block from ``start``, and the other ranks
+    # write back what the clamped slot holds, so no rank branches on the host
+    if start is None:
+        idx = slot.reshape(1).long()
+        cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
+        return
+    n = cache["k"].shape[1]
+    local = slot.reshape(1).long() - start
+    inside = (local >= 0) & (local < n)
+    idx = local.clamp(0, n - 1)
+    for name, new in (("k", k), ("v", v)):
+        buf = cache[name]
+        buf.index_copy_(1, idx, torch.where(inside, new.to(buf.dtype), buf.index_select(1, idx)))
 
 
 def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Tensor,
@@ -233,15 +272,22 @@ def _gqa_decode(p: GQA, spec_mixer, cfg: ModelConfig, x, cache, length: torch.Te
             raise NotImplementedError(f"{cfg.name}: a compressed cache takes a rank's block of "
                                       "KV heads, not the whole ones the run time keeps here")
         o = cache.append_attend(q, k, v, length, phase)
-    elif spec_mixer == ATTN_LOCAL:
+        return reduce_from_tp(_out_block(o.reshape(B, 1, -1), p, cfg) @ p.w_o)
+    # under a sequence-sharded cache this rank holds a block of the slots,
+    # combined over the data axes in decode_attention
+    index, _, group = seq_place()
+    start = index * cache["k"].shape[1]
+    block_start = None if group is None else start
+    if spec_mixer == ATTN_LOCAL:
         # ring: slots below min(length + 1, window) are valid, all within the window
         w = cfg.window
-        _write_slot(cache, length % w, k, v)
-        o = decode_attention(q, *_read_kv(cache["k"], cache["v"], cfg),
-                             torch.clamp(length + 1, max=w))
+        _write_slot(cache, length % w, k, v, block_start)
+        valid = torch.clamp(length + 1, max=w)
     else:
-        _write_slot(cache, length, k, v)
-        o = decode_attention(q, *_read_kv(cache["k"], cache["v"], cfg), length + 1)
+        _write_slot(cache, length, k, v, block_start)
+        valid = length + 1
+    o = decode_attention(q, *_read_kv(cache["k"], cache["v"], cfg), valid, start=start,
+                         group=group)
     return reduce_from_tp(_out_block(o.reshape(B, 1, -1), p, cfg) @ p.w_o)
 
 
@@ -357,7 +403,8 @@ def block_decode(block: Block, spec: BlockSpec, cfg: ModelConfig, x, cache, leng
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: int, device):
     # K/V caches hold this rank's KV heads under tensor parallelism (ATTN,
     # ATTN_LOCAL, SHARED_ATTN and CROSS; all of them where the run time keeps
-    # them whole), Mamba-2's states its channels and heads; MLA's latent is
+    # them whole) and, sequence-sharded, its block of the positions (of the
+    # ring's slots); Mamba-2's states its channels and heads; MLA's latent is
     # whole on every model rank
     KV = cfg.n_kv_heads if is_whole("w_k", cfg) else cfg.n_kv_heads // tp_index()[1]
     hd, dt = cfg.head_dim, cfg.param_dtype
@@ -368,10 +415,9 @@ def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, cache_len: i
     if mixer == MAMBA2:
         conv_x, conv_bc, state = ssm_mod.init_mamba2_state(cfg, batch, device)
         return {"conv_x": conv_x, "conv_bc": conv_bc, "ssm": state}
-    if mixer == ATTN_LOCAL:
-        shape = (batch, cfg.window, KV, hd)
-    elif mixer in (ATTN, SHARED_ATTN):
-        shape = (batch, cache_len, KV, hd)
+    if mixer in (ATTN, ATTN_LOCAL, SHARED_ATTN):
+        # a sequence-sharded cache holds this rank's block of the slots
+        shape = (batch, seq_cut(_slots(mixer, cfg, cache_len))[1], KV, hd)
     elif mixer == CROSS:
         shape = (batch, cfg.n_patches, KV, hd)
     else:

@@ -31,7 +31,9 @@ program per token); on the CPU it runs eagerly.
 
 Under :func:`~repro_torch.distributed.activation_sharding` every entry
 point runs this rank's part of a (data, model) mesh: its rows of the
-batch, and at model axis ``m > 1`` its shards of GQA, shared-attention,
+batch (with ``seq_shard``, the whole batch and its block of each K/V
+cache's positions, decode attention combining the blocks over the data
+axes), and at model axis ``m > 1`` its shards of GQA, shared-attention,
 cross-attention and MLA heads, Mamba-2 SSM heads, dense FFN blocks and MoE
 experts, with ``vision_proj``, the cross gates and the leaves the
 reference keeps whole on every rank (a width that would split a head
@@ -54,8 +56,8 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..device import DeviceLike, resolve_device
-from ..distributed.sharding import (ParallelismRules, check_tp, cut_at_init, fsdp_gathered,
-                                    fsdp_param, is_whole, tp_index)
+from ..distributed.sharding import (ParallelismRules, check_seq_shard, check_tp, cut_at_init,
+                                    fsdp_gathered, fsdp_param, is_whole, tp_index)
 from . import blocks as blk
 from .config import SHARED_ATTN, BlockSpec, ModelConfig, Segment, compile_pattern
 from .layers import (embed_tokens, gather_vocab, init_scale, lm_logits, param, rmsnorm,
@@ -250,8 +252,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
     """A zeroed cache of ``batch`` rows (this rank's, under a mesh) and
     ``cache_len`` positions; under tensor parallelism each K/V cache holds
     the rank's KV heads, each Mamba-2 state its SSM heads and ``conv_x``
-    channels."""
+    channels; sequence-sharded (``activation_sharding(..., seq_shard=True)``)
+    each K/V cache holds the rank's block of the positions, or of a local
+    layer's ring, and ``batch`` is the whole batch."""
     check_tp(cfg, tp_index()[1])
+    check_seq_shard(cfg)
     dev = resolve_device(device)
     return {"layers": [blk.init_block_cache(spec, cfg, batch, cache_len, dev)
                        for spec in layer_specs(cfg)],
@@ -268,6 +273,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens, cache_len: int, visio
     and the logits the whole vocab's, gathered over the model axis. Under
     FSDP the embedding is gathered once for the lookup and the logits."""
     check_tp(cfg, tp_index()[1])
+    check_seq_shard(cfg)
     B, S = tokens.shape
     with fsdp_gathered(params.embed):
         x = embed_tokens(params.embed.tok, tokens, cfg)
@@ -293,6 +299,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, cache: dict, token, *,
     every step alike. Under a mesh, as :func:`prefill`: this rank's rows and
     cache block, the whole vocab's logits (FSDP: the embedding gathered once)."""
     check_tp(cfg, tp_index()[1])
+    check_seq_shard(cfg)
     ex = {"shared": params.shared} if _has_shared(cfg) else {}  # cross K/V live in the cache
     length = cache["length"]
     with fsdp_gathered(params.embed):

@@ -36,6 +36,11 @@ and replays its own graphs, a step there having no collective, unless the
 MoE capacity dispatch gathers the expert ids over the data axes
 (:func:`~repro_torch.models.moe.decode_gathers`), which runs it eagerly too,
 or FSDP rules gather the weights over a data axis above 1 (eager too).
+With the sequence-sharded decode cache (``activation_sharding(...,
+seq_shard=True)``, the reference's ``long_500k`` cell) the prompt and the
+result are whole on every data rank, each rank holds its block of every
+K/V cache's positions, and the loop runs eagerly too: decode attention
+combines the blocks over the data axes in every step.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from typing import Callable, Optional
 
 import torch
 
-from ..distributed.sharding import dp_index, fsdp_group, tp_index
+from ..distributed.sharding import dp_index, fsdp_group, seq_group, tp_index
 from ..kernels import ops
 from ..models import decode_step, prefill
 from ..models.blocks import PLAIN, REFRESH
@@ -188,10 +193,12 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
     On the card the decode loop replays CUDA graphs of
     :func:`_fused_decode_step` (module docstring); on the CPU, inside
     :func:`~repro_torch.kernels.ops.eager_route`, at model axis ``m > 1``
-    or where the MoE dispatch gathers over the data axes (the step's
+    or where the MoE dispatch gathers over the data axes, FSDP gathers
+    over them or a sequence-sharded cache combines over them (the step's
     collectives cannot be captured), it runs the same body eagerly. Under
     a mesh ``prompt`` (and ``vision``) are this rank's rows
-    (:func:`~repro_torch.distributed.shard_batch`) and so is the result.
+    (:func:`~repro_torch.distributed.shard_batch`) and so is the result;
+    with ``seq_shard`` both are the whole batch, on every data rank.
 
     ``gen`` draws the sampled tokens and, with ``kv_compress``, the
     compressed caches' sketches (``kv_sketches`` hands pre-drawn ones to
@@ -234,9 +241,10 @@ def generate(params, cfg: ModelConfig, prompt: torch.Tensor, n_tokens: int, *,
 
     graphs = None
     # gloo's host-staged collectives cannot be captured: the model axis's,
-    # the MoE dispatch's gathers and FSDP's (above data axis 1) run eagerly
-    if (dev.type == "cuda" and not ops._EAGER and tp_index()[1] == 1
-            and fsdp_group() is None and not decode_gathers(cfg, dense_moe, prompt.shape[0])):
+    # the MoE dispatch's gathers, FSDP's (above data axis 1) and a
+    # sequence-sharded cache's combine run eagerly
+    if (dev.type == "cuda" and not ops._EAGER and tp_index()[1] == 1 and fsdp_group() is None
+            and seq_group() is None and not decode_gathers(cfg, dense_moe, prompt.shape[0])):
         graphs = _DecodeGraphs(body, gen if temperature > 0.0 else None)
     eager = refreshes = 0
     for i, (phase, _) in enumerate(schedule):

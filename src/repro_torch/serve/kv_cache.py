@@ -63,7 +63,7 @@ import torch
 from ..core.svd import (StackedSPSVDSketches, StackedSPSVDState, spsvd_stacked_finalize,
                         spsvd_stacked_fold)
 from ..device import DeviceLike, resolve_device
-from ..distributed.sharding import dp_index, gather_tp, tp_index
+from ..distributed.sharding import dp_index, gather_tp, seq_group, tp_index
 from ..models.blocks import FOLD, PLAIN, REFRESH
 from ..models.config import ATTN, ModelConfig
 from ..models.transformer import segments
@@ -324,6 +324,9 @@ def compress_prefill_cache(gen: Optional[torch.Generator], cfg: ModelConfig, cac
     (one per segment position). Returns a new cache dict; the old dense
     caches of converted layers are no longer referenced from it.
     """
+    if seq_group() is not None:
+        raise NotImplementedError("a compressed cache under the sequence-sharded layout is an "
+                                  "open item of ROADMAP.md §1: the dense cache takes seq_shard")
     reg = registry if registry is not None else default_registry()
     prompt_len = int(cache["length"])  # read once, before decode: the engines' column grid
     layers = list(cache["layers"])

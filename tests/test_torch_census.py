@@ -91,6 +91,18 @@ def test_batched_dot_flops():
     assert abs(ref["flops"] - true) / true < 1e-6
 
 
+def test_batched_dot_with_an_fp32_output_counts_its_flops():
+    """``bmm.dtype`` (bf16 operands, fp32 output: the sequence-sharded
+    decode's partial value product on the card and on ``meta``) takes the
+    plain product's formula, its output dtype no operand."""
+    a, b = (torch.zeros(s, dtype=torch.bfloat16, device="meta") for s in ((4, 128, 64),
+                                                                        (4, 64, 96)))
+    with Census() as c:
+        out = torch.bmm(a, b, out_dtype=torch.float32)
+    assert out.dtype == torch.float32
+    assert c.result()["flops"] == 2 * 4 * 128 * 64 * 96
+
+
 def test_hbm_bytes_of_a_matmul():
     m = k = n = 512
     lo = 4 * (m * k + k * n + m * n)

@@ -8,8 +8,14 @@
   (llama-3.2-vision-90b, FSDP as in the production cells): each record
   holds the reference's keys, and the census saw work and the collectives
   of the mesh (FSDP's gathers and reduce-scatters for the vision model's
-  training). The ``long_500k`` cells and hill-climb cell C raise
-  ``NotImplementedError``, naming ROADMAP.md's next item.
+  training).
+* The ``long_500k`` cells of zamba2, gemma3 and mamba2 at smoke configs:
+  the cache's sequence over the data axes, the token replicated (the
+  reference's ``seq_shard``); the census counts three data-axis all-reduces
+  a GQA layer over the same cell's decode without it. A long cell of an
+  MLA arch (no reference cell: its latent is not cut over the sequence) and
+  hill-climb cell C (sequence parallelism in prefill) raise
+  ``NotImplementedError``, naming ROADMAP.md §1.
 * The compressed step's all-reduce wire bytes on a fake 4×1 mesh lie below
   the plain step's, the reference's ``scenario_compressed_reduces_wire_bytes``
   (``tests/multidev_scenario.py``) on the port's census.
@@ -72,10 +78,44 @@ def test_run_cell_records_smoke_cells(fake_pg, tmp_path, arch, kind):
             assert colls["all-gather"]["group_size"] == shape["data"]
 
 
+LONG = ["zamba2-1.2b", "gemma3-12b", "mamba2-1.3b"]
+
+
+@pytest.mark.parametrize("arch", LONG)
+def test_long_500k_cells_census_the_sequence_sharded_cache(fake_pg, tmp_path, arch):
+    """Each rank decodes the whole token (batch 1) against its block of every
+    K/V cache: three all-reduces a GQA layer over the data axes (the row
+    max, the row sum, the partial outputs) beyond the model axis's, and the
+    cache's bytes a rank fall by the data axes' size."""
+    from repro_torch.models.config import ATTN, ATTN_LOCAL, SHARED_ATTN
+
+    cfg = get_arch(arch).smoke_config()
+    n_gqa = sum(s.mixer in (ATTN, ATTN_LOCAL, SHARED_ATTN) for s in cfg.pattern)
+    assert (n_gqa > 0) == (arch != "mamba2-1.3b")
+    for name, shape in MESHES.items():
+        rec = dryrun.run_cell(arch, "long_500k", out_dir=str(tmp_path), mesh_shape=shape,
+                              config=cfg, verbose=False)
+        assert KEYS <= set(rec) and rec["mesh"] == name and rec["flops_per_device"] > 0
+        whole = dryrun.run_cell(arch, "long_500k", out_dir=str(tmp_path), tag="whole",
+                                mesh_shape={"data": 1, "model": shape["model"]}, config=cfg,
+                                verbose=False)
+        d = shape.get("pod", 1) * shape["data"]
+        got, want = rec["collectives"]["all-reduce"], whole["collectives"]["all-reduce"]
+        assert got["count"] == want["count"] + 3 * n_gqa, (got, want)
+        assert got["group_size"] == (d if n_gqa else shape["model"])
+        if n_gqa:  # the K/V caches dominate the arguments at 524288 slots
+            ratio = rec["memory"]["argument_bytes"] / whole["memory"]["argument_bytes"]
+            assert ratio < 1.1 / d, ratio
+
+
 def test_long_cells_and_seq_parallel_raise(fake_pg, tmp_path):
+    """A long cell of an MLA arch (the reference has none) raises: its latent
+    is not cut over the sequence; hill-climb cell C, sequence parallelism in
+    prefill, raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1"):
-        dryrun.run_cell("mamba2-1.3b", "long_500k", out_dir=str(tmp_path),
-                        mesh_shape=MESHES["2x2"], config=get_arch("mamba2-1.3b").smoke_config())
+        dryrun.run_cell("deepseek-v2-lite-16b", "long_500k", out_dir=str(tmp_path),
+                        mesh_shape=MESHES["2x2"],
+                        config=get_arch("deepseek-v2-lite-16b").smoke_config())
     arch, shape, variants = hillclimb.PLAN["C"]
     assert [v[0] for v in variants] == ["C1_seqparallel", "C2_seqparallel_chunk512"]
     for _, overrides, _ in variants:

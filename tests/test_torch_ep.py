@@ -303,6 +303,10 @@ def _rank(rank, world, store, jobs, out_q):
 
                 rep = main(list(job[1]) + ["--mesh", "1x2", "--ckpt-dir", f"{store}.ckpt"])
                 results[job] = list(map(float, rep.losses))
+                # the rank's checkpoints go now, while the parent runs the
+                # reference: unlinking freshly synced files can take tens of
+                # seconds on a disk that discards, which the fixture waited for
+                shutil.rmtree(f"{store}.ckpt/rank{rank}", ignore_errors=True)
                 continue
             mesh = make_host_mesh(*shape)
             if kind == "serve":

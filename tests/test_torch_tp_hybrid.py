@@ -37,6 +37,26 @@ serves and trains on its rows. Meshes 1×2 (two ranks) and 2×2 (four).
   instead of before (the gate's gradient partial).
 * The serve and train CLIs at ``--mesh 1x2`` against ``1x1``, for zamba2
   and the vision model.
+* The sequence-sharded decode cache (``activation_sharding(...,
+  seq_shard=True)``, the reference's ``long_500k`` layout) at 2×1 (the
+  two ranks) and 2×2 (the four; KV and SSM heads over the model axis too),
+  for mamba2, zamba2 and gemma3-12b's smoke config (5 local layers of a
+  32-slot ring and a global one, 4/2 heads): the whole batch on every
+  rank, greedy tokens, prefill's and each decode step's logits against the
+  same reference runs as above, within 1e-5 of the largest logit; each
+  rank's prefill cache the reference's, every K/V cache cut by
+  ``cache_pspec(seq_shard=True)`` (``sharding.shard_cache(...,
+  seq_shard=True)``; the port's specs are the reference's,
+  ``tests/test_torch_sharding.py``) to a block of its positions or ring
+  slots, the Mamba-2 states whole on every data rank (the batch is
+  replicated there; at the reference's long cell's batch of 1
+  ``cache_pspec`` replicates them too). And gemma3's local ring once it has
+  wrapped: a prompt of ``RING_S`` = 44 tokens (longer than the 32-slot
+  window, so prefill gathers each rank's ring slots from the whole prompt)
+  and ``N - 1`` greedy decode steps that all write after the wrap, across
+  the ranks' boundary at slot 16 (``prefill`` and ``decode_step``): the
+  tokens, the logits, and every K/V block after prefill and after the last
+  step against the reference's caches cut as above.
 
 The ranks are spawned processes running :func:`_rank`, meeting at a file of
 their own, one spawn per world; the JAX reference runs in this process
@@ -63,6 +83,9 @@ from repro_torch.distributed import sharding as ps
 
 MAMBA, ZAMBA, VISION = "mamba2-1.3b", "zamba2-1.2b", "llama-3.2-vision-90b"
 ARCHS = [MAMBA, ZAMBA, VISION]
+GEMMA = "gemma3-12b"
+SEQ_ARCHS = [MAMBA, ZAMBA, GEMMA]  # the reference's long_500k archs
+RING_S = 44  # gemma3's ring case: past its smoke window of 32, decode writes at slots 12..18
 B, S, N = 4, 24, 8
 KC = dict(rank=4, oversample=2, panel=8, decode_panel=4, refresh_every=8)
 OC = dict(lr=1e-2, clip_norm=None)
@@ -139,6 +162,43 @@ def _serve(case, arch, mesh):
     return dict(tokens=toks.numpy(), route=stats["route"], prefill_logits=lg.numpy(),
                 logits=steps,
                 cache=[{k: v.numpy() for k, v in layer.items()} for layer in cache["layers"]])
+
+
+def _seq(case, arch, mesh):
+    """:func:`_serve` with the sequence-sharded decode cache: the whole
+    prompt on every rank, each K/V cache a block of its positions."""
+    cfg = _cfg(arch)
+    model = convert.model_params(case["params"], cfg, "cpu", mesh=mesh)
+    prompt = torch.from_numpy(case["prompt"])
+    stats, steps = {}, []
+    with activation_sharding(mesh, seq_shard=True):
+        toks = pserve.generate(model, cfg, prompt, N, stats=stats,
+                               on_step=lambda i, lg: steps.append(lg.numpy().copy()))
+        lg, cache = pmodels.prefill(model, cfg, prompt, S + N)
+    return dict(tokens=toks.numpy(), route=stats["route"], prefill_logits=lg.numpy(),
+                logits=steps,
+                cache=[{k: v.numpy() for k, v in layer.items()} for layer in cache["layers"]])
+
+
+def _seq_ring(case, mesh):
+    """gemma3's greedy run on the ``RING_S``-token prompt with the
+    sequence-sharded cache, through ``prefill`` and ``decode_step``: the
+    tokens, each step's logits, and the caches after prefill and after the
+    last step."""
+    cfg = _cfg(GEMMA)
+    model = convert.model_params(case["params"], cfg, "cpu", mesh=mesh)
+    prompt = torch.from_numpy(case["ring_prompt"])
+    snap = lambda c: [{k: v.numpy().copy() for k, v in layer.items()}  # noqa: E731
+                      for layer in c["layers"]]
+    with activation_sharding(mesh, seq_shard=True):
+        lg, cache = pmodels.prefill(model, cfg, prompt, RING_S + N)
+        out = dict(prefill_logits=lg.numpy(), cache=snap(cache), logits=[])
+        toks = [torch.argmax(lg, dim=-1).to(torch.int32)]
+        for _ in range(N - 1):
+            lg, _ = pmodels.decode_step(model, cfg, cache, toks[-1])
+            out["logits"].append(lg.numpy())
+            toks.append(torch.argmax(lg, dim=-1).to(torch.int32))
+    return dict(out, tokens=torch.cat(toks, 1).numpy(), final_cache=snap(cache))
 
 
 def _compressed(case, mesh):
@@ -277,14 +337,22 @@ def _rank(rank, world, store, jobs, out_q):
             if kind == "cli_train":
                 from repro_torch.launch.train import main
 
-                rep = main(list(job[1]) + ["--mesh", "1x2", "--ckpt-dir",
-                                           f"{store}.{job[1][-1]}.ckpt"])
+                ckpt = f"{store}.{job[1][-1]}.ckpt"
+                rep = main(list(job[1]) + ["--mesh", "1x2", "--ckpt-dir", ckpt])
                 results[job] = list(map(float, rep.losses))
+                # the rank's checkpoints go now, while the parent runs the
+                # reference: unlinking freshly synced files can take tens of
+                # seconds on a disk that discards, which the fixture waited for
+                shutil.rmtree(f"{ckpt}/rank{rank}", ignore_errors=True)
                 continue
             mesh = make_host_mesh(*shape)
             cases = jobs["cases"]
             if kind == "serve":
                 results[job] = _serve(cases[job[1]], job[1], mesh)
+            elif kind == "seq":
+                results[job] = _seq(cases[job[1]], job[1], mesh)
+            elif kind == "seq_ring":
+                results[job] = _seq_ring(cases[GEMMA], mesh)
             elif kind == "compressed":
                 results[job] = _compressed(cases[VISION], mesh)
             elif kind == "train":
@@ -374,14 +442,16 @@ def _ref_batch(case, key="tokens") -> dict:
     return batch
 
 
-def _ref_greedy(arch: str, case: dict) -> dict:
-    """The reference's greedy run on the global batch: tokens (``sample_token``
-    at temperature 0 after its jitted ``prefill`` and ``decode_step``),
-    prefill's last logits and cache (numpy), each decode step's logits."""
+def _ref_greedy(arch: str, case: dict, key: str = "prompt") -> dict:
+    """The reference's greedy run on the global batch from ``case[key]``:
+    tokens (``sample_token`` at temperature 0 after its jitted ``prefill``
+    and ``decode_step``), prefill's last logits and cache and the cache
+    after the last step (numpy), each decode step's logits."""
     jax, jnp, rconfigs, rmodels, rserve = _jax()
     cfg = _cfg(arch, rconfigs)
-    batch = _ref_batch(case, "prompt")
-    pre = jax.jit(lambda p, t, v: rmodels.prefill(p, cfg, t, S + N, vision=v))
+    batch = _ref_batch(case, key)
+    cache_len = batch["tokens"].shape[1] + N
+    pre = jax.jit(lambda p, t, v: rmodels.prefill(p, cfg, t, cache_len, vision=v))
     step = jax.jit(lambda p, c, t: rmodels.decode_step(p, cfg, c, t))
     key = jax.random.key(0)
     lg, cache = pre(case["params"], batch["tokens"], batch.get("vision"))
@@ -391,7 +461,8 @@ def _ref_greedy(arch: str, case: dict) -> dict:
         lg_i, cache = step(case["params"], cache, toks[-1])
         logits.append(np.asarray(lg_i))
         toks.append(rserve.sample_token(key, lg_i, 0.0))
-    return dict(out, tokens=np.asarray(jnp.concatenate(toks, axis=1)), logits=logits)
+    return dict(out, tokens=np.asarray(jnp.concatenate(toks, axis=1)), logits=logits,
+                final_cache=jax.tree.map(np.asarray, cache))
 
 
 def _ref_compressed(case: dict) -> tuple:
@@ -487,7 +558,9 @@ def runs():
     states, the sketches and the reference's compressed conversion are
     ready; the reference's greedy runs and steps, and the one-process CLIs,
     go on here meanwhile."""
-    cases = {arch: _case(arch) for arch in ARCHS}
+    cases = {arch: _case(arch) for arch in ARCHS + [GEMMA]}
+    cases[GEMMA]["ring_prompt"] = np.random.default_rng(2).integers(
+        0, 256, (B, RING_S)).astype(np.int32)
     for arch in ARCHS:
         cases[arch]["state"], cases[arch]["sketches"] = _ref_state(cases[arch])
     refs = {}
@@ -503,11 +576,16 @@ def runs():
     run4 = [("serve", arch, (2, 2)) for arch in ARCHS]
     run4 += [("train", arch, (2, 2)) for arch in ARCHS]
     run4 += [("compressed", (2, 2))]
+    run2 += [("seq", arch, (2, 1)) for arch in SEQ_ARCHS]
+    run4 += [("seq", arch, (2, 2)) for arch in SEQ_ARCHS]
+    run2 += [("seq_ring", GEMMA, (2, 1))]
+    run4 += [("seq_ring", GEMMA, (2, 2))]
     two = _Ranks(2, dict(jobs, run=run2))
     four = _Ranks(4, dict(jobs, run=run4))
 
     try:
-        refs["greedy"] = {arch: _ref_greedy(arch, cases[arch]) for arch in ARCHS}
+        refs["greedy"] = {arch: _ref_greedy(arch, cases[arch]) for arch in ARCHS + [GEMMA]}
+        refs["ring"] = _ref_greedy(GEMMA, cases[GEMMA], "ring_prompt")
         refs["train"] = {arch: _ref_train(arch, cases[arch]) for arch in ARCHS}
         from repro_torch.launch import serve as lserve
         from repro_torch.launch import train as ltrain
@@ -534,7 +612,7 @@ def refs(runs):
 def ranks(runs):
     """Every rank's results by mesh: ``{shape: {rank: results}}``."""
     _, two, four, _, _ = runs
-    return {(1, 2): two, (2, 2): four}
+    return {(1, 2): two, (2, 1): two, (2, 2): four}
 
 
 @pytest.fixture(scope="module")
@@ -703,3 +781,72 @@ def test_launch_train_cli_at_mesh_1x2_matches_1x1(ranks, one, arch):
     for res in ranks[(1, 2)].values():
         got = res[("cli_train", tuple(CLI_TRAIN + ["--arch", arch]))]
         np.testing.assert_allclose(got, one[("cli_train", arch)], rtol=LOSS_TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+@pytest.mark.parametrize("arch", SEQ_ARCHS, ids=["mamba2", "zamba2", "gemma3"])
+def test_seq_shard_generate_matches_reference(refs, ranks, arch, shape):
+    """The sequence-sharded decode cache against the reference on the whole
+    batch: tokens, prefill's and each decode step's logits on every rank
+    (the eager route: the combine's all-reduces), and each rank's prefill
+    cache the reference's cut by ``cache_pspec(seq_shard=True)``."""
+    ref = refs["greedy"][arch]
+    cfg = _cfg(arch)
+    d, m = shape
+    for rank, res in ranks[shape].items():
+        r = res[("seq", arch, shape)]
+        what = f"{arch} {shape} rank {rank}"
+        assert np.array_equal(r["tokens"], ref["tokens"]), what
+        assert r["route"] == "eager", what
+        _close(r["prefill_logits"], ref["prefill_logits"], what=f"{what} prefill logits")
+        assert len(r["logits"]) == N - 1
+        for i, (g, w) in enumerate(zip(r["logits"], ref["logits"])):
+            _close(g, w, what=f"{what} decode step {i}")
+        want = ps.shard_cache(convert.dense_cache(ref["cache"], cfg, "cpu"),
+                              Mesh(dict(zip(("data", "model"), shape)), rank), seq_shard=True)
+        specs = pmodels.layer_specs(cfg)
+        assert len(r["cache"]) == len(want["layers"]) == len(specs)
+        for li, (spec, got, w) in enumerate(zip(specs, r["cache"], want["layers"])):
+            assert set(got) == set(w), (what, li)
+            for name, t in w.items():
+                t = t.numpy()
+                if name in ("k", "v"):  # a block of the positions (a local layer's ring slots)
+                    slots = cfg.window if spec.mixer == pmodels.ATTN_LOCAL else S + N
+                    assert t.shape[:3] == (B, slots // d, cfg.n_kv_heads // m), (what, li)
+                else:  # the Mamba-2 states: every row of the batch, the rank's heads
+                    assert t.shape[0] == B, (what, li, name)
+                _close(got[name], t, what=f"{what} layer {li} {name}")
+
+
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)], ids=["2x1", "2x2"])
+def test_seq_shard_local_ring_after_the_wrap_matches_reference(refs, ranks, shape):
+    """gemma3's sequence-sharded local ring once it has wrapped (``RING_S``
+    prompt tokens into a 32-slot ring, every decode write past the wrap and
+    across the ranks' boundary): tokens, prefill's and each step's logits
+    on every rank, and every K/V block after prefill and after the last step
+    the reference's cache cut by ``cache_pspec(seq_shard=True)``."""
+    ref = refs["ring"]
+    cfg = _cfg(GEMMA)
+    d, m = shape
+    mesh_at = lambda rank: Mesh(dict(zip(("data", "model"), shape)), rank)  # noqa: E731
+    assert RING_S > cfg.window and any(s.mixer == pmodels.ATTN_LOCAL
+                                       for s in pmodels.layer_specs(cfg))
+    for rank, res in ranks[shape].items():
+        r = res[("seq_ring", GEMMA, shape)]
+        what = f"gemma3 ring {shape} rank {rank}"
+        assert np.array_equal(r["tokens"], ref["tokens"]), what
+        _close(r["prefill_logits"], ref["prefill_logits"], what=f"{what} prefill logits")
+        assert len(r["logits"]) == N - 1
+        for i, (g, w) in enumerate(zip(r["logits"], ref["logits"])):
+            _close(g, w, what=f"{what} decode step {i}")
+        for when, got_cache, ref_cache in (("prefill", r["cache"], ref["cache"]),
+                                           ("last step", r["final_cache"], ref["final_cache"])):
+            want = ps.shard_cache(convert.dense_cache(ref_cache, cfg, "cpu"), mesh_at(rank),
+                                  seq_shard=True)
+            for li, (spec, got, w) in enumerate(zip(pmodels.layer_specs(cfg), got_cache,
+                                                    want["layers"])):
+                slots = cfg.window if spec.mixer == pmodels.ATTN_LOCAL else RING_S + N
+                for name in ("k", "v"):
+                    t = w[name].numpy()
+                    assert t.shape[:3] == (B, slots // d, cfg.n_kv_heads // m), (what, li)
+                    _close(got[name], t, what=f"{what} {when} layer {li} {name}")
